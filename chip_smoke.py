@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # every phase, one card
 
 1. The card (name and power limit from nvidia-smi), torch and CUDA
-   versions, and the build of every CUDA kernel of the serving path from the
-   sources in this checkout (one nvcc per source, started together).
+   versions, and the build of every CUDA kernel of the serving and training
+   paths from the sources in this checkout (one nvcc per source, started
+   together).
 2. Each kernel against its plain PyTorch version on the card at Llama-3-8B
    attention shapes (bf16, nkv=8, g=4, hd=128, 64-token pages, 16 slots,
    KV lengths 0..2048, shuffled block tables) in every variant: plain,
@@ -27,6 +28,25 @@
    and one PyTorch SDPA call over the gathered dense K/V, beside the least
    time the card could take (``bound_ms``).
 
+6. The three flash-attention kernels (forward, dq, dk/dv) against their
+   plain versions in bf16, per output row at ROW_TOL (lse: absolute), at
+   the training main path's shape, Llama-3-8B attention, a window, alibi,
+   alibi + window + GQA and a non-causal case; the check is shown to catch
+   one dropped K tile.  Each kernel is timed beside its bound, its plain
+   version and SDPA (forward; backward through autograd for dq + dk/dv).
+7. Small-config training parity: 2 layers, hidden 128, 2 heads x 64, T 128,
+   fp32 with TF32 off - three ``train_batch`` steps (gas 2) on the card
+   equal the same on the CPU in loss, grad norm and every parameter (1e-4).
+8. The training main path at full GPT-2-small width (12 layers, hidden 768,
+   12 heads x 64, vocabulary 50304, T 1024, bf16, ZeRO-2 config, AdamW,
+   clipping; 16 x 2 x 1024 tokens a step, random weights from a seeded
+   generator on the card): ``initialize`` then 2 warm-up and 8 timed
+   ``train_batch`` steps on one fixed batch and one ``eval_batch``.  The
+   loss must fall and stay finite, no step may be skipped, and each flash
+   kernel must launch 24 times a step.  The first layer's flash inputs of
+   one step are kept and the kernels held to their plain versions on them
+   and timed.  ``--phases 8 --profile`` prints device time by kernel.
+
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -35,6 +55,7 @@ exits non-zero and prints no result.
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -88,7 +109,9 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 # --------------------------------------------------------------- phase 2
 
-ERRS = {"paged_attention": 0.0, "ragged_prefill": 0.0}   # max |kernel-plain|
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+ERRS = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH, 0.0)
+# ^ max |kernel - plain| seen per kernel
 
 
 def _row_err(torch, got, want):
@@ -328,17 +351,24 @@ def phase_parity(torch, dev):
 
 # --------------------------------------------------------------- phase 4
 
-def _report_profile(torch, prof, wall):
-    """Device time by kernel over the profiled generate, and the device's
+def _report_profile(torch, prof, wall, reps=1, unprofiled=None):
+    """Device time by kernel over the profiled window, and the device's
     busy share of the wall time (an opt-in diagnostic: the profiler slows
-    the host side of the run)."""
+    the host side of the run, so where the window is ``reps`` repeats of
+    work whose ``unprofiled`` wall time is known, the busy time of one
+    repeat is also held against that)."""
     cuda = torch.autograd.DeviceType.CUDA
     rows = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_us = sum(e.self_device_time_total for e in rows)
     rows.sort(key=lambda e: -e.self_device_time_total)
     print(f"  profile: device busy {busy_us / 1e3:.1f} ms of {wall * 1e3:.1f} "
-          f"ms wall ({busy_us / 1e4 / wall:.1f}%); top kernels:", flush=True)
-    for e in rows[:15]:
+          f"ms wall ({busy_us / 1e4 / wall:.1f}%)"
+          + ("" if unprofiled is None else
+             f"; {busy_us / 1e3 / reps:.1f} ms a repeat against "
+             f"{unprofiled * 1e3:.1f} ms unprofiled "
+             f"({busy_us / 1e4 / reps / unprofiled:.1f}%)")
+          + "; top kernels:", flush=True)
+    for e in rows[:25]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:90]}", flush=True)
 
@@ -501,13 +531,360 @@ def phase_main_inputs(torch, pa, calls, eng):
     return results
 
 
+# --------------------------------------------------------------- phase 6
+
+def _check_rows(torch, name, label, got, want, tol=ROW_TOL):
+    """As ``_check``, but a row whose true value is ~0 (the first query's
+    dq: it sees one key, so dp - delta cancels) is judged against 1% of the
+    tensor's largest value instead of its own."""
+    torch.cuda.synchronize()
+    wf = want.float()
+    d = (got.float() - wf).abs().amax(-1)
+    floor = 1e-2 * wf.abs().max().item()
+    row = (d / wf.abs().amax(-1).clamp_min(floor)).max().item()
+    err = d.max().item()
+    print(f"  {name}[{label}] max|kernel-plain| = {err:.3e}, worst row "
+          f"{row:.3e} of its max", flush=True)
+    if not (row <= tol) or not torch.isfinite(got).all():
+        fail(f"{name} {label}: row error {row} > {tol}")
+    ERRS[name] = max(ERRS[name], err)
+    return row
+
+
+def _flash_inputs(torch, dev, B, T, N, Nkv, D, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    return (rand(B, T, N, D), rand(B, T, Nkv, D), rand(B, T, Nkv, D),
+            rand(B, T, N, D))
+
+
+def _check_flash(torch, fa, label, q, k, v, do, kw):
+    """o, lse, dq, dk, dv of the three kernels against the plain versions
+    (the backward kernels get the plain o and lse, so each is judged on its
+    own)."""
+    o, lse = fa.cuda_flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.torch_flash_fwd(q, k, v, **kw)
+    _check_rows(torch, "flash_fwd", label + " o", o, o_ref)
+    lerr = (lse - lse_ref).abs().max().item()
+    print(f"  flash_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
+          flush=True)
+    if not lerr <= ROW_TOL:
+        fail(f"flash_fwd {label}: lse differs by {lerr}")
+    dq = fa.cuda_flash_dq(q, k, v, o_ref, lse_ref, do, **kw)
+    dk, dv = fa.cuda_flash_dkv(q, k, v, o_ref, lse_ref, do, **kw)
+    dq_ref, dk_ref, dv_ref = fa.torch_flash_bwd(q, k, v, o_ref, lse_ref, do,
+                                                **kw)
+    _check_rows(torch, "flash_dq", label + " dq", dq, dq_ref)
+    _check_rows(torch, "flash_dkv", label + " dk", dk, dk_ref)
+    _check_rows(torch, "flash_dkv", label + " dv", dv, dv_ref)
+    return o_ref, lse_ref
+
+
+def _live_pairs(T, causal, window):
+    """Visible (query, key) pairs of one head."""
+    if not causal:
+        return T * T
+    qpos = np.arange(T, dtype=np.int64)
+    return int(np.minimum(qpos + 1, window if window else T).sum())
+
+
+def _time_flash(torch, fa, q, k, v, do, kw, library=True):
+    """Device times of the three kernels, of the plain forward and backward
+    and of SDPA forward / backward on the same inputs, beside each kernel's
+    bound.  Operations: 2*D flops per visible (query, key) pair and product
+    - the forward has 2 products (s, p v), dq 3 (s, dp, ds k), dk/dv 4
+    (s, dp, pT do, dsT q).  Bytes: each input once, each output once."""
+    import torch.nn.functional as F
+    B, T, N, D = q.shape
+    Nkv = k.shape[2]
+    e = q.element_size()
+    pairs = _live_pairs(T, kw.get("causal", True), kw.get("window")) * B * N
+    nq, nk, rows = q.numel() * e, k.numel() * e, B * N * T * 4
+    o, lse = fa.torch_flash_fwd(q, k, v, **kw)
+    delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+    bounds = {
+        "flash_fwd": _bound(nq + 2 * nk + nq + rows, 4 * D * pairs),
+        "flash_dq": _bound(2 * nq + 2 * nk + 2 * rows + nq, 6 * D * pairs),
+        "flash_dkv": _bound(2 * nq + 2 * nk + 2 * rows + 2 * nk,
+                            8 * D * pairs)}
+    ms = {
+        "flash_fwd": cuda_ms(lambda: fa.cuda_flash_fwd(q, k, v, **kw)),
+        "flash_dq": cuda_ms(lambda: fa.cuda_flash_dq(
+            q, k, v, o, lse, do, delta=delta, **kw)),
+        "flash_dkv": cuda_ms(lambda: fa.cuda_flash_dkv(
+            q, k, v, o, lse, do, delta=delta, **kw))}
+    plain_fwd = cuda_ms(lambda: fa.torch_flash_fwd(q, k, v, **kw), reps=5)
+    plain_bwd = cuda_ms(lambda: fa.torch_flash_bwd(q, k, v, o, lse, do, **kw),
+                        reps=5)
+    lib_fwd = lib_bwd = None
+    if library and kw.get("window") is None \
+            and kw.get("alibi_slopes") is None:
+        qs, ks_, vs = (t.transpose(1, 2).detach().requires_grad_()
+                       for t in (q, k, v))
+        dos = do.transpose(1, 2)
+        sd = dict(is_causal=kw.get("causal", True))
+        if Nkv != N:
+            sd["enable_gqa"] = True
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs.detach(), ks_.detach(), vs.detach(), **sd))
+        out = F.scaled_dot_product_attention(qs, ks_, vs, **sd)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, (qs, ks_, vs), dos, retain_graph=True))
+    shape = (f"q[{B},{T},{N},{D}] kv heads {Nkv} {q.dtype} "
+             + ", ".join(f"{a}={b if not hasattr(b, 'shape') else 'yes'}"
+                         for a, b in kw.items() if b is not None))
+    res = {}
+    for name in FLASH:
+        res[name] = dict(
+            shape=shape, ms=ms[name],
+            plain_ms=plain_fwd if name == "flash_fwd" else plain_bwd,
+            library_ms=lib_fwd if name == "flash_fwd" else lib_bwd,
+            bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    print(f"  {shape}: fwd {ms['flash_fwd']:.4f} ms (bound "
+          f"{bounds['flash_fwd'][0]:.4f}), dq {ms['flash_dq']:.4f} ms "
+          f"(bound {bounds['flash_dq'][0]:.4f}), dk/dv "
+          f"{ms['flash_dkv']:.4f} ms (bound {bounds['flash_dkv'][0]:.4f}); "
+          f"plain fwd {plain_fwd:.3f} ms, plain bwd (dq+dk+dv) "
+          f"{plain_bwd:.3f} ms; SDPA fwd "
+          f"{'-' if lib_fwd is None else format(lib_fwd, '.4f')} ms, SDPA "
+          f"bwd (dq+dk+dv) "
+          f"{'-' if lib_bwd is None else format(lib_bwd, '.4f')} ms",
+          flush=True)
+    return res
+
+
+def phase_flash(torch, fa, dev):
+    """Kernels #3-#5 against their plain versions, every variant."""
+    from deepspeed_tpu_torch.ops import _attention_torch
+    slopes12 = np.geomspace(0.5, 1 / 256, 12).astype(np.float32)
+    slopes8 = np.geomspace(0.5, 1 / 256, 8).astype(np.float32)
+    cases = [
+        ("main path", (16, 1024, 12, 12, 64), dict(causal=True)),
+        ("Llama-3-8B", (2, 2048, 32, 8, 128), dict(causal=True)),
+        ("window 512", (2, 2048, 32, 8, 128), dict(causal=True, window=512)),
+        ("alibi", (4, 1024, 12, 12, 64),
+         dict(causal=True, alibi_slopes=slopes12)),
+        ("alibi + window + GQA, ragged T", (2, 1000, 8, 2, 64),
+         dict(causal=True, window=200, alibi_slopes=slopes8)),
+        ("non-causal", (4, 1024, 12, 12, 64), dict(causal=False)),
+    ]
+    results = {}
+    for label, dims, kw in cases:
+        q, k, v, do = _flash_inputs(torch, dev, *dims)
+        _check_flash(torch, fa, label, q, k, v, do, kw)
+        if label in ("main path", "Llama-3-8B", "window 512"):
+            r = _time_flash(torch, fa, q, k, v, do, kw)
+            if label == "main path":
+                results = r
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    # the row check must see one dropped K tile (64 keys)
+    q, k, v, _ = _flash_inputs(torch, dev, 2, 1024, 12, 12, 64)
+    want, _ = fa.torch_flash_fwd(q, k, v)
+    mask = torch.ones((1024, 1024), dtype=torch.bool, device=dev).tril()
+    mask[:, 128:192] = False
+    mask[128:192] = mask[128:192] | torch.eye(1024, dtype=torch.bool,
+                                              device=dev)[128:192]
+    lost = _attention_torch(q, k, v, causal=False, mask=mask[None])
+    r = _row_err(torch, lost, want)
+    print(f"  one dropped K tile (keys 128..191) moves the worst row by "
+          f"{r:.3e} of its max (check at {ROW_TOL})", flush=True)
+    if not r > ROW_TOL:
+        fail("the flash check cannot see a dropped K tile")
+    return results
+
+
+# --------------------------------------------------------------- phase 7
+
+def phase_train_parity(torch, dev):
+    """Three train_batch steps of a small model, cuda against cpu."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import (GPTChunkedLoss, GPTConfig,
+                                            params_to_numpy)
+    from deepspeed_tpu_torch.models.gpt import _flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=512, num_layers=2, num_heads=2, head_dim=64,
+                    hidden_size=128, max_seq_len=128, loss_chunk=96)
+    dscfg = {"train_micro_batch_size_per_gpu": 2,
+             "gradient_accumulation_steps": 2, "steps_per_print": 0,
+             "optimizer": {"type": "adamw",
+                           "params": {"lr": 3e-4, "weight_decay": 0.01}},
+             "gradient_clipping": 1.0}
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 512, (4, 128)).astype(np.int32)}
+               for _ in range(3)]
+    runs = {}
+    for d in ("cpu", dev):
+        model = GPTChunkedLoss(cfg)     # the same CPU-seeded weights
+        eng, *_ = ds.initialize(model=model, config=dict(dscfg), device=d)
+        metrics = [eng.train_batch(b) for b in batches]
+        runs[d] = (metrics, dict(_flatten(params_to_numpy(model))))
+        print(f"  {d}: loss {[round(m.loss, 5) for m in metrics]}, grad norm "
+              f"{[round(m.grad_norm, 5) for m in metrics]}", flush=True)
+    worst = 0.0
+    for a, b in zip(runs["cpu"][0], runs[dev][0]):
+        worst = max(worst, abs(a.loss - b.loss),
+                    abs(a.grad_norm - b.grad_norm))
+    pw = max(float(np.abs(runs["cpu"][1][n] - runs[dev][1][n]).max())
+             for n in runs["cpu"][1])
+    print(f"  worst |cpu - cuda|: loss / grad norm {worst:.3e}, parameters "
+          f"{pw:.3e} (limit 1e-4)", flush=True)
+    if not (worst <= 1e-4 and pw <= 1e-4):
+        fail("small-config training parity: cuda differs from cpu")
+
+
+# --------------------------------------------------------------- phase 8
+
+class _record_flash:
+    """While installed and armed, keeps the q, k, v (by reference) of the
+    first flash call on the main path and the cotangent its output gets in
+    backward, so that the kernels can be held to their plain versions on
+    the path's own inputs.  The kernels and their counts are untouched."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch.ops import registry
+        self.spec = registry._REGISTRY["causal_attention"]
+        self.kernel = self.spec.kernel
+        self.armed = False
+        self.call = None
+        self.spec.kernel = self._call
+
+    def _call(self, q, k, v, **kw):
+        out = self.kernel(q, k, v, **kw)
+        if self.armed and self.call is None and out.requires_grad:
+            self.call = [q.detach(), k.detach(), v.detach(), None,
+                         {a: kw[a] for a in ("causal", "scale", "window",
+                                             "alibi_slopes")}]
+            out.register_hook(self._keep_cotangent)
+        return out
+
+    def _keep_cotangent(self, grad):
+        self.call[3] = grad.detach()
+
+    def restore(self):
+        self.spec.kernel = self.kernel
+
+
+def phase_train_main(torch, fa, dev, card, profile=False):
+    """initialize -> train_batch at full GPT-2-small width."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPTChunkedLoss, GPTConfig
+    from deepspeed_tpu_torch.models.gpt import count_params
+    cfg = GPTConfig.gpt2_small(vocab_size=50304, max_seq_len=1024,
+                               dropout=0.0, loss_chunk=8192,
+                               dtype=torch.bfloat16)
+    ds_config = {"train_micro_batch_size_per_gpu": 16,
+                 "gradient_accumulation_steps": 2,
+                 "optimizer": {"type": "adamw",
+                               "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                 "bf16": {"enabled": True},
+                 "zero_optimization": {"stage": 2},
+                 "gradient_clipping": 1.0, "steps_per_print": 0}
+    ids = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (32, 1024)).astype(np.int32)
+    data = [{"input_ids": row} for row in ids]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = GPTChunkedLoss(cfg, device=dev, generator=gen)
+    engine, _, loader, _ = ds.initialize(model=model, config=ds_config,
+                                         training_data=data)
+    if engine.device.type != "cuda":
+        fail(f"initialize() put the engine on {engine.device}")
+    batch = next(iter(ds.RepeatingLoader(loader)))   # the one fixed batch
+    tokens = int(np.prod(batch["input_ids"].shape))
+    print(f"  GPT-2 small, {count_params(cfg) / 1e6:.1f}M params, bf16 with "
+          f"fp32 masters, {batch['input_ids'].shape} tokens a step (gas x "
+          f"micro x T)", flush=True)
+    rec = _record_flash()
+    counters = (fa.cuda_flash_fwd, fa.cuda_flash_dq, fa.cuda_flash_dkv)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    metrics, times, sync_sites, per_step = [], [], [], None
+    for step in range(10):
+        before = [c.launches for c in counters]
+        if step == 1:
+            # the second warm-up step also keeps the first layer's flash
+            # inputs and counts the host syncs
+            rec.armed = True
+            with warnings.catch_warnings(record=True) as syncs:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                m = engine.train_batch(batch)
+                torch.cuda.set_sync_debug_mode("default")
+            rec.armed = False
+            sync_sites = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                          for w in syncs if "synchroniz" in str(w.message)]
+        else:
+            t0 = time.perf_counter()
+            m = engine.train_batch(batch)
+            torch.cuda.synchronize()
+            if step >= 2:
+                times.append(time.perf_counter() - t0)
+        metrics.append(m)
+        per_step = [c.launches - b for c, b in zip(counters, before)]
+        if per_step != [24, 24, 24]:
+            fail(f"step {step}: flash launches {per_step}, expected 24 of "
+                 f"each (12 layers x gas 2)")
+    ev = float(engine.eval_batch({"input_ids": ids[:16]}))
+    torch.cuda.synchronize()
+    launches = dict(zip(FLASH, (c.launches for c in counters)))
+    rec.restore()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m.loss for m in metrics]
+    print(f"  loss {[round(x, 4) for x in losses]}; grad norm "
+          f"{[round(m.grad_norm, 3) for m in metrics]}; eval loss {ev:.4f}",
+          flush=True)
+    if not all(np.isfinite(losses)) or not np.isfinite(ev):
+        fail("a loss is not finite")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if engine.skipped_steps != 0 or engine.step_clock != 10:
+        fail(f"skipped steps {engine.skipped_steps}, clock "
+             f"{engine.step_clock}")
+    med = statistics.median(times)
+    e2e = dict(step_ms_median=med * 1e3, step_ms_min=min(times) * 1e3,
+               step_ms_max=max(times) * 1e3, tokens_per_step=tokens,
+               tokens_per_s=tokens / med, peak_memory_gb=peak / 1e9,
+               flash_launches_per_step=per_step,
+               host_syncs_per_step=len(sync_sites),
+               loss_first=losses[0], loss_last=losses[-1], eval_loss=ev)
+    print(f"  train_batch: median {med * 1e3:.1f} ms (min "
+          f"{min(times) * 1e3:.1f}, max {max(times) * 1e3:.1f}) over 8 "
+          f"steps = {tokens / med:.0f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB; flash launches a step {per_step}; host "
+          f"syncs inside a step: {len(sync_sites)} "
+          f"{sorted(set(sync_sites))}; card {card}", flush=True)
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                engine.train_batch(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _report_profile(torch, prof, wall, reps=2, unprofiled=med)
+    # the kernels on the path's own inputs (layer 0, first micro-batch)
+    q, k, v, do, kw = rec.call
+    if do is None:
+        fail("the first flash call's cotangent was not seen")
+    _check_flash(torch, fa, "main path's own inputs", q, k, v, do, kw)
+    results = _time_flash(torch, fa, q, k, v, do, kw)
+    return launches, results, e2e
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace phase 4 with torch.profiler and print the "
-                         "device time by kernel")
+                    help="trace phases 4 and 8 with torch.profiler and print "
+                         "the device time by kernel")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -525,6 +902,7 @@ def main():
     from deepspeed_tpu_torch.ops import builder
     # the module (ops/__init__ re-exports a function of the same name)
     pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
+    fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
     dev = "cuda:0"
 
     print("== phase 1: card, versions, kernel build", flush=True)
@@ -533,7 +911,7 @@ def main():
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    builder.build(["paged_attention", "ragged_prefill"])
+    builder.build(["paged_attention", "ragged_prefill", "flash_attention"])
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in builder.build_log.items():
         regs = [int(w) for line in log.splitlines() if "Used" in line
@@ -566,12 +944,36 @@ def main():
               "inputs", flush=True)
         results = phase_main_inputs(torch, pa, calls, eng)
         del calls, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 6 in phases:
+        print("== phase 6: flash kernels vs plain versions (bf16), every "
+              "variant", flush=True)
+        results.update(phase_flash(torch, fa, dev))
+        torch.cuda.empty_cache()
+    if 7 in phases:
+        print("== phase 7: small-config training parity, cuda vs cpu (fp32, "
+              "TF32 off)", flush=True)
+        phase_train_parity(torch, dev)
+    launches.update(dict.fromkeys(FLASH))
+    if 8 in phases:
+        print("== phase 8: training main path, initialize -> train_batch at "
+              "GPT-2-small width", flush=True)
+        flash_launches, flash_results, e2e = phase_train_main(
+            torch, fa, dev, card, args.profile)
+        launches.update(flash_launches)
+        results.update(flash_results)
+        print("E2E_TRAIN " + json.dumps(e2e), flush=True)
 
     replaces = {"paged_attention":
                 "deepspeed_tpu/ops/paged_attention.py:152",
-                "ragged_prefill": "deepspeed_tpu/ops/paged_attention.py:546"}
+                "ragged_prefill": "deepspeed_tpu/ops/paged_attention.py:546",
+                "flash_fwd": "deepspeed_tpu/ops/flash_attention.py:208",
+                "flash_dq": "deepspeed_tpu/ops/flash_attention.py:305",
+                "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:347"}
+    sources = dict.fromkeys(FLASH, "flash_attention")
     kernels = []
-    for name in ("paged_attention", "ragged_prefill"):
+    for name in ("paged_attention", "ragged_prefill") + FLASH:
         r = results.get(name, {})
         print("KERNEL " + json.dumps({
             "kernel": name, "shape": r.get("shape"), "ms": r.get("ms"),
@@ -580,7 +982,7 @@ def main():
             flush=True)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"deepspeed_tpu_torch/csrc/{name}.cu",
+            "source": f"deepspeed_tpu_torch/csrc/{sources.get(name, name)}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": ERRS[name] if r else None, "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),

@@ -1,0 +1,922 @@
+// Flash attention for training on Hopper (sm_90a): forward, dq and dk/dv.
+//
+// Replaces the TPU kernels of deepspeed_tpu/ops/flash_attention.py:
+//   _fwd_kernel (launched by _fwd)       -> flash_fwd_*_kernel
+//   _dq_kernel  (launched by _bwd_impl)  -> flash_dq_*_kernel
+//   _dkv_kernel (launched by _bwd_impl)  -> flash_dkv_*_kernel
+// Same function: softmax(q kT * scale [+ slope * kpos]) v over canonical
+// positions (query t sits at position t), causal or not, optional sliding
+// window (kpos > qpos - window) and alibi, GQA by kv head = q head / group
+// with K/V never expanded; the forward saves the per-row logsumexp and the
+// backward recomputes the probabilities from it (delta = rowsum(o * do) is
+// computed by the caller).  Rows that see no key give zeros and lse -1e30.
+//
+// What bounds it on the H100: operations.  At T = 1024, D = 64 the forward
+// does 4*D flops per visible (query, key) pair against 2*D*2 bytes per key
+// read once per 64-query tile, far above the card's ~295 flop/byte line;
+// the backward more so (dq recomputes s and does 3 products, dk/dv 4).
+// What the design does about it:
+//   - 16-bit inputs run every product on the tensor cores (mma.sync
+//     m16n8k16, fp32 accumulate).  wgmma, TMA and warp specialisation are
+//     later work; this version is the simple one that is right.
+//   - forward and dq: one block per (batch, q head, 64-query tile), 4 warps
+//     x 16 rows.  The TPU grid ran K tiles in order and carried (m, l, acc)
+//     in VMEM scratch; here the K loop is inside the block, the state lives
+//     in registers, and the loop runs only from the window's first K tile
+//     to the causal diagonal's, so dead tiles cost nothing.  K/V tiles
+//     (64 keys) stream through shared memory with 16-byte cp.async, double
+//     buffered, rows padded by 8 elements so that ldmatrix's eight row
+//     addresses fall in distinct banks.
+//   - dk/dv: one block per (batch, KV head, 64-key tile), each warp owning
+//     16 keys; the block loops over every q head of the GQA group and every
+//     live q tile and keeps dk, dv in fp32 registers - no atomics, so the
+//     result is deterministic.  The products are taken transposed
+//     (sT = K QT, dpT = V dOT) so that keys are the accumulator rows.
+//   - the scalar work around the mma's is what the tensor cores wait for, so
+//     it is kept small: scores live in log2 units (exp2f is one instruction),
+//     fragments come from shared memory with ldmatrix (.trans for the
+//     token-major operands), and a 16 x 16 sub-tile that lies wholly inside
+//     the causal / window region skips the per-entry visibility tests.
+//   - tensors are read through (batch, token, head) strides, so the model's
+//     [B, T, N, D] layout needs no transposes; any T is accepted, the
+//     ragged tail is masked.
+//   - fp32 inputs (the cuda-vs-cpu parity run) take CUDA-core variants:
+//     lanes split head_dim, warp reductions give the scores.
+#include "paged_common.cuh"
+
+namespace dsk {
+
+struct FlashArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta, *slopes;
+  void *o, *dq, *dk, *dv;
+  float* lse_out;
+  int B, T, N, Nkv;
+  long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  float scale;
+  int causal, window;
+};
+
+constexpr int kTile = 64;      // queries per block (fwd, dq), keys per block (dkv)
+constexpr int kFlashWarps = 4;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+// first and last (inclusive) K tile a q tile [q0, q0 + rows) can see
+__device__ __forceinline__ void k_tile_range(int q0, int rows, int T, int tile, int causal,
+                                             int window, int& first, int& last) {
+  const int q_last = min(q0 + rows, T) - 1;
+  last = (causal ? min(q_last, T - 1) : T - 1) / tile;
+  first = window > 0 ? max(q0 - window + 1, 0) / tile : 0;
+}
+
+// first and last (inclusive) q tile that can see the K tile [k0, k0 + rows)
+__device__ __forceinline__ void q_tile_range(int k0, int rows, int T, int tile, int causal,
+                                             int window, int& first, int& last) {
+  first = causal ? k0 / tile : 0;
+  const int k_last = min(k0 + rows, T) - 1;
+  last = (T - 1) / tile;
+  if (window > 0) last = min(last, (k_last + window - 1) / tile);
+}
+
+// The block copies `rows` token rows of one head (HD contiguous elements
+// each, token stride st) into shared memory rows of LD elements; tokens at
+// or past T are zero-filled.  The caller commits the cp.async group.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ base, long long st,
+                                          int row0, int rows, int Tlen) {
+  constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < rows * CPR; c += blockDim.x) {
+    const int row = c / CPR, cc = c % CPR;
+    char* d = reinterpret_cast<char*>(dst + row * LD) + 16 * cc;
+    const int t = row0 + row;
+    if (t < Tlen)
+      cp_async16(d, reinterpret_cast<const char*>(base + (long long)t * st) + 16 * cc);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ldmatrix: four 8x8 16-bit matrices from shared memory into fragment
+// registers; lanes 8i..8i+7 give the row addresses of matrix i.  Plain: lane
+// (grp, tig) gets M[grp][2tig..2tig+1]; .trans: M[2tig..2tig+1][grp].
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// A fragment (16 rows x 16 of head_dim, row-major shared-memory rows of ld
+// elements) for k-step ks: a0 rows 0-7 / k 0-7, a1 rows 8-15, a2 k 8-15, a3.
+template <typename T>
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const T* rows, int ld, int ks,
+                                            int lane) {
+  ldsm_x4(a, rows + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + ks * 16 + ((lane >> 4) << 3));
+}
+
+// B fragments whose n index is a shared-memory row and whose k index runs
+// along the row (head_dim), for the two n-tiles of rows r0..r0+15 at k-step
+// ks: b[0], b[1] rows r0..r0+7; b[2], b[3] rows r0+8..r0+15.
+template <typename T>
+__device__ __forceinline__ void load_b_rows_t(uint32_t (&b)[4], const T* rows, int ld, int r0,
+                                              int ks, int lane) {
+  ldsm_x4(b, rows + (r0 + (lane & 7) + ((lane >> 4) << 3)) * ld + ks * 16 +
+                 (((lane >> 3) & 1) << 3));
+}
+
+// acc[nt][16 x 8] += A(regs, 16 x HD) * rows[r0 + 8 nt .. +8)T, nt = 0, 1.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void mma_rows_t(float (&acc)[2][4], uint32_t (&a)[HD / 16][4],
+                                           const T* rows, int r0, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t b[4];
+    load_b_rows_t<T>(b, rows, LD, r0, ks, lane);
+    Mma<T>::run(acc[0], a[ks], b[0], b[1]);
+    Mma<T>::run(acc[1], a[ks], b[2], b[3]);
+  }
+}
+
+// acc[d][16 x 8] += A(regs, 16 x 16) * rows[t0 .. t0+16) : the B operand's k
+// index is a shared-memory row (a token), its n index a head_dim column, so
+// the 8x8 blocks are loaded transposed, two head_dim tiles at a time.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void mma_rows(float (&acc)[HD / 8][4], const uint32_t (&a)[4],
+                                         const T* rows, int t0, int lane) {
+  const T* r0 = rows + (t0 + (lane & 15)) * LD + ((lane >> 4) << 3);
+#pragma unroll
+  for (int d = 0; d < HD / 8; d += 2) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, r0 + d * 8);
+    Mma<T>::run(acc[d], a, b[0], b[1]);
+    Mma<T>::run(acc[d + 1], a, b[2], b[3]);
+  }
+}
+
+// The backward kernels take exp2f(s2 - lse2) with both in log2 units.  A row
+// that saw no key (lse -1e30, or a row past T) gets +inf, so that its
+// probabilities read exactly 0 with no test.
+__device__ __forceinline__ float dead_or_log2(float lse) {
+  return lse > kNegInf * 0.5f ? lse * kLog2e : __int_as_float(0x7f800000);
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int T, int causal, int window) {
+  return qpos < T && kpos < T && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
+}
+
+// ------------------------------------------------------------ forward, mma
+template <typename T, int HD>
+__global__ void __launch_bounds__(kFlashWarps * 32) flash_fwd_mma_kernel(FlashArgs p) {
+  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* kbuf = reinterpret_cast<T*>(smem);  // [2][kTile*LD]
+  T* vbuf = kbuf + 2 * kTile * LD;       // [2][kTile*LD]
+
+  const int nqt = (p.T + kTile - 1) / kTile;
+  const int qt = nqt - 1 - blockIdx.x;   // heaviest (latest) tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.N / p.Nkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int q0 = qt * kTile;
+  // the softmax runs in log2 units: exp2f is one instruction where expf is many
+  const float scale2 = p.scale * kLog2e;
+  const float slope2 = (p.slopes != nullptr ? p.slopes[h] : 0.f) * kLog2e;
+
+  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+
+  int qpos[2];
+  bool exists[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = q0 + warp * 16 + grp + 8 * i;
+    exists[i] = qpos[i] < p.T;
+  }
+  const int warp_min = q0 + warp * 16, warp_max = min(warp_min + 15, p.T - 1);
+
+  uint32_t qa[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = j & 1;
+      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
+      qa[ks][j] = exists[i] ? *reinterpret_cast<const uint32_t*>(
+                                  qb + (long long)qpos[i] * p.q_st + col)
+                            : 0u;
+    }
+  float acc[DTILES][4];
+#pragma unroll
+  for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  int kt_first, kt_last;
+  k_tile_range(q0, kTile, p.T, kTile, p.causal, p.window, kt_first, kt_last);
+  const int n = kt_last - kt_first + 1;
+
+  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T);
+  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T);
+  cp_async_commit();
+  for (int it = 0; it < n; ++it) {
+    const int kt = kt_first + it;
+    const int bsel = it & 1;
+    if (it + 1 < n) {
+      load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * kTile * LD, kb, p.k_st, (kt + 1) * kTile, kTile,
+                           p.T);
+      load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * kTile * LD, vb, p.v_st, (kt + 1) * kTile, kTile,
+                           p.T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks_ = kbuf + bsel * kTile * LD;
+    const T* vs_ = vbuf + bsel * kTile * LD;
+    for (int t0 = 0; t0 < kTile; t0 += 16) {
+      const int kv0 = kt * kTile + t0;
+      if (kv0 >= p.T || (p.causal && kv0 > warp_max)) break;
+      if (p.window > 0 && kv0 + 15 <= warp_min - p.window) continue;
+      float sc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
+      mma_rows_t<T, HD, LD>(sc, qa, ks_, t0, lane);
+      // every (row, key) pair of the sub-tile visible: no tests needed
+      const bool full = (!p.causal || kv0 + 15 <= warp_min) &&
+                        (p.window <= 0 || kv0 > warp_min + 15 - p.window) &&
+                        kv0 + 16 <= p.T && warp_min + 15 < p.T;
+      // scores in log2 units; a masked entry is kNegInf and becomes
+      // probability 0 below, never exp(s - m): a row whose window lies
+      // outside this sub-tile cannot alias to 1
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = j >> 1;
+          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
+          float v = sc[nt][j] * scale2 + slope2 * (float)kpos;
+          if (!full && !visible(qpos[i], kpos, p.T, p.causal, p.window)) v = kNegInf;
+          sc[nt][j] = v;
+          mx[i] = fmaxf(mx[i], v);
+        }
+      float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mnew = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2f(m[i] - mnew);  // 1 while the row has seen no key
+        m[i] = mnew;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = j >> 1;
+          const float v = sc[nt][j];
+          const float pr = (full || v > 0.5f * kNegInf) ? exp2f(v - m[i]) : 0.f;
+          sc[nt][j] = pr;
+          psum[i] += pr;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
+#pragma unroll
+      for (int d = 0; d < DTILES; ++d) {
+        acc[d][0] *= alpha[0];
+        acc[d][1] *= alpha[0];
+        acc[d][2] *= alpha[1];
+        acc[d][3] *= alpha[1];
+      }
+      const uint32_t pa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
+                              Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
+      mma_rows<T, HD, LD>(acc, pa, vs_, t0, lane);
+    }
+    __syncthreads();  // buffer bsel is refilled by the next iteration's copy
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  T* ob = static_cast<T*>(p.o) + ((long long)b * p.T * p.N + h) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!exists[i]) continue;
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);  // no visible key: zeros
+    T* orow = ob + (long long)qpos[i] * p.N * HD;
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d)
+      *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * tig) =
+          Mma<T>::pack(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
+    if (tig == 0)  // ... and the finite lse of the TPU kernels
+      p.lse_out[((long long)b * p.N + h) * p.T + qpos[i]] =
+          l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
+  }
+}
+
+// ----------------------------------------------------------------- dq, mma
+template <typename T, int HD>
+__global__ void __launch_bounds__(kFlashWarps * 32) flash_dq_mma_kernel(FlashArgs p) {
+  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* kbuf = reinterpret_cast<T*>(smem);
+  T* vbuf = kbuf + 2 * kTile * LD;
+
+  const int nqt = (p.T + kTile - 1) / kTile;
+  const int qt = nqt - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.N / p.Nkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int q0 = qt * kTile;
+  const float scale2 = p.scale * kLog2e;
+  const float slope2 = (p.slopes != nullptr ? p.slopes[h] : 0.f) * kLog2e;
+
+  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+  const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+
+  int qpos[2];
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = q0 + warp * 16 + grp + 8 * i;
+    const bool in = qpos[i] < p.T;
+    const long long r = ((long long)b * p.N + h) * p.T + qpos[i];
+    delta[i] = in ? p.delta[r] : 0.f;
+    lse2[i] = dead_or_log2(in ? p.lse[r] : kNegInf);
+  }
+  const int warp_min = q0 + warp * 16, warp_max = min(warp_min + 15, p.T - 1);
+
+  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = j & 1;
+      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
+      const bool in = qpos[i] < p.T;
+      qa[ks][j] = in ? *reinterpret_cast<const uint32_t*>(qb + (long long)qpos[i] * p.q_st + col)
+                     : 0u;
+      da[ks][j] = in ? *reinterpret_cast<const uint32_t*>(
+                           dob + (long long)qpos[i] * p.N * HD + col)
+                     : 0u;
+    }
+  float acc[DTILES][4];
+#pragma unroll
+  for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
+
+  int kt_first, kt_last;
+  k_tile_range(q0, kTile, p.T, kTile, p.causal, p.window, kt_first, kt_last);
+  const int n = kt_last - kt_first + 1;
+
+  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T);
+  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T);
+  cp_async_commit();
+  for (int it = 0; it < n; ++it) {
+    const int kt = kt_first + it;
+    const int bsel = it & 1;
+    if (it + 1 < n) {
+      load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * kTile * LD, kb, p.k_st, (kt + 1) * kTile, kTile,
+                           p.T);
+      load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * kTile * LD, vb, p.v_st, (kt + 1) * kTile, kTile,
+                           p.T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks_ = kbuf + bsel * kTile * LD;
+    const T* vs_ = vbuf + bsel * kTile * LD;
+    for (int t0 = 0; t0 < kTile; t0 += 16) {
+      const int kv0 = kt * kTile + t0;
+      if (kv0 >= p.T || (p.causal && kv0 > warp_max)) break;
+      if (p.window > 0 && kv0 + 15 <= warp_min - p.window) continue;
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
+      mma_rows_t<T, HD, LD>(sc, qa, ks_, t0, lane);
+      mma_rows_t<T, HD, LD>(dp, da, vs_, t0, lane);
+      // every (row, key) pair of the sub-tile visible: no tests needed
+      const bool full = (!p.causal || kv0 + 15 <= warp_min) &&
+                        (p.window <= 0 || kv0 > warp_min + 15 - p.window) &&
+                        kv0 + 16 <= p.T && warp_min + 15 < p.T;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = j >> 1;
+          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
+          float pr = exp2f(sc[nt][j] * scale2 + slope2 * (float)kpos - lse2[i]);
+          if (!full && !visible(qpos[i], kpos, p.T, p.causal, p.window)) pr = 0.f;
+          sc[nt][j] = pr * (dp[nt][j] - delta[i]) * p.scale;  // ds
+        }
+      const uint32_t dsa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
+                               Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
+      mma_rows<T, HD, LD>(acc, dsa, ks_, t0, lane);  // dq += ds k
+    }
+    __syncthreads();
+  }
+
+  T* dqb = static_cast<T*>(p.dq) + ((long long)b * p.T * p.N + h) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qpos[i] >= p.T) continue;
+    T* row = dqb + (long long)qpos[i] * p.N * HD;
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d)
+      *reinterpret_cast<uint32_t*>(row + d * 8 + 2 * tig) =
+          Mma<T>::pack(acc[d][2 * i], acc[d][2 * i + 1]);
+  }
+}
+
+// -------------------------------------------------------------- dk/dv, mma
+template <typename T, int HD>
+__global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashArgs p) {
+  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks_ = reinterpret_cast<T*>(smem);   // [kTile*LD] this block's keys
+  T* vs_ = ks_ + kTile * LD;             // [kTile*LD]
+  T* qbuf = vs_ + kTile * LD;            // [2][kTile*LD]
+  T* dbuf = qbuf + 2 * kTile * LD;       // [2][kTile*LD]
+  float* lbuf = reinterpret_cast<float*>(dbuf + 2 * kTile * LD);  // [2][kTile] lse, log2 units
+  float* ebuf = lbuf + 2 * kTile;                                   // [2][kTile] delta
+
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.N / p.Nkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int k0 = kt * kTile;
+  const int wk0 = k0 + warp * 16;        // this warp's first key
+  const float scale2 = p.scale * kLog2e;
+
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+
+  int qt_first, qt_last;
+  q_tile_range(k0, kTile, p.T, kTile, p.causal, p.window, qt_first, qt_last);
+  const int nq = max(qt_last - qt_first + 1, 0);
+  const int n = nq * group;
+
+  // item -> (q head of the group, q tile); the block copies its Q, dO rows
+  // and their lse, delta into buffer `sel`
+  auto load_item = [&](int item, int sel) {
+    const int h = hk * group + item / nq;
+    const int q0 = (qt_first + item % nq) * kTile;
+    const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+    const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+    load_rows<T, HD, LD>(qbuf + sel * kTile * LD, qb, p.q_st, q0, kTile, p.T);
+    load_rows<T, HD, LD>(dbuf + sel * kTile * LD, dob, (long long)p.N * HD, q0, kTile, p.T);
+    const long long r = ((long long)b * p.N + h) * p.T + q0;
+    for (int t = threadIdx.x; t < kTile; t += blockDim.x) {
+      const bool in = q0 + t < p.T;
+      lbuf[sel * kTile + t] = dead_or_log2(in ? p.lse[r + t] : kNegInf);
+      ebuf[sel * kTile + t] = in ? p.delta[r + t] : 0.f;
+    }
+  };
+
+  float dk[DTILES][4], dv[DTILES][4];
+#pragma unroll
+  for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[d][j] = dv[d][j] = 0.f;
+
+  load_rows<T, HD, LD>(ks_, kb, p.k_st, k0, kTile, p.T);
+  load_rows<T, HD, LD>(vs_, vb, p.v_st, k0, kTile, p.T);
+  if (n > 0) load_item(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n; ++it) {
+    const int bsel = it & 1;
+    if (it + 1 < n) {
+      load_item(it + 1, bsel ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int h = hk * group + it / nq;
+    const int q0 = (qt_first + it % nq) * kTile;
+    const float slope2 = (p.slopes != nullptr ? p.slopes[h] : 0.f) * kLog2e;
+    const T* qs = qbuf + bsel * kTile * LD;
+    const T* ds_ = dbuf + bsel * kTile * LD;
+    const float* ls = lbuf + bsel * kTile;
+    const float* es = ebuf + bsel * kTile;
+    for (int t0 = 0; t0 < kTile; t0 += 16) {
+      const int qv0 = q0 + t0;                         // this sub-tile's first query
+      if (qv0 >= p.T) break;
+      if (p.causal && qv0 + 15 < wk0) continue;        // every query before every key
+      if (p.window > 0 && wk0 + 15 <= qv0 - p.window) break;  // keys left of every window
+      float st[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[nt][j] = dp[nt][j] = 0.f;
+      const T* krows = ks_ + warp * 16 * LD;
+      const T* vrows = vs_ + warp * 16 * LD;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        uint32_t ka[4], va[4], qb[4], db[4];
+        load_a_frag<T>(ka, krows, LD, ks, lane);
+        load_a_frag<T>(va, vrows, LD, ks, lane);
+        load_b_rows_t<T>(qb, qs, LD, t0, ks, lane);
+        load_b_rows_t<T>(db, ds_, LD, t0, ks, lane);
+        Mma<T>::run(st[0], ka, qb[0], qb[1]);  // sT = k qT
+        Mma<T>::run(st[1], ka, qb[2], qb[3]);
+        Mma<T>::run(dp[0], va, db[0], db[1]);  // dpT = v doT
+        Mma<T>::run(dp[1], va, db[2], db[3]);
+      }
+      // every (key, query) pair of the sub-tile visible: no tests needed
+      const bool full = (!p.causal || wk0 + 15 <= qv0) &&
+                        (p.window <= 0 || wk0 > qv0 + 15 - p.window) &&
+                        qv0 + 16 <= p.T && wk0 + 16 <= p.T;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kpos = wk0 + grp + 8 * (j >> 1);
+          const int qi = t0 + nt * 8 + 2 * tig + (j & 1);
+          float pr = exp2f(st[nt][j] * scale2 + slope2 * (float)kpos - ls[qi]);
+          if (!full && !visible(q0 + qi, kpos, p.T, p.causal, p.window)) pr = 0.f;
+          st[nt][j] = pr;                                       // pT
+          dp[nt][j] = pr * (dp[nt][j] - es[qi]) * p.scale;      // dsT
+        }
+      const uint32_t pa[4] = {Mma<T>::pack(st[0][0], st[0][1]), Mma<T>::pack(st[0][2], st[0][3]),
+                              Mma<T>::pack(st[1][0], st[1][1]), Mma<T>::pack(st[1][2], st[1][3])};
+      const uint32_t dsa[4] = {Mma<T>::pack(dp[0][0], dp[0][1]), Mma<T>::pack(dp[0][2], dp[0][3]),
+                               Mma<T>::pack(dp[1][0], dp[1][1]), Mma<T>::pack(dp[1][2], dp[1][3])};
+      mma_rows<T, HD, LD>(dv, pa, ds_, t0, lane);   // dv += pT do
+      mma_rows<T, HD, LD>(dk, dsa, qs, t0, lane);   // dk += dsT q
+    }
+    __syncthreads();
+  }
+
+  T* dkb = static_cast<T*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * HD;
+  T* dvb = static_cast<T*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = wk0 + grp + 8 * i;
+    if (kpos >= p.T) continue;
+    const long long off = (long long)kpos * p.Nkv * HD;
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d) {
+      *reinterpret_cast<uint32_t*>(dkb + off + d * 8 + 2 * tig) =
+          Mma<T>::pack(dk[d][2 * i], dk[d][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + off + d * 8 + 2 * tig) =
+          Mma<T>::pack(dv[d][2 * i], dv[d][2 * i + 1]);
+    }
+  }
+}
+
+// --------------------------------------------------- fp32, CUDA-core variants
+// 8 warps x 4 rows; the 32 lanes split head_dim (VEC columns each) and a
+// warp reduction gives each (row, key) score.  32-token tiles of the other
+// operand sit in shared memory.
+constexpr int kF32Warps = 8, kF32Rows = 4, kF32Tile = 32;
+
+template <int HD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ base,
+                                              long long st, int row0, int Tlen) {
+  for (int c = threadIdx.x; c < kF32Tile * HD / 4; c += blockDim.x) {
+    const int row = c / (HD / 4), cc = c % (HD / 4);
+    const int t = row0 + row;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < Tlen) val = *reinterpret_cast<const float4*>(base + (long long)t * st + 4 * cc);
+    *reinterpret_cast<float4*>(dst + row * HD + 4 * cc) = val;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ float warp_dot(const float (&a)[VEC], const float (&b)[VEC]) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) s += a[j] * b[j];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Warps * 32) flash_fwd_f32_kernel(FlashArgs p) {
+  constexpr int VEC = HD / 32, R = kF32Rows;
+  __shared__ __align__(16) float ks_[kF32Tile * HD];
+  __shared__ __align__(16) float vs_[kF32Tile * HD];
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.N / p.Nkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * kF32Tile;
+  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+  const float* qb = static_cast<const float*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+
+  int qpos[R];
+  float qr[R][VEC];
+  RowState<VEC> st[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    qpos[i] = q0 + warp * R + i;
+    st[i].init();
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) qr[i][j] = 0.f;
+    if (qpos[i] < p.T) load_vec<float, VEC>(qb + (long long)qpos[i] * p.q_st + lane * VEC, qr[i]);
+  }
+  int kt_first, kt_last;
+  k_tile_range(q0, kF32Tile, p.T, kF32Tile, p.causal, p.window, kt_first, kt_last);
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    __syncthreads();
+    load_rows_f32<HD>(ks_, kb, p.k_st, kt * kF32Tile, p.T);
+    load_rows_f32<HD>(vs_, vb, p.v_st, kt * kF32Tile, p.T);
+    __syncthreads();
+    for (int t = 0; t < kF32Tile; ++t) {
+      const int kpos = kt * kF32Tile + t;
+      if (kpos >= p.T) break;
+      float kr[VEC], vr[VEC];
+      load_vec<float, VEC>(ks_ + t * HD + lane * VEC, kr);
+      load_vec<float, VEC>(vs_ + t * HD + lane * VEC, vr);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float s = warp_dot<VEC>(qr[i], kr) * p.scale + slope * (float)kpos;
+        if (visible(qpos[i], kpos, p.T, p.causal, p.window)) st[i].template update<float>(s, vr);
+      }
+    }
+  }
+  float* ob = static_cast<float*>(p.o) + ((long long)b * p.T * p.N + h) * HD;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (qpos[i] >= p.T) continue;
+    const float ll = st[i].l == 0.f ? 1.f : st[i].l;
+    store_vec<float, VEC>(ob + (long long)qpos[i] * p.N * HD + lane * VEC, st[i].acc, 1.f / ll);
+    if (lane == 0) p.lse_out[((long long)b * p.N + h) * p.T + qpos[i]] = st[i].m + logf(ll);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Warps * 32) flash_dq_f32_kernel(FlashArgs p) {
+  constexpr int VEC = HD / 32, R = kF32Rows;
+  __shared__ __align__(16) float ks_[kF32Tile * HD];
+  __shared__ __align__(16) float vs_[kF32Tile * HD];
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.N / p.Nkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * kF32Tile;
+  const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+  const float* qb = static_cast<const float*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const float* kb = static_cast<const float*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+  const float* dob = static_cast<const float*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+
+  int qpos[R];
+  bool live[R];
+  float qr[R][VEC], dor[R][VEC], acc[R][VEC], lse[R], delta[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    qpos[i] = q0 + warp * R + i;
+    const bool in = qpos[i] < p.T;
+    const long long r = ((long long)b * p.N + h) * p.T + qpos[i];
+    lse[i] = in ? p.lse[r] : kNegInf;
+    delta[i] = in ? p.delta[r] : 0.f;
+    live[i] = in && lse[i] > kNegInf * 0.5f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) qr[i][j] = dor[i][j] = acc[i][j] = 0.f;
+    if (in) {
+      load_vec<float, VEC>(qb + (long long)qpos[i] * p.q_st + lane * VEC, qr[i]);
+      load_vec<float, VEC>(dob + (long long)qpos[i] * p.N * HD + lane * VEC, dor[i]);
+    }
+  }
+  int kt_first, kt_last;
+  k_tile_range(q0, kF32Tile, p.T, kF32Tile, p.causal, p.window, kt_first, kt_last);
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    __syncthreads();
+    load_rows_f32<HD>(ks_, kb, p.k_st, kt * kF32Tile, p.T);
+    load_rows_f32<HD>(vs_, vb, p.v_st, kt * kF32Tile, p.T);
+    __syncthreads();
+    for (int t = 0; t < kF32Tile; ++t) {
+      const int kpos = kt * kF32Tile + t;
+      if (kpos >= p.T) break;
+      float kr[VEC], vr[VEC];
+      load_vec<float, VEC>(ks_ + t * HD + lane * VEC, kr);
+      load_vec<float, VEC>(vs_ + t * HD + lane * VEC, vr);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float s = warp_dot<VEC>(qr[i], kr) * p.scale + slope * (float)kpos;
+        const float dp = warp_dot<VEC>(dor[i], vr);
+        if (live[i] && visible(qpos[i], kpos, p.T, p.causal, p.window)) {
+          const float ds = expf(s - lse[i]) * (dp - delta[i]) * p.scale;
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) acc[i][j] += ds * kr[j];
+        }
+      }
+    }
+  }
+  float* dqb = static_cast<float*>(p.dq) + ((long long)b * p.T * p.N + h) * HD;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    if (qpos[i] < p.T)
+      store_vec<float, VEC>(dqb + (long long)qpos[i] * p.N * HD + lane * VEC, acc[i], 1.f);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kF32Warps * 32) flash_dkv_f32_kernel(FlashArgs p) {
+  constexpr int VEC = HD / 32, R = kF32Rows;
+  __shared__ __align__(16) float qs_[kF32Tile * HD];
+  __shared__ __align__(16) float dos_[kF32Tile * HD];
+  __shared__ float ls_[kF32Tile], es_[kF32Tile];
+  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.N / p.Nkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k0 = kt * kF32Tile;
+  const float* kb = static_cast<const float*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const float* vb = static_cast<const float*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+
+  int kpos[R];
+  float kr[R][VEC], vr[R][VEC], dk[R][VEC], dv[R][VEC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    kpos[i] = k0 + warp * R + i;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) kr[i][j] = vr[i][j] = dk[i][j] = dv[i][j] = 0.f;
+    if (kpos[i] < p.T) {
+      load_vec<float, VEC>(kb + (long long)kpos[i] * p.k_st + lane * VEC, kr[i]);
+      load_vec<float, VEC>(vb + (long long)kpos[i] * p.v_st + lane * VEC, vr[i]);
+    }
+  }
+  int qt_first, qt_last;
+  q_tile_range(k0, kF32Tile, p.T, kF32Tile, p.causal, p.window, qt_first, qt_last);
+  for (int j = 0; j < group; ++j) {
+    const int h = hk * group + j;
+    const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
+    const float* qb =
+        static_cast<const float*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+    const float* dob = static_cast<const float*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+    for (int qt = qt_first; qt <= qt_last; ++qt) {
+      const int q0 = qt * kF32Tile;
+      __syncthreads();
+      load_rows_f32<HD>(qs_, qb, p.q_st, q0, p.T);
+      load_rows_f32<HD>(dos_, dob, (long long)p.N * HD, q0, p.T);
+      for (int t = threadIdx.x; t < kF32Tile; t += blockDim.x) {
+        const bool in = q0 + t < p.T;
+        const long long r = ((long long)b * p.N + h) * p.T + q0 + t;
+        ls_[t] = in ? p.lse[r] : kNegInf;
+        es_[t] = in ? p.delta[r] : 0.f;
+      }
+      __syncthreads();
+      for (int t = 0; t < kF32Tile; ++t) {
+        const int qpos = q0 + t;
+        if (qpos >= p.T) break;
+        float qv[VEC], dov[VEC];
+        load_vec<float, VEC>(qs_ + t * HD + lane * VEC, qv);
+        load_vec<float, VEC>(dos_ + t * HD + lane * VEC, dov);
+        const float lse = ls_[t], delta = es_[t];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float s = warp_dot<VEC>(kr[i], qv) * p.scale + slope * (float)kpos[i];
+          const float dp = warp_dot<VEC>(vr[i], dov);
+          if (lse > kNegInf * 0.5f && visible(qpos, kpos[i], p.T, p.causal, p.window)) {
+            const float pr = expf(s - lse);
+            const float ds = pr * (dp - delta) * p.scale;
+#pragma unroll
+            for (int c = 0; c < VEC; ++c) {
+              dv[i][c] += pr * dov[c];
+              dk[i][c] += ds * qv[c];
+            }
+          }
+        }
+      }
+    }
+  }
+  float* dkb = static_cast<float*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * HD;
+  float* dvb = static_cast<float*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * HD;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (kpos[i] >= p.T) continue;
+    store_vec<float, VEC>(dkb + (long long)kpos[i] * p.Nkv * HD + lane * VEC, dk[i], 1.f);
+    store_vec<float, VEC>(dvb + (long long)kpos[i] * p.Nkv * HD + lane * VEC, dv[i], 1.f);
+  }
+}
+
+// ----------------------------------------------------------------- launchers
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
+template <typename T, int HD>
+cudaError_t launch_mma(int which, const FlashArgs& a, cudaStream_t st) {
+  constexpr int LD = HD + 8;
+  const int tiles = (a.T + kTile - 1) / kTile;
+  cudaError_t err;
+  if (which == kDkv) {
+    const size_t smem = 6 * (size_t)kTile * LD * sizeof(T) + 4 * kTile * sizeof(float);
+    err = allow_dynamic_smem<flash_dkv_mma_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    flash_dkv_mma_kernel<T, HD><<<dim3(tiles, a.Nkv, a.B), kFlashWarps * 32, smem, st>>>(a);
+    return cudaGetLastError();
+  }
+  const size_t smem = 4 * (size_t)kTile * LD * sizeof(T);
+  if (which == kFwd) {
+    err = allow_dynamic_smem<flash_fwd_mma_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    flash_fwd_mma_kernel<T, HD><<<dim3(tiles, a.N, a.B), kFlashWarps * 32, smem, st>>>(a);
+  } else {
+    err = allow_dynamic_smem<flash_dq_mma_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    flash_dq_mma_kernel<T, HD><<<dim3(tiles, a.N, a.B), kFlashWarps * 32, smem, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_f32(int which, const FlashArgs& a, cudaStream_t st) {
+  const int tiles = (a.T + kF32Tile - 1) / kF32Tile;
+  if (which == kFwd)
+    flash_fwd_f32_kernel<HD><<<dim3(tiles, a.N, a.B), kF32Warps * 32, 0, st>>>(a);
+  else if (which == kDq)
+    flash_dq_f32_kernel<HD><<<dim3(tiles, a.N, a.B), kF32Warps * 32, 0, st>>>(a);
+  else
+    flash_dkv_f32_kernel<HD><<<dim3(tiles, a.Nkv, a.B), kF32Warps * 32, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dtype(int which, int dtype, const FlashArgs& a, cudaStream_t st) {
+  switch (dtype) {
+    case 0: return launch_f32<HD>(which, a, st);
+    case 1: return launch_mma<__half, HD>(which, a, st);
+    case 2: return launch_mma<__nv_bfloat16, HD>(which, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+inline cudaError_t launch_flash(int which, int hd, int dtype, const FlashArgs& a, void* stream) {
+  if (a.B < 1 || a.T < 1 || a.N < 1 || a.Nkv < 1 || a.N % a.Nkv != 0 || a.B > 65535 ||
+      a.N > 65535)
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64: return launch_dtype<64>(which, dtype, a, st);
+    case 128: return launch_dtype<128>(which, dtype, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace dsk
+
+// q [B, T, N, hd], k/v [B, T, Nkv, hd] read through element strides
+// (batch, token, head; head_dim contiguous); o, dout, dq [B, T, N, hd] and
+// dk, dv [B, T, Nkv, hd] contiguous; lse, delta [B, N, T] fp32; slopes [N]
+// fp32 or null.  dtype: 0 fp32, 1 fp16, 2 bf16.  window <= 0: none.
+extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const void* slopes,
+                            void* o, void* lse, int B, int T, int N, int Nkv, int hd,
+                            long long q_sb, long long q_st, long long q_sh, long long k_sb,
+                            long long k_st, long long k_sh, long long v_sb, long long v_st,
+                            long long v_sh, float scale, int causal, int window, int dtype,
+                            void* stream) {
+  dsk::FlashArgs a{};
+  a.q = q; a.k = k; a.v = v; a.slopes = static_cast<const float*>(slopes);
+  a.o = o; a.lse_out = static_cast<float*>(lse);
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv;
+  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
+  a.scale = scale; a.causal = causal; a.window = window;
+  return (int)dsk::launch_flash(dsk::kFwd, hd, dtype, a, stream);
+}
+
+// which: 1 writes dq, 2 writes dk and dv (the pointer not written may be null)
+extern "C" int ds_flash_bwd(int which, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta,
+                            const void* slopes, void* dq, void* dk, void* dv, int B, int T,
+                            int N, int Nkv, int hd, long long q_sb, long long q_st,
+                            long long q_sh, long long k_sb, long long k_st, long long k_sh,
+                            long long v_sb, long long v_st, long long v_sh, float scale,
+                            int causal, int window, int dtype, void* stream) {
+  if (which != dsk::kDq && which != dsk::kDkv) return (int)cudaErrorInvalidValue;
+  dsk::FlashArgs a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = static_cast<const float*>(lse); a.delta = static_cast<const float*>(delta);
+  a.slopes = static_cast<const float*>(slopes);
+  a.dq = dq; a.dk = dk; a.dv = dv;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv;
+  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
+  a.scale = scale; a.causal = causal; a.window = window;
+  return (int)dsk::launch_flash(which, hd, dtype, a, stream);
+}

@@ -1,4 +1,8 @@
-from deepspeed_tpu_torch.models.gpt import (GPTConfig, count_params,
-                                            init_params, params_from_numpy)
+from deepspeed_tpu_torch.models.gpt import (GPT, GPTChunkedLoss, GPTConfig,
+                                            count_params, grads_to_numpy,
+                                            init_params, params_from_numpy,
+                                            params_to_numpy)
 
-__all__ = ["GPTConfig", "count_params", "init_params", "params_from_numpy"]
+__all__ = ["GPT", "GPTChunkedLoss", "GPTConfig", "count_params",
+           "grads_to_numpy", "init_params", "params_from_numpy",
+           "params_to_numpy"]

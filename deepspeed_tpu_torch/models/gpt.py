@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM (GPT-2 / Llama family) — the parts of
-deepspeed_tpu/models/gpt.py that serving needs, in PyTorch.
+"""Decoder-only transformer LM (GPT-2 / Llama family) — counterpart of
+deepspeed_tpu/models/gpt.py in PyTorch: the shared pieces and the training
+modules.
 
 - ``GPTConfig`` (same fields and presets; ``dtype`` is a ``torch.dtype``)
 - ``rotary_dim`` / ``_scale_rope_freq`` / ``rope`` (half-split NeoX
@@ -8,8 +9,10 @@ deepspeed_tpu/models/gpt.py that serving needs, in PyTorch.
   (same names and shapes as the flax tree), drawn from a ``torch.Generator``
 - ``params_from_numpy``: the weight bridge from the JAX engine's tree
 
-The flax modules (``Attention``, ``Block``, ``GPTBackbone``, …) are the
-training path and are not ported here.
+- the training modules ``Norm``, ``Attention`` (no KV cache), ``MLP``,
+  ``Block``, ``GPTBackbone``, ``GPT``, ``GPTChunkedLoss``: ``nn.Module``s
+  registering their parameters under the same names and shapes, with
+  ``load_params`` / ``params_to_numpy`` / ``grads_to_numpy`` as the bridge
 """
 
 from __future__ import annotations
@@ -346,3 +349,345 @@ def params_from_numpy(tree, cfg: GPTConfig, device,
         return out
 
     return walk(want, tree, ())
+
+
+# --------------------------------------------------------------------------
+# The training modules: nn.Modules that own their nn.Parameters under the
+# names and shapes of ``param_shapes(cfg)``, so one tree serves training and
+# ``InferenceEngineV2``.
+
+
+def _unported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _check_trainable(cfg: GPTConfig):
+    """Raise for the configuration knobs the training path does not have
+    yet; none is silently ignored."""
+    if cfg.num_experts:
+        _unported("MoE blocks (num_experts > 0)", "A.8")
+    if cfg.sequence_parallel:
+        _unported("sequence parallelism (the sp_active attention branch)",
+                  "A.8")
+    if cfg.dropout > 0:
+        _unported("dropout > 0 (the reference draws its masks from a flax "
+                  "RNG that cannot be matched)", "A.11")
+    if cfg.random_ltd_layer_ids:
+        _unported("random-LTD layers", "A.11")
+    if cfg.act_quant_bits:
+        _unported("activation quantization (act_quant_bits)", "A.11")
+
+
+class _ParamModule(torch.nn.Module):
+    """Registers a subtree of ``init_params`` as parameters / submodules."""
+
+    def _adopt(self, tree: Dict[str, Any]):
+        for name, leaf in tree.items():
+            if not isinstance(leaf, dict):
+                self.register_parameter(name, torch.nn.Parameter(leaf))
+
+
+class Norm(_ParamModule):
+    def __init__(self, cfg: GPTConfig, tree):
+        super().__init__()
+        self.cfg = cfg
+        self._adopt(tree)
+
+    def forward(self, x):
+        from deepspeed_tpu_torch.ops.norms import (LN_EPS, RMS_EPS,
+                                                   layer_norm, rms_norm)
+        c = self.cfg
+        if c.use_rmsnorm:
+            return rms_norm(x, self.scale, eps=c.norm_eps or RMS_EPS)
+        return layer_norm(x, self.scale, self.bias, eps=c.norm_eps or LN_EPS)
+
+
+class Attention(_ParamModule):
+    """Self-attention without a KV cache (the training leg).  ``fused_ok``:
+    positions are canonical (query t at position t), so a window or alibi
+    goes to ``ops.causal_attention`` first-class, where the flash kernels
+    take it; otherwise they ride an explicit mask / bias on the plain
+    body."""
+
+    def __init__(self, cfg: GPTConfig, tree):
+        super().__init__()
+        self.cfg = cfg
+        self._adopt(tree)
+
+    def forward(self, x, positions, window=None, fused_ok: bool = False):
+        from deepspeed_tpu_torch import ops
+        c = self.cfg
+        nh, hd = c.num_heads, c.head_dim
+        dt = x.dtype
+        q = torch.einsum("bth,hnd->btnd", x, self.wq.to(dt))
+        k = torch.einsum("bth,hnd->btnd", x, self.wk.to(dt))
+        v = torch.einsum("bth,hnd->btnd", x, self.wv.to(dt))
+        if c.qkv_bias:
+            q = q + self.bq.to(dt)
+            k = k + self.bk.to(dt)
+            v = v + self.bv.to(dt)
+        if c.use_rope:
+            q, k = rope(q, k, positions, hd, base=c.rope_theta,
+                        rope_pct=c.rope_pct, scaling=c.rope_scaling)
+
+        def alibi_bias(key_pos):
+            """[.., S] key positions → [.., nh, 1, S] logit bias."""
+            if not c.use_alibi:
+                return None
+            s = torch.from_numpy(alibi_slopes(nh, hd, c.alibi_prescale)).to(
+                x.device)
+            return s[:, None, None] * key_pos[..., None, None, :].float()
+
+        if fused_ok and (window is not None or c.use_alibi):
+            slopes = (alibi_slopes(nh, hd, c.alibi_prescale)
+                      if c.use_alibi else None)
+            out = ops.causal_attention(q, k, v, causal=True, window=window,
+                                       alibi_slopes=slopes,
+                                       scale=c.attn_scale)
+        elif window is not None:
+            rel = positions[:, :, None] - positions[:, None, :]
+            wmask = (rel >= 0) & (rel < window)
+            out = ops.causal_attention(q, k, v, causal=False, mask=wmask,
+                                       bias=alibi_bias(positions),
+                                       scale=c.attn_scale)
+        else:
+            out = ops.causal_attention(q, k, v, bias=alibi_bias(positions),
+                                       scale=c.attn_scale)
+        y = torch.einsum("btnd,ndh->bth", out, self.wo.to(dt))
+        return y + self.bo.to(dt) if c.attn_out_bias else y
+
+
+class MLP(_ParamModule):
+    def __init__(self, cfg: GPTConfig, tree):
+        super().__init__()
+        self.cfg = cfg
+        self._adopt(tree)
+
+    def forward(self, x):
+        c = self.cfg
+        dt = x.dtype
+        h = x @ self.wi.to(dt)
+        if c.mlp_bias:
+            h = h + self.bi.to(dt)
+        if c.gated_mlp:
+            h = mlp_activation(c.gate_act)(x @ self.wg.to(dt)) * h
+        else:
+            h = mlp_activation(c.activation)(h)
+        y = h @ self.wo.to(dt)
+        return y + self.bo.to(dt) if c.mlp_bias else y
+
+
+class Block(_ParamModule):
+    """One decoder block, dense: sequential residuals, or the falcon/phi
+    parallel residual (``parallel_block``, one or two input norms)."""
+
+    def __init__(self, cfg: GPTConfig, tree, is_moe: bool = False):
+        super().__init__()
+        if is_moe:
+            _unported("MoE blocks", "A.8")
+        self.cfg = cfg
+        self.Attention_0 = Attention(cfg, tree["Attention_0"])
+        self.MLP_0 = MLP(cfg, tree["MLP_0"])
+        self.Norm_0 = Norm(cfg, tree["Norm_0"])
+        if "Norm_1" in tree:
+            self.Norm_1 = Norm(cfg, tree["Norm_1"])
+
+    def forward(self, x, positions, pld_keep=None, window=None,
+                fused_ok: bool = False):
+        c = self.cfg
+        if pld_keep is not None:
+            _unported("the progressive-layer-drop gate", "A.11")
+        if c.parallel_block:
+            h_attn = self.Norm_0(x)
+            h_mlp = self.Norm_1(x) if c.parallel_norms == 2 else h_attn
+            a = self.Attention_0(h_attn, positions, window=window,
+                                 fused_ok=fused_ok)
+            return x + a + self.MLP_0(h_mlp)
+        x = x + self.Attention_0(self.Norm_0(x), positions, window=window,
+                                 fused_ok=fused_ok)
+        return x + self.MLP_0(self.Norm_1(x))
+
+
+class GPTBackbone(_ParamModule):
+    """Token ids → final hidden states (and the embedding table, for the
+    tied unembed)."""
+
+    def __init__(self, cfg: GPTConfig, tree):
+        super().__init__()
+        self.cfg = cfg
+        self._adopt(tree)
+        if cfg.embed_norm:
+            self.embed_norm = Norm(cfg, tree["embed_norm"])
+        for i in range(cfg.num_layers):
+            setattr(self, f"block_{i}", Block(cfg, tree[f"block_{i}"]))
+        self.final_norm = Norm(cfg, tree["final_norm"])
+
+    def forward(self, input_ids, positions=None, ltd_idx=None,
+                pld_theta=None):
+        c = self.cfg
+        if ltd_idx is not None:
+            _unported("random-LTD token dropping", "A.11")
+        if pld_theta is not None:
+            _unported("progressive layer drop", "A.11")
+        B, T = input_ids.shape
+        x = F.embedding(input_ids, self.wte.to(c.dtype))
+        if c.embed_scale:
+            x = x * torch.tensor(c.embed_scale, dtype=c.dtype,
+                                 device=x.device)
+        if c.embed_norm:
+            x = self.embed_norm(x)
+        canonical_pos = positions is None
+        if positions is None:
+            positions = torch.arange(T, device=input_ids.device).expand(B, T)
+        if not c.use_rope and not c.use_alibi:
+            x = x + F.embedding(positions, self.wpe.to(c.dtype))
+        for i in range(c.num_layers):
+            block = getattr(self, f"block_{i}")
+            win = c.window_for_layer(i)
+            if c.remat and torch.is_grad_enabled():
+                from torch.utils.checkpoint import checkpoint
+                x = checkpoint(block, x, positions, None, win, canonical_pos,
+                               use_reentrant=False)
+            else:
+                x = block(x, positions, window=win, fused_ok=canonical_pos)
+        return self.final_norm(x), self.wte
+
+
+def shift_labels(batch, input_ids):
+    """(labels, mask) for next-token LM, honoring explicit labels /
+    loss_mask and the ignore convention (labels < 0)."""
+    labels = batch.get("labels")
+    if labels is None:
+        labels = F.pad(input_ids[:, 1:], (0, 1))
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+        mask[:, -1] = 0.0
+    else:
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        mask = mask.float() * (labels >= 0)
+        labels = labels.clamp_min(0)
+    return labels, mask
+
+
+class GPT(torch.nn.Module):
+    """LM-loss wrapper satisfying the engine's model contract:
+    ``model(batch) -> scalar loss`` for a batch dict with ``input_ids``
+    [B, T] (and optionally ``labels`` / ``loss_mask``).
+
+    ``cfg.loss_chunk > 0`` computes the unembed + CE in chunks
+    (ops/cross_entropy.py) so the fp32 [B, T, V] logits never exist whole;
+    0 keeps the one-shot path.  Parameters are drawn from ``generator`` on
+    ``device`` in ``cfg.param_dtype`` (defaults: a CPU generator seeded 0),
+    or loaded afterwards with ``load_params``.
+    """
+
+    def __init__(self, cfg: GPTConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_trainable(cfg)
+        if cfg.sp_ring_layout not in ("drop_in", "native"):
+            raise ValueError(f"sp_ring_layout must be drop_in|native, got "
+                             f"{cfg.sp_ring_layout!r}")
+        self.cfg = cfg
+        device = torch.device(device or "cpu")
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        tree = init_params(cfg, generator, device, cfg.param_dtype)
+        self.backbone = GPTBackbone(cfg, tree["backbone"])
+        if not cfg.tie_embeddings:
+            self.lm_head = torch.nn.Parameter(tree["lm_head"])
+        if cfg.unembed_bias:
+            self.lm_head_bias = torch.nn.Parameter(tree["lm_head_bias"])
+
+    def _loss_chunk(self) -> int:
+        return self.cfg.loss_chunk
+
+    def forward(self, batch, deterministic: bool = False):
+        from deepspeed_tpu_torch.ops import lm_cross_entropy
+        c = self.cfg
+        input_ids = batch["input_ids"]
+        x, emb = self.backbone(input_ids, ltd_idx=batch.get("random_ltd_idx"),
+                               pld_theta=batch.get("pld_theta"))
+        if c.tie_embeddings:
+            unembed = emb.to(x.dtype).t()                  # [H, V]
+        else:
+            unembed = self.lm_head.to(x.dtype)
+        labels, mask = shift_labels(batch, input_ids)
+        bias = self.lm_head_bias if c.unembed_bias else None
+        return lm_cross_entropy(x, unembed, labels, mask,
+                                chunk_size=self._loss_chunk() or None,
+                                bias=bias)
+
+    # ---- the weight bridge -------------------------------------------
+    def named_leaves(self):
+        """(path, parameter) pairs with ``param_shapes``' slash paths."""
+        for name, p in self.named_parameters():
+            yield name.replace(".", "/"), p
+
+    @torch.no_grad()
+    def load_params(self, tree) -> "GPT":
+        """Copy the reference engine's parameter tree (numpy arrays under
+        the names of ``param_shapes``, optionally below flax's "params"
+        key) into this module.  A missing, extra or misshapen leaf
+        raises."""
+        if isinstance(tree, dict) and set(tree) == {"params"}:
+            tree = tree["params"]
+        flat = dict(_flatten(tree))
+        want = dict(self.named_leaves())
+        if set(flat) != set(want):
+            raise ValueError(
+                f"parameter names differ — missing "
+                f"{sorted(set(want) - set(flat))}, unexpected "
+                f"{sorted(set(flat) - set(want))}")
+        for path, p in want.items():
+            a = np.array(flat[path], dtype=np.float32)
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{path}: shape {tuple(a.shape)} != "
+                                 f"expected {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(a).to(p.dtype))
+        return self
+
+
+class GPTChunkedLoss(GPT):
+    """GPT that always chunks the unembed + CE (512-token chunks when
+    ``cfg.loss_chunk`` is unset)."""
+
+    def _loss_chunk(self) -> int:
+        return self.cfg.loss_chunk or 512
+
+
+def _flatten(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, path + (k,))
+        else:
+            yield "/".join(path + (k,)), v
+
+
+def _unflatten(pairs) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, v in pairs:
+        node = out
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def params_to_numpy(model: GPT) -> Dict[str, Any]:
+    """The module's parameters as a nested dict of float32 numpy arrays
+    under ``param_shapes``' names (what ``params_from_numpy`` takes)."""
+    return _unflatten((path, p.detach().float().cpu().numpy())
+                      for path, p in model.named_leaves())
+
+
+def grads_to_numpy(model: GPT) -> Dict[str, Any]:
+    """The parameters' ``.grad`` under the same names (None where a
+    parameter has no gradient yet)."""
+    return _unflatten(
+        (path, None if p.grad is None else p.grad.detach().float().cpu()
+         .numpy()) for path, p in model.named_leaves())

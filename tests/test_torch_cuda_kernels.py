@@ -104,3 +104,138 @@ def test_engine_on_card_matches_cpu(cuda):
     assert pa.cuda_paged_attention.launches > before
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- flash attention: forward, dq, dk/dv (csrc/flash_attention.cu)
+
+fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+
+FLASH_CASES = {
+    "causal": dict(),
+    "noncausal": dict(causal=False),
+    "gqa4": dict(N=8, Nkv=2),
+    "gqa8_hd128": dict(N=8, Nkv=1, D=128),
+    "window": dict(window=37),
+    "alibi": dict(alibi=True),
+    "alibi_window_gqa": dict(N=4, Nkv=2, window=50, alibi=True),
+    "ragged_tail": dict(T=173),
+    "short": dict(T=5),
+}
+
+
+def _flash_case(dev, dtype, B=2, T=192, N=4, Nkv=4, D=64, causal=True,
+                window=None, alibi=False):
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+    q, do = rand(B, T, N, D), rand(B, T, N, D)
+    k, v = rand(B, T, Nkv, D), rand(B, T, Nkv, D)
+    kw = dict(causal=causal, window=window,
+              alibi_slopes=(np.geomspace(0.5, 1 / 64, N).astype(np.float32)
+                            if alibi else None))
+    return q, k, v, do, kw
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, dtype, tol, case):
+    """Forward (o, lse), dq and dk/dv against the plain versions; per row,
+    ``tol`` of the plain row's largest value (lse: absolute).  A row whose
+    true value is ~0 (the first query's dq: it sees one key, so dp - delta
+    cancels) is judged against 1% of the tensor's largest value instead."""
+    q, k, v, do, kw = _flash_case(cuda, dtype, **FLASH_CASES[case])
+    o, lse = fa.cuda_flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = fa.torch_flash_fwd(q, k, v, **kw)
+    assert lse.shape == lse_ref.shape and lse.is_contiguous()
+    torch.testing.assert_close(lse, lse_ref, atol=max(tol, 1e-4), rtol=0)
+    dq = fa.cuda_flash_dq(q, k, v, o_ref, lse_ref, do, **kw)
+    dk, dv = fa.cuda_flash_dkv(q, k, v, o_ref, lse_ref, do, **kw)
+    refs = fa.torch_flash_bwd(q, k, v, o_ref, lse_ref, do, **kw)
+    for name, got, want in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                               (o_ref,) + refs):
+        d = (got.float() - want.float()).abs().amax(-1)
+        floor = 1e-2 * want.float().abs().max().item()
+        row = d / want.float().abs().amax(-1).clamp_min(floor)
+        assert torch.isfinite(got).all(), name
+        worst = row.flatten().argmax()
+        assert row.max().item() <= tol, (
+            name, row.max().item(), d.flatten()[worst].item(),
+            want.float().abs().amax(-1).flatten()[worst].item(),
+            want.float().abs().max().item())
+
+
+@pytest.mark.requires_cuda
+def test_flash_autograd_and_strides(cuda):
+    """The autograd Function launches all three kernels, is deterministic,
+    and reads q, k, v through strides (a fused qkv projection's views)."""
+    B, T, N, D = 2, 128, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((B, T, 3, N, D), device=cuda, generator=gen).to(
+        torch.bfloat16).requires_grad_()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = (fa.cuda_flash_fwd.launches, fa.cuda_flash_dq.launches,
+              fa.cuda_flash_dkv.launches)
+    grads = []
+    for _ in range(2):
+        out = fa.flash_attention(q, k, v)
+        grads.append(torch.autograd.grad(out.float().square().sum(), qkv)[0])
+    after = (fa.cuda_flash_fwd.launches, fa.cuda_flash_dq.launches,
+             fa.cuda_flash_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    assert torch.equal(grads[0], grads[1])
+    qc, kc, vc = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+    o_ref, _ = fa.torch_flash_fwd(qc, kc, vc)
+    torch.testing.assert_close(out.float(), o_ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.requires_cuda
+def test_flash_unsupported_raises(cuda):
+    from deepspeed_tpu_torch import ops
+    q, k, v, _, _ = _flash_case(cuda, torch.bfloat16, D=64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.cuda_flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                          v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="causal"):
+        fa.cuda_flash_fwd(q, k, v, causal=False, window=8)
+    with pytest.raises(ValueError, match="does not support"):
+        ops.causal_attention(q, k[:, :100], v[:, :100])
+
+
+@pytest.mark.requires_cuda
+def test_training_on_card_matches_cpu(cuda):
+    """Three train_batch steps of a small model, cuda against cpu (fp32,
+    TF32 off): loss, grad norm and parameters agree to 1e-4."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import (GPTChunkedLoss, GPTConfig,
+                                            params_to_numpy)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig(vocab_size=512, num_layers=2, num_heads=2, head_dim=64,
+                    hidden_size=128, max_seq_len=128, loss_chunk=96)
+    dscfg = {"train_micro_batch_size_per_gpu": 2,
+             "gradient_accumulation_steps": 2, "steps_per_print": 0,
+             "optimizer": {"type": "adamw",
+                           "params": {"lr": 3e-4, "weight_decay": 0.01}},
+             "gradient_clipping": 1.0}
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 512, (4, 128)).astype(np.int32)}
+               for _ in range(3)]
+    runs = {}
+    before = fa.cuda_flash_dkv.launches
+    for d in ("cpu", cuda):
+        model = GPTChunkedLoss(cfg)      # same CPU-seeded weights both times
+        eng, *_ = ds.initialize(model=model, config=dict(dscfg), device=d)
+        runs[d] = ([eng.train_batch(b) for b in batches],
+                   params_to_numpy(model))
+    assert fa.cuda_flash_dkv.launches - before == 3 * 2 * 2
+    for a, b in zip(runs["cpu"][0], runs[cuda][0]):
+        assert abs(a.loss - b.loss) <= 1e-4 and \
+            abs(a.grad_norm - b.grad_norm) <= 1e-4
+    from deepspeed_tpu_torch.models.gpt import _flatten
+    pa_, pb_ = dict(_flatten(runs["cpu"][1])), dict(_flatten(runs[cuda][1]))
+    for name in pa_:
+        np.testing.assert_allclose(pa_[name], pb_[name], atol=1e-4, rtol=0)
+
