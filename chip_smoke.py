@@ -47,6 +47,27 @@
    one step are kept and the kernels held to their plain versions on them
    and timed.  ``--phases 8 --profile`` prints device time by kernel.
 
+9. Quantized kernels against their plain versions in bf16: ``wq_matmul``
+   (#7) and ``wq_matmul4`` (#8) at every Llama-3-8B and GPT-2 small product
+   shape, ``wq_matmul_t`` (#6) at GPT-2's tied [50304, 768] table, each at
+   M 16 and 256 and timed there beside its bound; the int8-KV decode and
+   prefill variants at phase 2's shapes and variants.  The row check is
+   shown to see one zeroed scale group and one page read with another
+   page's scales.
+10. Small-config quantized parity: W8 weights with int8 KV, and W4, in fp32
+   with TF32 off — greedy ``generate`` on the card equals the CPU's.
+11. The quantized main path at full width, each engine built from a bf16
+   tree (Llama-3-8B's is phase 4's): Llama-3-8B W8 + int8 KV, Llama-3-8B
+   W4, GPT-2 small W8 (tied, vocabulary padded to 50304), each serving 16
+   seeded requests with its kernels' counters set to 0 just before; store
+   and KV-pool bytes against bf16 (W8 <= 0.53x, W4 <= 0.30x, int8 pool
+   <= 0.53x), tok/s, peak memory, host syncs; the W8 engine's put() logits
+   through the kernels against the plain versions swapped into the
+   registry; greedy agreement with phase 4 (printed, not gated).
+12. (with 11) Each new kernel held to its plain version and timed on its
+   heaviest main-path call: kernel, plain, ``torch.matmul`` with the bf16
+   weight (#6-#8) or SDPA over dequantized K/V (int8 variants), and bound.
+
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -69,6 +90,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 ROW_TOL = 2e-2                  # of each output row's largest value
+E2E_TOL = 1e-1                  # of the largest logit, kernels vs plain path
 
 
 def fail(msg):
@@ -110,7 +132,10 @@ def cuda_ms(fn, reps=20, warmup=3):
 # --------------------------------------------------------------- phase 2
 
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
-ERRS = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH, 0.0)
+WQ = ("wq_matmul_t", "wq_matmul", "wq_matmul4")
+INT8 = ("paged_attention_int8", "ragged_prefill_int8")
+ERRS = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH + WQ
+                     + INT8, 0.0)
 # ^ max |kernel - plain| seen per kernel
 
 
@@ -179,19 +204,39 @@ def _bound(nbytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _int8(kw):
+    return kw.get("k_scale") is not None
+
+
+def _token_bytes(k, kw):
+    """Bytes of one key (or value) row of a page: hd elements, plus its fp32
+    scale for int8 pages."""
+    return k.shape[3] * k.element_size() + (4 if _int8(kw) else 0)
+
+
+def _dequant_pages(torch, k, v, kw, dtype):
+    """16-bit pages for the library (SDPA) timing: int8 pages dequantized
+    as the kernels do, others as they are."""
+    if not _int8(kw):
+        return k, v
+    return ((k.float() * kw["k_scale"][..., None]).to(dtype),
+            (v.float() * kw["v_scale"][..., None]).to(dtype))
+
+
 def _time_decode(torch, pa, q, k, v, bt, lens, kw):
     """Kernel, plain and SDPA device times of one decode call, and its
-    bound: each live key's K and V read once, q read and the output written
-    once, plus the live table entries (no window: every key is live)."""
+    bound: each live key's K and V read once (int8 pages: codes and
+    scales), q read and the output written once, plus the live table
+    entries (no window: every key is live)."""
     assert kw.get("window") is None
     S, nkv, g, hd = q.shape
     bs, nh, esize = k.shape[2], nkv * g, q.element_size()
     lens_np = lens.cpu().numpy().astype(np.int64)
     live = int(lens_np.sum())
-    nbytes = (live * nkv * hd * 2 * esize + 2 * q.numel() * esize
+    nbytes = (live * nkv * 2 * _token_bytes(k, kw) + 2 * q.numel() * esize
               + int((-(-lens_np // bs)).sum()) * 4 + S * 4)
     bound_ms, bound_by = _bound(nbytes, 4 * hd * nh * live)
-    kd, vd = _dense_kv(torch, k, v, bt)
+    kd, vd = _dense_kv(torch, *_dequant_pages(torch, k, v, kw, q.dtype), bt)
     K = kd.shape[2]
     mask = (torch.arange(K, device=q.device)[None, :]
             < lens[:, None])[:, None, None, :]
@@ -225,10 +270,10 @@ def _time_prefill(torch, pa, q, k, v, bt, kvl, starts, counts, kw):
     visible = int(np.where(live, np.minimum(qpos + 1, kvl_np[:, None]),
                            0).sum())
     nbytes = (int(c_np.sum()) * nh * hd * esize + q.numel() * esize
-              + int(keys.sum()) * nkv * hd * 2 * esize
+              + int(keys.sum()) * nkv * 2 * _token_bytes(k, kw)
               + int((-(-keys // bs)).sum()) * 4 + 3 * S * 4)
     bound_ms, bound_by = _bound(nbytes, 4 * hd * nh * visible)
-    kd, vd = _dense_kv(torch, k, v, bt)
+    kd, vd = _dense_kv(torch, *_dequant_pages(torch, k, v, kw, q.dtype), bt)
     dev = q.device
     kpos = torch.arange(kd.shape[2], device=dev)
     qp = torch.from_numpy(qpos).to(dev)
@@ -249,10 +294,10 @@ def _time_prefill(torch, pa, q, k, v, bt, kvl, starts, counts, kw):
         bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _print_times(results):
+def _print_times(results, library="SDPA"):
     for name, r in results.items():
         print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, "
+              f"{r['plain_ms']:.4f} ms, {library} {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
 
@@ -374,14 +419,11 @@ def _report_profile(torch, prof, wall, reps=1, unprofiled=None):
 
 
 def phase_main(torch, pa, dev, card, profile=False):
-    """InferenceEngineV2.generate at full Llama-3-8B width."""
-    from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
+    """InferenceEngineV2.generate at full Llama-3-8B width; returns the
+    bf16 tree (the engine's own, aliased) and the outputs for phase 11."""
+    from deepspeed_tpu_torch import InferenceEngineV2
     from deepspeed_tpu_torch.models.gpt import count_params, init_params
-    cfg = GPTConfig.llama(num_layers=32, hidden=4096, heads=32,
-                          num_kv_heads=8, vocab_size=128256,
-                          max_seq_len=8192, mlp_dim_override=14336,
-                          rope_theta=500000.0, norm_eps=1e-5,
-                          dtype=torch.bfloat16)
+    cfg = _llama_cfg(torch)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, dev, torch.bfloat16)
@@ -389,27 +431,63 @@ def phase_main(torch, pa, dev, card, profile=False):
     print(f"  Llama-3-8B width, {count_params(cfg) / 1e9:.3f}B params, "
           f"bf16 weights on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    n_seq, bs = 16, 64
-    eng = InferenceEngineV2(cfg, config={
-        "dtype": "bfloat16",
-        "state_manager": {"max_tracked_sequences": n_seq,
-                          "kv_block_size": bs,
-                          "num_kv_blocks": n_seq * 2048 // bs}},
-        params=params, device=dev)
-    del params
-    pool = eng.cache.k_flat.numel() * 2 * eng.cache.k_flat.element_size()
-    print(f"  KV pool {pool / 1e9:.2f} GB ({n_seq * 2048 // bs} blocks x "
-          f"{bs} tokens x 32 layers)", flush=True)
+    eng = InferenceEngineV2(cfg, config={"dtype": "bfloat16",
+                                         "state_manager": LLAMA_SM},
+                            params=params, device=dev)
+    prompts, news = _requests(cfg.vocab_size, 1025)
+    calls = _record_calls(eng, {"paged_attention": "paged_attention",
+                                "ragged_prefill_attention": "ragged_prefill"})
+    outs, e2e = _serve(torch, "Llama-3-8B bf16", eng, prompts, news,
+                       ("paged_attention", "ragged_prefill"), card, profile)
+    calls.restore()
+    # the served model's logits are finite at full width
+    logits = eng.put([10 ** 6], [prompts[0][:32]])
+    if logits.shape != (1, cfg.vocab_size) or not np.isfinite(logits).all():
+        fail(f"put() logits {logits.shape} not finite/of the vocab width")
+    return calls, eng, e2e, params, outs
+
+
+# 16 slots, 64-token pages, a pool of 2048 tokens a slot
+LLAMA_SM = {"max_tracked_sequences": 16, "kv_block_size": 64,
+            "num_kv_blocks": 16 * 2048 // 64}
+
+
+def _requests(vocab, max_prompt):
+    """16 seeded requests: prompts of 64..max_prompt-1 tokens, 64..128 new
+    tokens each (numpy seed 0)."""
     rng = np.random.default_rng(0)
-    plens = rng.integers(64, 1025, n_seq)
-    news = rng.integers(64, 129, n_seq)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in plens]
-    torch.cuda.reset_peak_memory_stats()
-    calls = _record_calls(eng.cache.k_flat)
-    pa.cuda_paged_attention.launches = 0
-    pa.cuda_ragged_prefill.launches = 0
+    plens = rng.integers(64, max_prompt, 16)
+    news = rng.integers(64, 129, 16)
+    return ([rng.integers(0, vocab, int(n)).astype(np.int32) for n in plens],
+            news)
+
+
+def _counters():
+    """Every kernel's launch counter: (wrapper, attribute) by kernel name."""
+    import importlib
+    pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
+    wqm = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
+    return {"paged_attention": (pa.cuda_paged_attention, "launches"),
+            "ragged_prefill": (pa.cuda_ragged_prefill, "launches"),
+            "paged_attention_int8": (pa.cuda_paged_attention,
+                                     "int8_launches"),
+            "ragged_prefill_int8": (pa.cuda_ragged_prefill, "int8_launches"),
+            "wq_matmul": (wqm.cuda_wq_matmul, "launches"),
+            "wq_matmul_t": (wqm.cuda_wq_matmul_t, "launches"),
+            "wq_matmul4": (wqm.cuda_wq_matmul4, "launches")}
+
+
+def _serve(torch, label, eng, prompts, news, kernels, card, profile=False):
+    """One main-path run: ``eng.generate`` on the requests with every launch
+    counter set to 0 just before and read just after; fails if a kernel of
+    ``kernels`` never launched or an output is malformed.  Returns the
+    outputs and the run's numbers (``--profile``: also the device time by
+    kernel)."""
+    counters = _counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
         prof = (stack.enter_context(torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -424,79 +502,93 @@ def phase_main(torch, pa, dev, card, profile=False):
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {"paged_attention": pa.cuda_paged_attention.launches,
-                "ragged_prefill": pa.cuda_ragged_prefill.launches}
-    calls.restore()
+    launches = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
     if prof is not None:
         _report_profile(torch, prof, wall)
     sync_sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs
                   if "synchroniz" in str(w.message)]
-    n_sync = len(sync_sites)
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"main path never launched the {name} kernel")
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"{label}: the main path never launched the {name} kernel")
+    vocab = eng.model_config.vocab_size
     for i, (o, n) in enumerate(zip(outs, news)):
-        if len(o) != int(n):
-            fail(f"request {i}: {len(o)} tokens, expected {int(n)}")
-        if o.min() < 0 or o.max() >= cfg.vocab_size:
-            fail(f"request {i}: token outside the vocab")
+        if len(o) != int(n) or o.min() < 0 or o.max() >= vocab:
+            fail(f"{label}: request {i} gave {len(o)} tokens (expected "
+                 f"{int(n)}) or a token outside the vocab")
     n_new = int(sum(len(o) for o in outs))
+    n_prompt = int(sum(len(p) for p in prompts))
     peak = torch.cuda.max_memory_allocated()
-    print(f"  served {n_seq} requests: {int(plens.sum())} prompt + {n_new} "
-          f"generated tokens in {wall:.2f} s = {n_new / wall:.1f} generated "
-          f"tok/s ({(int(plens.sum()) + n_new) / wall:.1f} tok/s with the "
+    print(f"  {label}: served {len(prompts)} requests, {n_prompt} prompt + "
+          f"{n_new} generated tokens in {wall:.2f} s = {n_new / wall:.1f} "
+          f"generated tok/s ({(n_prompt + n_new) / wall:.1f} tok/s with the "
           f"prompts); dispatches {eng.dispatches}; preemptions "
-          f"{eng.preempt_stats}; peak memory {peak / 1e9:.2f} GB; card "
-          f"{card}", flush=True)
+          f"{eng.preempt_stats}; peak memory {peak / 1e9:.2f} GB; KV pool "
+          f"{eng.cache.nbytes / 1e9:.3f} GB; card {card}", flush=True)
     print(f"  kernel launches on the main path: {launches}; host syncs "
-          f"inside generate: {n_sync} {sorted(set(sync_sites))}", flush=True)
-    # the served model's logits are finite at full width
-    logits = eng.put([10 ** 6], [prompts[0][:32]])
-    if logits.shape != (1, cfg.vocab_size) or not np.isfinite(logits).all():
-        fail(f"put() logits {logits.shape} not finite/of the vocab width")
-    return launches, calls, eng, dict(
-        wall_s=wall, generated_tokens=n_new, prompt_tokens=int(plens.sum()),
-        generated_tok_per_s=n_new / wall, peak_memory_gb=peak / 1e9,
-        host_syncs=n_sync, dispatches=dict(eng.dispatches))
+          f"inside generate: {len(sync_sites)} {sorted(set(sync_sites))}",
+          flush=True)
+    return outs, dict(
+        run=label, wall_s=wall, generated_tokens=n_new,
+        prompt_tokens=n_prompt, generated_tok_per_s=n_new / wall,
+        peak_memory_gb=peak / 1e9, host_syncs=len(sync_sites),
+        dispatches=dict(eng.dispatches), kv_pool_gb=eng.cache.nbytes / 1e9,
+        launches=launches)
 
 
 class _record_calls(dict):
-    """While installed, keeps the inputs of every first-layer call of each
-    kernel on the main path, by reference (no copy, no sync), so that
-    phase 5 can hold the kernels to their plain versions at the shapes the
-    main path gave them.  The kernels and their launch counts are
-    untouched; ``pick`` chooses the call with the most work after the run."""
-    OPS = {"paged_attention": "paged_attention",
-           "ragged_prefill_attention": "ragged_prefill"}
+    """While installed, keeps the inputs of every main-path call of the
+    given registry ops that touches the first layer — its KV pool or its
+    weight stores — and every tied-unembed call, by reference (no copy, no
+    sync), so that the kernels can be held to their plain versions and
+    timed at the shapes the main path gave them.  The kernels and their
+    launch counts are untouched.  ``swap_plain`` puts the plain versions in
+    those ops' kernel slots until ``restore``."""
 
-    def __init__(self, first_pages):
-        super().__init__({name: [] for name in self.OPS.values()})
+    def __init__(self, eng, ops):
+        super().__init__({name: [] for name in ops.values()})
         from deepspeed_tpu_torch.ops import registry
-        self._specs = {op: registry._REGISTRY[op] for op in self.OPS}
+        from deepspeed_tpu_torch.ops.quantization import quantized_codes
+        self._specs = {op: registry._REGISTRY[op] for op in ops}
         self._kernels = {op: spec.kernel for op, spec in self._specs.items()}
-        for op, spec in self._specs.items():
-            spec.kernel = self._recorder(self.OPS[op], spec.kernel,
-                                         first_pages.data_ptr())
+        ptrs = {eng.cache.layer(0)[0].data_ptr()}
 
-    def _recorder(self, name, kernel, first_ptr):
+        def walk(t):
+            for leaf in t.values():
+                codes = quantized_codes(leaf)
+                if codes is not None:
+                    ptrs.add(codes.data_ptr())
+                elif isinstance(leaf, dict):
+                    walk(leaf)
+        walk(eng.params["backbone"]["block_0"])
+        for op, spec in self._specs.items():
+            spec.kernel = self._recorder(op, ops[op], spec.kernel, ptrs)
+
+    def _recorder(self, op, name, kernel, ptrs):
         def call(*args, **kw):
-            if args[1].data_ptr() == first_ptr:
+            weight = (next(iter(args[1].values())) if op.startswith("wq")
+                      else args[1])
+            if op == "wq_matmul_t" or weight.data_ptr() in ptrs:
                 self[name].append((args, kw))
             return kernel(*args, **kw)
         return call
+
+    def swap_plain(self):
+        for spec in self._specs.values():
+            spec.kernel = spec.torch
 
     def restore(self):
         for op, spec in self._specs.items():
             spec.kernel = self._kernels[op]
 
-    def pick(self):
-        """The decode call with the most live keys, the prefill call with
-        the most live rows (the last of equals)."""
-        work = {"paged_attention": lambda a: a[4].sum(),
-                "ragged_prefill": lambda a: a[6].sum()}
-        return {name: max(reversed(self[name]),
-                          key=lambda c: int(work[name](c[0])))
-                for name in self}
+    def pick(self, name):
+        """The call with the most work (the last of equals): M·K·N for the
+        products, live keys for decode, live rows for prefill."""
+        def work(args):
+            if name.startswith("wq"):
+                return args[0].shape[0] * next(iter(args[1].values())).numel()
+            return int((args[6] if name.startswith("ragged") else args[4])
+                       .sum())
+        return max(reversed(self[name]), key=lambda c: work(c[0]))
 
 
 # --------------------------------------------------------------- phase 5
@@ -508,8 +600,7 @@ def phase_main_inputs(torch, pa, calls, eng):
     engine's max_blocks_per_seq columns, the width it had before the engine
     cut tables to their live blocks."""
     results = {}
-    calls = calls.pick()
-    (q, k, v, bt, lens), kw = calls["paged_attention"]
+    (q, k, v, bt, lens), kw = calls.pick("paged_attention")
     _check(torch, "paged_attention", "main path",
            pa.cuda_paged_attention(q, k, v, bt, lens, **kw),
            pa.torch_paged_attention(q, k, v, bt, lens, **kw))
@@ -522,7 +613,7 @@ def phase_main_inputs(torch, pa, calls, eng):
            pa.cuda_paged_attention(q, k, v, full, lens, **kw),
            pa.torch_paged_attention(q, k, v, full, lens, **kw))
     wide = _time_decode(torch, pa, q, k, v, full, lens, kw)
-    args, kw = calls["ragged_prefill"]
+    args, kw = calls.pick("ragged_prefill")
     _check(torch, "ragged_prefill", "main path",
            pa.cuda_ragged_prefill(*args, **kw),
            pa.torch_ragged_prefill(*args, **kw))
@@ -878,13 +969,393 @@ def phase_train_main(torch, fa, dev, card, profile=False):
     return launches, results, e2e
 
 
+# --------------------------------------------------------------- phase 9
+
+LLAMA_PRODUCTS = (          # (label, K, N, group) of Llama-3-8B, then GPT-2
+    ("Llama q / attention out", 4096, 4096, 128),
+    ("Llama k / v", 4096, 1024, 128),
+    ("Llama wi / wg", 4096, 14336, 128),
+    ("Llama MLP wo", 14336, 4096, 128),
+    ("Llama lm_head", 4096, 128256, 128),
+    ("GPT-2 q / k / v", 768, 768, 128),
+    ("GPT-2 attention out", 768, 768, 64),
+    ("GPT-2 wi", 768, 3072, 128),
+    ("GPT-2 MLP wo", 3072, 768, 128))
+GPT2_TIED = ("GPT-2 tied unembed", 768, 50304, 128)   # [V, H] store, V padded
+
+
+def _wq_bound(name, x, store):
+    """Bytes: the codes (int4: half a byte a weight) and scales once, x read
+    and y written once; operations: 2·M·K·N."""
+    codes = store["v4" if name == "wq_matmul4" else "v"]
+    M, K = x.shape
+    N = codes.shape[0] if name == "wq_matmul_t" else codes.shape[1]
+    nbytes = (codes.numel() + store["s"].numel() * 4
+              + (M * K + M * N) * x.element_size())
+    return _bound(nbytes, 2 * M * K * N)
+
+
+def _check_wq(torch, wqm, name, label, x, store):
+    _check(torch, name, label, getattr(wqm, "cuda_" + name)(x, store),
+           getattr(wqm, "torch_" + name)(x, store))
+
+
+def _int8_kv(torch, quantize_kv_token, k, v, gen):
+    """int8 pages made the engine's way from K/V rows whose magnitudes vary
+    by token (as activations do), so that a token's scale matters."""
+    def q(t):
+        mag = torch.exp(0.7 * torch.randn(t.shape[:-1] + (1,),
+                                          device=t.device, generator=gen))
+        return quantize_kv_token(t.float() * mag)
+    (kq, ks), (vq, vs) = q(k), q(v)
+    return kq, vq, {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
+
+
+def phase_quant_kernels(torch, wqm, pa, dev):
+    """#6-#8 at every Llama-3-8B and GPT-2 product shape (M 16 and 256,
+    bf16) and the int8-KV variants of #1-#2 at phase 2's shapes, each
+    against its plain version; the check is shown to see one zeroed scale
+    group and one page with another page's scales.  Each product is timed
+    at both M beside its bound."""
+    from deepspeed_tpu_torch.inference.v2.model import quantize_kv_token
+    from deepspeed_tpu_torch.ops.quantization import (quantize_weight,
+                                                      quantize_weight4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dt = torch.bfloat16
+    rows = []
+    for label, K, N, g in LLAMA_PRODUCTS + (GPT2_TIED,):
+        tied = label == GPT2_TIED[0]
+        w = torch.randn((N, K) if tied else (K, N), device=dev,
+                        generator=gen) * 0.02
+        stores = {"wq_matmul_t": quantize_weight(w, group=g)} if tied else {
+            "wq_matmul": quantize_weight(w, group=g, dim=0),
+            "wq_matmul4": quantize_weight4(w, group=g)}
+        del w
+        for name, store in stores.items():
+            for M in (16, 256):
+                x = torch.randn((M, K), device=dev, generator=gen).to(dt)
+                _check_wq(torch, wqm, name, f"{label} M={M}", x, store)
+                fn = getattr(wqm, "cuda_" + name)
+                rows.append((name, label, M, cuda_ms(lambda: fn(x, store)),
+                             *_wq_bound(name, x, store)))
+        if label == "Llama q / attention out":
+            # the row check must see one zeroed scale group (128 rows of K)
+            store = stores["wq_matmul"]
+            x = torch.randn((16, K), device=dev, generator=gen).to(dt)
+            bad = {"v": store["v"], "s": store["s"].clone()}
+            bad["s"][bad["s"].shape[0] // 2] = 0
+            r = _row_err(torch, wqm.torch_wq_matmul(x, bad),
+                         wqm.torch_wq_matmul(x, store))
+            print(f"  one zeroed scale group moves the worst row by "
+                  f"{r:.3e} of its max (check at {ROW_TOL})", flush=True)
+            if not r > ROW_TOL:
+                fail("the wq check cannot see a zeroed scale group")
+        del stores
+        torch.cuda.empty_cache()
+    for name, label, M, ms, bound_ms, by in rows:
+        print(f"  {name} {label} M={M}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({by}), {bound_ms / ms:.1%} of it", flush=True)
+
+    # int8-KV decode and prefill at phase 2's shapes and variants
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    S, nkv, g, hd, bs = 16, 8, 4, 128, 64
+    k, v, bt, lens, lens_np = _paged_case(torch, rng, dev, dtype=dt)
+    kq, vq, sc = _int8_kv(torch, quantize_kv_token, k, v, gen)
+    del k, v
+    slopes = torch.from_numpy(
+        np.geomspace(0.5, 1 / 256, nkv * g).astype(np.float32)).to(dev)
+    cases = {"plain": {}, "window512": {"window": 512},
+             "alibi": {"alibi_slopes": slopes}}
+    q = torch.randn((S, nkv, g, hd), device=dev).to(dt)
+    bt1, lens1 = bt[:, :1].contiguous(), lens.clamp(max=bs)
+    for name, kw in cases.items():
+        for lab, table, kv in ((name, bt, lens),
+                               (f"{name}, one page", bt1, lens1)):
+            _check(torch, "paged_attention_int8", lab,
+                   pa.cuda_paged_attention(q, kq, vq, table, kv, **kw, **sc),
+                   pa.torch_paged_attention(q, kq, vq, table, kv, **kw, **sc))
+    # the row check must see one page of the longest slot read with another
+    # page's scales
+    want = pa.torch_paged_attention(q, kq, vq, bt, lens, **sc)
+    bad = {n: t.clone() for n, t in sc.items()}
+    a, b = int(bt[S - 1, 5]), int(bt[S - 1, 6])
+    for t in bad.values():
+        t[a] = sc["k_scale"][b] if t is bad["k_scale"] else sc["v_scale"][b]
+    r = _row_err(torch, pa.torch_paged_attention(q, kq, vq, bt, lens, **bad),
+                 want)
+    print(f"  one int8 page read with another page's scales moves the worst "
+          f"row by {r:.3e} of its max (check at {ROW_TOL})", flush=True)
+    if not r > ROW_TOL:
+        fail("the int8-KV check cannot see a page's swapped scales")
+    results = {"paged_attention_int8": _time_decode(
+        torch, pa, q, kq, vq, bt, lens, dict(sc))}
+    Q = 128
+    counts = np.array([0, 1, 1, 37, 128, 128, 5, 128, 64, 1, 128, 17, 128,
+                       100, 128, 1], np.int32)
+    kvl = np.minimum(np.maximum(lens_np, counts), 2048).astype(np.int32)
+    lens2, q_starts, q_counts = (torch.from_numpy(x).to(dev)
+                                 for x in (kvl, kvl - counts, counts))
+    qp = torch.randn((S, Q, nkv, g, hd), device=dev).to(dt)
+    for name, kw in cases.items():
+        _check(torch, "ragged_prefill_int8", name,
+               pa.cuda_ragged_prefill(qp, kq, vq, bt, lens2, q_starts,
+                                      q_counts, **kw, **sc),
+               pa.torch_ragged_prefill(qp, kq, vq, bt, lens2, q_starts,
+                                       q_counts, **kw, **sc))
+    results["ragged_prefill_int8"] = _time_prefill(
+        torch, pa, qp, kq, vq, bt, lens2, q_starts, q_counts, dict(sc))
+    _print_times(results)
+
+
+# --------------------------------------------------------------- phase 10
+
+def phase_quant_parity(torch, dev):
+    """Quantized greedy generate on the card == on the CPU (fp32, TF32 off):
+    W8 weights with int8 KV, and W4 weights."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
+    from deepspeed_tpu_torch.models.gpt import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        GPTConfig.llama(num_layers=2, hidden=128, heads=4, num_kv_heads=2,
+                        vocab_size=512, max_seq_len=256), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    sm = {"max_tracked_sequences": 4, "max_ragged_batch_size": 64,
+          "kv_block_size": 8, "max_q_per_seq": 8, "num_kv_blocks": 10}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, (18 + 5 * i,)).astype(np.int32)
+               for i in range(4)]
+    for label, extra in (("W8 + int8 KV", {
+            "quant": {"enabled": True, "bits": 8},
+            "state_manager": dict(sm, kv_quant="int8")}),
+            ("W4", {"quant": {"enabled": True, "bits": 4},
+                    "state_manager": sm})):
+        out = {d: InferenceEngineV2(cfg, config={"dtype": "fp32", **extra},
+                                    params=params, device=d).generate(
+                                        prompts, max_new_tokens=20)
+               for d in ("cpu", dev)}
+        for i, (a, b) in enumerate(zip(out["cpu"], out[dev])):
+            if not np.array_equal(a, b):
+                fail(f"quantized parity ({label}): request {i} differs\n cpu "
+                     f" {a}\n cuda {b}")
+        print(f"  {label}: greedy tokens equal on cpu and {dev} "
+              f"({sum(len(o) for o in out['cpu'])} tokens)", flush=True)
+
+
+# --------------------------------------------------------- phases 11 and 12
+
+def _time_wq(torch, wqm, name, x, store):
+    """Kernel, plain and library (one torch.matmul of x with the weight in
+    bf16, unquantized) device times of one product, beside its bound."""
+    from deepspeed_tpu_torch.ops.quantization import (dequantize_weight,
+                                                      dequantize_weight4)
+    w = (dequantize_weight4(store, x.dtype) if name == "wq_matmul4"
+         else dequantize_weight(store, x.dtype))
+    if name == "wq_matmul_t":
+        w = w.t()
+    bound_ms, bound_by = _wq_bound(name, x, store)
+    codes = store["v4" if name == "wq_matmul4" else "v"]
+    g = (codes.shape[0] if name == "wq_matmul_t"
+         else x.shape[1]) // store["s"].shape[0]
+    return dict(
+        shape=f"x[{x.shape[0]},{x.shape[1]}] {x.dtype}, store "
+              f"{tuple(codes.shape)} group {g}",
+        ms=cuda_ms(lambda: getattr(wqm, "cuda_" + name)(x, store)),
+        plain_ms=cuda_ms(lambda: getattr(wqm, "torch_" + name)(x, store),
+                         reps=10),
+        library_ms=cuda_ms(lambda: torch.matmul(x, w)),
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _llama_cfg(torch):
+    from deepspeed_tpu_torch import GPTConfig
+    return GPTConfig.llama(num_layers=32, hidden=4096, heads=32,
+                           num_kv_heads=8, vocab_size=128256,
+                           max_seq_len=8192, mlp_dim_override=14336,
+                           rope_theta=500000.0, norm_eps=1e-5,
+                           dtype=torch.bfloat16)
+
+
+def _quantized_engine(torch, label, cfg, params, ecfg, dev):
+    """A quantized engine built from a bf16 tree; prints the store's bytes
+    against the tree's."""
+    from deepspeed_tpu_torch import InferenceEngineV2
+    from deepspeed_tpu_torch.ops.quantization import store_nbytes
+    dense = store_nbytes(params)
+    t0 = time.perf_counter()
+    eng = InferenceEngineV2(cfg, config=ecfg, params=params, device=dev)
+    torch.cuda.synchronize()
+    store = store_nbytes(eng.params)
+    print(f"  {label}: store {store / 1e9:.3f} GB = {store / dense:.4f} of "
+          f"the bf16 tree's {dense / 1e9:.3f} GB (built in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    return eng, dict(store_gb=store / 1e9, bf16_tree_gb=dense / 1e9,
+                     store_ratio=store / dense)
+
+
+def phase_quant_main(torch, wqm, pa, dev, card, llama_params=None,
+                     bf16_outs=None, bf16_pool=None, profile=False):
+    """Quantized InferenceEngineV2.generate at full width: Llama-3-8B W8 +
+    int8 KV and W4 (both built from one bf16 tree, one engine at a time),
+    then GPT-2 small W8 (tied, vocabulary padded to 50304); each new kernel
+    held and timed on its heaviest main-path call (phase 12)."""
+    from deepspeed_tpu_torch.models.gpt import init_params
+    from deepspeed_tpu_torch import GPTConfig
+    results, e2es = {}, []
+    cfg = _llama_cfg(torch)
+    if llama_params is None:
+        llama_params = init_params(cfg, torch.Generator(
+            device=dev).manual_seed(0), dev, torch.bfloat16)
+    sm = LLAMA_SM
+    if bf16_pool is None:
+        bf16_pool = 2 * (cfg.num_layers * sm["num_kv_blocks"] + 1) \
+            * cfg.kv_heads * sm["kv_block_size"] * cfg.head_dim * 2
+    prompts, news = _requests(cfg.vocab_size, 1025)
+
+    # ---- W8 + int8 KV
+    label = "Llama-3-8B W8 + int8 KV"
+    eng, sizes = _quantized_engine(
+        torch, label, cfg, llama_params,
+        {"dtype": "bfloat16", "quant": {"enabled": True, "bits": 8},
+         "state_manager": dict(sm, kv_quant="int8")}, dev)
+    rec = _record_calls(eng, {"wq_matmul": "wq_matmul",
+                              "paged_attention": "paged_attention_int8",
+                              "ragged_prefill_attention":
+                              "ragged_prefill_int8"})
+    outs, e2e = _serve(torch, label, eng, prompts, news,
+                       ("wq_matmul", "paged_attention_int8",
+                        "ragged_prefill_int8"), card, profile)
+    rec.restore()
+    e2e.update(sizes)
+    e2e["kv_pool_ratio"] = e2e["kv_pool_gb"] * 1e9 / bf16_pool
+    print(f"  int8 KV pool: {e2e['kv_pool_ratio']:.4f} of the bf16 pool's "
+          f"{bf16_pool / 1e9:.3f} GB", flush=True)
+    if e2e["store_ratio"] > 0.53 or e2e["kv_pool_ratio"] > 0.53:
+        fail(f"W8 store {e2e['store_ratio']} / int8 KV pool "
+             f"{e2e['kv_pool_ratio']} above 0.53 of bf16")
+    if bf16_outs is not None:
+        same = [int(np.sum(a[:min(len(a), len(b))] == b[:min(len(a), len(b))]))
+                for a, b in zip(outs, bf16_outs)]
+        first = sum(int(a[0] == b[0]) for a, b in zip(outs, bf16_outs))
+        e2e["greedy_agreement_with_bf16"] = sum(same) / sum(map(len, outs))
+        print(f"  greedy agreement with the bf16 engine (not gated: random "
+              f"weights have near-ties): {sum(same)} of "
+              f"{sum(map(len, outs))} positions, first token of {first} of "
+              f"{len(outs)} requests", flush=True)
+    # put logits through the kernels vs the plain versions swapped into the
+    # registry, on one fresh prompt each.  E2E_TOL: both paths are bf16;
+    # each of the ~290 products and attention calls on the way agrees to
+    # about one bf16 rounding (2^-8 of its rows, phases 9 and 12), and 32
+    # residual layers of random weights compound those as a random walk
+    # (sqrt(290) x 2^-8 ~ 7%)
+    p = prompts[0][:64]
+    got = eng.put([10 ** 6], [p])
+    rec.swap_plain()
+    want = eng.put([10 ** 6 + 1], [p])
+    rec.restore()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    e2e["put_logits_vs_plain"] = err
+    e2e["put_logits_vs_plain_l2"] = rel
+    print(f"  put() logits through the kernels vs the plain versions: worst "
+          f"|diff| {err:.3e} of the largest logit (check at {E2E_TOL}), "
+          f"relative L2 {rel:.3e}; argmax equal: "
+          f"{int(got.argmax()) == int(want.argmax())}", flush=True)
+    if not np.isfinite(got).all() or not err <= E2E_TOL:
+        fail(f"W8 + int8 KV put() logits differ from the plain path by {err}")
+    for name in ("wq_matmul", "paged_attention_int8", "ragged_prefill_int8"):
+        results[name] = _hold_and_time(torch, wqm, pa, rec, name)
+        results[name]["launches"] = e2e["launches"][name]
+    e2es.append(e2e)
+    del eng, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- W4
+    label = "Llama-3-8B W4"
+    eng, sizes = _quantized_engine(
+        torch, label, cfg, llama_params,
+        {"dtype": "bfloat16", "quant": {"enabled": True, "bits": 4},
+         "state_manager": sm}, dev)
+    rec = _record_calls(eng, {"wq_matmul4": "wq_matmul4"})
+    outs, e2e = _serve(torch, label, eng, prompts, news,
+                       ("wq_matmul4", "wq_matmul", "paged_attention",
+                        "ragged_prefill"), card)
+    rec.restore()
+    e2e.update(sizes)
+    if e2e["store_ratio"] > 0.30:
+        fail(f"W4 store at {e2e['store_ratio']} of bf16, above 0.30")
+    results["wq_matmul4"] = _hold_and_time(torch, wqm, pa, rec, "wq_matmul4")
+    results["wq_matmul4"]["launches"] = e2e["launches"]["wq_matmul4"]
+    e2es.append(e2e)
+    del eng, rec, llama_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- GPT-2 small W8, tied and padded
+    gcfg = GPTConfig.gpt2_small(vocab_size=50257, max_seq_len=1024,
+                                dtype=torch.bfloat16)
+    gparams = init_params(gcfg, torch.Generator(device=dev).manual_seed(0),
+                          dev, torch.bfloat16)
+    gprompts, gnews = _requests(gcfg.vocab_size, 513)
+    label = "GPT-2 small W8 (tied)"
+    eng, sizes = _quantized_engine(
+        torch, label, gcfg, gparams,
+        {"dtype": "bfloat16", "quant": {"enabled": True, "bits": 8},
+         "state_manager": dict(LLAMA_SM, num_kv_blocks=16 * 1024 // 64)},
+        dev)
+    rec = _record_calls(eng, {"wq_matmul_t": "wq_matmul_t"})
+    outs, e2e = _serve(torch, label, eng, gprompts, gnews,
+                       ("wq_matmul_t", "wq_matmul", "paged_attention",
+                        "ragged_prefill"), card)
+    rec.restore()
+    e2e.update(sizes)
+    if eng.params["backbone"]["wte"]["v"].shape[0] != 50304:
+        fail("GPT-2's tied table was not padded to 50304 rows")
+    logits = eng.put([10 ** 6], [gprompts[0][:32]])
+    if logits.shape != (1, 50257) or not np.isfinite(logits).all():
+        fail(f"GPT-2 W8 put() logits {logits.shape} not finite / 50257 wide")
+    results["wq_matmul_t"] = _hold_and_time(torch, wqm, pa, rec,
+                                            "wq_matmul_t")
+    results["wq_matmul_t"]["launches"] = e2e["launches"]["wq_matmul_t"]
+    e2es.append(e2e)
+    del eng, rec, gparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, e2es
+
+
+def _hold_and_time(torch, wqm, pa, rec, name):
+    """Phase 12 for one kernel: hold it to its plain version on its
+    heaviest recorded main-path call, then time it there."""
+    args, kw = rec.pick(name)
+    if name.startswith("wq"):
+        x, store = args
+        _check_wq(torch, wqm, name, "main path", x, store)
+        r = _time_wq(torch, wqm, name, x, store)
+        _print_times({name: r}, library="torch.matmul (bf16 weight)")
+        return r
+    if name == "paged_attention_int8":
+        _check(torch, name, "main path", pa.cuda_paged_attention(*args, **kw),
+               pa.torch_paged_attention(*args, **kw))
+        r = _time_decode(torch, pa, *args, kw)
+    else:
+        _check(torch, name, "main path", pa.cuda_ragged_prefill(*args, **kw),
+               pa.torch_ragged_prefill(*args, **kw))
+        r = _time_prefill(torch, pa, *args, kw)
+    _print_times({name: r})
+    return r
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace phases 4 and 8 with torch.profiler and print "
-                         "the device time by kernel")
+                    help="trace phases 4, 8 and 11 (its W8 run) with "
+                         "torch.profiler and print the device time by kernel")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -900,9 +1371,10 @@ def main():
     sys.path.insert(0, repo)
     import importlib
     from deepspeed_tpu_torch.ops import builder
-    # the module (ops/__init__ re-exports a function of the same name)
+    # the modules (ops/__init__ re-exports functions of the same names)
     pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
     fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+    wqm = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
     dev = "cuda:0"
 
     print("== phase 1: card, versions, kernel build", flush=True)
@@ -911,7 +1383,8 @@ def main():
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.perf_counter()
-    builder.build(["paged_attention", "ragged_prefill", "flash_attention"])
+    builder.build(["paged_attention", "ragged_prefill", "flash_attention",
+                   "wq_matmul"])
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in builder.build_log.items():
         regs = [int(w) for line in log.splitlines() if "Used" in line
@@ -929,21 +1402,53 @@ def main():
               "shapes, every variant", flush=True)
         results = phase_kernels(torch, pa, dev)
         torch.cuda.empty_cache()
+    if 9 in phases:
+        print("== phase 9: quantized kernels vs plain versions (#6-#8 at "
+              "every Llama-3-8B / GPT-2 product shape; int8-KV decode and "
+              "prefill)", flush=True)
+        phase_quant_kernels(torch, wqm, pa, dev)
+        torch.cuda.empty_cache()
     if 3 in phases:
         print("== phase 3: small-config parity, cuda vs cpu (fp32, TF32 off)",
               flush=True)
         phase_parity(torch, dev)
-    launches = {"paged_attention": None, "ragged_prefill": None}
+    if 10 in phases:
+        print("== phase 10: small-config quantized parity, cuda vs cpu (fp32, "
+              "TF32 off)", flush=True)
+        phase_quant_parity(torch, dev)
+    launches = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH
+                             + WQ + INT8)
+    params = outs = pool = None
     if 4 in phases:
         print("== phase 4: main path, InferenceEngineV2.generate at "
               "Llama-3-8B width", flush=True)
-        launches, calls, eng, e2e = phase_main(torch, pa, dev, card,
-                                               args.profile)
+        calls, eng, e2e, params, outs = phase_main(torch, pa, dev, card,
+                                                   args.profile)
+        launches.update((k, e2e["launches"][k])
+                        for k in ("paged_attention", "ragged_prefill"))
+        pool = e2e["kv_pool_gb"] * 1e9
         print("E2E " + json.dumps(e2e), flush=True)
         print("== phase 5: kernels vs plain versions on the main path's own "
               "inputs", flush=True)
         results = phase_main_inputs(torch, pa, calls, eng)
         del calls, eng
+        if 11 not in phases:
+            params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 11 in phases:
+        print("== phase 11: quantized main path, generate at full width "
+              "(Llama-3-8B W8 + int8 KV, Llama-3-8B W4, GPT-2 small W8 "
+              "tied); phase 12: each new kernel held and timed on its "
+              "heaviest main-path call", flush=True)
+        quant_results, e2es = phase_quant_main(
+            torch, wqm, pa, dev, card, params, outs, pool, args.profile)
+        params = None
+        for r in e2es:
+            print("E2E_QUANT " + json.dumps(r), flush=True)
+        for name, r in quant_results.items():
+            launches[name] = r.pop("launches")
+        results.update(quant_results)
         gc.collect()
         torch.cuda.empty_cache()
     if 6 in phases:
@@ -955,7 +1460,6 @@ def main():
         print("== phase 7: small-config training parity, cuda vs cpu (fp32, "
               "TF32 off)", flush=True)
         phase_train_parity(torch, dev)
-    launches.update(dict.fromkeys(FLASH))
     if 8 in phases:
         print("== phase 8: training main path, initialize -> train_batch at "
               "GPT-2-small width", flush=True)
@@ -970,10 +1474,20 @@ def main():
                 "ragged_prefill": "deepspeed_tpu/ops/paged_attention.py:546",
                 "flash_fwd": "deepspeed_tpu/ops/flash_attention.py:208",
                 "flash_dq": "deepspeed_tpu/ops/flash_attention.py:305",
-                "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:347"}
-    sources = dict.fromkeys(FLASH, "flash_attention")
+                "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:347",
+                "wq_matmul_t": "deepspeed_tpu/ops/wq_matmul.py:217",
+                "wq_matmul": "deepspeed_tpu/ops/wq_matmul.py:217",
+                "wq_matmul4": "deepspeed_tpu/ops/wq_matmul.py:250",
+                "paged_attention_int8":
+                "deepspeed_tpu/ops/paged_attention.py:152",
+                "ragged_prefill_int8":
+                "deepspeed_tpu/ops/paged_attention.py:546"}
+    sources = {**dict.fromkeys(FLASH, "flash_attention"),
+               **dict.fromkeys(WQ, "wq_matmul"),
+               "paged_attention_int8": "paged_attention",
+               "ragged_prefill_int8": "ragged_prefill"}
     kernels = []
-    for name in ("paged_attention", "ragged_prefill") + FLASH:
+    for name in ("paged_attention", "ragged_prefill") + FLASH + WQ + INT8:
         r = results.get(name, {})
         print("KERNEL " + json.dumps({
             "kernel": name, "shape": r.get("shape"), "ms": r.get("ms"),

@@ -26,6 +26,11 @@
 //     reductions give the scores in fp32, eight keys at a time, and the
 //     online softmax keeps m, l and acc in fp32 registers (one rescale per
 //     eight keys).
+//   - int8 pages (kv_quant, the TPU kernel's quant=True): the slab copied is
+//     the int8 codes (half the bf16 bytes — the bound halves with them) plus
+//     the page's [bs] fp32 scale rows of K and V; each row is dequantized in
+//     registers as it is read (code * scale rounded once to q's dtype, as
+//     the TPU kernel's _dequant_page), before the same score and P.V math.
 #include "paged_common.cuh"
 
 namespace dsk {
@@ -35,18 +40,22 @@ namespace dsk {
 // left the warp waiting on each reduction's latency)
 constexpr int kKeys = 8;
 
-template <typename T, int HD>
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(256) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ kpool, const T* __restrict__ vpool,
+    const T* __restrict__ q, const P* __restrict__ kpool, const P* __restrict__ vpool,
+    const float* __restrict__ kscale, const float* __restrict__ vscale,
     const int* __restrict__ block_table, const int* __restrict__ kv_lens,
     const float* __restrict__ slopes, T* __restrict__ out, float* __restrict__ part_acc,
     float* __restrict__ part_ml, int nkv, int g, int bs, int MB, int NS, float scale,
     int window) {
   constexpr int VEC = HD / 32;
+  constexpr bool kInt8 = !std::is_same<T, P>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int page_elems = bs * HD;
-  T* kbuf = reinterpret_cast<T*>(smem);  // [2][bs*HD]
-  T* vbuf = kbuf + 2 * page_elems;       // [2][bs*HD]
+  P* kbuf = reinterpret_cast<P*>(smem);  // [2][bs*HD]
+  P* vbuf = kbuf + 2 * page_elems;       // [2][bs*HD]
+  float* ksc = reinterpret_cast<float*>(vbuf + 2 * page_elems);  // int8: [2][bs]
+  float* vsc = ksc + 2 * bs;                                     // int8: [2][bs]
 
   const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
   const int gi = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -67,20 +76,26 @@ __global__ void __launch_bounds__(256) paged_decode_kernel(
   st.init();
   const int* bt = block_table + (size_t)s * MB;
 
-  if (n > 0) load_page(kbuf, vbuf, kpool, vpool, bt[p_start], h, nkv, page_elems);
+  auto fetch = [&](int buf, int page) {
+    if constexpr (kInt8) load_scales(ksc + buf * bs, vsc + buf * bs, kscale, vscale, page, h, nkv, bs);
+    load_page(kbuf + buf * page_elems, vbuf + buf * page_elems, kpool, vpool, page, h, nkv,
+              page_elems);
+  };
+  if (n > 0) fetch(0, bt[p_start]);
   for (int i = 0; i < n; ++i) {
     const int p = p_start + i;
     const int b = i & 1;
     if (i + 1 < n) {
-      load_page(kbuf + (b ^ 1) * page_elems, vbuf + (b ^ 1) * page_elems, kpool, vpool,
-                bt[p + 1], h, nkv, page_elems);
+      fetch(b ^ 1, bt[p + 1]);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* kb = kbuf + b * page_elems;
-    const T* vb = vbuf + b * page_elems;
+    const P* kb = kbuf + b * page_elems;
+    const P* vb = vbuf + b * page_elems;
+    const float* ks = ksc + b * bs;
+    const float* vs = vsc + b * bs;
     const int t0 = max(0, lo - p * bs);          // window: kvpos >= lo
     const int t1 = min(bs, length - p * bs);     // kvpos < length
     for (int t = t0; t < t1; t += kKeys) {
@@ -91,7 +106,7 @@ __global__ void __launch_bounds__(256) paged_decode_kernel(
         d[j] = 0.f;
         if (j < nk) {
           float kr[VEC];
-          load_vec<T, VEC>(kb + (t + j) * HD + lane * VEC, kr);
+          load_kv<T, P, VEC>(kb + (t + j) * HD + lane * VEC, kInt8 ? ks[t + j] : 1.f, kr);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) d[j] += qr[e] * kr[e];
         }
@@ -112,7 +127,7 @@ __global__ void __launch_bounds__(256) paged_decode_kernel(
       for (int j = 0; j < kKeys; ++j) {
         if (j < nk) {
           float vr[VEC];
-          load_vec<T, VEC>(vb + (t + j) * HD + lane * VEC, vr);
+          load_kv<T, P, VEC>(vb + (t + j) * HD + lane * VEC, kInt8 ? vs[t + j] : 1.f, vr);
           st.template add<T>(d[j], vr);
         }
       }
@@ -171,18 +186,19 @@ __global__ void split_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* bt,
-                   const int* lens, const float* slopes, void* out, float* part_acc,
-                   float* part_ml, int S, int nkv, int g, int bs, int MB, int NS,
-                   float scale, int window, cudaStream_t stream) {
-  const size_t smem = 4 * (size_t)bs * HD * sizeof(T);
-  auto kern = paged_decode_kernel<T, HD>;
-  cudaError_t err = allow_dynamic_smem<paged_decode_kernel<T, HD>>();
+template <typename T, typename P, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
+                   const float* vs, const int* bt, const int* lens, const float* slopes,
+                   void* out, float* part_acc, float* part_ml, int S, int nkv, int g, int bs,
+                   int MB, int NS, float scale, int window, cudaStream_t stream) {
+  const size_t smem = 4 * (size_t)bs * HD * sizeof(P) +
+                      (std::is_same<T, P>::value ? 0 : 4 * (size_t)bs * sizeof(float));
+  auto kern = paged_decode_kernel<T, P, HD>;
+  cudaError_t err = allow_dynamic_smem<paged_decode_kernel<T, P, HD>>();
   if (err != cudaSuccess) return err;
   kern<<<dim3(S, nkv, NS), g * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bt, lens,
-      slopes, static_cast<T*>(out), part_acc, part_ml, nkv, g, bs, MB, NS, scale, window);
+      static_cast<const T*>(q), static_cast<const P*>(k), static_cast<const P*>(v), ks, vs, bt,
+      lens, slopes, static_cast<T*>(out), part_acc, part_ml, nkv, g, bs, MB, NS, scale, window);
   err = cudaGetLastError();
   if (err != cudaSuccess || NS == 1) return err;
   split_combine_kernel<T><<<S * nkv * g, HD, (NS + 1) * sizeof(float), stream>>>(
@@ -190,35 +206,52 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* bt,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const int* bt,
-                      const int* lens, const float* slopes, void* out, float* pa, float* pm,
-                      int S, int nkv, int g, int bs, int MB, int NS, float scale, int window,
-                      cudaStream_t st) {
+template <typename T, typename P>
+cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const int* bt, const int* lens, const float* slopes,
+                      void* out, float* pa, float* pm, int S, int nkv, int g, int bs, int MB,
+                      int NS, float scale, int window, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
-    case 64: return launch<T, 64>(q, k, v, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
-    case 128: return launch<T, 128>(q, k, v, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
-    case 256: return launch<T, 256>(q, k, v, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
+    case 32: return launch<T, P, 32>(q, k, v, ks, vs, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
+    case 64: return launch<T, P, 64>(q, k, v, ks, vs, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
+    case 128: return launch<T, P, 128>(q, k, v, ks, vs, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
+    case 256: return launch<T, P, 256>(q, k, v, ks, vs, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// int8 pages (quant != 0) or pages of q's type
+template <typename T>
+cudaError_t launch_pages(int quant, int hd, const void* q, const void* k, const void* v,
+                         const float* ks, const float* vs, const int* bt, const int* lens,
+                         const float* slopes, void* out, float* pa, float* pm, int S, int nkv,
+                         int g, int bs, int MB, int NS, float scale, int window,
+                         cudaStream_t st) {
+  if (quant)
+    return launch_hd<T, int8_t>(hd, q, k, v, ks, vs, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
+  return launch_hd<T, T>(hd, q, k, v, ks, vs, bt, lens, slopes, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st);
+}
+
 }  // namespace dsk
 
-// q [S, nkv, g, hd]; k_pages/v_pages [NB, nkv, bs, hd]; block_table [S, MB]
-// int32; kv_lens [S] int32; slopes [nkv*g] fp32 or null; out [S, nkv, g, hd];
-// part_acc [S, nkv, NS, g, hd] and part_ml [S, nkv, NS, g, 2] fp32 scratch
-// (unused when NS == 1).  dtype: 0 fp32, 1 fp16, 2 bf16.  window <= 0: none.
+// q [S, nkv, g, hd]; k_pages/v_pages [NB, nkv, bs, hd] of q's type, or
+// int8 (quant != 0) with k_scale/v_scale [NB, nkv, bs] fp32; block_table
+// [S, MB] int32; kv_lens [S] int32; slopes [nkv*g] fp32 or null; out [S, nkv,
+// g, hd]; part_acc [S, nkv, NS, g, hd] and part_ml [S, nkv, NS, g, 2] fp32
+// scratch (unused when NS == 1).  dtype (of q): 0 fp32, 1 fp16, 2 bf16.
+// window <= 0: none.
 extern "C" int ds_paged_attention(const void* q, const void* k_pages, const void* v_pages,
+                                  const void* k_scale, const void* v_scale,
                                   const void* block_table, const void* kv_lens,
                                   const void* slopes, void* out, void* part_acc,
                                   void* part_ml, int S, int nkv, int g, int hd, int bs,
-                                  int MB, int NS, float scale, int window, int dtype,
+                                  int MB, int NS, float scale, int window, int dtype, int quant,
                                   void* stream) {
   if (g < 1 || g > 8 || NS < 1 || bs < 1) return (int)cudaErrorInvalidValue;
   if (S == 0 || nkv == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
+  auto ks = static_cast<const float*>(k_scale);
+  auto vs = static_cast<const float*>(v_scale);
   auto bt = static_cast<const int*>(block_table);
   auto lens = static_cast<const int*>(kv_lens);
   auto sl = static_cast<const float*>(slopes);
@@ -226,9 +259,9 @@ extern "C" int ds_paged_attention(const void* q, const void* k_pages, const void
   auto pm = static_cast<float*>(part_ml);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = dsk::launch_hd<float>(hd, q, k_pages, v_pages, bt, lens, sl, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st); break;
-    case 1: err = dsk::launch_hd<__half>(hd, q, k_pages, v_pages, bt, lens, sl, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st); break;
-    case 2: err = dsk::launch_hd<__nv_bfloat16>(hd, q, k_pages, v_pages, bt, lens, sl, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st); break;
+    case 0: err = dsk::launch_pages<float>(quant, hd, q, k_pages, v_pages, ks, vs, bt, lens, sl, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st); break;
+    case 1: err = dsk::launch_pages<__half>(quant, hd, q, k_pages, v_pages, ks, vs, bt, lens, sl, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st); break;
+    case 2: err = dsk::launch_pages<__nv_bfloat16>(quant, hd, q, k_pages, v_pages, ks, vs, bt, lens, sl, out, pa, pm, S, nkv, g, bs, MB, NS, scale, window, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

@@ -1,15 +1,21 @@
-// Shared device code of the paged-KV attention kernels (paged_attention.cu,
-// ragged_prefill.cu): dtype traits, vectorised row loads, the cp.async page
-// copy, the per-row online-softmax state and the mma.sync tile helpers.
+// Shared device code of the port's kernels (paged_attention.cu,
+// ragged_prefill.cu, flash_attention.cu, wq_matmul.cu): dtype traits,
+// vectorised row loads, the cp.async page copy, the per-row online-softmax
+// state and the mma.sync tile helpers.
 //
 // Page layout (standard, the only one the port uses): [NB, nkv, bs, hd];
-// one (page, kv head) slab is bs*hd contiguous elements.
+// one (page, kv head) slab is bs*hd contiguous elements.  int8 pages
+// (kv_quant) carry a [NB, nkv, bs] fp32 scale pool beside them: one scale
+// per (page, head, token), dequantized as the JAX package's _dequant_page
+// does — an fp32 product code * scale rounded once to the compute dtype.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace dsk {
 
@@ -36,8 +42,15 @@ template <> struct Bits<__nv_bfloat16> {
   static __device__ __forceinline__ float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 };
 
+// int8 KV codes: read as floats, dequantized by the caller (load_kv)
+template <> struct Bits<int8_t> {
+  using U = signed char;
+  static __device__ __forceinline__ float to_f(U u) { return (float)u; }
+};
+
 // widest word that divides a VEC-element row slice
 template <int BYTES> struct Word { using W = unsigned short; };
+template <> struct Word<1> { using W = unsigned char; };
 template <> struct Word<4> { using W = unsigned int; };
 template <> struct Word<8> { using W = uint2; };
 template <> struct Word<16> { using W = uint4; };
@@ -59,6 +72,17 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[V
   for (int i = 0; i < VEC; ++i) out[i] = Bits<T>::to_f(buf.u[i]);
 }
 
+// One K or V row slice of a page held as P (= T, or int8 codes with the
+// token's scale sc) as floats of T's precision.
+template <typename T, typename P, int VEC>
+__device__ __forceinline__ void load_kv(const P* __restrict__ p, float sc, float (&out)[VEC]) {
+  load_vec<P, VEC>(p, out);
+  if constexpr (!std::is_same<T, P>::value) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) out[i] = Bits<T>::round(out[i] * sc);
+  }
+}
+
 template <typename T, int VEC>
 __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VEC], float mul) {
 #pragma unroll
@@ -71,8 +95,24 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// The [bs] fp32 scale rows of one (page, kv head) of K and V (int8 pages);
+// issued before the page's load_page, which commits them in its group.
+__device__ __forceinline__ void load_scales(float* kdst, float* vdst, const float* __restrict__ kpool,
+                                            const float* __restrict__ vpool, int page, int h,
+                                            int nkv, int bs) {
+  const size_t base = ((size_t)page * nkv + h) * (size_t)bs;
+  for (int t = threadIdx.x; t < bs; t += blockDim.x) {
+    cp_async4(kdst + t, kpool + base + t);
+    cp_async4(vdst + t, vpool + base + t);
+  }
+}
 
 // The whole block copies one (page, kv head) slab of K and V (bs*hd elements
 // each, contiguous in the pool) into shared memory and commits one group.
@@ -168,6 +208,12 @@ template <> struct Mma<__half> {
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
+
+// four values rounded to T (16-bit; nearest even), one 8-byte store
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(Mma<T>::pack(v[0], v[1]), Mma<T>::pack(v[2], v[3]));
+}
 
 // Lift a kernel's dynamic shared memory cap to the device's opt-in maximum,
 // once per kernel instantiation (the launch itself asks for what it needs).

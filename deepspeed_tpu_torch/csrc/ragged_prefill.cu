@@ -32,6 +32,12 @@
 //     reductions give the fp32 scores and each row keeps its own online
 //     softmax (m, l, acc) in registers; rows that cannot see a key skip it
 //     (masking without -inf).  Tensor-core version: see below.
+//   - int8 pages (kv_quant, the TPU kernel's quant=True): the copied slab
+//     is the int8 codes plus the page's [bs] fp32 scale rows of K and V,
+//     dequantized as the TPU kernel's _dequant_page (code * scale rounded
+//     once to q's dtype) — in registers as rows are read (CUDA-core), or by
+//     the whole block into the padded 16-bit K/V tiles the B fragments read
+//     (tensor cores), while the next page's codes stream in.
 #include "paged_common.cuh"
 
 namespace dsk {
@@ -39,19 +45,23 @@ namespace dsk {
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 8;  // 64 query-head rows per block
 
-template <typename T, int HD>
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(kWarps * 32) ragged_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ kpool, const T* __restrict__ vpool,
+    const T* __restrict__ q, const P* __restrict__ kpool, const P* __restrict__ vpool,
+    const float* __restrict__ kscale, const float* __restrict__ vscale,
     const int* __restrict__ block_table, const int* __restrict__ kv_lens,
     const int* __restrict__ q_starts, const int* __restrict__ q_counts,
     const float* __restrict__ slopes, T* __restrict__ out, int Q, int nkv, int g, int cq,
     int bs, int MB, float scale, int window) {
   constexpr int VEC = HD / 32;
   constexpr int RPW = kRowsPerWarp;
+  constexpr bool kInt8 = !std::is_same<T, P>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int page_elems = bs * HD;
-  T* kbuf = reinterpret_cast<T*>(smem);  // [2][bs*HD]
-  T* vbuf = kbuf + 2 * page_elems;       // [2][bs*HD]
+  P* kbuf = reinterpret_cast<P*>(smem);  // [2][bs*HD]
+  P* vbuf = kbuf + 2 * page_elems;       // [2][bs*HD]
+  float* ksc = reinterpret_cast<float*>(vbuf + 2 * page_elems);  // int8: [2][bs]
+  float* vsc = ksc + 2 * bs;                                     // int8: [2][bs]
 
   const int s = blockIdx.x, h = blockIdx.y, c = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -101,25 +111,31 @@ __global__ void __launch_bounds__(kWarps * 32) ragged_prefill_kernel(
   }
   const int* bt = block_table + (size_t)s * MB;
 
-  if (n > 0) load_page(kbuf, vbuf, kpool, vpool, bt[p_start], h, nkv, page_elems);
+  auto fetch = [&](int buf, int page) {
+    if constexpr (kInt8) load_scales(ksc + buf * bs, vsc + buf * bs, kscale, vscale, page, h, nkv, bs);
+    load_page(kbuf + buf * page_elems, vbuf + buf * page_elems, kpool, vpool, page, h, nkv,
+              page_elems);
+  };
+  if (n > 0) fetch(0, bt[p_start]);
   for (int it = 0; it < n; ++it) {
     const int p = p_start + it;
     const int b = it & 1;
     if (it + 1 < n) {
-      load_page(kbuf + (b ^ 1) * page_elems, vbuf + (b ^ 1) * page_elems, kpool, vpool,
-                bt[p + 1], h, nkv, page_elems);
+      fetch(b ^ 1, bt[p + 1]);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* kb = kbuf + b * page_elems;
-    const T* vb = vbuf + b * page_elems;
+    const P* kb = kbuf + b * page_elems;
+    const P* vb = vbuf + b * page_elems;
+    const float* ks = ksc + b * bs;
+    const float* vs = vsc + b * bs;
     const int t1 = min(min(bs, length - p * bs), warp_max_pos + 1 - p * bs);
     for (int t = 0; t < t1; ++t) {
       const int kvpos = p * bs + t;
       float kr[VEC], vr[VEC], d[RPW];
-      load_vec<T, VEC>(kb + t * HD + lane * VEC, kr);
+      load_kv<T, P, VEC>(kb + t * HD + lane * VEC, kInt8 ? ks[t] : 1.f, kr);
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
         float a = 0.f;
@@ -132,7 +148,7 @@ __global__ void __launch_bounds__(kWarps * 32) ragged_prefill_kernel(
 #pragma unroll
         for (int i = 0; i < RPW; ++i) d[i] += __shfl_xor_sync(0xffffffffu, d[i], o);
       }
-      load_vec<T, VEC>(vb + t * HD + lane * VEC, vr);
+      load_kv<T, P, VEC>(vb + t * HD + lane * VEC, kInt8 ? vs[t] : 1.f, vr);
 #pragma unroll
       for (int i = 0; i < RPW; ++i) {
         const bool valid = live[i] && kvpos <= qpos[i] &&
@@ -185,9 +201,30 @@ __device__ __forceinline__ void load_page_padded(T* kdst, T* vdst, const T* __re
   cp_async_commit();
 }
 
+// int8 pages: the block dequantizes one staged page (codes [bs][HD] and the
+// [bs] scale rows) into the padded 16-bit K/V tiles, four values a step.
 template <typename T, int HD>
+__device__ __forceinline__ void dequant_page_padded(const int8_t* k8, const int8_t* v8,
+                                                    const float* ks, const float* vs, T* kt,
+                                                    T* vt, int bs) {
+  constexpr int LD = HD + 8;
+  constexpr int Q4 = HD / 4;
+  for (int i = threadIdx.x; i < bs * Q4; i += blockDim.x) {
+    const int t = i / Q4, d = (i % Q4) * 4;
+    const char4 kc = *reinterpret_cast<const char4*>(k8 + t * HD + d);
+    const char4 vc = *reinterpret_cast<const char4*>(v8 + t * HD + d);
+    const float a = ks[t], b = vs[t];
+    const float kf[4] = {(float)kc.x * a, (float)kc.y * a, (float)kc.z * a, (float)kc.w * a};
+    const float vf[4] = {(float)vc.x * b, (float)vc.y * b, (float)vc.z * b, (float)vc.w * b};
+    store4<T>(kt + t * LD + d, kf);
+    store4<T>(vt + t * LD + d, vf);
+  }
+}
+
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(kMmaWarps * 32) ragged_prefill_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ kpool, const T* __restrict__ vpool,
+    const T* __restrict__ q, const P* __restrict__ kpool, const P* __restrict__ vpool,
+    const float* __restrict__ kscale, const float* __restrict__ vscale,
     const int* __restrict__ block_table, const int* __restrict__ kv_lens,
     const int* __restrict__ q_starts, const int* __restrict__ q_counts,
     const float* __restrict__ slopes, T* __restrict__ out, int Q, int nkv, int g, int cq,
@@ -195,9 +232,19 @@ __global__ void __launch_bounds__(kMmaWarps * 32) ragged_prefill_mma_kernel(
   constexpr int KSTEPS = HD / 16;  // k-steps of S = Q·Kᵀ over head_dim
   constexpr int DTILES = HD / 8;   // 8-wide output tiles over head_dim
   constexpr int LD = HD + 8;       // padded shared-memory row (elements)
+  constexpr bool kInt8 = !std::is_same<T, P>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kbuf = reinterpret_cast<T*>(smem);  // [2][bs*LD]
-  T* vbuf = kbuf + 2 * bs * LD;          // [2][bs*LD]
+  // 16-bit pages: [2][bs*LD] K and V tiles, filled by cp.async.  int8
+  // pages: [2][bs*HD] staged codes of K and V, [2][bs] scales of each, then
+  // one [bs*LD] dequantized K and V tile.
+  T* kbuf = reinterpret_cast<T*>(smem);
+  T* vbuf = kbuf + 2 * bs * LD;
+  int8_t* k8 = reinterpret_cast<int8_t*>(smem);
+  int8_t* v8 = k8 + 2 * bs * HD;
+  float* ksc = reinterpret_cast<float*>(v8 + 2 * bs * HD);
+  float* vsc = ksc + 2 * bs;
+  T* kt = reinterpret_cast<T*>(vsc + 2 * bs);
+  T* vt = kt + bs * LD;
 
   const int s = blockIdx.x, h = blockIdx.y, c = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -259,20 +306,38 @@ __global__ void __launch_bounds__(kMmaWarps * 32) ragged_prefill_mma_kernel(
   }
   const int* bt = block_table + (size_t)s * MB;
 
-  if (n > 0) load_page_padded<T, HD>(kbuf, vbuf, kpool, vpool, bt[p_start], h, nkv, bs);
+  auto fetch = [&](int buf, int page) {
+    if constexpr (kInt8) {
+      load_scales(ksc + buf * bs, vsc + buf * bs, kscale, vscale, page, h, nkv, bs);
+      load_page(k8 + buf * bs * HD, v8 + buf * bs * HD, kpool, vpool, page, h, nkv, bs * HD);
+    } else {
+      load_page_padded<T, HD>(kbuf + buf * bs * LD, vbuf + buf * bs * LD, kpool, vpool, page,
+                              h, nkv, bs);
+    }
+  };
+  if (n > 0) fetch(0, bt[p_start]);
   for (int it = 0; it < n; ++it) {
     const int p = p_start + it;
     const int b = it & 1;
     if (it + 1 < n) {
-      load_page_padded<T, HD>(kbuf + (b ^ 1) * bs * LD, vbuf + (b ^ 1) * bs * LD, kpool,
-                              vpool, bt[p + 1], h, nkv, bs);
+      fetch(b ^ 1, bt[p + 1]);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
     const T* kb = kbuf + b * bs * LD;
-    const unsigned short* vraw = reinterpret_cast<const unsigned short*>(vbuf + b * bs * LD);
+    const T* vb = vbuf + b * bs * LD;
+    if constexpr (kInt8) {
+      // the previous page's tiles were last read before the loop's closing
+      // barrier; staging buffer b^1 was last read before the barrier below
+      dequant_page_padded<T, HD>(k8 + b * bs * HD, v8 + b * bs * HD, ksc + b * bs,
+                                 vsc + b * bs, kt, vt, bs);
+      __syncthreads();
+      kb = kt;
+      vb = vt;
+    }
+    const unsigned short* vraw = reinterpret_cast<const unsigned short*>(vb);
     for (int t0 = 0; t0 < bs; t0 += 16) {
       const int kv0 = p * bs + t0;
       if (kv0 > warp_max || kv0 >= length) break;             // causal / length end
@@ -361,64 +426,83 @@ __global__ void __launch_bounds__(kMmaWarps * 32) ragged_prefill_mma_kernel(
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* bt,
-                   const int* lens, const int* starts, const int* counts,
-                   const float* slopes, void* out, int S, int Q, int nkv, int g, int cq,
-                   int bs, int MB, float scale, int window, cudaStream_t stream) {
+template <typename T, typename P, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
+                   const float* vs, const int* bt, const int* lens, const int* starts,
+                   const int* counts, const float* slopes, void* out, int S, int Q, int nkv,
+                   int g, int cq, int bs, int MB, float scale, int window, cudaStream_t stream) {
+  constexpr bool kInt8 = !std::is_same<T, P>::value;
   const int chunks = (Q + cq - 1) / cq;
   const dim3 grid(S, nkv, chunks);
   if constexpr (sizeof(T) == 2 && HD <= 128) {
     if (bs % 16 == 0) {  // tensor-core tiles
-      const size_t smem = 4 * (size_t)bs * (HD + 8) * sizeof(T);
-      cudaError_t err = allow_dynamic_smem<ragged_prefill_mma_kernel<T, HD>>();
+      const size_t smem = kInt8 ? 4 * (size_t)bs * HD + 16 * (size_t)bs +
+                                      2 * (size_t)bs * (HD + 8) * sizeof(T)
+                                : 4 * (size_t)bs * (HD + 8) * sizeof(T);
+      cudaError_t err = allow_dynamic_smem<ragged_prefill_mma_kernel<T, P, HD>>();
       if (err != cudaSuccess) return err;
-      ragged_prefill_mma_kernel<T, HD><<<grid, kMmaWarps * 32, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bt,
-          lens, starts, counts, slopes, static_cast<T*>(out), Q, nkv, g, cq, bs, MB, scale,
+      ragged_prefill_mma_kernel<T, P, HD><<<grid, kMmaWarps * 32, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const P*>(k), static_cast<const P*>(v), ks, vs,
+          bt, lens, starts, counts, slopes, static_cast<T*>(out), Q, nkv, g, cq, bs, MB, scale,
           window);
       return cudaGetLastError();
     }
   }
-  const size_t smem = 4 * (size_t)bs * HD * sizeof(T);
-  cudaError_t err = allow_dynamic_smem<ragged_prefill_kernel<T, HD>>();
+  const size_t smem = 4 * (size_t)bs * HD * sizeof(P) + (kInt8 ? 16 * (size_t)bs : 0);
+  cudaError_t err = allow_dynamic_smem<ragged_prefill_kernel<T, P, HD>>();
   if (err != cudaSuccess) return err;
-  ragged_prefill_kernel<T, HD><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bt, lens,
-      starts, counts, slopes, static_cast<T*>(out), Q, nkv, g, cq, bs, MB, scale, window);
+  ragged_prefill_kernel<T, P, HD><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k), static_cast<const P*>(v), ks, vs, bt,
+      lens, starts, counts, slopes, static_cast<T*>(out), Q, nkv, g, cq, bs, MB, scale, window);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const int* bt,
-                      const int* lens, const int* starts, const int* counts,
-                      const float* slopes, void* out, int S, int Q, int nkv, int g, int cq,
-                      int bs, int MB, float scale, int window, cudaStream_t st) {
+template <typename T, typename P>
+cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, const float* ks,
+                      const float* vs, const int* bt, const int* lens, const int* starts,
+                      const int* counts, const float* slopes, void* out, int S, int Q, int nkv,
+                      int g, int cq, int bs, int MB, float scale, int window, cudaStream_t st) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
-    case 64: return launch<T, 64>(q, k, v, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
-    case 128: return launch<T, 128>(q, k, v, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
-    case 256: return launch<T, 256>(q, k, v, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
+    case 32: return launch<T, P, 32>(q, k, v, ks, vs, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
+    case 64: return launch<T, P, 64>(q, k, v, ks, vs, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
+    case 128: return launch<T, P, 128>(q, k, v, ks, vs, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
+    case 256: return launch<T, P, 256>(q, k, v, ks, vs, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// int8 pages (quant != 0) or pages of q's type
+template <typename T>
+cudaError_t launch_pages(int quant, int hd, const void* q, const void* k, const void* v,
+                         const float* ks, const float* vs, const int* bt, const int* lens,
+                         const int* starts, const int* counts, const float* slopes, void* out,
+                         int S, int Q, int nkv, int g, int cq, int bs, int MB, float scale,
+                         int window, cudaStream_t st) {
+  if (quant)
+    return launch_hd<T, int8_t>(hd, q, k, v, ks, vs, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
+  return launch_hd<T, T>(hd, q, k, v, ks, vs, bt, lens, starts, counts, slopes, out, S, Q, nkv, g, cq, bs, MB, scale, window, st);
+}
+
 }  // namespace dsk
 
-// q [S, Q, nkv, g, hd]; k_pages/v_pages [NB, nkv, bs, hd]; block_table
+// q [S, Q, nkv, g, hd]; k_pages/v_pages [NB, nkv, bs, hd] of q's type, or
+// int8 (quant != 0) with k_scale/v_scale [NB, nkv, bs] fp32; block_table
 // [S, MB] int32; kv_lens, q_starts, q_counts [S] int32; slopes [nkv*g] fp32
 // or null; out [S, Q, nkv, g, hd].  cq: query tokens per block, cq*g <= 64.
-// dtype: 0 fp32, 1 fp16, 2 bf16.  window <= 0: none.
+// dtype (of q): 0 fp32, 1 fp16, 2 bf16.  window <= 0: none.
 extern "C" int ds_ragged_prefill(const void* q, const void* k_pages, const void* v_pages,
+                                 const void* k_scale, const void* v_scale,
                                  const void* block_table, const void* kv_lens,
                                  const void* q_starts, const void* q_counts,
                                  const void* slopes, void* out, int S, int Q, int nkv, int g,
                                  int hd, int bs, int MB, int cq, float scale, int window,
-                                 int dtype, void* stream) {
+                                 int dtype, int quant, void* stream) {
   if (g < 1 || cq < 1 || cq * g > dsk::kWarps * dsk::kRowsPerWarp || bs < 1)
     return (int)cudaErrorInvalidValue;
   if (S == 0 || Q == 0 || nkv == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
+  auto ks = static_cast<const float*>(k_scale);
+  auto vs = static_cast<const float*>(v_scale);
   auto bt = static_cast<const int*>(block_table);
   auto lens = static_cast<const int*>(kv_lens);
   auto starts = static_cast<const int*>(q_starts);
@@ -426,9 +510,9 @@ extern "C" int ds_ragged_prefill(const void* q, const void* k_pages, const void*
   auto sl = static_cast<const float*>(slopes);
   cudaError_t err;
   switch (dtype) {
-    case 0: err = dsk::launch_hd<float>(hd, q, k_pages, v_pages, bt, lens, starts, counts, sl, out, S, Q, nkv, g, cq, bs, MB, scale, window, st); break;
-    case 1: err = dsk::launch_hd<__half>(hd, q, k_pages, v_pages, bt, lens, starts, counts, sl, out, S, Q, nkv, g, cq, bs, MB, scale, window, st); break;
-    case 2: err = dsk::launch_hd<__nv_bfloat16>(hd, q, k_pages, v_pages, bt, lens, starts, counts, sl, out, S, Q, nkv, g, cq, bs, MB, scale, window, st); break;
+    case 0: err = dsk::launch_pages<float>(quant, hd, q, k_pages, v_pages, ks, vs, bt, lens, starts, counts, sl, out, S, Q, nkv, g, cq, bs, MB, scale, window, st); break;
+    case 1: err = dsk::launch_pages<__half>(quant, hd, q, k_pages, v_pages, ks, vs, bt, lens, starts, counts, sl, out, S, Q, nkv, g, cq, bs, MB, scale, window, st); break;
+    case 2: err = dsk::launch_pages<__nv_bfloat16>(quant, hd, q, k_pages, v_pages, ks, vs, bt, lens, starts, counts, sl, out, S, Q, nkv, g, cq, bs, MB, scale, window, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;

@@ -16,11 +16,16 @@ stays on the device: every step samples there and the next step reads its
 input tokens from the previous step's output, so the host learns token
 VALUES only at ``materialize`` — one ``.cpu()`` per sync point.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): weight quantization (``quant``), LoRA ``adapters``,
-speculative decoding (``speculative`` / ``draft_model``), tensor
-parallelism (``tensor_parallel.tp_size > 1``), int8 KV
-(``state_manager.kv_quant``), the radix prefix cache
+Quantized serving: the ``quant`` block (``enabled``, ``bits`` 8 or 4,
+``group_size``) packs the weights into int8 / nibble-packed stores at
+construction, with the JAX engine's packing policy rule for rule, and the
+engine then holds only the store; ``state_manager.kv_quant="int8"`` keeps
+the KV pool as int8 codes with per-token fp32 scales.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): LoRA ``adapters``, speculative decoding (``speculative`` /
+``draft_model``), tensor parallelism (``tensor_parallel.tp_size > 1``, and
+with it quantized tensor-parallel serving), the radix prefix cache
 (``state_manager.prefix_cache``), SLA scheduling (``scheduler``), serving
 ``telemetry``, MoE models and HF model directories.
 """
@@ -50,6 +55,9 @@ from deepspeed_tpu_torch.inference.v2.ragged import (DSStateManager,
                                                      RaggedBatch,
                                                      build_ragged_batch)
 from deepspeed_tpu_torch.models.gpt import count_params, init_params
+from deepspeed_tpu_torch.ops.quantization import (quantize_weight,
+                                                  quantize_weight4,
+                                                  weight_group_size)
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
@@ -71,7 +79,7 @@ class DSStateManagerConfig(DeepSpeedConfigModel):
     kv_block_size: int = 64
     num_kv_blocks: Optional[int] = None     # None = enough for all slots full
     max_q_per_seq: int = 128                # prompt-chunk cap (SplitFuse)
-    kv_quant: Optional[str] = None          # not ported: must stay None
+    kv_quant: Optional[str] = None          # None or "int8" (int8 KV pages)
     prefix_cache: bool = False              # not ported: must stay False
     # SplitFuse cap on prompt-chunk tokens co-scheduled per forward
     # (None = the full remaining token budget)
@@ -84,14 +92,26 @@ class V2TPConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class V2QuantConfig(DeepSpeedConfigModel):
+    """Quantized weight serving (JAX engine_v2.py:141): weights live on the
+    card as int8 codes (``bits`` 8) or nibble-packed 4-bit codes (``bits``
+    4) with fp32 scales per ``group_size`` along the grouped dim."""
+
+    enabled: bool = False
+    bits: int = 8
+    group_size: int = 128
+
+
+@dataclasses.dataclass
 class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
     """reference: inference/v2/config_v2.py RaggedInferenceEngineConfig.
-    The blocks this slice does not port (quant, adapters, speculative,
+    The blocks the port does not have yet (adapters, speculative,
     telemetry, scheduler) are accepted only absent or empty; the engine
     raises otherwise."""
 
     dtype: str = "bfloat16"
     tensor_parallel: V2TPConfig = dataclasses.field(default_factory=V2TPConfig)
+    quant: V2QuantConfig = dataclasses.field(default_factory=V2QuantConfig)
     state_manager: DSStateManagerConfig = dataclasses.field(
         default_factory=DSStateManagerConfig)
     generation: GenerationConfig = dataclasses.field(
@@ -117,7 +137,6 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
 
 # unported config blocks → the ROADMAP item that ports them
 _UNPORTED_BLOCKS = {
-    "quant": "quantized serving (wq_matmul kernels)",
     "adapters": "multi-tenant LoRA (lora_matmul kernel)",
     "speculative": "speculative decode on the torch engine",
     "telemetry": "serving telemetry on the torch engine",
@@ -133,15 +152,64 @@ def _check_unported(config: RaggedInferenceEngineConfig) -> None:
                 None, {}, {"enabled": False}, {"sla_classes": {}}):
             raise _unported(f"the {block!r} config block", item)
     sm = config.state_manager
+    qc = config.quant
+    if qc.enabled and config.tensor_parallel.tp_size > 1:
+        raise _unported("quant with tensor_parallel.tp_size > 1",
+                        "A.8 multi-GPU parallelism (wq_matmul_tp)")
     if config.tensor_parallel.tp_size > 1:
         raise _unported("tensor_parallel.tp_size > 1",
                         "multi-GPU parallelism")
-    if sm.kv_quant is not None:
-        raise _unported("state_manager.kv_quant",
-                        "int8-KV paged kernels with quantize_kv_token")
+    if qc.enabled and qc.bits not in (8, 4):
+        raise ValueError(f"quant.bits must be 8 or 4, got {qc.bits}")
+    if sm.kv_quant not in (None, "int8"):
+        raise ValueError(f"unsupported kv_quant {sm.kv_quant!r}; use 'int8'")
     if sm.prefix_cache:
         raise _unported("state_manager.prefix_cache",
                         "prefix cache on the torch engine")
+
+
+def _pack_leaf(name: str, p: torch.Tensor, qc: V2QuantConfig, tied: bool):
+    """The JAX engine's packing policy (engine_v2.py:321-376), rule for
+    rule: one leaf -> a store, or the leaf unchanged."""
+    gs = qc.group_size
+    pack4 = qc.bits == 4
+    # wpe: the positional gather stays direct; gate: an MoE router's
+    # discrete top-k decisions must not see rounding
+    if (name in ("wpe", "gate") or not p.is_floating_point()
+            or p.dim() < 2 or p.numel() < 8 * gs):
+        return p
+    if name == "wte" and not weight_group_size((p.shape[0],), gs):
+        # an odd vocabulary (GPT-2's 50257) cannot group along dim 0: pad
+        # the table with zero rows to the group (even for 4 bits); tied
+        # logits are sliced back to vocab_size (model._logits_out)
+        gpad = -(-p.shape[0] // gs) * gs
+        if pack4:
+            gpad = -(-gpad // 2) * 2
+        p = torch.cat([p, p.new_zeros((gpad - p.shape[0],)
+                                      + tuple(p.shape[1:]))])
+    # attention wo [heads, hd, H] groups along dim 1 first (its 2-D kernel
+    # view needs it); everything else along dim 0 first
+    cand = (1, 0) if (p.dim() == 3 and name == "wo") else range(p.dim() - 1)
+    for dim in cand:
+        if weight_group_size((p.shape[dim],), gs):
+            if (pack4 and dim == 0 and p.shape[0] % 2 == 0
+                    and not (name == "wte" and tied)):
+                # a tied table stays int8: the transposed unembed kernel
+                # has no packed variant
+                return quantize_weight4(p, group=gs)
+            return quantize_weight(p, bits=qc.bits, group=gs, dim=dim)
+    return p
+
+
+def _pack_tree(tree, qc: V2QuantConfig, tied: bool):
+    """Pack every leaf of ``tree`` in place of its tensor (the tree is the
+    engine's own copy, so each full-precision leaf is freed as it goes)."""
+    for k in list(tree):
+        if isinstance(tree[k], dict):
+            tree[k] = _pack_tree(tree[k], qc, tied)
+        else:
+            tree[k] = _pack_leaf(k, tree[k], qc, tied)
+    return tree
 
 
 @dataclasses.dataclass
@@ -209,6 +277,13 @@ class InferenceEngineV2:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(model_cfg, gen, self.device, dt)
         self.params = self._cast_tree(params, dt)
+        del params
+        if self.config.quant.enabled:
+            # cast to the engine dtype first, then quantize (as the JAX
+            # engine does); each leaf's full-precision tensor is dropped as
+            # its store is made, so the engine at rest holds only the store
+            self.params = _pack_tree(self.params, self.config.quant,
+                                     model_cfg.tie_embeddings)
 
         blocks_per_seq = -(-model_cfg.max_seq_len // sm.kv_block_size)
         num_blocks = (sm.num_kv_blocks
@@ -218,7 +293,8 @@ class InferenceEngineV2:
             num_blocks=num_blocks, block_size=sm.kv_block_size,
             max_seq_len=model_cfg.max_seq_len)
         self.cache = PagedKVCache.create(model_cfg, num_blocks,
-                                         sm.kv_block_size, dt, self.device)
+                                         sm.kv_block_size, dt, self.device,
+                                         quant=sm.kv_quant)
         self._block_size = sm.kv_block_size
         # recompute-preemption observability: victims taken in steady decode
         # vs mid-(re-)prefill (the latter must keep fold state)
@@ -234,6 +310,10 @@ class InferenceEngineV2:
     def _cast_tree(self, tree, dtype):
         out = {}
         for k, v in tree.items():
+            if isinstance(v, dict) and set(v) in ({"v", "s"}, {"v4", "s"}):
+                raise TypeError(f"param {k!r} is already a quantized store: "
+                                f"pass the unquantized tree and the quant "
+                                f"config block")
             if isinstance(v, dict):
                 out[k] = self._cast_tree(v, dtype)
             elif not isinstance(v, torch.Tensor):

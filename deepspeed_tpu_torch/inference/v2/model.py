@@ -10,6 +10,17 @@ plain copy.  Products are ``torch.matmul``, as the JAX package left them to
 XLA; attention goes through the ops registry (ops/paged_attention.py): the
 hand-written CUDA kernels for CUDA tensors, the plain versions on the CPU.
 
+Quantized serving (the engine's ``quant`` block): a weight leaf may be a
+store (ops/quantization.py, ``{"v", "s"}`` int8 or ``{"v4", "s"}``
+nibble-packed).  The routing is the JAX model's: every 2-D store (and the
+free 2-D views of the q/k/v and attention-out stores) goes to the
+quantized-weight matmul ops (ops/wq_matmul.py: the CUDA kernels on the
+card), the tied unembed to ``wq_matmul_t``; whatever the JAX model
+dequantizes at its use site (``_w``) is dequantized here too.  int8 KV
+(``kv_quant="int8"``): K/V are quantized per token as they are written
+(``quantize_kv_token``) and the attention ops read int8 pages with their
+scale pools.
+
 Where the JAX code relies on buffer donation, this one updates in place:
 the KV pool is ONE preallocated tensor, every layer writes its new K/V
 through views of it, and each layer's attention gets the contiguous slice
@@ -31,29 +42,71 @@ from deepspeed_tpu_torch import ops
 from deepspeed_tpu_torch.models.gpt import (GPTConfig, alibi_slopes,
                                             mlp_activation, rope)
 from deepspeed_tpu_torch.ops.norms import LN_EPS, RMS_EPS
+from deepspeed_tpu_torch.ops.quantization import (_store_dim,
+                                                  dequantize_weight,
+                                                  dequantize_weight4,
+                                                  is_quantized_weight,
+                                                  is_quantized_weight4,
+                                                  quantized_codes,
+                                                  unpack_nibbles)
+from deepspeed_tpu_torch.ops.wq_matmul import store_as_2d
+
+
+def quantize_kv_token(x):
+    """Per-token symmetric int8: x [..., hd] -> (codes int8 [..., hd],
+    scales fp32 [...]) with amax-over-head-dim granularity (JAX
+    model.py:31, formula for formula)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    return torch.round(xf / s[..., None]).to(torch.int8), s
 
 
 class PagedKVCache:
     """Paged KV pool (reference KVCacheManager kv_cache.py), standard layout
     [L, num_blocks, nkv, block_size, head_dim] in the compute dtype (so no
     per-layer cast copies it).  Stored flat as [L*num_blocks + 1, nkv, bs,
-    hd]: the extra last page is the sink that pad rows write."""
+    hd]: the extra last page is the sink that pad rows write.
+
+    ``quant="int8"``: the pages hold int8 codes and ``k_scale_flat`` /
+    ``v_scale_flat`` [L*num_blocks + 1, nkv, bs] fp32 hold each token's
+    scale, sink page included."""
 
     def __init__(self, k_flat: torch.Tensor, v_flat: torch.Tensor,
-                 num_layers: int, num_blocks: int):
+                 num_layers: int, num_blocks: int, k_scale_flat=None,
+                 v_scale_flat=None):
         self.k_flat = k_flat
         self.v_flat = v_flat
+        self.k_scale_flat = k_scale_flat
+        self.v_scale_flat = v_scale_flat
         self.num_layers = num_layers
         self.num_blocks = num_blocks
 
     @classmethod
     def create(cls, cfg: GPTConfig, num_blocks: int, block_size: int, dtype,
-               device):
+               device, quant=None):
         shape = (cfg.num_layers * num_blocks + 1, cfg.kv_heads, block_size,
                  cfg.head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   cfg.num_layers, num_blocks)
+        if quant is None:
+            return cls(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device),
+                       cfg.num_layers, num_blocks)
+        if quant != "int8":
+            raise ValueError(f"unsupported kv_quant {quant!r}; use 'int8'")
+        zeros = functools.partial(torch.zeros, device=device)
+        return cls(zeros(shape, dtype=torch.int8),
+                   zeros(shape, dtype=torch.int8), cfg.num_layers,
+                   num_blocks, zeros(shape[:3], dtype=torch.float32),
+                   zeros(shape[:3], dtype=torch.float32))
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale_flat is not None
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k_flat, self.v_flat, self.k_scale_flat,
+                             self.v_scale_flat) if t is not None)
 
     @property
     def sink(self) -> int:
@@ -71,6 +124,15 @@ class PagedKVCache:
         lo, hi = li * self.num_blocks, (li + 1) * self.num_blocks
         return self.k_flat[lo:hi], self.v_flat[lo:hi]
 
+    def layer_scales(self, li: int):
+        """The attention ops' ``k_scale``/``v_scale`` keywords of layer
+        ``li`` ([NB, nkv, bs] slices), or none for 16-bit pages."""
+        if not self.quantized:
+            return {}
+        lo, hi = li * self.num_blocks, (li + 1) * self.num_blocks
+        return {"k_scale": self.k_scale_flat[lo:hi],
+                "v_scale": self.v_scale_flat[lo:hi]}
+
 
 def _norm(p, x, cfg):
     if cfg.use_rmsnorm:
@@ -79,15 +141,39 @@ def _norm(p, x, cfg):
                           eps=cfg.norm_eps or LN_EPS)
 
 
+def _w(p, dtype):
+    """Weight accessor: a store dequantized at its use site (the
+    full-precision tensor exists only inside the layer that consumes it),
+    or the plain tensor in ``dtype``."""
+    if is_quantized_weight(p):
+        return dequantize_weight(p, dtype)
+    if is_quantized_weight4(p):
+        return dequantize_weight4(p, dtype)
+    return p.to(dtype)
+
+
+def _wmm(x, p, dtype):
+    """``x @ W``: a 2-D store goes to the quantized-weight matmul op with
+    x's leading dims flattened; anything else is dequantized at its use
+    site (JAX model.py:164)."""
+    vv = quantized_codes(p) if isinstance(p, dict) else None
+    if vv is not None and vv.dim() == 2:
+        lead = x.shape[:-1]
+        y = ops.wq_any(x.reshape(-1, x.shape[-1]).to(dtype), p)
+        return y.reshape(lead + (vv.shape[1],))
+    return x.to(dtype) @ _w(p, dtype)
+
+
 def _mlp(p, x, cfg):
-    h = x @ p["wi"]
+    dtype = x.dtype
+    h = _wmm(x, p["wi"], dtype)
     if cfg.mlp_bias:
         h = h + p["bi"]
     if cfg.gated_mlp:
-        h = mlp_activation(cfg.gate_act)(x @ p["wg"]) * h
+        h = mlp_activation(cfg.gate_act)(_wmm(x, p["wg"], dtype)) * h
     else:
         h = mlp_activation(cfg.activation)(h)
-    y = h @ p["wo"]
+    y = _wmm(h, p["wo"], dtype)
     if cfg.mlp_bias:
         y = y + p["bo"]
     return y
@@ -103,8 +189,31 @@ def _block_residual(blk, x, h, attn_delta, cfg):
     return x + _mlp(blk["MLP_0"], _norm(blk["Norm_1"], x, cfg), cfg)
 
 
+def _embed(wte, tokens, dtype):
+    """Row gather from a possibly quantized table: the gathered rows' codes
+    and their group scales only (JAX model.py:221)."""
+    t = tokens.long()
+    if is_quantized_weight(wte):
+        v, s = wte["v"], wte["s"]
+        if _store_dim(wte) != 0:
+            raise ValueError(
+                "embedding stores must group along dim 0 (vocab) — the row "
+                f"gather needs per-row scales; got codes {tuple(v.shape)} "
+                f"vs scales {tuple(s.shape)}")
+        g = v.shape[0] // s.shape[0]
+        return (v[t].float() * s[t // g]).to(dtype)
+    if is_quantized_weight4(wte):
+        # byte r // 2 holds row r in nibble r % 2
+        p, s = wte["v4"], wte["s"]
+        lo, hi = unpack_nibbles(p[t // 2])
+        q = torch.where((t % 2 == 0)[..., None], lo, hi)
+        g = 2 * p.shape[0] // s.shape[0]
+        return (q.float() * s[t // g]).to(dtype)
+    return wte.to(dtype)[t]
+
+
 def _embed_in(bb, tokens, token_pos, cfg):
-    x = bb["wte"][tokens.long()]
+    x = _embed(bb["wte"], tokens, cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype, device=x.device)
     if cfg.embed_norm:
@@ -114,17 +223,27 @@ def _embed_in(bb, tokens, token_pos, cfg):
     return x
 
 
-def _proj3(x, w):
-    """``x [..., H] @ W [H, k, d] → [..., k, d]``."""
+def _proj3(x, p, dtype):
+    """``x [..., H] @ W [H, k, d] → [..., k, d]``; a dim-0-grouped 3-D
+    store goes to the matmul op through its free 2-D view (JAX
+    model.py:267)."""
+    vv = quantized_codes(p) if isinstance(p, dict) else None
+    if vv is not None and vv.dim() == 3:
+        v2d = store_as_2d(p)
+        if v2d is not None and p["s"].shape[1:] == vv.shape[1:]:
+            y = _wmm(x, v2d, dtype)
+            return y.reshape(y.shape[:-1] + vv.shape[1:])
     lead = x.shape[:-1]
-    y = x.reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1)
+    w = _w(p, dtype)
+    y = x.to(dtype).reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1)
     return y.reshape(lead + w.shape[1:])
 
 
 def _qkv(ap, h, cfg):
-    q = _proj3(h, ap["wq"])
-    k = _proj3(h, ap["wk"])
-    v = _proj3(h, ap["wv"])
+    dtype = h.dtype
+    q = _proj3(h, ap["wq"], dtype)
+    k = _proj3(h, ap["wk"], dtype)
+    v = _proj3(h, ap["wv"], dtype)
     if cfg.qkv_bias:
         q = q + ap["bq"]
         k = k + ap["bk"]
@@ -133,22 +252,46 @@ def _qkv(ap, h, cfg):
 
 
 def _attn_out(ap, o, cfg):
-    """``o [..., nh, hd] @ wo [nh, hd, H]``."""
-    w = ap["wo"]
+    """``o [..., nh, hd] @ wo [nh, hd, H]``; a dim-1-grouped store goes to
+    the matmul op through its [nh·hd, H] view, any other store is
+    dequantized at the use site (JAX model.py:326)."""
+    dtype = o.dtype
+    p = ap["wo"]
     lead = o.shape[:-2]
-    y = o.reshape(lead + (o.shape[-2] * o.shape[-1],)) @ w.reshape(
-        -1, w.shape[-1])
+    o2 = o.reshape(lead + (o.shape[-2] * o.shape[-1],))
+    vv = quantized_codes(p) if isinstance(p, dict) else None
+    if vv is not None:
+        v2d = store_as_2d(p) if vv.dim() == 3 else None
+        if (v2d is not None
+                and quantized_codes(v2d).shape[0] == o2.shape[-1]):
+            y = _wmm(o2, v2d, dtype)
+        else:
+            y = o2 @ _w(p, dtype).reshape(-1, vv.shape[-1])
+    else:
+        y = o2 @ p.reshape(-1, p.shape[-1])
     if cfg.attn_out_bias:
         y = y + ap["bo"]
     return y
 
 
 def _logits_out(params, bb, x, cfg):
-    """Final unembed (tied or untied) + optional bias, fp32 logits."""
+    """Final unembed (tied or untied) + optional bias, fp32 logits.  A
+    quantized tied table goes to ``wq_matmul_t``; a vocabulary padded to the
+    quantization group is sliced back to ``vocab_size`` (JAX
+    model.py:190)."""
+    dtype = x.dtype
     if cfg.tie_embeddings:
-        logits = (x @ bb["wte"].t()).float()
+        wte = bb["wte"]
+        if is_quantized_weight(wte):
+            lead = x.shape[:-1]
+            y = ops.wq_matmul_t(x.reshape(-1, x.shape[-1]), wte)
+            logits = y.reshape(lead + (y.shape[-1],)).float()
+        else:
+            logits = (x @ _w(wte, dtype).t()).float()
+        if logits.shape[-1] != cfg.vocab_size:
+            logits = logits[..., :cfg.vocab_size]
     else:
-        logits = (x @ params["lm_head"]).float()
+        logits = _wmm(x, params["lm_head"], dtype).float()
     if cfg.unembed_bias:
         logits = logits + params["lm_head_bias"].float()
     return logits
@@ -170,7 +313,13 @@ def _slopes(cfg, device):
 def _write_kv(cache: PagedKVCache, dest, off, k, v):
     """Paged KV append (reference linear_blocked_kv_rotary): row i of k/v
     [N, nkv, hd] lands at flat page dest[i], token offset off[i].  The mixed
-    advanced index puts the indexed dim first, [N, nkv, hd], as in JAX."""
+    advanced index puts the indexed dim first, [N, nkv, hd], as in JAX.  An
+    int8 pool stores each token's codes and its [N, nkv] scales."""
+    if cache.quantized:
+        k, ks = quantize_kv_token(k)
+        v, vs = quantize_kv_token(v)
+        cache.k_scale_flat[dest, :, off] = ks
+        cache.v_scale_flat[dest, :, off] = vs
     cache.k_flat[dest, :, off] = k.to(cache.k_flat.dtype)
     cache.v_flat[dest, :, off] = v.to(cache.v_flat.dtype)
 
@@ -234,8 +383,8 @@ def ragged_forward(params, cache: PagedKVCache, batch, cfg: GPTConfig, *,
         o_dense = ops.ragged_prefill_attention(
             q_dense[:S].reshape(S, Q, nkv, g, hd), k_pool, v_pool,
             block_table, kv_len, q_starts, q_counts, scale=cfg.attn_scale,
-            alibi_slopes=slopes, window=cfg.window_for_layer(li)).reshape(
-                S, Q, nh, hd)
+            alibi_slopes=slopes, window=cfg.window_for_layer(li),
+            **cache.layer_scales(li)).reshape(S, Q, nh, hd)
         o = o_dense[slot0, dense_idx]                        # [N, nh, hd]
         o = torch.where(valid[:, None, None], o, 0)
         x = _block_residual(blk, x, h, _attn_out(ap, o, cfg), cfg)
@@ -283,7 +432,8 @@ def _decode_core(params, cache: PagedKVCache, tokens, active, token_pos,
                                 k_pages, v_pages, block_table, kv_len,
                                 alibi_slopes=slopes,
                                 window=cfg.window_for_layer(li),
-                                scale=cfg.attn_scale)
+                                scale=cfg.attn_scale,
+                                **cache.layer_scales(li))
         x = _block_residual(blk, x, h,
                             _attn_out(ap, o.reshape(S, nh, hd), cfg), cfg)
 

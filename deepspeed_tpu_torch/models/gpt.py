@@ -322,9 +322,32 @@ def params_from_numpy(tree, cfg: GPTConfig, device,
     """The weight bridge: the JAX engine's parameter tree (``engine.params``
     of the JAX InferenceEngineV2 — the unboxed GPTLogits tree — with every
     leaf converted by ``np.asarray``) → the port's tree of tensors on
-    ``device`` in ``dtype``.  A missing, extra or misshapen leaf raises."""
+    ``device`` in ``dtype``.  A missing, extra or misshapen leaf raises.
+
+    A quantized engine's tree carries store leaves (ops/quantization.py):
+    ``{"v": codes, "s": scales}`` or ``{"v4": packed codes, "s": scales}``
+    in place of a weight.  Their codes come over as ``torch.int8`` and their
+    scales as fp32, whatever ``dtype`` is; the codes must have the weight's
+    shape (dim 0 halved for ``v4``; a ``wte`` table may be padded along
+    dim 0 to its quantization group)."""
     dtype = dtype or cfg.dtype
     want = param_shapes(cfg)
+
+    def store(t, shape, path):
+        key = "v4" if "v4" in t else "v"
+        v, sc = np.asarray(t[key]), np.asarray(t["s"])
+        got = list(v.shape)
+        if key == "v4":
+            got[0] *= 2
+        rows_ok = (got[0] == shape[0]
+                   or (path[-1] == "wte" and got[0] > shape[0]))
+        if not rows_ok or tuple(got[1:]) != tuple(shape[1:]) \
+                or sc.ndim != v.ndim:
+            raise ValueError(f"{'/'.join(path)}: store codes "
+                             f"{tuple(v.shape)} ({key}) do not fit the "
+                             f"weight {shape}")
+        return {key: torch.tensor(v.astype(np.int8), device=device),
+                "s": torch.tensor(sc.astype(np.float32), device=device)}
 
     def walk(w, t, path):
         if not isinstance(t, dict):
@@ -339,6 +362,10 @@ def params_from_numpy(tree, cfg: GPTConfig, device,
         for k, shape in w.items():
             if isinstance(shape, dict):
                 out[k] = walk(shape, t[k], path + (k,))
+                continue
+            if isinstance(t[k], dict) and set(t[k]) in ({"v", "s"},
+                                                       {"v4", "s"}):
+                out[k] = store(t[k], shape, path + (k,))
                 continue
             a = np.asarray(t[k])
             if tuple(a.shape) != tuple(shape):

@@ -8,8 +8,12 @@ picks by the device of the tensors.  Public surface of this slice:
   CUDA tensors, the plain body on CPU tensors and for mask/bias/dropout
 - ``flash_attention(...)``            direct differentiable flash entry
 - ``lm_cross_entropy(...)``           chunked unembed + softmax CE
-- ``paged_attention(...)``            paged decode attention
+- ``paged_attention(...)``            paged decode attention (16-bit or
+                                      int8 pages)
 - ``ragged_prefill_attention(...)``   ragged chunked-prefill attention
+- ``wq_any`` / ``wq_matmul_t``        quantized-weight matmuls (ops
+                                      ``wq_matmul``, ``wq_matmul4``,
+                                      ``wq_matmul_t``)
 - ``rms_norm`` / ``layer_norm``
 - ``op_report()``                     which implementation each device takes
 """
@@ -23,6 +27,7 @@ import torch
 from deepspeed_tpu_torch.ops import flash_attention as _flash
 from deepspeed_tpu_torch.ops import paged_attention as _paged
 from deepspeed_tpu_torch.ops import registry
+from deepspeed_tpu_torch.ops import wq_matmul as _wq
 from deepspeed_tpu_torch.ops.cross_entropy import (lm_cross_entropy,
                                                    masked_nll_sum)
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
@@ -30,6 +35,7 @@ from deepspeed_tpu_torch.ops.norms import layer_norm, rms_norm
 from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
                                                      ragged_prefill_attention)
 from deepspeed_tpu_torch.ops.registry import dispatch, op_report, register_op
+from deepspeed_tpu_torch.ops.wq_matmul import wq_any, wq_matmul_t
 
 
 
@@ -120,6 +126,14 @@ register_op("ragged_prefill_attention", torch=_paged.torch_ragged_prefill,
             kernel=_paged.cuda_ragged_prefill,
             supported=_paged.ragged_prefill_supported)
 
+register_op("wq_matmul", torch=_wq.torch_wq_matmul, kernel=_wq.cuda_wq_matmul,
+            supported=_wq.supported)
+register_op("wq_matmul_t", torch=_wq.torch_wq_matmul_t,
+            kernel=_wq.cuda_wq_matmul_t, supported=_wq.supported_t)
+register_op("wq_matmul4", torch=_wq.torch_wq_matmul4,
+            kernel=_wq.cuda_wq_matmul4, supported=_wq.supported4)
+
 __all__ = ["causal_attention", "flash_attention", "lm_cross_entropy",
            "masked_nll_sum", "paged_attention", "ragged_prefill_attention", "rms_norm",
+           "wq_any", "wq_matmul_t",
            "layer_norm", "op_report", "register_op", "dispatch", "registry"]

@@ -19,7 +19,16 @@ Layouts (standard only — the TPU package's kv-major transpose existed for
 Mosaic's 128-lane DMA rule and has no counterpart here):
 q [S, nkv, g, hd] (decode) or [S, Q, nkv, g, hd] (prefill); k/v pages
 [NB, nkv, bs, hd]; block_table [S, MB] int32; kv_lens, q_starts, q_counts
-[S] int32.  int8 pages (the TPU package's kv_quant variant) are not ported.
+[S] int32.
+
+int8 KV (the engine's ``kv_quant="int8"``): pages hold int8 codes and
+``k_scale``/``v_scale`` [NB, nkv, bs] fp32 hold one scale per (page, head,
+token).  Both implementations dequantize as the JAX package does — an fp32
+product code × scale cast once to q's dtype — the plain versions after the
+gather (``_dequant_seq``), the kernels as each page is read.  The JAX
+engine's page-size rounding for int8 pages (``kv_block_size_for``: 128-token
+pages) is a Mosaic rule applied only where Pallas runs; the port keeps the
+configured block size.  int8 launches count in ``<wrapper>.int8_launches``.
 """
 
 from __future__ import annotations
@@ -36,18 +45,31 @@ _SMEM_OPTIN = 232448       # H100 opt-in shared memory per block (bytes)
 _MAX_ROWS = 64             # query-head rows per prefill block (csrc)
 
 
-def _require_float_pages(k_pages):
-    if not k_pages.dtype.is_floating_point:
-        raise NotImplementedError(
-            f"{k_pages.dtype} KV pages: the int8-KV variant (kv_quant) is not "
-            f"ported yet (ROADMAP: int8-KV paged kernels)")
-
-
 def _gather_pages(pages, block_table):
     """Each slot's pages in table order → [S, MB*bs, nkv, hd]."""
     got = pages[block_table.long()]               # [S, MB, nkv, bs, hd]
     S, MB, nkv, bs, hd = got.shape
     return got.transpose(2, 3).reshape(S, MB * bs, nkv, hd)
+
+
+def _check_scales(k_pages, k_scale, v_scale):
+    quant = k_pages.dtype == torch.int8
+    if quant != (k_scale is not None and v_scale is not None):
+        raise ValueError("int8 pages need k_scale and v_scale, and only "
+                         "int8 pages take them")
+
+
+def _gather_seq(pages, scales, block_table, dtype):
+    """``_gather_pages``, dequantized when ``scales`` [NB, nkv, bs] is given:
+    the int8 codes × each token's scale in fp32, cast once to ``dtype``
+    (JAX ``_gather_scales`` + ``_dequant_seq``)."""
+    seq = _gather_pages(pages, block_table)
+    if scales is None:
+        return seq
+    sc = scales[block_table.long()]                # [S, MB, nkv, bs]
+    S = sc.shape[0]
+    sc = sc.transpose(2, 3).reshape(S, -1, sc.shape[2])   # [S, MB*bs, nkv]
+    return (seq.float() * sc[..., None]).to(dtype)
 
 
 def _slopes(alibi_slopes, device):
@@ -57,19 +79,20 @@ def _slopes(alibi_slopes, device):
 
 def torch_paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
                           scale: Optional[float] = None, alibi_slopes=None,
-                          window=None):
+                          window=None, k_scale=None, v_scale=None):
     """Plain decode attention (counterpart of ``xla_paged_attention``): the
     query of slot s sits at position kv_lens[s]-1 and sees keys
     [0, kv_lens[s]) (the last ``window`` of them with a window); alibi adds
-    slope[h·g+gi]·kvpos; kv_lens == 0 gives zeros."""
-    _require_float_pages(k_pages)
+    slope[h·g+gi]·kvpos; kv_lens == 0 gives zeros.  int8 pages come with
+    ``k_scale``/``v_scale`` and are dequantized after the gather."""
+    _check_scales(k_pages, k_scale, v_scale)
     S, nkv, g, hd = q.shape
     bs = k_pages.shape[2]
     MB = block_table.shape[1]
     if scale is None:
         scale = hd ** -0.5
-    k_seq = _gather_pages(k_pages, block_table)   # [S, K, nkv, hd]
-    v_seq = _gather_pages(v_pages, block_table)
+    k_seq = _gather_seq(k_pages, k_scale, block_table, q.dtype)  # [S,K,nkv,hd]
+    v_seq = _gather_seq(v_pages, v_scale, block_table, q.dtype)
     kvpos = torch.arange(MB * bs, device=q.device)
     lens = kv_lens.long()
     mask = kvpos[None, :] < lens[:, None]                     # [S, K]
@@ -88,19 +111,20 @@ def torch_paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
 
 def torch_ragged_prefill(q, k_pages, v_pages, block_table, kv_lens, q_starts,
                          q_counts, *, scale: Optional[float] = None,
-                         alibi_slopes=None, window=None):
+                         alibi_slopes=None, window=None, k_scale=None,
+                         v_scale=None):
     """Plain ragged prefill (counterpart of ``xla_ragged_prefill``): row j of
     slot s is live iff j < q_counts[s], sits at position q_starts[s]+j and
     sees keys kvpos <= its position, kvpos < kv_lens[s] (and within the
-    window); dead rows give zeros."""
-    _require_float_pages(k_pages)
+    window); dead rows give zeros.  int8 pages: see torch_paged_attention."""
+    _check_scales(k_pages, k_scale, v_scale)
     S, Q, nkv, g, hd = q.shape
     bs = k_pages.shape[2]
     MB = block_table.shape[1]
     if scale is None:
         scale = hd ** -0.5
-    k_seq = _gather_pages(k_pages, block_table)
-    v_seq = _gather_pages(v_pages, block_table)
+    k_seq = _gather_seq(k_pages, k_scale, block_table, q.dtype)
+    v_seq = _gather_seq(v_pages, v_scale, block_table, q.dtype)
     dev = q.device
     kvpos = torch.arange(MB * bs, device=dev)                  # [K]
     rows = torch.arange(Q, device=dev)
@@ -135,10 +159,10 @@ def _lib(name: str):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "paged_attention":
             fn = lib.ds_paged_attention
-            fn.argtypes = [P] * 9 + [I] * 7 + [F, I, I, P]
+            fn.argtypes = [P] * 11 + [I] * 7 + [F, I, I, I, P]
         else:
             fn = lib.ds_ragged_prefill
-            fn.argtypes = [P] * 9 + [I] * 8 + [F, I, I, P]
+            fn.argtypes = [P] * 11 + [I] * 8 + [F, I, I, I, P]
         fn.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
@@ -162,29 +186,41 @@ def _sm_count(index: int) -> int:
 
 
 def _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv, g, hd,
-                    alibi_slopes, window, ints=()) -> Optional[str]:
+                    alibi_slopes, window, k_scale, v_scale,
+                    ints=()) -> Optional[str]:
     """Why the kernels cannot take this call (None: they can)."""
-    if not k_pages.dtype.is_floating_point:
-        return (f"{k_pages.dtype} pages: the int8-KV variant is not ported "
-                f"(ROADMAP: int8-KV paged kernels)")
+    quant = k_pages.dtype == torch.int8
+    scales = () if k_scale is None or v_scale is None else (k_scale, v_scale)
+    if quant and (v_pages.dtype != torch.int8 or not scales):
+        return "int8 pages need int8 v pages and k_scale / v_scale"
     if q.device.type != "cuda":
         return f"q is on {q.device}, not a CUDA device"
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         return "k/v pages must both be [NB, nkv, bs, hd]"
-    for t in (k_pages, v_pages, block_table, kv_lens) + tuple(ints):
+    for t in (k_pages, v_pages, block_table, kv_lens) + tuple(ints) + scales:
         if t.device != q.device:
             return f"tensor on {t.device}, q on {q.device}"
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
-        return f"dtypes q={q.dtype} pages={k_pages.dtype}: need one of " \
-               f"float32/float16/bfloat16 for all three"
+    if q.dtype not in _DTYPE_CODE:
+        return f"q dtype {q.dtype}: need float32, float16 or bfloat16"
     NB, nkv2, bs, hd2 = k_pages.shape
+    if quant:
+        for t in scales:
+            if t.dtype != torch.float32 or tuple(t.shape) != (NB, nkv2, bs):
+                return f"k_scale / v_scale must be float32 [{NB}, {nkv2}, " \
+                       f"{bs}] beside int8 pages"
+    elif k_scale is not None or v_scale is not None:
+        return f"k_scale / v_scale belong to int8 pages, not {k_pages.dtype}"
+    elif k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        return f"dtypes q={q.dtype} pages={k_pages.dtype}: pages must be " \
+               f"q's dtype, or int8 with scales"
     if nkv2 != nkv or hd2 != hd:
         return f"pages [.., {nkv2}, {bs}, {hd2}] do not match q's nkv={nkv} " \
                f"hd={hd}"
     if hd not in _HEAD_DIMS:
         return f"head_dim {hd} not in {_HEAD_DIMS}"
-    if 4 * bs * hd * q.element_size() > _SMEM_OPTIN:
+    smem = (4 * bs * hd + 16 * bs + 2 * bs * (hd + 8) * q.element_size()
+            if quant else 4 * bs * hd * q.element_size())
+    if smem > _SMEM_OPTIN:
         return f"block size {bs} x head_dim {hd} overflows shared memory"
     if block_table.dim() != 2 or block_table.shape[0] != S:
         return "block_table must be [S, MB]"
@@ -193,7 +229,8 @@ def _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv, g, hd,
     for t in (block_table, kv_lens) + tuple(ints):
         if t.dtype != torch.int32:
             return f"index tensors must be int32, got {t.dtype}"
-    for t in (q, k_pages, v_pages, block_table, kv_lens) + tuple(ints):
+    for t in (q, k_pages, v_pages, block_table, kv_lens) + tuple(ints) \
+            + scales:
         if not t.is_contiguous():
             return "inputs must be contiguous"
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
@@ -207,18 +244,20 @@ def _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv, g, hd,
 
 
 def _decode_problem(q, k_pages, v_pages, block_table, kv_lens, *, scale=None,
-                    alibi_slopes=None, window=None):
+                    alibi_slopes=None, window=None, k_scale=None,
+                    v_scale=None):
     if q.dim() != 4:
         return "q must be [S, nkv, g, hd]"
     S, nkv, g, hd = q.shape
     if g > 8:
         return f"query group {g} > 8 (one warp per query head, 8 warps)"
     return _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv,
-                           g, hd, alibi_slopes, window)
+                           g, hd, alibi_slopes, window, k_scale, v_scale)
 
 
 def _prefill_problem(q, k_pages, v_pages, block_table, kv_lens, q_starts,
-                     q_counts, *, scale=None, alibi_slopes=None, window=None):
+                     q_counts, *, scale=None, alibi_slopes=None, window=None,
+                     k_scale=None, v_scale=None):
     if q.dim() != 5:
         return "q must be [S, Q, nkv, g, hd]"
     S, Q, nkv, g, hd = q.shape
@@ -227,8 +266,8 @@ def _prefill_problem(q, k_pages, v_pages, block_table, kv_lens, q_starts,
     if q_starts.shape != (S,) or q_counts.shape != (S,):
         return "q_starts and q_counts must be [S]"
     return _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv,
-                           g, hd, alibi_slopes, window, ints=(q_starts,
-                                                              q_counts))
+                           g, hd, alibi_slopes, window, k_scale, v_scale,
+                           ints=(q_starts, q_counts))
 
 
 def supported(*args, **kwargs) -> bool:
@@ -255,12 +294,13 @@ def num_kv_splits_for(S: int, nkv: int, MB: int, device) -> int:
 
 def cuda_paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
                          scale: Optional[float] = None, alibi_slopes=None,
-                         window=None):
+                         window=None, k_scale=None, v_scale=None):
     """Paged decode on the card (csrc/paged_attention.cu).  A one-column
     table runs the one-pass kernel; a wider one splits each slot's pages
     ``num_kv_splits_for`` ways and merges the splits in a second kernel."""
     problem = _decode_problem(q, k_pages, v_pages, block_table, kv_lens,
-                              alibi_slopes=alibi_slopes, window=window)
+                              alibi_slopes=alibi_slopes, window=window,
+                              k_scale=k_scale, v_scale=v_scale)
     if problem is not None:
         raise ValueError(f"cuda_paged_attention: {problem}")
     S, nkv, g, hd = q.shape
@@ -277,18 +317,23 @@ def cuda_paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
                               device=q.device)
     slopes = None if alibi_slopes is None else _slopes(alibi_slopes, q.device)
     lib = _lib("paged_attention")
+    quant = k_scale is not None
     rc = lib.ds_paged_attention(
-        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
-        _ptr(kv_lens), _ptr(slopes), _ptr(out), _ptr(part_acc),
-        _ptr(part_ml), S, nkv, g, hd, bs, MB, ns, float(scale),
-        int(window or 0), _DTYPE_CODE[q.dtype],
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(block_table), _ptr(kv_lens), _ptr(slopes), _ptr(out),
+        _ptr(part_acc), _ptr(part_ml), S, nkv, g, hd, bs, MB, ns,
+        float(scale), int(window or 0), _DTYPE_CODE[q.dtype], int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _check_rc(lib, rc, "paged_attention")
-    cuda_paged_attention.launches += 1
+    if quant:
+        cuda_paged_attention.int8_launches += 1
+    else:
+        cuda_paged_attention.launches += 1
     return out
 
 
 cuda_paged_attention.launches = 0
+cuda_paged_attention.int8_launches = 0
 
 
 def prefill_chunk(g: int) -> int:
@@ -299,11 +344,13 @@ def prefill_chunk(g: int) -> int:
 
 def cuda_ragged_prefill(q, k_pages, v_pages, block_table, kv_lens, q_starts,
                         q_counts, *, scale: Optional[float] = None,
-                        alibi_slopes=None, window=None):
+                        alibi_slopes=None, window=None, k_scale=None,
+                        v_scale=None):
     """Ragged chunked prefill on the card (csrc/ragged_prefill.cu)."""
     problem = _prefill_problem(q, k_pages, v_pages, block_table, kv_lens,
                                q_starts, q_counts,
-                               alibi_slopes=alibi_slopes, window=window)
+                               alibi_slopes=alibi_slopes, window=window,
+                               k_scale=k_scale, v_scale=v_scale)
     if problem is not None:
         raise ValueError(f"cuda_ragged_prefill: {problem}")
     S, Q, nkv, g, hd = q.shape
@@ -313,37 +360,44 @@ def cuda_ragged_prefill(q, k_pages, v_pages, block_table, kv_lens, q_starts,
     out = torch.empty_like(q)
     slopes = None if alibi_slopes is None else _slopes(alibi_slopes, q.device)
     lib = _lib("ragged_prefill")
+    quant = k_scale is not None
     rc = lib.ds_ragged_prefill(
-        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(block_table),
-        _ptr(kv_lens), _ptr(q_starts), _ptr(q_counts), _ptr(slopes),
-        _ptr(out), S, Q, nkv, g, hd, bs, MB, prefill_chunk(g),
-        float(scale), int(window or 0), _DTYPE_CODE[q.dtype],
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
+        _ptr(block_table), _ptr(kv_lens), _ptr(q_starts), _ptr(q_counts),
+        _ptr(slopes), _ptr(out), S, Q, nkv, g, hd, bs, MB, prefill_chunk(g),
+        float(scale), int(window or 0), _DTYPE_CODE[q.dtype], int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _check_rc(lib, rc, "ragged_prefill")
-    cuda_ragged_prefill.launches += 1
+    if quant:
+        cuda_ragged_prefill.int8_launches += 1
+    else:
+        cuda_ragged_prefill.launches += 1
     return out
 
 
 cuda_ragged_prefill.launches = 0
+cuda_ragged_prefill.int8_launches = 0
 
 
 def paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
                     scale: Optional[float] = None, alibi_slopes=None,
-                    window=None):
+                    window=None, k_scale=None, v_scale=None):
     """Registry entry: the plain version for CPU tensors, the CUDA kernel for
     CUDA tensors (raising where the kernel does not support the call)."""
     from deepspeed_tpu_torch.ops.registry import dispatch
     return dispatch("paged_attention", q, k_pages, v_pages, block_table,
                     kv_lens, scale=scale, alibi_slopes=alibi_slopes,
-                    window=window)
+                    window=window, k_scale=k_scale, v_scale=v_scale)
 
 
 def ragged_prefill_attention(q, k_pages, v_pages, block_table, kv_lens,
                              q_starts, q_counts, *,
                              scale: Optional[float] = None,
-                             alibi_slopes=None, window=None):
+                             alibi_slopes=None, window=None, k_scale=None,
+                             v_scale=None):
     """Registry entry for the ragged prefill op."""
     from deepspeed_tpu_torch.ops.registry import dispatch
     return dispatch("ragged_prefill_attention", q, k_pages, v_pages,
                     block_table, kv_lens, q_starts, q_counts, scale=scale,
-                    alibi_slopes=alibi_slopes, window=window)
+                    alibi_slopes=alibi_slopes, window=window,
+                    k_scale=k_scale, v_scale=v_scale)

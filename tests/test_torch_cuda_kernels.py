@@ -1,6 +1,7 @@
 """PyTorch port, CUDA kernels on the card: each hand-written kernel held to
-its plain PyTorch version at small shapes, and the engine on the card held
-to the engine on the CPU.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.
+its plain PyTorch version at small shapes (the int8-KV variants of the
+paged kernels and the quantized-weight matmuls included), and the engine on
+the card held to the engine on the CPU, quantized serving included.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.
 Imports no JAX, so on the GPU machine it runs without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -69,6 +70,110 @@ def test_kernels_match_plain(cuda, dtype, tol, variant, g, hd):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+def _int8_pages(k, v):
+    """The engine's int8 KV: per-token codes and fp32 scales."""
+    from deepspeed_tpu_torch.inference.v2.model import quantize_kv_token
+    (kq, ks), (vq, vs) = quantize_kv_token(k), quantize_kv_token(v)
+    return kq, vq, ks.contiguous(), vs.contiguous()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("g,hd", [(4, 64), (1, 128), (8, 256)])
+def test_int8_kv_kernels_match_plain(cuda, dtype, tol, variant, g, hd):
+    """The int8-KV variants of both kernels (int8 pages + per-token fp32
+    scales; an empty slot, one-pass and split decode) against the plain
+    versions, which dequantize after the gather."""
+    qd, qp, k, v, bt, lens, starts, counts = _case(cuda, dtype, g, hd)
+    kq, vq, ks, vs = _int8_pages(k.float(), v.float())
+    kw = {"plain": {}, "window": {"window": 7},
+          "alibi": {"alibi_slopes": np.geomspace(0.5, 1 / 64, 2 * g)
+                    .astype(np.float32)}}[variant]
+    kw.update(k_scale=ks, v_scale=vs)
+    bs = k.shape[2]
+    before = (pa.cuda_paged_attention.int8_launches,
+              pa.cuda_ragged_prefill.int8_launches)
+    for table, kv in ((bt[:, :1].contiguous(), lens.clamp(max=bs)),
+                      (bt, lens)):
+        got = pa.cuda_paged_attention(qd, kq, vq, table, kv, **kw)
+        want = pa.torch_paged_attention(qd, kq, vq, table, kv, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+    got = pa.cuda_ragged_prefill(qp, kq, vq, bt, lens, starts, counts, **kw)
+    want = pa.torch_ragged_prefill(qp, kq, vq, bt, lens, starts, counts, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert (pa.cuda_paged_attention.int8_launches - before[0],
+            pa.cuda_ragged_prefill.int8_launches - before[1]) == (2, 1)
+
+
+# ---- quantized-weight matmuls (csrc/wq_matmul.cu)
+
+wq = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
+
+
+def _wq_case(dev, mode, g, M, N, K, dtype):
+    from deepspeed_tpu_torch.ops import quantization as q
+    gen = torch.Generator(device=dev).manual_seed(g + M + N)
+    shape = (N, K) if mode == "w8t" else (K, N)
+    w = torch.randn(shape, device=dev, generator=gen) * 0.05
+    store = (q.quantize_weight4(w, group=g) if mode == "w4"
+             else q.quantize_weight(w, group=g))
+    x = torch.randn((M, K), device=dev, generator=gen).to(dtype)
+    return x, store
+
+
+WQ = {"w8": ("cuda_wq_matmul", "torch_wq_matmul"),
+      "w8t": ("cuda_wq_matmul_t", "torch_wq_matmul_t"),
+      "w4": ("cuda_wq_matmul4", "torch_wq_matmul4")}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("mode", sorted(WQ))
+@pytest.mark.parametrize("g", [16, 32, 64, 128])
+def test_wq_kernels_match_plain(cuda, dtype, tol, mode, g):
+    """Each kernel against its plain version, per output row (tol of the
+    row's largest value): odd M, N not a multiple of the 128-column tile
+    (16-byte aligned rows and not), a K with a partial last step where the
+    group allows it, and a single row."""
+    K = 320 if g <= 64 else 384
+    Ns = (448, 3 * g) if mode == "w8t" else (200, 272)
+    kern, plain = getattr(wq, WQ[mode][0]), getattr(wq, WQ[mode][1])
+    for M in (37, 1):
+        for N in Ns:
+            x, store = _wq_case(cuda, mode, g, M, N, K, dtype)
+            before = kern.launches
+            got = kern(x, store)
+            want = plain(x, store)
+            assert kern.launches == before + 1
+            assert got.shape == want.shape == (M, N) and got.dtype == dtype
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs().amax(-1)
+            row = d / want.float().abs().amax(-1).clamp_min(1e-6)
+            assert torch.isfinite(got).all()
+            assert row.max().item() <= tol, (M, N, row.max().item())
+
+
+@pytest.mark.requires_cuda
+def test_wq_unsupported_raise(cuda):
+    from deepspeed_tpu_torch import ops
+    from deepspeed_tpu_torch.ops import quantization as q
+    x, store = _wq_case(cuda, "w8", 128, 4, 256, 512, torch.bfloat16)
+    big = q.quantize_weight(torch.randn(512, 256, device=cuda), group=256)
+    with pytest.raises(ValueError, match="group"):
+        wq.cuda_wq_matmul(x, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        wq.cuda_wq_matmul(x[:, ::2].repeat(1, 2)[:, :512].t().contiguous()
+                          .t(), store)
+    with pytest.raises(ValueError, match="does not support"):
+        ops.wq_any(x[:, :256].contiguous(), store)
+
+
 @pytest.mark.requires_cuda
 def test_unsupported_shapes_raise(cuda):
     qd, qp, k, v, bt, lens, starts, counts = _case(cuda, torch.bfloat16)
@@ -102,6 +207,36 @@ def test_engine_on_card_matches_cpu(cuda):
     outs = [InferenceEngineV2(cfg, config=ecfg, params=params, device=d)
             .generate(prompts, max_new_tokens=20) for d in ("cpu", cuda)]
     assert pa.cuda_paged_attention.launches > before
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_engine_on_card_matches_cpu(cuda, bits):
+    """W8 / W4 stores with int8 KV, fp32, TF32 off: greedy tokens on the
+    card equal the CPU's, through every quantized kernel."""
+    from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
+    from deepspeed_tpu_torch.models.gpt import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        GPTConfig.llama(num_layers=2, hidden=128, heads=4, num_kv_heads=2,
+                        vocab_size=512, max_seq_len=256), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ecfg = {"dtype": "fp32", "quant": {"enabled": True, "bits": bits},
+            "state_manager": {
+                "max_tracked_sequences": 4, "max_ragged_batch_size": 64,
+                "kv_block_size": 8, "max_q_per_seq": 8, "num_kv_blocks": 10,
+                "kv_quant": "int8"}}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, (18 + 5 * i,)).astype(np.int32)
+               for i in range(4)]
+    kern = wq.cuda_wq_matmul4 if bits == 4 else wq.cuda_wq_matmul
+    before = (kern.launches, pa.cuda_paged_attention.int8_launches)
+    outs = [InferenceEngineV2(cfg, config=ecfg, params=params, device=d)
+            .generate(prompts, max_new_tokens=20) for d in ("cpu", cuda)]
+    assert kern.launches > before[0]
+    assert pa.cuda_paged_attention.int8_launches > before[1]
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
 

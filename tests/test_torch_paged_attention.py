@@ -3,7 +3,8 @@
 package's ``xla_*`` ground truth and to its Pallas kernels run in interpret
 mode, in fp32 on the CPU at tolerance 1e-5 (summation order only); the
 registry's device dispatch; the CUDA wrappers' refusal of CPU tensors and
-of int8 pages.  The CUDA kernels themselves are held to the plain versions
+of int8 pages without their scales (the int8-KV variants are held to JAX in
+tests/test_torch_quantization.py).  The CUDA kernels themselves are held to the plain versions
 on the card (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
 
 import importlib
@@ -174,9 +175,10 @@ class TestDispatch:
             tpa.cuda_ragged_prefill(*_t(_prefill_case(13)))
 
     def test_int8_pages_raise(self):
+        """int8 pages without their scale pools are refused."""
         q, k, v, bt, lens = _t(_decode_case(14))
         k8, v8 = k.to(torch.int8), v.to(torch.int8)
-        with pytest.raises(NotImplementedError, match="int8"):
+        with pytest.raises(ValueError, match="int8"):
             tpa.torch_paged_attention(q, k8, v8, bt, lens)
         assert "int8" in tpa._decode_problem(q, k8, v8, bt, lens)
         assert not tpa.supported(q, k8, v8, bt, lens)

@@ -318,13 +318,15 @@ class TestSampling:
 
 
 class TestUnported:
+    # (quant and kv_quant are ported — tests/test_torch_quant_serving.py —
+    # and raise only combined with a block that is not)
     @pytest.mark.parametrize("config", [
-        {"quant": {"enabled": True}},
+        {"quant": {"enabled": True}, "tensor_parallel": {"tp_size": 2}},
         {"adapters": {"enabled": True, "rank": 4}},
         {"speculative": {"gamma": 2}},
         {"telemetry": {"stream_sync": True}},
         {"tensor_parallel": {"tp_size": 2}},
-        {"state_manager": {"kv_quant": "int8"}},
+        {"state_manager": {"kv_quant": "int8", "prefix_cache": True}},
         {"state_manager": {"prefix_cache": True}},
         {"scheduler": {"sla_classes": {"gold": {"priority": 1}}}},
     ])
