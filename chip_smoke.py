@@ -68,6 +68,26 @@
    heaviest main-path call: kernel, plain, ``torch.matmul`` with the bf16
    weight (#6-#8) or SDPA over dequantized K/V (int8 variants), and bound.
 
+13. The batched-gather LoRA kernel (#9) against its plain version in bf16
+   at Llama-3-8B's q (4096 -> 4096) and v (4096 -> 1024) projections, ranks
+   8, 16 and 64, 9 slots, M 1, 16, 37, 256 and 1024, ids random, all
+   identity and one tenant: per row at ROW_TOL, identity rows exactly 0;
+   the check is shown to see one row read through its neighbour's slot.
+   Timed at M 16 and 256 beside its bound (no single PyTorch call computes
+   a per-row gathered two-stage product, so no library time).
+14. Small-config adapter parity, fp32 with TF32 off: 8 registered tenants
+   served in one generate, the same with ``slots`` 3 (eviction churn), and
+   quant 8 + int8 KV + adapters — greedy tokens on the card equal the
+   CPU's.
+15. The LoRA main path at full Llama-3-8B width on phase 4's bf16 tree:
+   ``adapters`` rank 16, alpha 32, 9 slots, 8 tenants registered; phase
+   4's 16 requests with ``adapter_ids[i] = i % 9``.  Every forward pass
+   must launch the kernel 2 x 32 times; the pool must end unpinned and
+   consistent; ``put()`` logits through an adapter and the kernel against
+   the plain version swapped into the registry (E2E_TOL).  A short second
+   run with 3 slots must evict.  The kernel is held to its plain version
+   and timed on the main path's heaviest first-layer call.
+
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -134,8 +154,9 @@ def cuda_ms(fn, reps=20, warmup=3):
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 WQ = ("wq_matmul_t", "wq_matmul", "wq_matmul4")
 INT8 = ("paged_attention_int8", "ragged_prefill_int8")
+LORA = ("lora_matmul",)
 ERRS = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH + WQ
-                     + INT8, 0.0)
+                     + INT8 + LORA, 0.0)
 # ^ max |kernel - plain| seen per kernel
 
 
@@ -467,6 +488,7 @@ def _counters():
     import importlib
     pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
     wqm = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
+    lm = importlib.import_module("deepspeed_tpu_torch.ops.lora_matmul")
     return {"paged_attention": (pa.cuda_paged_attention, "launches"),
             "ragged_prefill": (pa.cuda_ragged_prefill, "launches"),
             "paged_attention_int8": (pa.cuda_paged_attention,
@@ -474,10 +496,12 @@ def _counters():
             "ragged_prefill_int8": (pa.cuda_ragged_prefill, "int8_launches"),
             "wq_matmul": (wqm.cuda_wq_matmul, "launches"),
             "wq_matmul_t": (wqm.cuda_wq_matmul_t, "launches"),
-            "wq_matmul4": (wqm.cuda_wq_matmul4, "launches")}
+            "wq_matmul4": (wqm.cuda_wq_matmul4, "launches"),
+            "lora_matmul": (lm.cuda_lora_matmul, "launches")}
 
 
-def _serve(torch, label, eng, prompts, news, kernels, card, profile=False):
+def _serve(torch, label, eng, prompts, news, kernels, card, profile=False,
+           adapter_ids=None):
     """One main-path run: ``eng.generate`` on the requests with every launch
     counter set to 0 just before and read just after; fails if a kernel of
     ``kernels`` never launched or an output is malformed.  Returns the
@@ -498,7 +522,8 @@ def _serve(torch, label, eng, prompts, news, kernels, card, profile=False):
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             outs = eng.generate(prompts,
-                                max_new_tokens=[int(n) for n in news])
+                                max_new_tokens=[int(n) for n in news],
+                                adapter_ids=adapter_ids)
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -537,8 +562,9 @@ def _serve(torch, label, eng, prompts, news, kernels, card, profile=False):
 
 class _record_calls(dict):
     """While installed, keeps the inputs of every main-path call of the
-    given registry ops that touches the first layer — its KV pool or its
-    weight stores — and every tied-unembed call, by reference (no copy, no
+    given registry ops that touches the first layer — its KV pool, its
+    weight stores or its adapter pages — and every tied-unembed call, by
+    reference (no copy, no
     sync), so that the kernels can be held to their plain versions and
     timed at the shapes the main path gave them.  The kernels and their
     launch counts are untouched.  ``swap_plain`` puts the plain versions in
@@ -560,6 +586,10 @@ class _record_calls(dict):
                 elif isinstance(leaf, dict):
                     walk(leaf)
         walk(eng.params["backbone"]["block_0"])
+        if getattr(eng, "adapters", None) is not None:
+            # layer 0's [slots, H, r] views start at the tables' bases
+            ptrs |= {eng.adapters.tables()[k].data_ptr()
+                     for k in ("a_q", "a_v")}
         for op, spec in self._specs.items():
             spec.kernel = self._recorder(op, ops[op], spec.kernel, ptrs)
 
@@ -582,8 +612,11 @@ class _record_calls(dict):
 
     def pick(self, name):
         """The call with the most work (the last of equals): M·K·N for the
-        products, live keys for decode, live rows for prefill."""
+        products, M·O for LoRA, live keys for decode, live rows for
+        prefill."""
         def work(args):
+            if name == "lora_matmul":
+                return args[0].shape[0] * args[2].shape[2]
             if name.startswith("wq"):
                 return args[0].shape[0] * next(iter(args[1].values())).numel()
             return int((args[6] if name.startswith("ragged") else args[4])
@@ -1349,12 +1382,344 @@ def _hold_and_time(torch, wqm, pa, rec, name):
     return r
 
 
+# --------------------------------------------------------------- phase 13
+
+LORA_SLOTS = 9              # 8 tenants + the identity slot 0
+LORA_H = 4096               # Llama-3-8B hidden
+LORA_PROJ = (("q", 4096), ("v", 1024))   # (projection, O)
+
+
+def _lora_inputs(torch, dev, M, O, r, ids, gen):
+    """Pages as the pool keeps them (slot 0 zero, scale 0; the tenants'
+    pages at random_adapter_weights' default scale 0.02), x at unit
+    scale; ids random over the slots, all identity, or one tenant."""
+    dt = torch.bfloat16
+    S = LORA_SLOTS
+    x = torch.randn((M, LORA_H), device=dev, generator=gen).to(dt)
+    a = (torch.randn((S, LORA_H, r), device=dev, generator=gen) * 0.02)
+    b = (torch.randn((S, r, O), device=dev, generator=gen) * 0.02)
+    a[0] = 0
+    b[0] = 0
+    s = torch.full((S,), 2.0, device=dev)
+    s[0] = 0
+    if ids == "random":
+        sel = torch.randint(0, S, (M,), device=dev, generator=gen)
+    else:
+        sel = torch.full((M,), 0 if ids == "identity" else 5, device=dev)
+    return x, a.to(dt), b.to(dt), sel.to(torch.int32), s
+
+
+def _lora_bound(x, a_pages, b_pages, ids, scales):
+    """Bytes: x, ids, the pages and scale of each DISTINCT selected slot
+    (what this call's data needs) read once, y written once; operations:
+    2·M·H·r + 2·M·r·O."""
+    M, H = x.shape
+    r, O = b_pages.shape[1], b_pages.shape[2]
+    used = int(ids.unique().numel())
+    es = x.element_size()
+    nbytes = ((M * H + M * O) * es + M * 4
+              + used * ((H * r + r * O) * es + 4))
+    return _bound(nbytes, 2 * M * H * r + 2 * M * r * O)
+
+
+def _time_lora(torch, lm, args, label):
+    bound_ms, bound_by = _lora_bound(*args)
+    x, a, b, ids, _ = args
+    return dict(
+        shape=f"{label}: x[{x.shape[0]},{x.shape[1]}] {x.dtype}, A "
+              f"{tuple(a.shape)}, B {tuple(b.shape)}, "
+              f"{int(ids.unique().numel())} slots used",
+        ms=cuda_ms(lambda: lm.cuda_lora_matmul(*args)),
+        plain_ms=cuda_ms(lambda: lm.torch_lora_matmul(*args), reps=10),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _check_lora(torch, lm, label, args):
+    got = lm.cuda_lora_matmul(*args)
+    want = lm.torch_lora_matmul(*args)
+    _check(torch, "lora_matmul", label, got, want)
+    ident = args[3] == 0
+    if bool(got[ident].any()):
+        fail(f"lora_matmul {label}: an identity-slot row is not exactly 0")
+
+
+def _print_lora(results):
+    for r in results:
+        print(f"  lora_matmul {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of it",
+              flush=True)
+
+
+def phase_lora_kernels(torch, lm, dev):
+    """#9 against its plain version at Llama-3-8B's q and v projections
+    (bf16), ranks 8 / 16 / 64, M 1..1024, three id patterns; the check is
+    shown to see a row read through its neighbour's slot; timed at M 16
+    and 256 (rank 16).  Returns the M 256 q-projection timing."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = []
+    for proj, O in LORA_PROJ:
+        for r in (8, 16, 64):
+            for M in (1, 16, 37, 256, 1024):
+                for ids in ("random", "identity", "one tenant"):
+                    args = _lora_inputs(torch, dev, M, O, r, ids, gen)
+                    _check_lora(torch, lm, f"{proj} r={r} M={M} {ids}",
+                                args)
+                    if r == 16 and M in (16, 256) and ids == "random":
+                        timed.append(_time_lora(torch, lm, args,
+                                                f"{proj} r=16 M={M}"))
+    # the row check must see one row read through its neighbour's slot
+    x, a, b, ids, s = _lora_inputs(torch, dev, 16, 4096, 16, "random", gen)
+    ids_np = ids.cpu().numpy()
+    i = next(j for j in range(1, 16)
+             if ids_np[j] not in (0, ids_np[j - 1]) and ids_np[j - 1] != 0)
+    wrong = ids.clone()
+    wrong[i] = wrong[i - 1]
+    row = _row_err(torch, lm.torch_lora_matmul(x, a, b, wrong, s)[i],
+                   lm.torch_lora_matmul(x, a, b, ids, s)[i])
+    print(f"  one row read through its neighbour's slot moves by {row:.3e} "
+          f"of its max (check at {ROW_TOL})", flush=True)
+    if not row > ROW_TOL:
+        fail("the lora check cannot see a row read through another slot")
+    _print_lora(timed)
+    return next(t for t in timed if t["shape"].startswith("q r=16 M=256"))
+
+
+# --------------------------------------------------------------- phase 14
+
+def _tenants(cfg, rank, init_scale, n=8):
+    from deepspeed_tpu_torch.serving import random_adapter_weights
+    return {aid: random_adapter_weights(
+        cfg.num_layers, cfg.hidden_size, rank, cfg.num_heads * cfg.head_dim,
+        cfg.kv_heads * cfg.head_dim, seed=aid, init_scale=init_scale)
+        for aid in range(1, n + 1)}
+
+
+def phase_lora_parity(torch, dev):
+    """Adapter greedy generate on the card == on the CPU (fp32, TF32 off):
+    8 tenants with 9 slots, with 3 slots (eviction churn), and with quant 8
+    + int8 KV."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
+    from deepspeed_tpu_torch.models.gpt import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        GPTConfig.llama(num_layers=2, hidden=128, heads=4, num_kv_heads=2,
+                        vocab_size=512, max_seq_len=256), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tenants = _tenants(cfg, 4, 0.5)
+    sm = {"max_tracked_sequences": 8, "max_ragged_batch_size": 64,
+          "kv_block_size": 8, "max_q_per_seq": 8}
+    adp = {"enabled": True, "rank": 4, "alpha": 8.0, "slots": 9}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, (6 + 5 * i,)).astype(np.int32)
+               for i in range(8)]
+    ids = [1 + i for i in range(8)]
+    for label, extra in (
+            ("8 tenants, 9 slots", {"adapters": adp, "state_manager": sm}),
+            ("8 tenants, 3 slots", {"adapters": dict(adp, slots=3),
+                                    "state_manager": sm}),
+            ("quant 8 + int8 KV + adapters", {
+                "adapters": adp, "quant": {"enabled": True, "bits": 8},
+                "state_manager": dict(sm, kv_quant="int8")})):
+        out, stats = {}, {}
+        for d in ("cpu", dev):
+            eng = InferenceEngineV2(cfg, config={"dtype": "fp32", **extra},
+                                    params=params, device=d)
+            for aid, w in tenants.items():
+                eng.register_adapter(aid, w)
+            out[d] = eng.generate(prompts, max_new_tokens=12,
+                                  adapter_ids=ids)
+            stats[d] = eng.adapters.stats()
+            eng.adapters.check_invariants()
+        for i, (a, b) in enumerate(zip(out["cpu"], out[dev])):
+            if not np.array_equal(a, b):
+                fail(f"adapter parity ({label}): request {i} differs\n cpu "
+                     f" {a}\n cuda {b}")
+        if stats["cpu"] != stats[dev] or stats[dev]["pinned_blocks"]:
+            fail(f"adapter parity ({label}): pool stats differ or pinned: "
+                 f"{stats}")
+        print(f"  {label}: greedy tokens equal on cpu and {dev} "
+              f"({sum(len(o) for o in out['cpu'])} tokens); pool "
+              f"{stats[dev]}", flush=True)
+
+
+# --------------------------------------------------------------- phase 15
+
+class _count_forwards:
+    """While installed, counts the model's forward passes (mixed steps and
+    decode steps, each step of a burst included) by wrapping the two
+    functions every generate step goes through."""
+
+    def __enter__(self):
+        import importlib
+        self.m = importlib.import_module(
+            "deepspeed_tpu_torch.inference.v2.model")
+        self.n = 0
+        self.orig = (self.m.ragged_forward, self.m._decode_core)
+
+        def wrap(fn):
+            def call(*a, **kw):
+                self.n += 1
+                return fn(*a, **kw)
+            return call
+        self.m.ragged_forward, self.m._decode_core = (
+            wrap(f) for f in self.orig)
+        return self
+
+    def __exit__(self, *exc):
+        self.m.ragged_forward, self.m._decode_core = self.orig
+
+
+def _adapter_put(eng, uid, toks, aid):
+    """put() of one new sequence through adapter ``aid`` (put itself serves
+    the base model): load and pin the adapter, select its slot, run."""
+    eng.state.ensure_adapters([aid])
+    seq = eng.state.create(uid)
+    eng.state.bind_adapter(seq, aid)
+    eng._adapter_slot[seq.slot] = eng.adapters.slot_of(aid)
+    return eng.put([uid], [toks])
+
+
+def _check_adapter_pool(label, eng):
+    st = eng.adapters.stats()
+    alloc = eng.state.allocator
+    eng.adapters.check_invariants()
+    if st["pinned_blocks"] or (alloc.free_blocks + st["resident_blocks"]
+                               != alloc.num_blocks):
+        fail(f"{label}: pool not clean after the run: {st}, free "
+             f"{alloc.free_blocks} of {alloc.num_blocks}")
+    return st
+
+
+def phase_lora_main(torch, lm, dev, card, params, base_e2e=None,
+                    base_outs=None, profile=False):
+    """generate(adapter_ids=...) at full Llama-3-8B width (phase 4's bf16
+    tree), 8 tenants + identity; then a 3-slot run that must evict."""
+    from deepspeed_tpu_torch import InferenceEngineV2
+    cfg = _llama_cfg(torch)
+    if params is None:
+        from deepspeed_tpu_torch.models.gpt import init_params
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev, torch.bfloat16)
+    t0 = time.perf_counter()
+    tenants = _tenants(cfg, 16, 0.02)
+    print(f"  8 tenants' host weights (rank 16) made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    adp = {"enabled": True, "rank": 16, "alpha": 32.0, "slots": LORA_SLOTS}
+    eng = InferenceEngineV2(cfg, config={"dtype": "bfloat16",
+                                         "state_manager": LLAMA_SM,
+                                         "adapters": adp},
+                            params=params, device=dev)
+    for aid, w in tenants.items():
+        eng.register_adapter(aid, w)
+    pool = eng.adapters
+    print(f"  pool: {pool.blocks_per_adapter} blocks of "
+          f"{eng.kv_block_bytes() / 2 ** 20:.1f} MiB a tenant; tables "
+          f"{sum(t.numel() * t.element_size() for t in pool.tables().values()) / 1e6:.1f} MB",
+          flush=True)
+    prompts, news = _requests(cfg.vocab_size, 1025)
+    ids = [i % LORA_SLOTS for i in range(len(prompts))]
+    label = "Llama-3-8B bf16 + LoRA"
+    rec = _record_calls(eng, {"lora_matmul": "lora_matmul"})
+    with _count_forwards() as fw:
+        outs, e2e = _serve(torch, label, eng, prompts, news,
+                           ("lora_matmul", "paged_attention",
+                            "ragged_prefill"), card, profile,
+                           adapter_ids=ids)
+    rec.restore()
+    n_lora = e2e["launches"]["lora_matmul"]
+    want = 2 * cfg.num_layers * fw.n
+    print(f"  forward passes {fw.n}; lora_matmul launches {n_lora} "
+          f"(2 x {cfg.num_layers} x {fw.n} = {want})", flush=True)
+    if n_lora != want:
+        fail(f"{label}: {n_lora} lora_matmul launches, expected {want}")
+    st = _check_adapter_pool(label, eng)
+    e2e["forward_passes"] = fw.n
+    e2e["pool"] = st
+    print(f"  pool after the run: {st}", flush=True)
+    if base_e2e is not None:
+        e2e["base_generated_tok_per_s"] = base_e2e["generated_tok_per_s"]
+        print(f"  generated tok/s {e2e['generated_tok_per_s']:.1f} with 8 "
+              f"tenants against {base_e2e['generated_tok_per_s']:.1f} for "
+              f"phase 4's base model in this run "
+              f"({e2e['generated_tok_per_s'] / base_e2e['generated_tok_per_s']:.3f}x)",
+              flush=True)
+    if base_outs is not None:
+        same = [int(np.array_equal(outs[i], base_outs[i]))
+                for i in range(len(ids)) if ids[i] == 0]
+        pos = [int(np.sum(outs[i] == base_outs[i])) for i in range(len(ids))
+               if ids[i] == 0]
+        e2e["identity_requests_equal_base"] = sum(same)
+        print(f"  identity-slot requests equal to phase 4's tokens (not "
+              f"gated): {sum(same)} of {len(same)} ({pos} positions)",
+              flush=True)
+    # put() logits through an adapter: the kernel against the plain version
+    # swapped into the registry (E2E_TOL as in phase 11: bf16 both ways,
+    # 64 LoRA calls on top of the base path's products and attention)
+    p = prompts[1][:64]
+    got = _adapter_put(eng, 10 ** 6, p, 1)
+    rec.swap_plain()
+    want_l = _adapter_put(eng, 10 ** 6 + 1, p, 1)
+    rec.restore()
+    eng.flush([10 ** 6, 10 ** 6 + 1])
+    base_l = eng.put([10 ** 6 + 2], [p])
+    eng.flush([10 ** 6 + 2])
+    err = float(np.abs(got - want_l).max() / np.abs(want_l).max())
+    moved = float(np.abs(want_l - base_l).max() / np.abs(base_l).max())
+    e2e["put_logits_vs_plain"] = err
+    e2e["adapter_moves_logits"] = moved
+    print(f"  put() logits through adapter 1, kernel vs plain: worst |diff| "
+          f"{err:.3e} of the largest logit (check at {E2E_TOL}); the "
+          f"adapter moves them by {moved:.3e} from the base model's; argmax "
+          f"equal: {int(got.argmax()) == int(want_l.argmax())}", flush=True)
+    if not np.isfinite(got).all() or not err <= E2E_TOL:
+        fail(f"{label}: put() logits differ from the plain path by {err}")
+    _check_adapter_pool(label + " after put", eng)
+    args, _ = rec.pick("lora_matmul")
+    _check_lora(torch, lm, "main path", args)
+    result = _time_lora(torch, lm, args, "main path")
+    _print_lora([result])
+    result["launches"] = n_lora
+    del eng, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 3 slots: two tenant slots for 7 tenants -> admission waits for
+    # pins to drain and loads evict
+    eng = InferenceEngineV2(cfg, config={"dtype": "bfloat16",
+                                         "state_manager": LLAMA_SM,
+                                         "adapters": dict(adp, slots=3)},
+                            params=params, device=dev)
+    for aid, w in tenants.items():
+        eng.register_adapter(aid, w)
+    rng = np.random.default_rng(1)
+    sprompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                for n in rng.integers(64, 257, 8)]
+    label3 = "Llama-3-8B bf16 + LoRA, 3 slots"
+    sids = [i % LORA_SLOTS for i in range(8)]
+    _, e2e3 = _serve(torch, label3, eng, sprompts, [32] * 8,
+                     ("lora_matmul",), card, adapter_ids=sids)
+    st3 = _check_adapter_pool(label3, eng)
+    print(f"  pool after the 3-slot run: {st3}", flush=True)
+    if st3["evictions"] <= 0:
+        fail(f"{label3}: no eviction")
+    e2e["three_slots"] = dict(pool=st3, wall_s=e2e3["wall_s"],
+                              generated_tok_per_s=e2e3[
+                                  "generated_tok_per_s"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result, e2e
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="trace phases 4, 8 and 11 (its W8 run) with "
+                    help="trace phases 4, 8, 11 (its W8 run) and 15 with "
                          "torch.profiler and print the device time by kernel")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -1375,6 +1740,7 @@ def main():
     pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
     fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
     wqm = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
+    lm = importlib.import_module("deepspeed_tpu_torch.ops.lora_matmul")
     dev = "cuda:0"
 
     print("== phase 1: card, versions, kernel build", flush=True)
@@ -1384,7 +1750,7 @@ def main():
           flush=True)
     t0 = time.perf_counter()
     builder.build(["paged_attention", "ragged_prefill", "flash_attention",
-                   "wq_matmul"])
+                   "wq_matmul", "lora_matmul"])
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in builder.build_log.items():
         regs = [int(w) for line in log.splitlines() if "Used" in line
@@ -1408,6 +1774,11 @@ def main():
               "prefill)", flush=True)
         phase_quant_kernels(torch, wqm, pa, dev)
         torch.cuda.empty_cache()
+    if 13 in phases:
+        print("== phase 13: lora_matmul vs plain version (Llama-3-8B q / v "
+              "projections, ranks 8-64, M 1-1024)", flush=True)
+        results["lora_matmul"] = phase_lora_kernels(torch, lm, dev)
+        torch.cuda.empty_cache()
     if 3 in phases:
         print("== phase 3: small-config parity, cuda vs cpu (fp32, TF32 off)",
               flush=True)
@@ -1416,9 +1787,13 @@ def main():
         print("== phase 10: small-config quantized parity, cuda vs cpu (fp32, "
               "TF32 off)", flush=True)
         phase_quant_parity(torch, dev)
+    if 14 in phases:
+        print("== phase 14: small-config adapter parity, cuda vs cpu (fp32, "
+              "TF32 off)", flush=True)
+        phase_lora_parity(torch, dev)
     launches = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH
-                             + WQ + INT8)
-    params = outs = pool = None
+                             + WQ + INT8 + LORA)
+    params = outs = pool = e2e = None
     if 4 in phases:
         print("== phase 4: main path, InferenceEngineV2.generate at "
               "Llama-3-8B width", flush=True)
@@ -1430,10 +1805,21 @@ def main():
         print("E2E " + json.dumps(e2e), flush=True)
         print("== phase 5: kernels vs plain versions on the main path's own "
               "inputs", flush=True)
-        results = phase_main_inputs(torch, pa, calls, eng)
+        results.update(phase_main_inputs(torch, pa, calls, eng))
         del calls, eng
+        if 11 not in phases and 15 not in phases:
+            params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 15 in phases:
+        print("== phase 15: LoRA main path, generate(adapter_ids=...) at "
+              "Llama-3-8B width, 8 tenants", flush=True)
+        results["lora_matmul"], e2e_lora = phase_lora_main(
+            torch, lm, dev, card, params, e2e, outs, args.profile)
+        launches["lora_matmul"] = results["lora_matmul"].pop("launches")
         if 11 not in phases:
             params = None
+        print("E2E_LORA " + json.dumps(e2e_lora), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
     if 11 in phases:
@@ -1481,13 +1867,15 @@ def main():
                 "paged_attention_int8":
                 "deepspeed_tpu/ops/paged_attention.py:152",
                 "ragged_prefill_int8":
-                "deepspeed_tpu/ops/paged_attention.py:546"}
+                "deepspeed_tpu/ops/paged_attention.py:546",
+                "lora_matmul": "deepspeed_tpu/ops/lora_matmul.py:111"}
     sources = {**dict.fromkeys(FLASH, "flash_attention"),
                **dict.fromkeys(WQ, "wq_matmul"),
                "paged_attention_int8": "paged_attention",
                "ragged_prefill_int8": "ragged_prefill"}
     kernels = []
-    for name in ("paged_attention", "ragged_prefill") + FLASH + WQ + INT8:
+    for name in ("paged_attention", "ragged_prefill") + FLASH + WQ + INT8 \
+            + LORA:
         r = results.get(name, {})
         print("KERNEL " + json.dumps({
             "kernel": name, "shape": r.get("shape"), "ms": r.get("ms"),

@@ -4,10 +4,13 @@ never JAX and never the deepspeed_tpu package, which stays beside it as the
 reference the port is held to.
 
 Ported so far: the serving path (``InferenceEngineV2.generate`` over the
-paged KV pool, CUDA kernels for paged decode and ragged prefill) and the
+paged KV pool, CUDA kernels for paged decode and ragged prefill), the
 training main path (``initialize`` → ``engine.train_batch``, CUDA kernels
-for the flash-attention forward, dq and dk/dv).  Entry points run on the
-card unless the caller passes ``device="cpu"``.
+for the flash-attention forward, dq and dk/dv), quantized serving (W8A16 /
+W4A16 stores and int8 KV, the ``wq_matmul`` kernels) and multi-tenant LoRA
+serving (``generate(adapter_ids=...)`` over a paged adapter pool, the
+batched-gather ``lora_matmul`` kernel).  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations

@@ -22,8 +22,15 @@ construction, with the JAX engine's packing policy rule for rule, and the
 engine then holds only the store; ``state_manager.kv_quant="int8"`` keeps
 the KV pool as int8 codes with per-token fp32 scales.
 
+Multi-tenant LoRA: the ``adapters`` block (``enabled``, ``rank``,
+``alpha``, ``slots``) attaches an ``AdapterPool`` (serving/adapters.py) to
+the KV allocator; ``register_adapter`` makes a tenant loadable and
+``generate(adapter_ids=...)`` serves each prompt through its tenant's
+pages, all tenants in one dispatch (ops/lora_matmul.py).  An engine
+without the block passes no adapter keys and runs the base code.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): LoRA ``adapters``, speculative decoding (``speculative`` /
+item): speculative decoding (``speculative`` /
 ``draft_model``), tensor parallelism (``tensor_parallel.tp_size > 1``, and
 with it quantized tensor-parallel serving), the radix prefix cache
 (``state_manager.prefix_cache``), SLA scheduling (``scheduler``), serving
@@ -103,15 +110,31 @@ class V2QuantConfig(DeepSpeedConfigModel):
 
 
 @dataclasses.dataclass
+class AdapterLoRAConfig(DeepSpeedConfigModel):
+    """Multi-tenant LoRA adapter serving (JAX engine_v2.py:159): per-request
+    adapter selection through ONE fused ragged dispatch, adapter pages paged
+    as refcounted residents of the KV block allocator.  ``slots`` counts
+    device-table lanes INCLUDING the identity slot 0; the LoRA scale is
+    ``alpha / rank``."""
+
+    enabled: bool = False
+    rank: int = 8
+    alpha: float = 16.0
+    slots: int = 8
+
+
+@dataclasses.dataclass
 class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
     """reference: inference/v2/config_v2.py RaggedInferenceEngineConfig.
-    The blocks the port does not have yet (adapters, speculative,
-    telemetry, scheduler) are accepted only absent or empty; the engine
-    raises otherwise."""
+    The blocks the port does not have yet (speculative, telemetry,
+    scheduler) are accepted only absent or empty; the engine raises
+    otherwise."""
 
     dtype: str = "bfloat16"
     tensor_parallel: V2TPConfig = dataclasses.field(default_factory=V2TPConfig)
     quant: V2QuantConfig = dataclasses.field(default_factory=V2QuantConfig)
+    adapters: AdapterLoRAConfig = dataclasses.field(
+        default_factory=AdapterLoRAConfig)
     state_manager: DSStateManagerConfig = dataclasses.field(
         default_factory=DSStateManagerConfig)
     generation: GenerationConfig = dataclasses.field(
@@ -137,7 +160,6 @@ class RaggedInferenceEngineConfig(DeepSpeedConfigModel):
 
 # unported config blocks → the ROADMAP item that ports them
 _UNPORTED_BLOCKS = {
-    "adapters": "multi-tenant LoRA (lora_matmul kernel)",
     "speculative": "speculative decode on the torch engine",
     "telemetry": "serving telemetry on the torch engine",
     "scheduler": "SLA scheduling on the torch engine",
@@ -237,6 +259,8 @@ class _Request:
     # how many generated tokens have been folded into .prompt by preemptions
     folded: int = 0
     t_arrival: float = 0.0
+    # LoRA adapter id serving this request (0 = base model identity)
+    adapter: int = 0
 
 
 def _to_device(arrays: Dict[str, np.ndarray], device) -> Dict[str, Any]:
@@ -301,6 +325,25 @@ class InferenceEngineV2:
         self.preempt_stats = {"decode_ready": 0, "mid_prefill": 0}
         # device dispatches by kind ("mixed", "decode", "burst")
         self.dispatches = {"mixed": 0, "decode": 0, "burst": 0}
+        # ---- multi-tenant LoRA adapter pool (serving/adapters.py): A/B
+        # pages live as block-granular refcounted residents of the SAME
+        # allocator as the KV blocks.  _adapter_slot maps sequence slot ->
+        # device-table slot and rides every dispatch when the pool exists
+        # (slot 0 = identity).
+        ac = self.config.adapters
+        self.adapters = None
+        self._adapter_slot = np.zeros(sm.max_tracked_sequences, np.int32)
+        if ac.enabled:
+            from deepspeed_tpu_torch.serving.adapters import AdapterPool
+            self.adapters = AdapterPool(
+                self.state.allocator, slots=ac.slots, rank=ac.rank,
+                hidden=model_cfg.hidden_size,
+                num_layers=model_cfg.num_layers,
+                q_dim=model_cfg.num_heads * model_cfg.head_dim,
+                v_dim=model_cfg.kv_heads * model_cfg.head_dim,
+                block_bytes=self.kv_block_bytes(),
+                scale=ac.alpha / ac.rank, dtype=dt, device=self.device)
+            self.state.adapters = self.adapters
         log_dist(f"v2 ragged engine ready on {self.device}: "
                  f"params={count_params(model_cfg) / 1e6:.1f}M "
                  f"budget={sm.max_ragged_batch_size}tok "
@@ -379,7 +422,12 @@ class InferenceEngineV2:
                 f"{self.state.available_blocks} free; check query() first")
         schedule = []
         for uid, toks in zip(uids, toks_np):
-            seq = self.state.get(uid) or self.state.create(uid)
+            seq = self.state.get(uid)
+            if seq is None:
+                seq = self.state.create(uid)
+                # put() serves the base model: clear any previous tenant's
+                # adapter selection left on this recycled slot
+                self._adapter_slot[seq.slot] = 0
             schedule.append((seq, toks))
         for seq, toks in schedule:
             self.state.ensure_blocks(seq, len(toks))
@@ -422,7 +470,21 @@ class InferenceEngineV2:
         if from_device is not None:
             arrays["from_device"] = from_device[:nb]    # per token
             arrays["served"] = served                   # per slot
-        return _to_device(arrays, self.device)
+        return self._with_lora(arrays)
+
+    def _with_lora(self, arrays: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        """A dispatch's host arrays on the device (``_to_device``, no sync)
+        plus, when the engine has an adapter pool, the per-slot adapter
+        selection (copied with the batch) and the pool's tables (JAX
+        ``_with_lora`` :689).  An adapter-less engine adds NO keys, so its
+        forward runs exactly the base model's code."""
+        if self.adapters is None:
+            return _to_device(arrays, self.device)
+        batch = _to_device({**arrays,
+                            "adapter_slot": self._adapter_slot.copy()},
+                           self.device)
+        batch["lora"] = self.adapters.tables()
+        return batch
 
     def _run(self, rb: RaggedBatch) -> torch.Tensor:
         """A decode-only step (every slot one token) runs the paged decode
@@ -448,10 +510,9 @@ class InferenceEngineV2:
             tokens[sl] = rb.tokens[i]
             active[sl] = True
             token_pos[sl] = rb.token_pos[i]
-        batch = _to_device({"tokens": tokens, "active": active,
-                            "token_pos": token_pos,
-                            "block_table": self._live_table(rb)},
-                           self.device)
+        batch = self._with_lora({"tokens": tokens, "active": active,
+                                 "token_pos": token_pos,
+                                 "block_table": self._live_table(rb)})
         self.dispatches["decode"] += 1
         with torch.no_grad():
             logits, self.cache = ragged_decode_forward(
@@ -484,10 +545,10 @@ class InferenceEngineV2:
                 from_device[sl] = True
             active[sl] = True
             pos0[sl] = seq.seen_tokens
-        return _to_device({"tokens0": tokens0, "from_device": from_device,
-                           "active": active, "pos0": pos0,
-                           "block_table": self._slot_table(seqs)},
-                          self.device)
+        return self._with_lora({"tokens0": tokens0,
+                                "from_device": from_device,
+                                "active": active, "pos0": pos0,
+                                "block_table": self._slot_table(seqs)})
 
     def _run_burst(self, reqs, steps: int, gen, prev, generator):
         """Fused T-step decode over the running set (see
@@ -518,7 +579,10 @@ class InferenceEngineV2:
         S = self.state.max_tracked_sequences
         schedule = []
         for uid, toks in zip(uids, toks_np):
-            seq = self.state.get(uid) or self.state.create(uid)
+            seq = self.state.get(uid)
+            if seq is None:
+                seq = self.state.create(uid)
+                self._adapter_slot[seq.slot] = 0
             self.state.ensure_blocks(seq, len(toks))
             schedule.append((seq, toks))
         served = np.zeros(S, bool)
@@ -536,12 +600,11 @@ class InferenceEngineV2:
                 active[sl] = True
                 fdev[sl] = fd
                 token_pos[sl] = seq.seen_tokens
-            batch = _to_device({"tokens": tokens, "active": active,
-                                "token_pos": token_pos,
-                                "block_table": self._slot_table(
-                                    [seq for seq, _ in schedule]),
-                                "from_device": fdev, "served": served},
-                               self.device)
+            batch = self._with_lora({"tokens": tokens, "active": active,
+                                     "token_pos": token_pos,
+                                     "block_table": self._slot_table(
+                                         [seq for seq, _ in schedule]),
+                                     "from_device": fdev, "served": served})
             self.dispatches["decode"] += 1
             with torch.no_grad():
                 prev = ragged_decode_sampled(
@@ -608,16 +671,46 @@ class InferenceEngineV2:
         for uid in uids:
             self.state.flush(uid)
 
+    # ------------------------------------------------ multi-tenant LoRA
+    def register_adapter(self, adapter_id: int, weights=None) -> None:
+        """Make a LoRA adapter id loadable on this engine (host-side only;
+        pool blocks and device traffic happen when a request first selects
+        the id).  ``weights=None`` generates deterministic per-id weights
+        (JAX engine_v2.py:1195)."""
+        if self.adapters is None:
+            raise ValueError(
+                "this engine has no adapter pool; enable config.adapters")
+        self.adapters.register(adapter_id, weights)
+
+    def adapter_resident(self, adapter_ids) -> int:
+        """How many of ``adapter_ids`` have their pages resident on this
+        engine right now (0 with adapters off; id 0 never counts).  A
+        read-only host dict peek (JAX engine_v2.py:1205)."""
+        if self.adapters is None:
+            return 0
+        return self.adapters.resident_count(adapter_ids)
+
+    def kv_block_bytes(self) -> int:
+        """Bytes one KV pool block holds (K + V across layers) at the
+        SERVING dtype's itemsize — also with int8 KV, as the JAX engine
+        counts it (engine_v2.py:1217), so that ``blocks_per_adapter``
+        equals the JAX pool's."""
+        mc = self.model_config
+        itemsize = torch.empty((), dtype=self.config.torch_dtype
+                               ).element_size()
+        return int(2 * mc.num_layers * mc.kv_heads * self._block_size
+                   * mc.head_dim * itemsize)
+
     # ------------------------------- continuous batching (Dynamic SplitFuse)
     _GEN_UNPORTED = {"sla": "SLA scheduling on the torch engine",
-                     "adapter_ids": "multi-tenant LoRA (lora_matmul kernel)",
                      "trace_ctx": "serving telemetry on the torch engine",
                      "stream": "serving telemetry on the torch engine"}
 
     def generate(self, prompts: Sequence[np.ndarray],
                  max_new_tokens=32, seed: int = 0,
                  arrival_times: Optional[Sequence[float]] = None,
-                 now_fn=None, **gen_overrides) -> List[np.ndarray]:
+                 now_fn=None, adapter_ids: Optional[Sequence[int]] = None,
+                 **gen_overrides) -> List[np.ndarray]:
         """Serve a set of prompts to completion with continuous batching.
 
         Dynamic SplitFuse: every step first schedules 1 token for each
@@ -636,7 +729,15 @@ class InferenceEngineV2:
         max_new_tokens: int, or one int per prompt.  arrival_times:
         open-loop mode — per-prompt arrival offsets in seconds from call
         start; requests become admittable once their arrival passes.
-        ``now_fn`` overrides the clock (a fake clock must advance)."""
+        ``now_fn`` overrides the clock (a fake clock must advance).
+
+        adapter_ids: one LoRA adapter id per prompt (0 / omitted = base
+        model).  Adapters must be :meth:`register_adapter`-ed; pages load
+        at admission and are pinned for the request's life, and every
+        dispatch carries a per-token adapter selection, so a mixed-adapter
+        batch still runs ONE forward.  An id that can never fit (unknown,
+        or larger than the pool next to the request's KV) raises
+        ``ValueError`` before anything runs."""
         for k in list(gen_overrides):
             if k in self._GEN_UNPORTED:
                 if gen_overrides[k] is not None:
@@ -661,10 +762,19 @@ class InferenceEngineV2:
         if (arrival_times is not None
                 and len(arrival_times) != len(prompts)):
             raise ValueError("arrival_times must match prompts")
+        if adapter_ids is not None:
+            if len(adapter_ids) != len(prompts):
+                raise ValueError("adapter_ids list must match prompts")
+            if self.adapters is None and any(int(a) for a in adapter_ids):
+                raise ValueError(
+                    "adapter_ids passed but this engine has no adapter "
+                    "pool; enable config.adapters")
         t_start = now_fn()
         waiting = [
             _Request(uid=-(i + 1), prompt=np.asarray(p, np.int32).reshape(-1),
-                     max_new_tokens=m)
+                     max_new_tokens=m,
+                     adapter=(int(adapter_ids[i])
+                              if adapter_ids is not None else 0))
             for i, (p, m) in enumerate(zip(prompts, max_list))]
         pool_blocks = self.state.allocator.num_blocks
         for i, r in enumerate(waiting):
@@ -681,6 +791,20 @@ class InferenceEngineV2:
                     f"request needs {need} KV blocks for its full context but "
                     f"the pool holds {pool_blocks}; raise num_kv_blocks "
                     f"(recompute-preemption cannot make a single sequence fit)")
+            if r.adapter and self.adapters is not None:
+                # a permanently unservable adapter id is a CLIENT error —
+                # reject at dispatch, never loop in admission
+                bad = self.adapters.unfittable_reason(r.adapter)
+                if bad:
+                    raise ValueError(f"prompt {i}: {bad}")
+                if need + self.adapters.blocks_per_adapter > pool_blocks:
+                    # the request's own pinned adapter pages shrink the pool
+                    # its KV must fit in — unservable at any load
+                    raise ValueError(
+                        f"prompt {i}: {need} KV blocks + "
+                        f"{self.adapters.blocks_per_adapter} adapter-page "
+                        f"blocks exceed the {pool_blocks}-block pool; raise "
+                        f"num_kv_blocks")
         running: List[_Request] = []
         results: Dict[int, _Request] = {r.uid: r for r in waiting}
         incoming: List[_Request] = []
@@ -893,14 +1017,33 @@ class InferenceEngineV2:
             while (waiting and budget > 0 and prefill_budget > 0
                    and self.state.free_sequence_slots
                    and len(sched_uids) < seq_budget):
-                r = waiting[0]
+                r = waiting.pop(0)
+                seq = self.state.create(r.uid)
+                if self.adapters is not None:
+                    # adapter residency BEFORE sizing: the load may consume
+                    # free blocks (evicting cold adapters), and the block
+                    # check below must see the pool as it will be when the
+                    # chunk dispatches.  A load the pool cannot fit right
+                    # now (every slot pinned by in-flight work) rolls back
+                    # like a block shortfall and retries when a retirement
+                    # releases pins.
+                    try:
+                        self.state.ensure_adapters([r.adapter])
+                    except RuntimeError:
+                        self.state.flush(r.uid)
+                        waiting.insert(0, r)
+                        break
+                    self.state.bind_adapter(seq, r.adapter)
+                    self._adapter_slot[seq.slot] = \
+                        self.adapters.slot_of(r.adapter)
                 chunk = min(len(r.prompt), sm.max_q_per_seq, budget,
                             prefill_budget)
-                if -(-chunk // self.state.block_size) \
-                        > self.state.available_blocks:
+                if (seq.kv_blocks_needed(chunk, self.state.block_size)
+                        > self.state.available_blocks):
+                    # roll back (flush releases the pin) and retry later
+                    self.state.flush(r.uid)
+                    waiting.insert(0, r)
                     break
-                waiting.pop(0)
-                seq = self.state.create(r.uid)
                 seq.pending = r.prompt
                 self.state.ensure_blocks(seq, chunk)
                 running.append(r)

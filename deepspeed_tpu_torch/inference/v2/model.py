@@ -21,6 +21,13 @@ dequantizes at its use site (``_w``) is dequantized here too.  int8 KV
 (``quantize_kv_token``) and the attention ops read int8 pages with their
 scale pools.
 
+Multi-tenant LoRA (the engine's ``adapters`` block): a batch that carries
+a ``lora`` key (the pool's layer-major tables, serving/adapters.py) and an
+``adapter_slot`` [S] selection gets a per-row delta on q and v from the
+batched-gather op (ops/lora_matmul.py) after the projections, before rope
+(``_lora_qv``).  A batch without the key runs exactly the base model's
+code: an adapter-less engine passes none.
+
 Where the JAX code relies on buffer donation, this one updates in place:
 the KV pool is ONE preallocated tensor, every layer writes its new K/V
 through views of it, and each layer's attention gets the contiguous slice
@@ -251,6 +258,23 @@ def _qkv(ap, h, cfg):
     return q, k, v
 
 
+def _lora_qv(q, v, h, lora, row_ids, li):
+    """Per-row LoRA deltas on the q and v projections of layer ``li``
+    (JAX model.py:289): every row carries its own adapter slot and the
+    whole mixed-adapter batch rides ONE op call per projection.  ``lora``
+    holds the pool's layer-major tables (``a_q``/``b_q``/``a_v``/``b_v``
+    [L, slots, ...] + per-slot fp32 ``scale``), so ``lora[k][li]`` is a
+    contiguous view; slot 0 is the identity (zero pages, scale 0).
+    Applied pre-rope, in the engine dtype."""
+    h2 = h.reshape(-1, h.shape[-1])
+    scale = lora["scale"]
+    dq = ops.lora_matmul(h2, lora["a_q"][li], lora["b_q"][li], row_ids,
+                         scale)
+    dv = ops.lora_matmul(h2, lora["a_v"][li], lora["b_v"][li], row_ids,
+                         scale)
+    return q + dq.reshape(q.shape), v + dv.reshape(v.shape)
+
+
 def _attn_out(ap, o, cfg):
     """``o [..., nh, hd] @ wo [nh, hd, H]``; a dim-1-grouped store goes to
     the matmul op through its [nh·hd, H] view, any other store is
@@ -330,8 +354,9 @@ def ragged_forward(params, cache: PagedKVCache, batch, cfg: GPTConfig, *,
 
     batch: dict of device tensors mirroring ragged.RaggedBatch fields
     (tokens, token_slot, token_pos, token_dense_idx [N]; block_table [S, MB]
-    int32; kv_len [S] int32).  Returns (logits [S, vocab] fp32 — each slot's
-    last-token logits, the cache, updated in place)."""
+    int32; kv_len [S] int32; with adapters also ``lora`` tables and
+    ``adapter_slot`` [S] int32).  Returns (logits [S, vocab] fp32 — each
+    slot's last-token logits, the cache, updated in place)."""
     bb = params["backbone"]
     tokens = batch["tokens"]
     token_slot = batch["token_slot"]           # [N] (-1 pad)
@@ -363,11 +388,19 @@ def ragged_forward(params, cache: PagedKVCache, batch, cfg: GPTConfig, *,
     g = nh // nkv
     slopes = _slopes(cfg, dev)
     seq_lens = kv_len[slot0][None]
+    # per-TOKEN adapter slot through each token's sequence slot; pad rows
+    # take the identity slot 0 (computed on the device, no sync)
+    lora = batch.get("lora")
+    if lora is not None:
+        lora_ids = torch.where(valid, batch["adapter_slot"][slot0],
+                               0).to(torch.int32)
     for li in range(cfg.num_layers):
         blk = bb[f"block_{li}"]
         ap = blk["Attention_0"]
         h = _norm(blk["Norm_0"], x, cfg)
         q, k, v = _qkv(ap, h, cfg)
+        if lora is not None:
+            q, v = _lora_qv(q, v, h, lora, lora_ids, li)
         if cfg.use_rope:
             q, k = rope(q[None], k[None], token_pos[None], hd,
                         base=cfg.rope_theta, rope_pct=cfg.rope_pct,
@@ -397,7 +430,8 @@ def ragged_forward(params, cache: PagedKVCache, batch, cfg: GPTConfig, *,
 
 
 def _decode_core(params, cache: PagedKVCache, tokens, active, token_pos,
-                 block_table, cfg: GPTConfig, block_size: int):
+                 block_table, cfg: GPTConfig, block_size: int, lora=None,
+                 adapter_slot=None):
     """One decode micro-step: writes each active slot's K/V into its page
     and attends over exactly that slot's pages via the paged-attention op.
     Shared by the single-step and burst paths.  Returns logits [S, V]."""
@@ -414,12 +448,18 @@ def _decode_core(params, cache: PagedKVCache, tokens, active, token_pos,
     off = (token_pos % block_size).long()
     kv_len = torch.where(active, token_pos + 1, 0).to(torch.int32)
     slopes = _slopes(cfg, dev)
+    if lora is not None:
+        # decode rows ARE slots: inactive lanes take the identity slot, so
+        # a recycled lane's stale selection never computes a delta
+        lora_ids = torch.where(active, adapter_slot, 0).to(torch.int32)
 
     for li in range(cfg.num_layers):
         blk = bb[f"block_{li}"]
         ap = blk["Attention_0"]
         h = _norm(blk["Norm_0"], x, cfg)
         q, k, v = _qkv(ap, h, cfg)
+        if lora is not None:
+            q, v = _lora_qv(q, v, h, lora, lora_ids, li)
         if cfg.use_rope:
             q, k = rope(q[:, None], k[:, None], token_pos[:, None], hd,
                         base=cfg.rope_theta, rope_pct=cfg.rope_pct,
@@ -444,11 +484,13 @@ def _decode_core(params, cache: PagedKVCache, tokens, active, token_pos,
 def ragged_decode_forward(params, cache: PagedKVCache, batch,
                           cfg: GPTConfig, *, block_size: int):
     """Decode-only step: one token per active slot (batch tokens, active,
-    token_pos [S]; block_table [S, MB] int32).  Returns (logits [S, V],
-    the cache, updated in place)."""
+    token_pos [S]; block_table [S, MB] int32; with adapters ``lora`` and
+    ``adapter_slot`` [S]).  Returns (logits [S, V], the cache, updated in
+    place)."""
     logits = _decode_core(params, cache, batch["tokens"], batch["active"],
                           batch["token_pos"], batch["block_table"], cfg,
-                          block_size)
+                          block_size, lora=batch.get("lora"),
+                          adapter_slot=batch.get("adapter_slot"))
     return logits, cache
 
 
@@ -467,7 +509,8 @@ def ragged_decode_burst(params, cache: PagedKVCache, batch, prev_tokens,
     out = []
     for _ in range(steps):
         logits = _decode_core(params, cache, tokens, active, pos, bt, cfg,
-                              block_size)
+                              block_size, lora=batch.get("lora"),
+                              adapter_slot=batch.get("adapter_slot"))
         tokens = sample_fn(logits, generator, temperature=temperature,
                            top_p=top_p)
         out.append(tokens)

@@ -2,11 +2,11 @@
 radix shared-prefix cache, ragged batch construction.
 
 A copy of deepspeed_tpu/inference/v2/ragged.py (numpy-only, so the port keeps
-its own copy instead of importing the JAX package), minus the LoRA adapter
-pool hooks, which this port does not carry yet.  In the PyTorch port the
-arrays built here are copied to the card once per step; the KV pool is
-updated in place on one CUDA stream, so the write-before-read ordering the
-notes below rely on holds there too.
+its own copy instead of importing the JAX package), with its LoRA adapter
+pool hooks (``DSStateManager.adapters``, serving/adapters.py).  In the
+PyTorch port the arrays built here are copied to the card once per step;
+the KV pool is updated in place on one CUDA stream, so the
+write-before-read ordering the notes below rely on holds there too.
 
 TPU-native analog of the reference's ragged device state
 (inference/v2/ragged/): ``BlockedAllocator`` (blocked_allocator.py),
@@ -358,6 +358,9 @@ class SequenceDescriptor:
     # avoids re-walking the whole prefix on every decode block completion;
     # also covers the admission match: matched blocks are already indexed)
     cached_blocks: int = 0
+    # LoRA adapter this request pins resident (0 = base model, no pin) —
+    # bind_adapter() acquires the pool pages' refcounts, flush releases them
+    adapter: int = 0
 
     @property
     def in_flight(self) -> bool:
@@ -402,6 +405,12 @@ class DSStateManager:
         self.radix: Optional[RadixKVCache] = (
             RadixKVCache(self.allocator, self.block_size)
             if prefix_cache else None)
+        # multi-tenant LoRA adapter pool (serving/adapters.py AdapterPool):
+        # a SECOND block-granular resident of the same allocator, attached
+        # by the engine when its adapters config enables it.  Supply
+        # accounting (available_blocks) and eviction (ensure_blocks) fold
+        # it in below so every starvation check stays honest.
+        self.adapters = None
         self._seqs: Dict[int, SequenceDescriptor] = {}
         # deque: create/flush are per-request hot-path ops (list.pop(0)/
         # insert(0) would be O(S) each)
@@ -428,6 +437,11 @@ class DSStateManager:
         other sharer) keeps them alive; exclusive blocks return to the
         free list as before."""
         seq = self._seqs.pop(uid)
+        if seq.adapter and self.adapters is not None:
+            # drop this request's pin on its adapter pages — EVERY engine
+            # flush path (retirement, preemption, admission rollback)
+            # funnels through here, so pins release exactly once per bind
+            self.adapters.release(seq.adapter)
         self.allocator.release(seq.blocks)
         self._free_slots.appendleft(seq.slot)
 
@@ -435,14 +449,35 @@ class DSStateManager:
         need = seq.kv_blocks_needed(new_tokens, self.block_size)
         if need:
             short = need - self.allocator.free_blocks
+            if short > 0 and self.adapters is not None:
+                # cold adapters go before KV prefixes: an evictable adapter
+                # serves no in-flight request, while the LRU-freshest radix
+                # leaves are the shared prompts being re-matched
+                short -= self.adapters.evict_cold(short)
             if short > 0 and self.radix is not None:
                 self.radix.evict(short)
             seq.blocks.extend(self.allocator.allocate(need))
 
+    def ensure_adapters(self, adapter_ids) -> None:
+        """Make every adapter in ``adapter_ids`` resident, spilling the
+        radix cache (beyond the pool's own cold adapters) when the load
+        needs blocks the free list cannot cover."""
+        if self.adapters is not None:
+            spill = (self.radix.evict if self.radix is not None else None)
+            self.adapters.ensure(adapter_ids, spill=spill)
+
+    def bind_adapter(self, seq: SequenceDescriptor, adapter_id: int) -> None:
+        """Pin ``adapter_id``'s resident pages for this request's lifetime
+        (refcount acquire on the shared allocator — a pinned adapter is
+        never LRU-evicted under it).  flush() releases the pin."""
+        if self.adapters is not None and adapter_id:
+            self.adapters.acquire(adapter_id)
+            seq.adapter = int(adapter_id)
+
     @property
     def available_blocks(self) -> int:
         """Blocks a scheduler can count on: free now + reclaimable from
-        the radix cache by LRU eviction.  The
+        the radix cache and cold adapter pages by LRU eviction.  The
         supply side every starvation check (put / can_schedule / decode /
         prompt_chunk / admission) compares against — a cached-but-
         unreferenced block must never make the scheduler preempt or
@@ -450,6 +485,8 @@ class DSStateManager:
         free = self.allocator.free_blocks
         if self.radix is not None:
             free += self.radix.evictable_blocks()
+        if self.adapters is not None:
+            free += self.adapters.evictable_blocks()
         return free
 
     # ------------------------------------------------- radix prefix cache

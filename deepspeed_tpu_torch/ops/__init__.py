@@ -14,6 +14,7 @@ picks by the device of the tensors.  Public surface of this slice:
 - ``wq_any`` / ``wq_matmul_t``        quantized-weight matmuls (ops
                                       ``wq_matmul``, ``wq_matmul4``,
                                       ``wq_matmul_t``)
+- ``lora_matmul(...)``                batched-gather LoRA delta
 - ``rms_norm`` / ``layer_norm``
 - ``op_report()``                     which implementation each device takes
 """
@@ -25,6 +26,7 @@ from typing import Callable, Optional
 import torch
 
 from deepspeed_tpu_torch.ops import flash_attention as _flash
+from deepspeed_tpu_torch.ops import lora_matmul as _lora
 from deepspeed_tpu_torch.ops import paged_attention as _paged
 from deepspeed_tpu_torch.ops import registry
 from deepspeed_tpu_torch.ops import wq_matmul as _wq
@@ -132,8 +134,17 @@ register_op("wq_matmul_t", torch=_wq.torch_wq_matmul_t,
             kernel=_wq.cuda_wq_matmul_t, supported=_wq.supported_t)
 register_op("wq_matmul4", torch=_wq.torch_wq_matmul4,
             kernel=_wq.cuda_wq_matmul4, supported=_wq.supported4)
+register_op("lora_matmul", torch=_lora.torch_lora_matmul,
+            kernel=_lora.cuda_lora_matmul, supported=_lora.lora_supported)
+
+
+def lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
+    """Batched-gather LoRA delta: ``y[i] = (x[i] @ A[id_i]) @ B[id_i] ·
+    s[id_i]`` over packed per-slot adapter pages (ops/lora_matmul.py)."""
+    return dispatch("lora_matmul", x, a_pages, b_pages, adapter_ids, scales)
+
 
 __all__ = ["causal_attention", "flash_attention", "lm_cross_entropy",
            "masked_nll_sum", "paged_attention", "ragged_prefill_attention", "rms_norm",
-           "wq_any", "wq_matmul_t",
+           "wq_any", "wq_matmul_t", "lora_matmul",
            "layer_norm", "op_report", "register_op", "dispatch", "registry"]

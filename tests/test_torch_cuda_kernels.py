@@ -1,7 +1,9 @@
 """PyTorch port, CUDA kernels on the card: each hand-written kernel held to
 its plain PyTorch version at small shapes (the int8-KV variants of the
 paged kernels and the quantized-weight matmuls included), and the engine on
-the card held to the engine on the CPU, quantized serving included.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.
+the card held to the engine on the CPU, quantized and LoRA serving
+included (the batched-gather LoRA kernel too).  Needs an NVIDIA GPU and
+nvcc; skipped elsewhere.
 Imports no JAX, so on the GPU machine it runs without the repo's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
@@ -374,3 +376,113 @@ def test_training_on_card_matches_cpu(cuda):
     for name in pa_:
         np.testing.assert_allclose(pa_[name], pb_[name], atol=1e-4, rtol=0)
 
+
+
+# ---- batched-gather LoRA (csrc/lora_matmul.cu)
+
+lm = importlib.import_module("deepspeed_tpu_torch.ops.lora_matmul")
+
+
+def _lora_case(dev, dtype, M, O, r, S=9, H=4096, ids="random"):
+    """Pages as the pool keeps them (slot 0 zero, scale 0) at Llama-3-8B's
+    hidden width; ids random over the slots, all identity or one tenant."""
+    gen = torch.Generator(device=dev).manual_seed(M + O + r)
+    x = torch.randn((M, H), device=dev, generator=gen).to(dtype)
+    a = (torch.randn((S, H, r), device=dev, generator=gen) * 0.05).to(dtype)
+    b = (torch.randn((S, r, O), device=dev, generator=gen) * 0.05).to(dtype)
+    a[0] = 0
+    b[0] = 0
+    s = torch.linspace(0.5, 2.0, S, device=dev)
+    s[0] = 0
+    if ids == "random":
+        sel = torch.randint(0, S, (M,), device=dev, generator=gen)
+    else:
+        sel = torch.full((M,), 0 if ids == "identity" else 3, device=dev)
+    return x, a, b, sel.to(torch.int32), s
+
+
+def _lora_row_err(got, want):
+    """Worst row's max |got - want| over its largest |want|; rows that are
+    exactly 0 in the plain version must be exactly 0."""
+    g, w = got.float(), want.float()
+    zero = w.abs().amax(-1) == 0
+    assert not g[zero].any()
+    d = (g - w).abs().amax(-1)[~zero]
+    return (d / w.abs().amax(-1)[~zero]).max().item() if d.numel() else 0.0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("O", [4096, 1024])
+@pytest.mark.parametrize("r", [8, 16, 64])
+@pytest.mark.parametrize("M", [1, 16, 37, 256, 1024])
+def test_lora_kernel_matches_plain(cuda, dtype, tol, O, r, M):
+    before = lm.cuda_lora_matmul.launches
+    for ids in ("random", "identity", "one"):
+        args = _lora_case(cuda, dtype, M, O, r, ids=ids)
+        got = lm.cuda_lora_matmul(*args)
+        want = lm.torch_lora_matmul(*args)
+        assert got.dtype == dtype and got.shape == (M, O)
+        assert _lora_row_err(got, want) <= tol
+        if ids == "identity":
+            assert not got.float().any()
+    assert lm.cuda_lora_matmul.launches - before == 3
+
+
+@pytest.mark.requires_cuda
+def test_lora_unsupported_raise(cuda):
+    from deepspeed_tpu_torch import ops
+    x, a, b, ids, s = _lora_case(cuda, torch.bfloat16, 16, 1024, 16, H=256)
+    with pytest.raises(ValueError, match="dtype"):
+        lm.cuda_lora_matmul(x.float(), a, b, ids, s)
+    with pytest.raises(ValueError, match="one device"):
+        lm.cuda_lora_matmul(x, a, b, ids.cpu(), s)
+    with pytest.raises(ValueError, match="int32"):
+        lm.cuda_lora_matmul(x, a, b, ids.long(), s)
+    big = torch.zeros((2, 256, lm.RANK_MAX + 1), dtype=x.dtype, device=cuda)
+    with pytest.raises(ValueError, match="rank"):
+        lm.cuda_lora_matmul(x, big, torch.zeros(
+            (2, lm.RANK_MAX + 1, 8), dtype=x.dtype, device=cuda), ids % 2,
+            s[:2])
+    with pytest.raises(ValueError, match="does not support"):
+        ops.lora_matmul(x, a[:, :128], b, ids, s)
+
+
+@pytest.mark.requires_cuda
+def test_adapter_engine_on_card_matches_cpu(cuda):
+    """8 tenants (``slots`` 10 and, with eviction churn, 3) on the small
+    model, fp32, TF32 off: greedy tokens on the card equal the CPU's."""
+    from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
+    from deepspeed_tpu_torch.models.gpt import init_params
+    from deepspeed_tpu_torch.serving import random_adapter_weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(
+        GPTConfig.llama(num_layers=2, hidden=128, heads=4, num_kv_heads=2,
+                        vocab_size=512, max_seq_len=256), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, (6 + 5 * i,)).astype(np.int32)
+               for i in range(8)]
+    ids = [1 + i for i in range(8)]
+    for slots in (10, 3):
+        ecfg = {"dtype": "fp32", "adapters": {"enabled": True, "rank": 4,
+                                              "alpha": 8.0, "slots": slots},
+                "state_manager": {"max_tracked_sequences": 8,
+                                  "max_ragged_batch_size": 64,
+                                  "kv_block_size": 8, "max_q_per_seq": 8}}
+        before = lm.cuda_lora_matmul.launches
+        outs = []
+        for d in ("cpu", cuda):
+            eng = InferenceEngineV2(cfg, config=ecfg, params=params, device=d)
+            for aid in ids:
+                eng.register_adapter(aid, random_adapter_weights(
+                    2, 128, 4, 128, 64, seed=aid, init_scale=0.5))
+            outs.append(eng.generate(prompts, max_new_tokens=12,
+                                     adapter_ids=ids))
+            assert eng.adapters.stats()["pinned_blocks"] == 0
+            eng.adapters.check_invariants()
+        assert lm.cuda_lora_matmul.launches > before
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(a, b)

@@ -319,10 +319,12 @@ class TestSampling:
 
 class TestUnported:
     # (quant and kv_quant are ported — tests/test_torch_quant_serving.py —
-    # and raise only combined with a block that is not)
+    # and so are adapters — tests/test_torch_lora_serving.py; they raise
+    # only combined with a block that is not)
     @pytest.mark.parametrize("config", [
         {"quant": {"enabled": True}, "tensor_parallel": {"tp_size": 2}},
-        {"adapters": {"enabled": True, "rank": 4}},
+        {"adapters": {"enabled": True, "rank": 4},
+         "state_manager": {"prefix_cache": True}},
         {"speculative": {"gamma": 2}},
         {"telemetry": {"stream_sync": True}},
         {"tensor_parallel": {"tp_size": 2}},
