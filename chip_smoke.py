@@ -88,6 +88,31 @@
    run with 3 slots must evict.  The kernel is held to its plain version
    and timed on the main path's heaviest first-layer call.
 
+16. The block-sparse kernels (#10-#12: forward, dq, dk/dv) against their
+   plain versions in bf16 (one fp16 case), per output row at ROW_TOL (lse
+   absolute): Dense, Fixed, BSLongformer and BigBird layouts, causal and
+   not, GQA 1 and 4, blocks 16-128, head_dim 64 and 128, T 1024-2048.  K/V
+   blocks no table entry reads are poisoned with NaN and the outputs must
+   stay equal to the plain ones on clean inputs; one dropped table entry
+   must move a row beyond ROW_TOL.
+17. The block-sparse path at full Llama-3-8B attention width and its
+   published context (B 1, T 8192, 32 / 8 heads x 128, bf16):
+   ``ops.sparse_attention`` and its autograd backward with the default
+   Fixed pattern (causal) and with BigBird block 64 (non-causal).  Each
+   kernel launches once a call; o, dq, dk, dv held per row to the plain
+   versions run one KV group at a time; the kernels timed on the Fixed call
+   beside their bound (live pairs only), the plain versions and SDPA with
+   the expanded boolean mask.
+18. The evoformer forward kernel (#13) against its plain version at small
+   shapes (biases none / one / both, D 8-128, S 13 / 64 / 383, fully
+   masked rows), then AlphaFold2's MSA row attention with pair bias (N_clust
+   512, N_res 384, 8 heads x 32), triangle attention (384 x 384, 4 heads x
+   32) and the MSA call at S 383 (padded) through ``ops.evoformer_attention``:
+   one launch a call, held per row, the MSA call timed beside its bound, the
+   plain version and SDPA with the additive mask; a bias2 read through the
+   neighbouring head must show; a backward through the CUDA path must raise
+   NotImplementedError naming ROADMAP A.13.
+
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
 Without a CUDA device, or outside a checkout of the repository, the script
@@ -155,8 +180,10 @@ FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 WQ = ("wq_matmul_t", "wq_matmul", "wq_matmul4")
 INT8 = ("paged_attention_int8", "ragged_prefill_int8")
 LORA = ("lora_matmul",)
+SPARSE = ("sparse_fwd", "sparse_dq", "sparse_dkv")
+EVO = ("evoformer_fwd",)
 ERRS = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH + WQ
-                     + INT8 + LORA, 0.0)
+                     + INT8 + LORA + SPARSE + EVO, 0.0)
 # ^ max |kernel - plain| seen per kernel
 
 
@@ -1714,9 +1741,429 @@ def phase_lora_main(torch, lm, dev, card, params, base_e2e=None,
     return result, e2e
 
 
+# --------------------------------------------------------------- phase 16
+
+LLAMA_ATTN = (1, 8192, 32, 8, 128)   # B, T, N, Nkv, D: Llama-3-8B, its context
+
+
+def _even_columns(sp):
+    """A layout class that leaves the odd K/V blocks unread: every row
+    block sees the even column blocks at or before it (the dead-block
+    check)."""
+    class EvenColumns(sp.SparsityConfig):
+        def make_layout(self, seq_len):
+            nb = seq_len // self.block
+            lay = np.tril(np.ones((nb, nb), bool))
+            lay[:, 1::2] = False
+            return lay
+    return EvenColumns
+
+
+def _check_sparse(torch, sp, label, q, k, v, do, cfg, causal):
+    """o, lse, dq, dk, dv of the three kernels against the plain versions
+    (the backward kernels get the plain o and lse)."""
+    lay = cfg.make_layout(q.shape[1])
+    o, lse = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
+    o_ref, lse_ref = sp.torch_sparse_fwd(q, k, v, lay, cfg.block, causal)
+    _check_rows(torch, "sparse_fwd", label + " o", o, o_ref)
+    lerr = (lse - lse_ref).abs().max().item()
+    print(f"  sparse_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
+          flush=True)
+    if not lerr <= ROW_TOL:
+        fail(f"sparse_fwd {label}: lse differs by {lerr}")
+    dq = sp.cuda_sparse_dq(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
+                           causal)
+    dk, dv = sp.cuda_sparse_dkv(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
+                                causal)
+    dq_ref, dk_ref, dv_ref = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do,
+                                                 lay, cfg.block, causal)
+    _check_rows(torch, "sparse_dq", label + " dq", dq, dq_ref)
+    _check_rows(torch, "sparse_dkv", label + " dk", dk, dk_ref)
+    _check_rows(torch, "sparse_dkv", label + " dv", dv, dv_ref)
+    return o_ref, lse_ref
+
+
+def phase_sparse_kernels(torch, sp, dev):
+    """Kernels #10-#12 against their plain versions (bf16; one fp16 case)
+    over every layout class, causal and not, GQA 1 and 4, blocks 16-128 and
+    head_dim 64 / 128; NaN-poisoned unread K/V blocks; one dropped table
+    entry must show."""
+    EvenColumns = _even_columns(sp)
+    cases = [  # label, (B, T, N, Nkv, D), config, causal, dtype
+        ("fixed b16 causal g4 d128", (1, 2048, 8, 2, 128),
+         sp.FixedSparsityConfig(), True, torch.bfloat16),
+        ("fixed b16 causal g4 d128 fp16", (1, 2048, 8, 2, 128),
+         sp.FixedSparsityConfig(), True, torch.float16),
+        ("fixed b32 non-causal g1 d64", (2, 1024, 4, 4, 64),
+         sp.FixedSparsityConfig(block=32), False, torch.bfloat16),
+        ("longformer b64 causal g4 d64", (1, 2048, 8, 2, 64),
+         sp.BSLongformerSparsityConfig(block=64), True, torch.bfloat16),
+        ("bigbird b64 non-causal g4 d128", (1, 2048, 8, 2, 128),
+         sp.BigBirdSparsityConfig(block=64), False, torch.bfloat16),
+        ("bigbird b128 causal g1 d128", (1, 2048, 4, 4, 128),
+         sp.BigBirdSparsityConfig(block=128), True, torch.bfloat16),
+        ("dense b128 non-causal g4 d64", (1, 1024, 8, 2, 64),
+         sp.DenseSparsityConfig(block=128), False, torch.bfloat16),
+        ("dense b16 causal g1 d64", (2, 1024, 4, 4, 64),
+         sp.DenseSparsityConfig(block=16), True, torch.bfloat16),
+    ]
+    for label, dims, cfg, causal, dtype in cases:
+        q, k, v, do = (t.to(dtype) for t in _flash_inputs(torch, dev, *dims))
+        _check_sparse(torch, sp, label, q, k, v, do, cfg, causal)
+    # unread K/V blocks poisoned with NaN: the kernels must never load them
+    cfg = EvenColumns(block=16)
+    q, k, v, do = _flash_inputs(torch, dev, 1, 2048, 8, 2, 128)
+    lay = cfg.make_layout(2048)
+    o_ref, lse_ref = sp.torch_sparse_fwd(q, k, v, lay, 16)
+    refs = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do, lay, 16)
+    kp, vp = k.clone(), v.clone()
+    dead = np.flatnonzero(~lay.any(0))
+    for j in dead:
+        kp[:, 16 * j:16 * (j + 1)] = float("nan")
+        vp[:, 16 * j:16 * (j + 1)] = float("nan")
+    o, _ = sp.cuda_sparse_fwd(q, kp, vp, lay, 16)
+    dq = sp.cuda_sparse_dq(q, kp, vp, o_ref, lse_ref, do, lay, 16)
+    dk, dv = sp.cuda_sparse_dkv(q, kp, vp, o_ref, lse_ref, do, lay, 16)
+    print(f"  {dead.size} of {lay.shape[0]} K/V blocks unread and poisoned "
+          f"with NaN", flush=True)
+    for name, lab, got, want in zip(
+            ("sparse_fwd", "sparse_dq", "sparse_dkv", "sparse_dkv"),
+            ("o", "dq", "dk", "dv"), (o, dq, dk, dv), (o_ref,) + refs):
+        _check_rows(torch, name, "NaN-poisoned dead blocks " + lab, got, want)
+    # one active entry dropped from the table must move some row
+    cfg = sp.FixedSparsityConfig()
+    q, k, v, _ = _flash_inputs(torch, dev, 1, 2048, 8, 2, 128)
+    lay = cfg.make_layout(2048)
+    want, _ = sp.torch_sparse_fwd(q, k, v, lay, 16)
+    cut = lay.copy()
+    nb = lay.shape[0]
+    cut[nb - 1, np.flatnonzero(lay[nb - 1])[0]] = False
+    got, _ = sp.cuda_sparse_fwd(q, k, v, cut, 16)
+    r = _row_err(torch, got, want)
+    print(f"  one table entry dropped (row block {nb - 1}) moves the worst "
+          f"row by {r:.3e} of its max (check at {ROW_TOL})", flush=True)
+    if not r > ROW_TOL:
+        fail("the block-sparse check cannot see a dropped table entry")
+
+
+# --------------------------------------------------------------- phase 17
+
+def _by_group(fn, q, k, v, o=None, lse=None, do=None):
+    """Run a plain version one KV group at a time (the masked-dense plain
+    path holds [B, Nkv, g, T, T] fp32 per tensor: 8.6 GB at Llama-3-8B
+    width and T 8192); one result per group."""
+    g = q.shape[2] // k.shape[2]
+    outs = []
+    for j in range(k.shape[2]):
+        h, kv = slice(j * g, (j + 1) * g), slice(j, j + 1)
+        args = [q[:, :, h], k[:, :, kv], v[:, :, kv]]
+        if o is not None:
+            args += [o[:, :, h], lse[:, h], do[:, :, h]]
+        outs.append(fn(*args))
+    return outs
+
+
+def _sparse_bounds(q, k, pairs):
+    """Bytes (each input once, each output once) and operations (2*D flops
+    per live (query, key) pair and product: forward 2 products, dq 3, dk/dv
+    4) of the three kernels, live pairs counted from this layout."""
+    B, T, N, D = q.shape
+    e = q.element_size()
+    nq, nk, rows = q.numel() * e, k.numel() * e, B * N * T * 4
+    return {"sparse_fwd": _bound(nq + 2 * nk + nq + rows, 4 * D * pairs),
+            "sparse_dq": _bound(2 * nq + 2 * nk + 2 * rows + nq,
+                                6 * D * pairs),
+            "sparse_dkv": _bound(2 * nq + 2 * nk + 2 * rows + 2 * nk,
+                                 8 * D * pairs)}
+
+
+def _time_sparse(torch, sp, q, k, v, do, cfg, causal, label):
+    """Device times of the three kernels, the plain versions (run one KV
+    group at a time) and SDPA with the expanded boolean mask (K/V heads
+    expanded beforehand; forward, and its autograd backward for dq + dk/dv),
+    beside each kernel's bound."""
+    import torch.nn.functional as F
+    B, T, N, D = q.shape
+    lay = cfg.make_layout(T)
+    mask = sp._visible(lay, cfg.block, causal, q.device)
+    pairs = int(mask.sum().item()) * B * N
+    bounds = _sparse_bounds(q, k, pairs)
+    o, lse = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
+    dos, lse_c, delta = sp._bwd_inputs("time", q, o, lse, do)
+    ms = {"sparse_fwd": cuda_ms(lambda: sp.cuda_sparse_fwd(
+              q, k, v, lay, cfg.block, causal)),
+          "sparse_dq": cuda_ms(lambda: sp.cuda_sparse_dq(
+              q, k, v, o, lse_c, dos, lay, cfg.block, causal, delta=delta)),
+          "sparse_dkv": cuda_ms(lambda: sp.cuda_sparse_dkv(
+              q, k, v, o, lse_c, dos, lay, cfg.block, causal, delta=delta))}
+    plain_fwd = cuda_ms(lambda: _by_group(
+        lambda *a: sp.torch_sparse_fwd(*a, lay, cfg.block, causal),
+        q, k, v), reps=3, warmup=1)
+    plain_bwd = cuda_ms(lambda: _by_group(
+        lambda *a: sp.torch_sparse_bwd(*a, lay, cfg.block, causal),
+        q, k, v, o, lse, do), reps=3, warmup=1)
+    rep = N // k.shape[2]
+    qs = q.transpose(1, 2).detach().requires_grad_()
+    ks_, vs = (t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+               .requires_grad_() for t in (k, v))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs.detach(), ks_.detach(), vs.detach(), attn_mask=mask))
+    out = F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask)
+    dout = do.transpose(1, 2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        out, (qs, ks_, vs), dout, retain_graph=True), reps=5)
+    del out
+    ratio = sp.sparsity_ratio(cfg, T, causal)
+    shape = (f"q[{B},{T},{N},{D}] kv heads {k.shape[2]} {q.dtype} "
+             f"{type(cfg).__name__}(block={cfg.block}) causal={causal}, "
+             f"{pairs // (B * N)} live pairs a head, sparsity_ratio "
+             f"{ratio:.4f}")
+    res = {}
+    for name in SPARSE:
+        res[name] = dict(
+            shape=shape, ms=ms[name],
+            plain_ms=plain_fwd if name == "sparse_fwd" else plain_bwd,
+            library_ms=lib_fwd if name == "sparse_fwd" else lib_bwd,
+            bound_ms=bounds[name][0], bound_by=bounds[name][1])
+    print(f"  [{label}] {shape}: fwd {ms['sparse_fwd']:.4f} ms (bound "
+          f"{bounds['sparse_fwd'][0]:.4f} {bounds['sparse_fwd'][1]}), dq "
+          f"{ms['sparse_dq']:.4f} ms (bound {bounds['sparse_dq'][0]:.4f}), "
+          f"dk/dv {ms['sparse_dkv']:.4f} ms (bound "
+          f"{bounds['sparse_dkv'][0]:.4f}); plain fwd {plain_fwd:.3f} ms, "
+          f"plain bwd (dq+dk+dv) {plain_bwd:.3f} ms; SDPA + mask fwd "
+          f"{lib_fwd:.4f} ms, bwd (dq+dk+dv) {lib_bwd:.4f} ms", flush=True)
+    return res
+
+
+def phase_sparse_main(torch, sp, dev):
+    """The block-sparse path at full Llama-3-8B attention width and its
+    published context (B 1, T 8192, 32 q heads over 8 kv heads, head_dim
+    128, bf16): ``ops.sparse_attention`` forward and ``backward`` through
+    autograd, once with the reference's default Fixed pattern (causal) and
+    once with BigBird block 64 non-causal.  Each kernel launches exactly
+    once a call; o is held to the plain forward, and dq, dk, dv to the
+    plain backward on the o and lse the backward kernels were given (the
+    forward kernel's, recomputed: the kernel is deterministic), the plain
+    versions run one KV group at a time.  An end-to-end comparison would
+    fold the bf16 rounding of o into delta = rowsum(o·do), which moves the
+    first rows' dq (a near-cancelling sum over one or two keys) by ~0.1 of
+    their largest value in the plain path itself against fp32.  The
+    kernels timed on the Fixed call."""
+    from deepspeed_tpu_torch import ops
+    calls = [("Fixed (defaults), causal", sp.FixedSparsityConfig(), True),
+             ("BigBird block 64, non-causal", sp.BigBirdSparsityConfig(
+                 block=64), False)]
+    B, T, N, Nkv, D = LLAMA_ATTN
+    total = dict.fromkeys(SPARSE, 0)
+    results = {}
+    for i, (label, cfg, causal) in enumerate(calls):
+        q, k, v, g = _flash_inputs(torch, dev, B, T, N, Nkv, D, seed=17 + i)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        counters = (sp.cuda_sparse_fwd, sp.cuda_sparse_dq, sp.cuda_sparse_dkv)
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ops.sparse_attention(qg, kg, vg, cfg, causal=causal)
+        o.backward(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [c.launches for c in counters]
+        print(f"  [{label}] forward + backward {wall * 1e3:.1f} ms wall "
+              f"(first call includes the table build), launches "
+              f"{dict(zip(SPARSE, counts))}", flush=True)
+        if counts != [1, 1, 1]:
+            fail(f"sparse main path [{label}]: launches {counts}, want "
+                 f"1 each")
+        for n, c in zip(SPARSE, counts):
+            total[n] += c
+        lay = cfg.make_layout(T)
+        fwd = _by_group(lambda *a: sp.torch_sparse_fwd(
+            *a, lay, cfg.block, causal), q, k, v)
+        o_ref = torch.cat([f[0] for f in fwd], dim=2)
+        lse_ref = torch.cat([f[1] for f in fwd], dim=1)
+        del fwd
+        _check_rows(torch, "sparse_fwd", f"{label} o", o.detach(), o_ref)
+        o_k, lse_k = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
+        if not torch.equal(o_k, o.detach()):
+            fail(f"sparse_fwd [{label}]: a second launch differs")
+        lerr = (lse_k - lse_ref).abs().max().item()
+        print(f"  sparse_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
+              flush=True)
+        if not lerr <= ROW_TOL:
+            fail(f"sparse_fwd {label}: lse differs by {lerr}")
+        bwd = _by_group(lambda *a: sp.torch_sparse_bwd(
+            *a, lay, cfg.block, causal), q, k, v, o_k, lse_k, g)
+        refs = [torch.cat([b_[j] for b_ in bwd], dim=2) for j in range(3)]
+        del bwd
+        for name, lab, got, want in zip(
+                ("sparse_dq", "sparse_dkv", "sparse_dkv"), ("dq", "dk", "dv"),
+                (qg.grad, kg.grad, vg.grad), refs):
+            _check_rows(torch, name, f"{label} {lab}", got, want)
+        if i == 0:
+            results = _time_sparse(torch, sp, q, k, v, g, cfg, causal,
+                                   label)
+        else:
+            _time_sparse(torch, sp, q, k, v, g, cfg, causal, label)
+        del q, k, v, g, qg, kg, vg, o, o_ref, lse_ref, o_k, lse_k, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total, results
+
+
+# --------------------------------------------------------------- phase 18
+
+def _evo_inputs(torch, dev, B, N, S, H, D, seed=0, masked_keys=24,
+                bias=("b1", "b2")):
+    """q, k, v [B, N, S, H, D] bf16, bias1 [B, N, 1, 1, S] fp32 — the MSA
+    mask: -1e9 on the last ``masked_keys`` keys of a seeded half of the
+    rows — and bias2 [B, 1, H, S, S] bf16, from a seeded generator."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v = (rand(B, N, S, H, D) for _ in range(3))
+    b1 = torch.zeros((B, N, 1, 1, S), device=dev)
+    rows = np.random.default_rng(seed).permutation(N)[:N // 2]
+    b1[:, torch.from_numpy(rows).to(dev), ..., S - masked_keys:] = -1e9
+    b2 = rand(B, 1, H, S, S)
+    return (q, k, v, b1 if "b1" in bias else None,
+            b2 if "b2" in bias else None)
+
+
+def _check_evo(torch, evo, label, q, k, v, b1, b2):
+    o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+    o_ref, lse_ref = evo.torch_evoformer_fwd(q, k, v, b1, b2)
+    _check_rows(torch, "evoformer_fwd", label + " o", o, o_ref)
+    lerr = (lse - lse_ref).abs().max().item()
+    print(f"  evoformer_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
+          flush=True)
+    if not lerr <= ROW_TOL:
+        fail(f"evoformer_fwd {label}: lse differs by {lerr}")
+
+
+def _evo_by_rows(torch, evo, q, k, v, b1, b2, chunk=128):
+    """The plain forward over chunks of the N rows (its fp32 logits are
+    [B, N, H, S, S]: 2.4 GB at the MSA shape)."""
+    N = q.shape[1]
+    outs = [evo.torch_evoformer_fwd(
+        q[:, n:n + chunk], k[:, n:n + chunk], v[:, n:n + chunk],
+        None if b1 is None else b1[:, n:n + chunk], b2)[0]
+        for n in range(0, N, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def _time_evo(torch, evo, q, k, v, b1, b2):
+    """Kernel (and, for the biases' share, the kernel without them), plain
+    and SDPA (additive float mask bias1 + bias2 broadcast to [B·N, H, S,
+    S], q/k/v permuted to [B·N, H, S, D]) device times,
+    beside the bound: q, k, v, o, both biases (as stored) and lse once;
+    4·D flops per (query, key) pair of every head and row."""
+    import torch.nn.functional as F
+    B, N, S, H, D = q.shape
+    e = q.element_size()
+    nbytes = (4 * q.numel() * e + b1.numel() * b1.element_size()
+              + b2.numel() * b2.element_size() + B * N * H * S * 4)
+    bound_ms, bound_by = _bound(nbytes, 4 * D * S * S * H * B * N)
+    ms = cuda_ms(lambda: evo.cuda_evoformer_fwd(q, k, v, b1, b2))
+    no_bias_ms = cuda_ms(lambda: evo.cuda_evoformer_fwd(q, k, v))
+    plain_ms = cuda_ms(lambda: evo.torch_evoformer_fwd(q, k, v, b1, b2),
+                       reps=3, warmup=1)
+    qs, ks_, vs = (t.permute(0, 1, 3, 2, 4).reshape(B * N, H, S, D)
+                   .contiguous() for t in (q, k, v))
+    mask = (b1.float() + b2.float()).to(q.dtype).expand(
+        B, N, H, S, S).reshape(B * N, H, S, S).contiguous()
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks_, vs, attn_mask=mask))
+    del mask
+    print(f"  the same call without biases: kernel {no_bias_ms:.4f} ms",
+          flush=True)
+    return dict(shape=f"q[{B},{N},{S},{H},{D}] {q.dtype}, bias1 "
+                      f"{list(b1.shape)} {b1.dtype}, bias2 {list(b2.shape)} "
+                      f"{b2.dtype}",
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_evoformer(torch, evo, dev):
+    """Kernel #13 against its plain version at small shapes (biases none /
+    one / both, D 8-128, S 13 / 64 / 383, fully masked rows), then the
+    AlphaFold2 calls through ``ops.evoformer_attention``: MSA row attention
+    with pair bias (N_clust 512, N_res 384, 8 heads x 32), triangle
+    attention (384 x 384, 4 heads x 32) and the MSA call at S 383 (padded
+    to 384).  One launch a call; held per row; the MSA call timed.  A
+    bias2 read through the neighbouring head must show; a backward through
+    the CUDA path must raise NotImplementedError naming A.13."""
+    from deepspeed_tpu_torch import ops
+    cases = [(8, 13, ()), (16, 64, ("b1",)), (32, 383, ("b2",)),
+             (64, 64, ("b1", "b2")), (128, 383, ("b1", "b2")),
+             (32, 13, ("b1", "b2")), (8, 383, ("b1",))]
+    for D, S, bias in cases:
+        q, k, v, b1, b2 = _evo_inputs(torch, dev, 1, 4, S, 4, D,
+                                      masked_keys=min(S, 5), bias=bias)
+        if b1 is not None:
+            b1[:, 1] = -1e9                     # every key of a row masked
+        _check_evo(torch, evo, f"D {D} S {S} biases {bias or 'none'}",
+                   q, k, v, b1, b2)
+    # the AlphaFold2 calls (Jumper et al. 2021: Algorithms 7 and 13, the
+    # fine-tuning crop of Supplementary Table 4)
+    calls = [("MSA row attention + pair bias", (1, 512, 384, 8, 32), 24),
+             ("triangle attention", (1, 384, 384, 4, 32), 16),
+             ("MSA row attention, S 383 (padded)", (1, 512, 383, 8, 32), 24)]
+    launches, result = 0, None
+    for i, (label, dims, masked) in enumerate(calls):
+        q, k, v, b1, b2 = _evo_inputs(torch, dev, *dims, seed=18 + i,
+                                      masked_keys=masked)
+        evo.cuda_evoformer_fwd.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ops.evoformer_attention(q, k, v, b1, b2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = evo.cuda_evoformer_fwd.launches
+        launches += n
+        print(f"  [{label}] q {list(q.shape)}: {wall * 1e3:.2f} ms wall, "
+              f"{n} launch", flush=True)
+        if n != 1:
+            fail(f"evoformer [{label}]: {n} launches, want 1")
+        want = _evo_by_rows(torch, evo, q, k, v, b1, b2)
+        _check_rows(torch, "evoformer_fwd", label, out, want)
+        if i == 0:
+            result = _time_evo(torch, evo, q, k, v, b1, b2)
+            print(f"  [{label}] kernel {result['ms']:.4f} ms, plain "
+                  f"{result['plain_ms']:.4f} ms, SDPA + mask "
+                  f"{result['library_ms']:.4f} ms, bound "
+                  f"{result['bound_ms']:.4f} ms ({result['bound_by']})",
+                  flush=True)
+            # the check must see bias2 read through the neighbouring head
+            got, _ = evo.cuda_evoformer_fwd(q, k, v, b1, b2.roll(1, dims=2))
+            r = _row_err(torch, got, want)
+            print(f"  bias2 read through the neighbouring head moves the "
+                  f"worst row by {r:.3e} of its max (check at {ROW_TOL})",
+                  flush=True)
+            if not r > ROW_TOL:
+                fail("the evoformer check cannot see a misread bias2")
+        del q, k, v, b1, b2, out, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    q, k, v, b1, b2 = _evo_inputs(torch, dev, 1, 4, 64, 4, 32)
+    qg = q.detach().requires_grad_()
+    try:
+        ops.evoformer_attention(qg, k, v, b1, b2).float().sum().backward()
+    except NotImplementedError as e:
+        if "A.13" not in str(e):
+            fail(f"the evoformer backward raised without naming A.13: {e}")
+        print("  backward through the CUDA path raises NotImplementedError "
+              "naming A.13", flush=True)
+    else:
+        fail("a backward through the CUDA evoformer path did not raise")
+    return launches, result
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,13,14,15",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,6,7,8,9,10,11,13,14,15,16,17,18",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="trace phases 4, 8, 11 (its W8 run) and 15 with "
@@ -1741,6 +2188,8 @@ def main():
     fa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
     wqm = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
     lm = importlib.import_module("deepspeed_tpu_torch.ops.lora_matmul")
+    sp = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+    evo = importlib.import_module("deepspeed_tpu_torch.ops.evoformer")
     dev = "cuda:0"
 
     print("== phase 1: card, versions, kernel build", flush=True)
@@ -1750,7 +2199,8 @@ def main():
           flush=True)
     t0 = time.perf_counter()
     builder.build(["paged_attention", "ragged_prefill", "flash_attention",
-                   "wq_matmul", "lora_matmul"])
+                   "wq_matmul", "lora_matmul", "sparse_attention",
+                   "evoformer"])
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in builder.build_log.items():
         regs = [int(w) for line in log.splitlines() if "Used" in line
@@ -1792,7 +2242,7 @@ def main():
               "TF32 off)", flush=True)
         phase_lora_parity(torch, dev)
     launches = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH
-                             + WQ + INT8 + LORA)
+                             + WQ + INT8 + LORA + SPARSE + EVO)
     params = outs = pool = e2e = None
     if 4 in phases:
         print("== phase 4: main path, InferenceEngineV2.generate at "
@@ -1854,6 +2304,26 @@ def main():
         launches.update(flash_launches)
         results.update(flash_results)
         print("E2E_TRAIN " + json.dumps(e2e), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 16 in phases:
+        print("== phase 16: block-sparse kernels vs plain versions (bf16), "
+              "every layout class", flush=True)
+        phase_sparse_kernels(torch, sp, dev)
+        torch.cuda.empty_cache()
+    if 17 in phases:
+        print("== phase 17: block-sparse path at Llama-3-8B attention width, "
+              "T 8192, forward + backward", flush=True)
+        sparse_launches, sparse_results = phase_sparse_main(torch, sp, dev)
+        launches.update(sparse_launches)
+        results.update(sparse_results)
+        torch.cuda.empty_cache()
+    if 18 in phases:
+        print("== phase 18: evoformer forward, small shapes and AlphaFold2's "
+              "MSA row / triangle attention", flush=True)
+        launches["evoformer_fwd"], evo_result = phase_evoformer(torch, evo,
+                                                                dev)
+        results["evoformer_fwd"] = evo_result
 
     replaces = {"paged_attention":
                 "deepspeed_tpu/ops/paged_attention.py:152",
@@ -1868,14 +2338,20 @@ def main():
                 "deepspeed_tpu/ops/paged_attention.py:152",
                 "ragged_prefill_int8":
                 "deepspeed_tpu/ops/paged_attention.py:546",
-                "lora_matmul": "deepspeed_tpu/ops/lora_matmul.py:111"}
+                "lora_matmul": "deepspeed_tpu/ops/lora_matmul.py:111",
+                "sparse_fwd": "deepspeed_tpu/ops/sparse_attention.py:186",
+                "sparse_dq": "deepspeed_tpu/ops/sparse_attention.py:222",
+                "sparse_dkv": "deepspeed_tpu/ops/sparse_attention.py:252",
+                "evoformer_fwd": "deepspeed_tpu/ops/evoformer.py:89"}
     sources = {**dict.fromkeys(FLASH, "flash_attention"),
                **dict.fromkeys(WQ, "wq_matmul"),
+               **dict.fromkeys(SPARSE, "sparse_attention"),
+               "evoformer_fwd": "evoformer",
                "paged_attention_int8": "paged_attention",
                "ragged_prefill_int8": "ragged_prefill"}
     kernels = []
     for name in ("paged_attention", "ragged_prefill") + FLASH + WQ + INT8 \
-            + LORA:
+            + LORA + SPARSE + EVO:
         r = results.get(name, {})
         print("KERNEL " + json.dumps({
             "kernel": name, "shape": r.get("shape"), "ms": r.get("ms"),

@@ -1,0 +1,596 @@
+// Block-sparse flash attention on Hopper (sm_90a): forward, dq and dk/dv.
+//
+// Replaces the TPU kernels of deepspeed_tpu/ops/sparse_attention.py:
+//   _sp_fwd_kernel (launched by _make_block_sparse_fn's fwd_impl) -> sparse_fwd_kernel
+//   _sp_dq_kernel  (bwd_impl)                                     -> sparse_dq_kernel
+//   _sp_dkv_kernel (bwd_impl)                                     -> sparse_dkv_kernel
+// Same function: softmax(q kT * scale) v where query block i sees only the
+// key blocks of its row of a static [nb, nb] block layout (and, when causal,
+// only keys at or before its own position), GQA by kv head = q head / group
+// with K/V never expanded.  The layout arrives as the reference's index
+// tables (_layout_tables): for each row block the active column blocks and
+// their count (forward, dq), for each column block the active row blocks
+// and their count (dk/dv).  A block walks exactly `count` entries: the
+// reference pads each table row with its last index and guards the padding
+// off, so walking the padded width would add those blocks twice.  The
+// forward saves the per-row logsumexp; the backward recomputes the
+// probabilities from it (delta = rowsum(o * do) is computed by the caller).
+// A row block with no active key block gives o = 0, lse = -1e30 and zero
+// gradients, as the reference.
+//
+// What bounds it on the H100: operations.  A live (query, key) pair costs
+// 4*D flops forward, 6*D in dq, 8*D in dk/dv; the bytes are q, k, v, o once
+// (the key blocks a row reads come from L2), far below the flops at the
+// card's ~295 flop/byte line.  What the design does about it:
+//   - every product on the tensor cores (mma.sync m16n8k16, fp32
+//     accumulate) with the fragment helpers of flash_common.cuh; 16-bit
+//     inputs only.  wgmma and TMA are later work.
+//   - forward and dq: one block per (batch, row block, group of q heads
+//     that share a kv head); a warp owns 16 query rows of one head, so a
+//     block of bs/16 x hpb warps stages each active K/V block once for hpb
+//     heads (cp.async, double buffered, rows padded by 8 elements for
+//     conflict-free ldmatrix).  The TPU grid walked the table's padded
+//     width in order and carried (m, l, acc) in VMEM; here the walk is a
+//     loop inside the block over the row's live entries, state in
+//     registers.
+//   - dk/dv: one block per (batch, kv head, key block), a warp owning 16
+//     keys; the group's q heads are spread over hpb sets of warps that walk
+//     the transposed table in step (head outer, as the reference fuses its
+//     grid), their partial sums added in a fixed order at the end: no
+//     atomics, deterministic.  Column blocks differ in how many row blocks
+//     read them (a global block is read by every row, a local one by a
+//     few), so these blocks differ widely in work; spreading the heads cuts
+//     the heaviest block's serial steps by hpb, balancing the columns
+//     themselves (split heavy columns, a persistent scheduler) is later
+//     work.
+//   - the causal diagonal block is masked inside the tile by absolute
+//     position; a 16 x 16 sub-tile wholly below the diagonal skips the
+//     per-entry test, one wholly above it is skipped.
+//   - q, k, v are read through (batch, token, head) strides: the model's
+//     [B, T, N, D] layout needs no transposes.
+#include "flash_common.cuh"
+
+namespace dsk {
+
+struct SparseArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  const int *tab, *cnt;  // fwd, dq: [nb, tab_w] column blocks of each row
+                         // block; dkv: row blocks of each column block
+  int tab_w;
+  void *o, *dq, *dk, *dv;
+  float* lse_out;
+  int B, T, N, Nkv, bs, hpb;  // hpb: q heads a block serves at once
+  long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
+  float scale;
+  int causal;
+};
+
+constexpr int kSpMaxWarps = 8;
+
+// ------------------------------------------------------------ forward, mma
+template <typename T, int HD>
+__global__ void __launch_bounds__(kSpMaxWarps * 32) sparse_fwd_kernel(SparseArgs p) {
+  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bs = p.bs;
+  T* kbuf = reinterpret_cast<T*>(smem);  // [2][bs*LD]
+  T* vbuf = kbuf + 2 * bs * LD;          // [2][bs*LD]
+
+  const int nb = p.T / bs;
+  const int ib = nb - 1 - blockIdx.x;    // causal: the longest rows first
+  const int wpr = bs / 16;               // warps a head
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h0 = blockIdx.y * p.hpb;
+  const int h = h0 + warp / wpr, b = blockIdx.z;
+  const int hk = h0 / (p.N / p.Nkv);     // one kv head for the whole block
+  const int grp = lane >> 2, tig = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+
+  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+
+  const int warp_min = ib * bs + (warp % wpr) * 16, warp_max = warp_min + 15;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = warp_min + grp + 8 * i;  // T % bs == 0: all exist
+
+  uint32_t qa[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
+      qa[ks][j] = *reinterpret_cast<const uint32_t*>(qb + (long long)qpos[j & 1] * p.q_st + col);
+    }
+  float acc[DTILES][4];
+#pragma unroll
+  for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  const int n = p.cnt[ib];
+  const int* cols = p.tab + (long long)ib * p.tab_w;
+  if (n > 0) {
+    load_rows<T, HD, LD>(kbuf, kb, p.k_st, cols[0] * bs, bs, p.T);
+    load_rows<T, HD, LD>(vbuf, vb, p.v_st, cols[0] * bs, bs, p.T);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    const int jb = cols[it];
+    const int bsel = it & 1;
+    if (it + 1 < n) {
+      const int nxt = cols[it + 1] * bs;
+      load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * bs * LD, kb, p.k_st, nxt, bs, p.T);
+      load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * bs * LD, vb, p.v_st, nxt, bs, p.T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks_ = kbuf + bsel * bs * LD;
+    const T* vs_ = vbuf + bsel * bs * LD;
+    for (int t0 = 0; t0 < bs; t0 += 16) {
+      const int kv0 = jb * bs + t0;
+      if (p.causal && kv0 > warp_max) break;  // past the diagonal
+      float sc[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
+      mma_rows_t<T, HD, LD>(sc, qa, ks_, t0, lane);
+      const bool full = !p.causal || kv0 + 15 <= warp_min;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = j >> 1;
+          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
+          float v = sc[nt][j] * scale2;
+          if (!full && kpos > qpos[i]) v = kNegInf;
+          sc[nt][j] = v;
+          mx[i] = fmaxf(mx[i], v);
+        }
+      float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mnew = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2f(m[i] - mnew);
+        m[i] = mnew;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = j >> 1;
+          const float v = sc[nt][j];
+          const float pr = (full || v > 0.5f * kNegInf) ? exp2f(v - m[i]) : 0.f;
+          sc[nt][j] = pr;
+          psum[i] += pr;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
+#pragma unroll
+      for (int d = 0; d < DTILES; ++d) {
+        acc[d][0] *= alpha[0];
+        acc[d][1] *= alpha[0];
+        acc[d][2] *= alpha[1];
+        acc[d][3] *= alpha[1];
+      }
+      const uint32_t pa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
+                              Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
+      mma_rows<T, HD, LD>(acc, pa, vs_, t0, lane);
+    }
+    __syncthreads();  // buffer bsel is refilled by the next iteration's copy
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  T* ob = static_cast<T*>(p.o) + ((long long)b * p.T * p.N + h) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);  // dead row block: zeros
+    T* orow = ob + (long long)qpos[i] * p.N * HD;
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d)
+      *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * tig) =
+          Mma<T>::pack(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
+    if (tig == 0)  // ... and lse -1e30
+      p.lse_out[((long long)b * p.N + h) * p.T + qpos[i]] =
+          l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
+  }
+}
+
+// ----------------------------------------------------------------- dq, mma
+template <typename T, int HD>
+__global__ void __launch_bounds__(kSpMaxWarps * 32) sparse_dq_kernel(SparseArgs p) {
+  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bs = p.bs;
+  T* kbuf = reinterpret_cast<T*>(smem);
+  T* vbuf = kbuf + 2 * bs * LD;
+
+  const int nb = p.T / bs;
+  const int ib = nb - 1 - blockIdx.x;
+  const int wpr = bs / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int h0 = blockIdx.y * p.hpb;
+  const int h = h0 + warp / wpr, b = blockIdx.z;
+  const int hk = h0 / (p.N / p.Nkv);
+  const int grp = lane >> 2, tig = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+
+  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+  const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+
+  const int warp_min = ib * bs + (warp % wpr) * 16, warp_max = warp_min + 15;
+  int qpos[2];
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = warp_min + grp + 8 * i;
+    const long long r = ((long long)b * p.N + h) * p.T + qpos[i];
+    delta[i] = p.delta[r];
+    lse2[i] = dead_or_log2(p.lse[r]);
+  }
+
+  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = j & 1;
+      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
+      qa[ks][j] = *reinterpret_cast<const uint32_t*>(qb + (long long)qpos[i] * p.q_st + col);
+      da[ks][j] = *reinterpret_cast<const uint32_t*>(dob + (long long)qpos[i] * p.N * HD + col);
+    }
+  float acc[DTILES][4];
+#pragma unroll
+  for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
+
+  const int n = p.cnt[ib];
+  const int* cols = p.tab + (long long)ib * p.tab_w;
+  if (n > 0) {
+    load_rows<T, HD, LD>(kbuf, kb, p.k_st, cols[0] * bs, bs, p.T);
+    load_rows<T, HD, LD>(vbuf, vb, p.v_st, cols[0] * bs, bs, p.T);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    const int jb = cols[it];
+    const int bsel = it & 1;
+    if (it + 1 < n) {
+      const int nxt = cols[it + 1] * bs;
+      load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * bs * LD, kb, p.k_st, nxt, bs, p.T);
+      load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * bs * LD, vb, p.v_st, nxt, bs, p.T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* ks_ = kbuf + bsel * bs * LD;
+    const T* vs_ = vbuf + bsel * bs * LD;
+    for (int t0 = 0; t0 < bs; t0 += 16) {
+      const int kv0 = jb * bs + t0;
+      if (p.causal && kv0 > warp_max) break;
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
+      mma_rows_t<T, HD, LD>(sc, qa, ks_, t0, lane);
+      mma_rows_t<T, HD, LD>(dp, da, vs_, t0, lane);
+      const bool full = !p.causal || kv0 + 15 <= warp_min;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = j >> 1;
+          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
+          float pr = exp2f(sc[nt][j] * scale2 - lse2[i]);
+          if (!full && kpos > qpos[i]) pr = 0.f;
+          sc[nt][j] = pr * (dp[nt][j] - delta[i]) * p.scale;  // ds
+        }
+      const uint32_t dsa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
+                               Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
+      mma_rows<T, HD, LD>(acc, dsa, ks_, t0, lane);  // dq += ds k
+    }
+    __syncthreads();
+  }
+
+  T* dqb = static_cast<T*>(p.dq) + ((long long)b * p.T * p.N + h) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    T* row = dqb + (long long)qpos[i] * p.N * HD;
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d)
+      *reinterpret_cast<uint32_t*>(row + d * 8 + 2 * tig) =
+          Mma<T>::pack(acc[d][2 * i], acc[d][2 * i + 1]);
+  }
+}
+
+// -------------------------------------------------------------- dk/dv, mma
+// A block owns one key block; its bs/16 x hpb warps are hpb sets of bs/16
+// warps, set s walking the group's heads s, s + hpb, ... over the column's
+// live row blocks (all sets in step, one row block a step, each staging
+// its own head's Q and dO rows).  The sets' partial dk, dv are summed in
+// shared memory in set order at the end: deterministic, no atomics.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kSpMaxWarps * 32) sparse_dkv_kernel(SparseArgs p) {
+  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bs = p.bs, hpb = p.hpb;
+  T* ks_ = reinterpret_cast<T*>(smem);   // [bs*LD] this block's keys
+  T* vs_ = ks_ + bs * LD;                // [bs*LD]
+  T* qbuf = vs_ + bs * LD;               // [2][hpb][bs*LD]
+  T* dbuf = qbuf + 2 * hpb * bs * LD;    // [2][hpb][bs*LD]
+  float* lbuf = reinterpret_cast<float*>(dbuf + 2 * hpb * bs * LD);  // [2][hpb][bs] lse, log2
+  float* ebuf = lbuf + 2 * hpb * bs;                                  // [2][hpb][bs] delta
+
+  const int jb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.N / p.Nkv;
+  const int wpr = bs / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int set = warp / wpr, kw = warp % wpr;
+  const int grp = lane >> 2, tig = lane & 3;
+  const int k0 = jb * bs;
+  const int wk0 = k0 + kw * 16;          // this warp's first key
+  const float scale2 = p.scale * kLog2e;
+
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+
+  const int nr = p.cnt[jb];
+  const int* rows = p.tab + (long long)jb * p.tab_w;
+  const int n = nr * (group / hpb);      // steps: each set's heads x live row blocks
+
+  // step -> (row block, and head s + hpb * (step / nr) for set s); the
+  // block copies every set's Q, dO rows and their lse, delta into buffer
+  // `sel`
+  auto load_step = [&](int step, int sel) {
+    const int q0 = rows[step % nr] * bs;
+    for (int s = 0; s < hpb; ++s) {
+      const int h = hk * group + s + hpb * (step / nr);
+      const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+      const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+      const int slot = sel * hpb + s;
+      load_rows<T, HD, LD>(qbuf + slot * bs * LD, qb, p.q_st, q0, bs, p.T);
+      load_rows<T, HD, LD>(dbuf + slot * bs * LD, dob, (long long)p.N * HD, q0, bs, p.T);
+      const long long r = ((long long)b * p.N + h) * p.T + q0;
+      for (int t = threadIdx.x; t < bs; t += blockDim.x) {
+        lbuf[slot * bs + t] = dead_or_log2(p.lse[r + t]);
+        ebuf[slot * bs + t] = p.delta[r + t];
+      }
+    }
+  };
+
+  float dk[DTILES][4], dv[DTILES][4];
+#pragma unroll
+  for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[d][j] = dv[d][j] = 0.f;
+
+  if (n > 0) {
+    load_rows<T, HD, LD>(ks_, kb, p.k_st, k0, bs, p.T);
+    load_rows<T, HD, LD>(vs_, vb, p.v_st, k0, bs, p.T);
+    load_step(0, 0);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    const int bsel = it & 1;
+    if (it + 1 < n) {
+      load_step(it + 1, bsel ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = rows[it % nr] * bs;
+    const int slot = bsel * hpb + set;
+    const T* qs = qbuf + slot * bs * LD;
+    const T* ds_ = dbuf + slot * bs * LD;
+    const float* ls = lbuf + slot * bs;
+    const float* es = ebuf + slot * bs;
+    for (int t0 = 0; t0 < bs; t0 += 16) {
+      const int qv0 = q0 + t0;                      // this sub-tile's first query
+      if (p.causal && qv0 + 15 < wk0) continue;     // every query before every key
+      float st[2][4], dp[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[nt][j] = dp[nt][j] = 0.f;
+      const T* krows = ks_ + kw * 16 * LD;
+      const T* vrows = vs_ + kw * 16 * LD;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        uint32_t ka[4], va[4], qf[4], df[4];
+        load_a_frag<T>(ka, krows, LD, ks, lane);
+        load_a_frag<T>(va, vrows, LD, ks, lane);
+        load_b_rows_t<T>(qf, qs, LD, t0, ks, lane);
+        load_b_rows_t<T>(df, ds_, LD, t0, ks, lane);
+        Mma<T>::run(st[0], ka, qf[0], qf[1]);  // sT = k qT
+        Mma<T>::run(st[1], ka, qf[2], qf[3]);
+        Mma<T>::run(dp[0], va, df[0], df[1]);  // dpT = v doT
+        Mma<T>::run(dp[1], va, df[2], df[3]);
+      }
+      const bool full = !p.causal || wk0 + 15 <= qv0;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int kpos = wk0 + grp + 8 * (j >> 1);
+          const int qi = t0 + nt * 8 + 2 * tig + (j & 1);
+          float pr = exp2f(st[nt][j] * scale2 - ls[qi]);
+          if (!full && kpos > q0 + qi) pr = 0.f;
+          st[nt][j] = pr;                                   // pT
+          dp[nt][j] = pr * (dp[nt][j] - es[qi]) * p.scale;  // dsT
+        }
+      const uint32_t pa[4] = {Mma<T>::pack(st[0][0], st[0][1]), Mma<T>::pack(st[0][2], st[0][3]),
+                              Mma<T>::pack(st[1][0], st[1][1]), Mma<T>::pack(st[1][2], st[1][3])};
+      const uint32_t dsa[4] = {Mma<T>::pack(dp[0][0], dp[0][1]), Mma<T>::pack(dp[0][2], dp[0][3]),
+                               Mma<T>::pack(dp[1][0], dp[1][1]), Mma<T>::pack(dp[1][2], dp[1][3])};
+      mma_rows<T, HD, LD>(dv, pa, ds_, t0, lane);   // dv += pT do
+      mma_rows<T, HD, LD>(dk, dsa, qs, t0, lane);   // dk += dsT q
+    }
+    __syncthreads();
+  }
+
+  // sets 1.. hand their partials to set 0 through shared memory (the Q / dO
+  // buffers are free now), which adds them in set order
+  if (hpb > 1) {
+    float* red = reinterpret_cast<float*>(qbuf);  // [hpb-1][wpr][32][DTILES*8]
+    if (set > 0) {
+      float* mine = red + (((set - 1) * wpr + kw) * 32 + lane) * (DTILES * 8);
+#pragma unroll
+      for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mine[d * 8 + j] = dk[d][j];
+          mine[d * 8 + 4 + j] = dv[d][j];
+        }
+    }
+    __syncthreads();
+    if (set > 0) return;
+    for (int s = 1; s < hpb; ++s) {
+      const float* other = red + (((s - 1) * wpr + kw) * 32 + lane) * (DTILES * 8);
+#pragma unroll
+      for (int d = 0; d < DTILES; ++d)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dk[d][j] += other[d * 8 + j];
+          dv[d][j] += other[d * 8 + 4 + j];
+        }
+    }
+  }
+
+  T* dkb = static_cast<T*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * HD;
+  T* dvb = static_cast<T*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * HD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long off = (long long)(wk0 + grp + 8 * i) * p.Nkv * HD;
+#pragma unroll
+    for (int d = 0; d < DTILES; ++d) {
+      *reinterpret_cast<uint32_t*>(dkb + off + d * 8 + 2 * tig) =
+          Mma<T>::pack(dk[d][2 * i], dk[d][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + off + d * 8 + 2 * tig) =
+          Mma<T>::pack(dv[d][2 * i], dv[d][2 * i + 1]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- launchers
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+
+// q heads a block serves at once: the largest divisor of the GQA group that
+// keeps the block at kSpMaxWarps warps or fewer
+inline int heads_per_block(int group, int wpr) {
+  int best = 1;
+  for (int d = 1; d <= group; ++d)
+    if (group % d == 0 && d * wpr <= kSpMaxWarps) best = d;
+  return best;
+}
+
+template <typename T, int HD>
+cudaError_t launch_sparse_t(int which, SparseArgs a, cudaStream_t st) {
+  constexpr int LD = HD + 8;
+  const int nb = a.T / a.bs, wpr = a.bs / 16;
+  cudaError_t err;
+  a.hpb = heads_per_block(a.N / a.Nkv, wpr);
+  if (which == kDkv) {
+    const size_t smem = (2 + 4 * (size_t)a.hpb) * a.bs * LD * sizeof(T) +
+                        4 * (size_t)a.hpb * a.bs * sizeof(float);
+    err = allow_dynamic_smem<sparse_dkv_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    sparse_dkv_kernel<T, HD><<<dim3(nb, a.Nkv, a.B), wpr * a.hpb * 32, smem, st>>>(a);
+    return cudaGetLastError();
+  }
+  const size_t smem = 4 * (size_t)a.bs * LD * sizeof(T);
+  const dim3 grid(nb, a.N / a.hpb, a.B);
+  const int threads = wpr * a.hpb * 32;
+  if (which == kFwd) {
+    err = allow_dynamic_smem<sparse_fwd_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    sparse_fwd_kernel<T, HD><<<grid, threads, smem, st>>>(a);
+  } else {
+    err = allow_dynamic_smem<sparse_dq_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    sparse_dq_kernel<T, HD><<<grid, threads, smem, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_sparse(int which, int hd, int dtype, const SparseArgs& a,
+                                 void* stream) {
+  if (a.B < 1 || a.T < 1 || a.N < 1 || a.Nkv < 1 || a.N % a.Nkv != 0 || a.B > 65535 ||
+      a.N > 65535 || a.bs < 16 || a.bs > 128 || a.bs % 16 != 0 || a.T % a.bs != 0 ||
+      a.tab_w < 1)
+    return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (hd == 64) return launch_sparse_t<__half, 64>(which, a, st);
+    if (hd == 128) return launch_sparse_t<__half, 128>(which, a, st);
+  } else if (dtype == 2) {
+    if (hd == 64) return launch_sparse_t<__nv_bfloat16, 64>(which, a, st);
+    if (hd == 128) return launch_sparse_t<__nv_bfloat16, 128>(which, a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace dsk
+
+// q [B, T, N, hd], k/v [B, T, Nkv, hd] read through element strides
+// (batch, token, head; head_dim contiguous); o, dout, dq [B, T, N, hd] and
+// dk, dv [B, T, Nkv, hd] contiguous; lse, delta [B, N, T] fp32; tab
+// [T/bs, tab_w] int32 and cnt [T/bs] int32 on the device (fwd / dq: the
+// row-major table, dkv: the column-major one).  dtype: 1 fp16, 2 bf16.
+extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v, const void* tab,
+                             const void* cnt, int tab_w, void* o, void* lse, int B, int T, int N,
+                             int Nkv, int hd, int bs, long long q_sb, long long q_st,
+                             long long q_sh, long long k_sb, long long k_st, long long k_sh,
+                             long long v_sb, long long v_st, long long v_sh, float scale,
+                             int causal, int dtype, void* stream) {
+  dsk::SparseArgs a{};
+  a.q = q; a.k = k; a.v = v;
+  a.tab = static_cast<const int*>(tab); a.cnt = static_cast<const int*>(cnt); a.tab_w = tab_w;
+  a.o = o; a.lse_out = static_cast<float*>(lse);
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs;
+  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
+  a.scale = scale; a.causal = causal;
+  return (int)dsk::launch_sparse(dsk::kFwd, hd, dtype, a, stream);
+}
+
+// which: 1 writes dq, 2 writes dk and dv (the pointers not written may be null)
+extern "C" int ds_sparse_bwd(int which, const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse, const void* delta,
+                             const void* tab, const void* cnt, int tab_w, void* dq, void* dk,
+                             void* dv, int B, int T, int N, int Nkv, int hd, int bs,
+                             long long q_sb, long long q_st, long long q_sh, long long k_sb,
+                             long long k_st, long long k_sh, long long v_sb, long long v_st,
+                             long long v_sh, float scale, int causal, int dtype, void* stream) {
+  if (which != dsk::kDq && which != dsk::kDkv) return (int)cudaErrorInvalidValue;
+  dsk::SparseArgs a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.lse = static_cast<const float*>(lse); a.delta = static_cast<const float*>(delta);
+  a.tab = static_cast<const int*>(tab); a.cnt = static_cast<const int*>(cnt); a.tab_w = tab_w;
+  a.dq = dq; a.dk = dk; a.dv = dv;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs;
+  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
+  a.scale = scale; a.causal = causal;
+  return (int)dsk::launch_sparse(which, hd, dtype, a, stream);
+}

@@ -15,6 +15,12 @@ picks by the device of the tensors.  Public surface of this slice:
                                       ``wq_matmul``, ``wq_matmul4``,
                                       ``wq_matmul_t``)
 - ``lora_matmul(...)``                batched-gather LoRA delta
+- ``sparse_attention(q, k, v, config)`` block-sparse attention over a
+                                      ``SparsityConfig`` layout (Dense,
+                                      Fixed, BSLongformer, BigBird);
+                                      ``sparsity_ratio``
+- ``evoformer_attention(q, k, v, bias1, bias2)``  AlphaFold2-style
+                                      attention over [B, N, S, H, D]
 - ``rms_norm`` / ``layer_norm``
 - ``op_report()``                     which implementation each device takes
 """
@@ -25,18 +31,24 @@ from typing import Callable, Optional
 
 import torch
 
+from deepspeed_tpu_torch.ops import evoformer as _evo
 from deepspeed_tpu_torch.ops import flash_attention as _flash
 from deepspeed_tpu_torch.ops import lora_matmul as _lora
 from deepspeed_tpu_torch.ops import paged_attention as _paged
 from deepspeed_tpu_torch.ops import registry
+from deepspeed_tpu_torch.ops import sparse_attention as _sparse
 from deepspeed_tpu_torch.ops import wq_matmul as _wq
 from deepspeed_tpu_torch.ops.cross_entropy import (lm_cross_entropy,
                                                    masked_nll_sum)
+from deepspeed_tpu_torch.ops.evoformer import evoformer_attention
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.norms import layer_norm, rms_norm
 from deepspeed_tpu_torch.ops.paged_attention import (paged_attention,
                                                      ragged_prefill_attention)
 from deepspeed_tpu_torch.ops.registry import dispatch, op_report, register_op
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BigBirdSparsityConfig, BSLongformerSparsityConfig, DenseSparsityConfig,
+    FixedSparsityConfig, SparsityConfig, sparse_attention, sparsity_ratio)
 from deepspeed_tpu_torch.ops.wq_matmul import wq_any, wq_matmul_t
 
 
@@ -144,7 +156,18 @@ def lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
     return dispatch("lora_matmul", x, a_pages, b_pages, adapter_ids, scales)
 
 
+register_op("sparse_attention", torch=_sparse.torch_sparse_attention,
+            kernel=_sparse.block_sparse_flash,
+            supported=_sparse.block_sparse_supported)
+register_op("evoformer_attention", torch=_evo.torch_evoformer,
+            kernel=_evo._Evoformer.apply, supported=_evo.supported)
+
+
 __all__ = ["causal_attention", "flash_attention", "lm_cross_entropy",
            "masked_nll_sum", "paged_attention", "ragged_prefill_attention", "rms_norm",
            "wq_any", "wq_matmul_t", "lora_matmul",
+           "sparse_attention", "sparsity_ratio", "SparsityConfig",
+           "DenseSparsityConfig", "FixedSparsityConfig",
+           "BSLongformerSparsityConfig", "BigBirdSparsityConfig",
+           "evoformer_attention",
            "layer_norm", "op_report", "register_op", "dispatch", "registry"]

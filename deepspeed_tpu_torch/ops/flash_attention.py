@@ -57,8 +57,8 @@ def _visible(t: int, causal: bool, window, device):
     return ok
 
 
-def _scores(q, k, scale, causal, window, alibi_slopes):
-    """Masked fp32 scores [B, Nkv, g, T, T] and the visibility mask."""
+def _scores(q, k, scale, ok, alibi_slopes):
+    """fp32 scores [B, Nkv, g, T, T], -1e30 where ``ok`` [T, T] is False."""
     b, t, n, d = q.shape
     nkv = k.shape[2]
     s = torch.einsum("btkgd,bskd->bkgts",
@@ -68,18 +68,15 @@ def _scores(q, k, scale, causal, window, alibi_slopes):
         sl = _slopes(alibi_slopes, n, q.device).reshape(nkv, n // nkv)
         s = s + sl[None, :, :, None, None] * torch.arange(
             t, dtype=torch.float32, device=q.device)
-    ok = _visible(t, causal, window, q.device)
-    return torch.where(ok, s, NEG_INF), ok
+    return torch.where(ok, s, NEG_INF)
 
 
-def torch_flash_fwd(q, k, v, *, causal: bool = True,
-                    scale: Optional[float] = None, window=None,
-                    alibi_slopes=None):
-    """Plain forward → (o [B, T, N, D], lse fp32 [B, N, 1, T])."""
+def masked_fwd(q, k, v, ok, scale, alibi_slopes=None):
+    """The forward kernels' formula without tiles, for any [T, T] visibility
+    mask ``ok`` → (o [B, T, N, D], lse fp32 [B, N, 1, T]); a row that sees
+    no key gives o = 0 and lse = -1e30."""
     b, t, n, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
-    s, ok = _scores(q, k, scale, causal, window, alibi_slopes)
+    s = _scores(q, k, scale, ok, alibi_slopes)
     m = s.amax(-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), 0.0)
     l = p.sum(-1, keepdim=True)
@@ -89,16 +86,13 @@ def torch_flash_fwd(q, k, v, *, causal: bool = True,
     return o.reshape(b, t, n, d), lse.contiguous()
 
 
-def torch_flash_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                    scale: Optional[float] = None, window=None,
-                    alibi_slopes=None):
-    """Plain backward from the saved logsumexp → (dq, dk, dv)."""
+def masked_bwd(q, k, v, o, lse, do, ok, scale, alibi_slopes=None):
+    """The backward kernels' formula without tiles, from the saved
+    logsumexp → (dq, dk, dv); dk/dv summed over the GQA group."""
     b, t, n, d = q.shape
     nkv = k.shape[2]
     g = n // nkv
-    if scale is None:
-        scale = d ** -0.5
-    s, ok = _scores(q, k, scale, causal, window, alibi_slopes)
+    s = _scores(q, k, scale, ok, alibi_slopes)
     lse_r = lse.reshape(b, nkv, g, t, 1)
     p = torch.where(ok & (lse_r > NEG_INF / 2), torch.exp(s - lse_r), 0.0)
     delta = (o.float() * do.float()).sum(-1)             # [B, T, N]
@@ -113,6 +107,27 @@ def torch_flash_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                       q.reshape(b, t, nkv, g, d).float())
     return (dq.reshape(b, t, n, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def torch_flash_fwd(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None, window=None,
+                    alibi_slopes=None):
+    """Plain forward → (o [B, T, N, D], lse fp32 [B, N, 1, T])."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return masked_fwd(q, k, v, _visible(q.shape[1], causal, window, q.device),
+                      scale, alibi_slopes)
+
+
+def torch_flash_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                    scale: Optional[float] = None, window=None,
+                    alibi_slopes=None):
+    """Plain backward from the saved logsumexp → (dq, dk, dv)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return masked_bwd(q, k, v, o, lse, do,
+                      _visible(q.shape[1], causal, window, q.device), scale,
+                      alibi_slopes)
 
 
 # ------------------------------------------------------------------ kernels

@@ -51,6 +51,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.accelerator import resolve_device
+
 PROJS = ("a_q", "b_q", "a_v", "b_v")
 
 
@@ -93,12 +95,13 @@ class AdapterPool:
         it from the paged KV layout) — sizes ``blocks_per_adapter``.
     scale: LoRA scaling s = alpha / rank applied to every adapter delta.
     dtype: the tables' dtype (the engine's).
-    device: where the tables live.
+    device: where the tables live; None means cuda:0 and raises without
+        CUDA (``accelerator.resolve_device``), as every entry of the port.
     """
 
     def __init__(self, allocator, *, slots: int, rank: int, hidden: int,
                  num_layers: int, q_dim: int, v_dim: int, block_bytes: int,
-                 scale: float, dtype=torch.float32, device="cpu",
+                 scale: float, dtype=torch.float32, device=None,
                  telemetry=None):
         self.allocator = allocator
         self.slots = int(slots)
@@ -109,7 +112,7 @@ class AdapterPool:
         self.v_dim = int(v_dim)
         self.scale = float(scale)
         self.telemetry = telemetry
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._dtype = dtype
         itemsize = torch.empty((), dtype=self._dtype).element_size()
         per_adapter_bytes = itemsize * num_layers * (

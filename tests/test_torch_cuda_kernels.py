@@ -486,3 +486,201 @@ def test_adapter_engine_on_card_matches_cpu(cuda):
         assert lm.cuda_lora_matmul.launches > before
         for a, b in zip(*outs):
             np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------ block-sparse, evoformer
+
+sp = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+evo = importlib.import_module("deepspeed_tpu_torch.ops.evoformer")
+
+
+class _EvenColumns(sp.SparsityConfig):
+    """Rows read only the even column blocks at or before them (odd rows the
+    one before the diagonal): the odd K/V blocks are never read."""
+
+    def make_layout(self, seq_len):
+        nb = seq_len // self.block
+        lay = np.tril(np.ones((nb, nb), bool))
+        lay[:, 1::2] = False
+        return lay
+
+
+SPARSE_CASES = {
+    "fixed_b16_gqa": (sp.FixedSparsityConfig(), 4, 2, 64, True),
+    "fixed_b32_d128": (sp.FixedSparsityConfig(block=32), 4, 4, 128, True),
+    "longformer_b64": (sp.BSLongformerSparsityConfig(block=64), 4, 1, 64,
+                       True),
+    "bigbird_b128_noncausal": (sp.BigBirdSparsityConfig(block=128), 2, 2,
+                               128, False),
+    "dense_b48_noncausal": (sp.DenseSparsityConfig(block=48), 4, 2, 64,
+                            False),
+    "even_columns_b16": (_EvenColumns(block=16), 4, 2, 64, True),
+}
+
+
+def _sparse_case(dev, dtype, N, Nkv, D, B=2, T=384, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+    return rand(B, T, N, D), rand(B, T, Nkv, D), rand(B, T, Nkv, D), \
+        rand(B, T, N, D)
+
+
+def _assert_rows(name, got, want, tol):
+    """Per row, ``tol`` of the plain row's largest value (a row whose true
+    value is ~0 against 1% of the tensor's largest)."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    floor = 1e-2 * want.float().abs().max().item()
+    row = d / want.float().abs().amax(-1).clamp_min(floor)
+    assert torch.isfinite(got).all(), name
+    assert row.max().item() <= tol, (name, row.max().item())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3)])
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_sparse_kernels_match_plain(cuda, dtype, tol, case):
+    """Forward (o, lse), dq and dk/dv against the plain versions."""
+    cfg, N, Nkv, D, causal = SPARSE_CASES[case]
+    T = 384
+    q, k, v, do = _sparse_case(cuda, dtype, N, Nkv, D, T=T)
+    lay = cfg.make_layout(T)
+    o, lse = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
+    o_ref, lse_ref = sp.torch_sparse_fwd(q, k, v, lay, cfg.block, causal)
+    torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=0)
+    dq = sp.cuda_sparse_dq(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
+                           causal)
+    dk, dv = sp.cuda_sparse_dkv(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
+                                causal)
+    refs = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
+                               causal)
+    for name, got, want in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                               (o_ref,) + refs):
+        _assert_rows(name, got, want, tol)
+
+
+@pytest.mark.requires_cuda
+def test_sparse_dead_blocks_never_read(cuda):
+    """K/V blocks no table entry reads are poisoned with NaN: the kernels'
+    o, dq, dk, dv stay finite and equal the plain outputs on clean K/V."""
+    cfg = _EvenColumns(block=16)
+    q, k, v, do = _sparse_case(cuda, torch.bfloat16, 4, 2, 64, T=256)
+    lay = cfg.make_layout(256)
+    o_ref, lse_ref = sp.torch_sparse_fwd(q, k, v, lay, 16)
+    refs = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do, lay, 16)
+    kp, vp = k.clone(), v.clone()
+    for j in range(1, 16, 2):
+        kp[:, 16 * j:16 * (j + 1)] = float("nan")
+        vp[:, 16 * j:16 * (j + 1)] = float("nan")
+    o, _ = sp.cuda_sparse_fwd(q, kp, vp, lay, 16)
+    dq = sp.cuda_sparse_dq(q, kp, vp, o_ref, lse_ref, do, lay, 16)
+    dk, dv = sp.cuda_sparse_dkv(q, kp, vp, o_ref, lse_ref, do, lay, 16)
+    for name, got, want in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                               (o_ref,) + refs):
+        _assert_rows(name, got, want, 2e-2)
+
+
+@pytest.mark.requires_cuda
+def test_sparse_autograd_and_strides(cuda):
+    """sparse_attention on CUDA tensors launches the three kernels once
+    each, reads q, k, v through strides, and is deterministic."""
+    from deepspeed_tpu_torch import ops
+    cfg = sp.FixedSparsityConfig()
+    B, T, N, D = 1, 256, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((B, T, 3, N, D), device=cuda, generator=gen).to(
+        torch.bfloat16).requires_grad_()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = (sp.cuda_sparse_fwd.launches, sp.cuda_sparse_dq.launches,
+              sp.cuda_sparse_dkv.launches)
+    grads = []
+    for _ in range(2):
+        out = ops.sparse_attention(q, k, v, cfg)
+        grads.append(torch.autograd.grad(out.float().square().sum(), qkv)[0])
+    after = (sp.cuda_sparse_fwd.launches, sp.cuda_sparse_dq.launches,
+             sp.cuda_sparse_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    assert torch.equal(grads[0], grads[1])
+    want = sp.torch_sparse_attention(*(t.detach().contiguous()
+                                       for t in (q, k, v)), cfg)
+    _assert_rows("o", out, want, 2e-2)
+
+
+@pytest.mark.requires_cuda
+def test_sparse_unsupported_raises(cuda):
+    from deepspeed_tpu_torch import ops
+    q, k, v, _ = _sparse_case(cuda, torch.bfloat16, 4, 2, 64, T=128)
+    lay = sp.FixedSparsityConfig().make_layout(128)
+    with pytest.raises(ValueError, match="head_dim"):
+        sp.cuda_sparse_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                           v[..., :32].contiguous(), lay[:, :], 16)
+    with pytest.raises(ValueError, match="block 8"):
+        sp.cuda_sparse_fwd(q, k, v, sp.FixedSparsityConfig(
+            block=8).make_layout(128), 8)
+    with pytest.raises(ValueError, match="float16 or bfloat16"):
+        sp.cuda_sparse_fwd(q.float(), k.float(), v.float(), lay, 16)
+    with pytest.raises(ValueError, match="does not support"):
+        ops.sparse_attention(q, k, v, sp.FixedSparsityConfig(block=8))
+
+
+EVO_CASES = {
+    "both_d32": (32, 64, "both"),
+    "b1_d8": (8, 13, "b1"),
+    "b2_d16": (16, 64, "b2"),
+    "none_d64": (64, 13, "none"),
+    "both_d128_s100": (128, 100, "both"),
+    "broadcast_d32_s383": (32, 383, "broadcast"),
+}
+
+
+def _evo_case(dev, dtype, D, S, bias, B=1, N=3, H=4):
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(shape, device=dev, generator=gen).to(dt)
+    q, k, v = (rand(B, N, S, H, D) for _ in range(3))
+    b1 = rand(B, N, 1, 1, S, dt=torch.float32)
+    b1[:, 1, ..., -3:] = -1e9                   # a masked tail on one row
+    b1[:, 2] = -1e9                             # every key masked
+    b2 = rand(B, 1, H, S, S)
+    if bias == "broadcast":
+        b1, b2 = b1[:, :1], b2.expand(2, 1, H, S, S)
+        q, k, v = (torch.cat([x, x]) for x in (q, k, v))
+    return q, k, v, (None if bias in ("b2", "none") else b1), \
+        (None if bias in ("b1", "none") else b2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3)])
+@pytest.mark.parametrize("case", sorted(EVO_CASES))
+def test_evoformer_kernel_matches_plain(cuda, dtype, tol, case):
+    q, k, v, b1, b2 = _evo_case(cuda, dtype, *EVO_CASES[case])
+    o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+    o_ref, lse_ref = evo.torch_evoformer_fwd(q, k, v, b1, b2)
+    torch.testing.assert_close(lse, lse_ref, atol=tol, rtol=0)
+    _assert_rows("o", o, o_ref, tol)
+
+
+@pytest.mark.requires_cuda
+def test_evoformer_op_on_card(cuda):
+    """The op pads S 45 as the reference does and runs the kernel, equal to
+    the same op on CPU copies (the same padded problem: a row whose every
+    key is -1e9 attends over the padded keys too, as in the reference); a
+    backward through it raises (the backward kernels are ROADMAP A.13);
+    the reference's einsum shapes raise on CUDA tensors."""
+    from deepspeed_tpu_torch import ops
+    q, k, v, b1, b2 = _evo_case(cuda, torch.bfloat16, 16, 45, "both")
+    before = evo.cuda_evoformer_fwd.launches
+    out = ops.evoformer_attention(q, k, v, b1, b2)
+    assert evo.cuda_evoformer_fwd.launches == before + 1
+    want = ops.evoformer_attention(*(x.cpu() for x in (q, k, v, b1, b2)))
+    _assert_rows("o", out.cpu(), want, 2e-2)
+    qg = q.detach().requires_grad_()
+    with pytest.raises(NotImplementedError, match="A.13"):
+        ops.evoformer_attention(qg, k, v, b1, b2).float().sum().backward()
+    q4 = q[..., :4].contiguous()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.evoformer_attention(q4, q4, q4)

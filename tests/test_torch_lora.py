@@ -260,6 +260,19 @@ def test_adapter_pool_matches_jax_step_by_step(script):
     assert raised == expect_raise.get(script, 0)
 
 
+def test_adapter_pool_defaults_to_the_card():
+    """With no ``device`` the pool resolves to cuda:0, as every entry of the
+    port does; without CUDA that raises instead of running on the CPU."""
+    kw = dict(slots=4, rank=2, hidden=8, num_layers=1, q_dim=8, v_dim=8,
+              block_bytes=128, scale=2.0)
+    if torch.cuda.is_available():
+        pool = tadapters.AdapterPool(BlockedAllocator(4), **kw)
+        assert pool.device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tadapters.AdapterPool(BlockedAllocator(4), **kw)
+
+
 def test_identity_slot_pages_and_scales():
     _, pool = _pools()
     pool.register(1)
