@@ -49,8 +49,10 @@
 
 9. Quantized kernels against their plain versions in bf16: ``wq_matmul``
    (#7) and ``wq_matmul4`` (#8) at every Llama-3-8B and GPT-2 small product
-   shape, ``wq_matmul_t`` (#6) at GPT-2's tied [50304, 768] table, each at
-   M 16 and 256 and timed there beside its bound; the int8-KV decode and
+   shape, ``wq_matmul_t`` (#6) at GPT-2's tied [50304, 768] table, the MLP
+   products and the tied table again at ``quant.group_size`` 256 (a K step
+   inside one group), each at M 16 and 256 and timed there beside its
+   bound; the int8-KV decode and
    prefill variants at phase 2's shapes and variants.  The row check is
    shown to see one zeroed scale group and one page read with another
    page's scales.
@@ -103,15 +105,22 @@
    versions run one KV group at a time; the kernels timed on the Fixed call
    beside their bound (live pairs only), the plain versions and SDPA with
    the expanded boolean mask.
-18. The evoformer forward kernel (#13) against its plain version at small
-   shapes (biases none / one / both, D 8-128, S 13 / 64 / 383, fully
-   masked rows), then AlphaFold2's MSA row attention with pair bias (N_clust
-   512, N_res 384, 8 heads x 32), triangle attention (384 x 384, 4 heads x
-   32) and the MSA call at S 383 (padded) through ``ops.evoformer_attention``:
-   one launch a call, held per row, the MSA call timed beside its bound, the
-   plain version and SDPA with the additive mask; a bias2 read through the
-   neighbouring head must show; a backward through the CUDA path must raise
-   NotImplementedError naming ROADMAP A.13.
+18. The evoformer kernels, forward (#13) and backward (#14 dq, #15 dk/dv,
+   #16 dbias2, #17 dbias1), against their plain versions at small shapes
+   (biases none / one / both, D 8-128, S 13 / 64 / 383, fully masked rows;
+   the backward kernels fed the plain o and lse), then AlphaFold2's MSA row
+   attention with pair bias (N_clust 512, N_res 384, 8 heads x 32),
+   triangle attention (384 x 384, 4 heads x 32) and the MSA call at S 383
+   (padded) through ``ops.evoformer_attention`` and ``loss.backward()``
+   with q, k, v and both biases requiring grad: one launch of each kernel a
+   call; o held per row to the plain forward, every gradient to the plain
+   backward on the o and lse the kernels were given (run over chunks of
+   the MSA rows), mapped to the inputs through the padding and the biases'
+   broadcast.  The MSA call timed beside its bound, the plain versions and
+   SDPA with the additive mask (requiring grad in the backward); the
+   triangle call's kernels timed too.  A bias2 read through the
+   neighbouring head must show in the forward and in every backward
+   kernel, and a dbias2 summed over N - 1 rows must show.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
@@ -181,7 +190,8 @@ WQ = ("wq_matmul_t", "wq_matmul", "wq_matmul4")
 INT8 = ("paged_attention_int8", "ragged_prefill_int8")
 LORA = ("lora_matmul",)
 SPARSE = ("sparse_fwd", "sparse_dq", "sparse_dkv")
-EVO = ("evoformer_fwd",)
+EVO_BWD = ("evoformer_dq", "evoformer_dkv", "evoformer_db2", "evoformer_db1")
+EVO = ("evoformer_fwd",) + EVO_BWD
 ERRS = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH + WQ
                      + INT8 + LORA + SPARSE + EVO, 0.0)
 # ^ max |kernel - plain| seen per kernel
@@ -684,16 +694,22 @@ def phase_main_inputs(torch, pa, calls, eng):
 
 # --------------------------------------------------------------- phase 6
 
+def _rows_off(got, want):
+    """(worst row's max |got - want| over that row's max |want|, floored at
+    1% of the tensor's largest; the largest difference)."""
+    wf = want.float()
+    d = (got.float() - wf).abs().amax(-1)
+    floor = 1e-2 * wf.abs().max().item()
+    return (d / wf.abs().amax(-1).clamp_min(floor)).max().item(), \
+        d.max().item()
+
+
 def _check_rows(torch, name, label, got, want, tol=ROW_TOL):
     """As ``_check``, but a row whose true value is ~0 (the first query's
     dq: it sees one key, so dp - delta cancels) is judged against 1% of the
     tensor's largest value instead of its own."""
     torch.cuda.synchronize()
-    wf = want.float()
-    d = (got.float() - wf).abs().amax(-1)
-    floor = 1e-2 * wf.abs().max().item()
-    row = (d / wf.abs().amax(-1).clamp_min(floor)).max().item()
-    err = d.max().item()
+    row, err = _rows_off(got, want)
     print(f"  {name}[{label}] max|kernel-plain| = {err:.3e}, worst row "
           f"{row:.3e} of its max", flush=True)
     if not (row <= tol) or not torch.isfinite(got).all():
@@ -1042,6 +1058,12 @@ LLAMA_PRODUCTS = (          # (label, K, N, group) of Llama-3-8B, then GPT-2
     ("GPT-2 wi", 768, 3072, 128),
     ("GPT-2 MLP wo", 3072, 768, 128))
 GPT2_TIED = ("GPT-2 tied unembed", 768, 50304, 128)   # [V, H] store, V padded
+# quant.group_size 256: the engine packs groups of 256 where the dim allows
+# (a K step, or a tied table's column tile, lies inside one group); the
+# tied table padded to the group as the engine pads it
+GROUP256 = (("Llama wi / wg, group 256", 4096, 14336, 256),
+            ("Llama MLP wo, group 256", 14336, 4096, 256),
+            ("GPT-2 tied unembed, group 256", 768, 50432, 256))
 
 
 def _wq_bound(name, x, store):
@@ -1073,7 +1095,8 @@ def _int8_kv(torch, quantize_kv_token, k, v, gen):
 
 def phase_quant_kernels(torch, wqm, pa, dev):
     """#6-#8 at every Llama-3-8B and GPT-2 product shape (M 16 and 256,
-    bf16) and the int8-KV variants of #1-#2 at phase 2's shapes, each
+    bf16; the MLP and the tied table at group 256 too) and the int8-KV
+    variants of #1-#2 at phase 2's shapes, each
     against its plain version; the check is shown to see one zeroed scale
     group and one page with another page's scales.  Each product is timed
     at both M beside its bound."""
@@ -1083,8 +1106,8 @@ def phase_quant_kernels(torch, wqm, pa, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     dt = torch.bfloat16
     rows = []
-    for label, K, N, g in LLAMA_PRODUCTS + (GPT2_TIED,):
-        tied = label == GPT2_TIED[0]
+    for label, K, N, g in LLAMA_PRODUCTS + (GPT2_TIED,) + GROUP256:
+        tied = label.startswith(GPT2_TIED[0])
         w = torch.randn((N, K) if tied else (K, N), device=dev,
                         generator=gen) * 0.02
         stores = {"wq_matmul_t": quantize_weight(w, group=g)} if tied else {
@@ -2040,6 +2063,23 @@ def _check_evo(torch, evo, label, q, k, v, b1, b2):
           flush=True)
     if not lerr <= ROW_TOL:
         fail(f"evoformer_fwd {label}: lse differs by {lerr}")
+    return o_ref, lse_ref
+
+
+GRADS = (("evoformer_dq", "dq"), ("evoformer_dkv", "dk"),
+         ("evoformer_dkv", "dv"), ("evoformer_db1", "dbias1"),
+         ("evoformer_db2", "dbias2"))
+
+
+def _check_evo_bwd(torch, evo, label, got, want):
+    """(dq, dk, dv, db1, db2) of the kernels against the plain backward's,
+    per row (a dbias1 row: the S keys of one MSA row; a dbias2 row: the
+    keys of one (head, query))."""
+    for (name, lab), g, w in zip(GRADS, got, want):
+        if (g is None) != (w is None):
+            fail(f"{name} {label}: {lab} computed by one side only")
+        if w is not None:
+            _check_rows(torch, name, f"{label} {lab}", g, w)
 
 
 def _evo_by_rows(torch, evo, q, k, v, b1, b2, chunk=128):
@@ -2051,6 +2091,51 @@ def _evo_by_rows(torch, evo, q, k, v, b1, b2, chunk=128):
         None if b1 is None else b1[:, n:n + chunk], b2)[0]
         for n in range(0, N, chunk)]
     return torch.cat(outs, dim=1)
+
+
+def _evo_bwd_by_rows(torch, evo, q, k, v, b1, b2, o, lse, do, chunk=128):
+    """The plain backward over chunks of the N rows: dq, dk, dv and dbias1
+    row by row, dbias2 summed over the chunks in order."""
+    B, N, S, H, D = q.shape
+    b1 = None if b1 is None else torch.broadcast_to(b1, (B, N, 1, 1, S))
+    lse = lse.view(B, N, H, 1, S)
+    parts = []
+    for n in range(0, N, chunk):
+        c = slice(n, n + chunk)
+        parts.append(evo.torch_evoformer_bwd(
+            q[:, c], k[:, c], v[:, c], None if b1 is None else b1[:, c], b2,
+            o[:, c], lse[:, c].reshape(-1, H, 1, S), do[:, c]))
+    out = [torch.cat([p[j] for p in parts], dim=1) for j in range(3)]
+    out.append(None if b1 is None else torch.cat([p[3] for p in parts], 1))
+    db2 = None
+    for p in parts:
+        if p[4] is not None:
+            db2 = p[4] if db2 is None else db2 + p[4]
+    return out + [db2]
+
+
+def _evo_plain_grads(torch, evo, q, k, v, b1, b2, do):
+    """The op's gradients through the plain backward: the op's padded
+    problem where S needs one (``_padded``, as ``evoformer_attention``
+    builds it), the forward kernel's o and lse on it (what the backward
+    kernels were given: the kernel is deterministic), the plain backward
+    by chunks of rows, and autograd through the padding and the biases'
+    broadcast → (the inputs' gradients, the raw fp32 gradients of the
+    padded problem)."""
+    import torch.nn.functional as F
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (q, k, v, b1, b2)]
+    S0 = q.shape[2]
+    args = (leaves if evo._tiles(q, k, v) else evo._padded(*leaves))
+    flat = [None if t is None else t.detach() for t in args]
+    o, lse = evo.cuda_evoformer_fwd(*flat)
+    pad = flat[0].shape[2] - S0
+    dop = F.pad(do, (0, 0, 0, 0, 0, pad)).contiguous()
+    raw = _evo_bwd_by_rows(torch, evo, *flat, o, lse, dop)
+    grads = raw[:3] + list(evo._bias_grads(raw[3], raw[4], flat[3], flat[4]))
+    pairs = [(t, g) for t, g in zip(args, grads) if t is not None]
+    torch.autograd.backward([t for t, _ in pairs], [g for _, g in pairs])
+    return [None if t is None else t.grad for t in leaves], raw, o[:, :, :S0]
 
 
 def _time_evo(torch, evo, q, k, v, b1, b2):
@@ -2085,15 +2170,133 @@ def _time_evo(torch, evo, q, k, v, b1, b2):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _evo_bwd_bounds(q, b1, b2):
+    """Bytes (q, k, v, do and lse, delta read once, each output written
+    once, the biases as stored) and operations (2·D flops per (query, key)
+    pair and product: dq 3 products, dk/dv 4, dbias2 2) of the backward
+    kernels; dbias1's kernel adds the per-head column sums (written by
+    dk/dv) over the heads."""
+    B, N, S, H, D = q.shape
+    nq = q.numel() * q.element_size()
+    rows = B * N * H * S * 4
+    bias = sum(b.numel() * b.element_size() for b in (b1, b2)
+               if b is not None)
+    pairs = B * N * H * S * S
+    return {"evoformer_dq": _bound(5 * nq + 2 * rows + bias, 6 * D * pairs),
+            "evoformer_dkv": _bound(6 * nq + 3 * rows + bias,
+                                    8 * D * pairs),
+            "evoformer_db2": _bound(4 * nq + 2 * rows + bias
+                                    + B * H * S * S * 4, 4 * D * pairs),
+            "evoformer_db1": _bound(rows + B * N * S * 4, B * N * H * S)}
+
+
+def _time_evo_bwd(torch, evo, q, k, v, b1, b2, do, full=True):
+    """The four backward kernels' device times on the call's own inputs
+    (the forward kernel's o and lse, delta computed once), beside their
+    bounds; with ``full`` also the plain backward and one SDPA backward
+    (q/k/v permuted to [B·N, H, S, D], the materialised mask bias1 + bias2
+    requiring grad; the forward taken once, its backward timed, as rows
+    4-5 and 11-12)."""
+    import torch.nn.functional as F
+    B, N, S, H, D = q.shape
+    o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+    b1v, b2v = evo._bias_views(q, b1, b2)
+    args = (q, k, v, b1v, b2v, lse, evo._delta(o, do), do)
+    part = evo._bwd_kernel("dkv", *args, part=True)[2]
+    ms = {"evoformer_dq": cuda_ms(lambda: evo._bwd_kernel("dq", *args)),
+          "evoformer_dkv": cuda_ms(lambda: evo._bwd_kernel(
+              "dkv", *args, part=True)),
+          "evoformer_db2": cuda_ms(lambda: evo._bwd_kernel("db2", *args)),
+          "evoformer_db1": cuda_ms(lambda: evo._bwd_kernel(
+              "db1", *args, part=part))}
+    bounds = _evo_bwd_bounds(q, b1, b2)
+    shape = (f"q[{B},{N},{S},{H},{D}] {q.dtype}, bias1 {list(b1.shape)} "
+             f"{b1.dtype}, bias2 {list(b2.shape)} {b2.dtype}")
+    print("  backward kernels on " + shape + ": " + ", ".join(
+        f"{n} {ms[n]:.4f} ms (bound {bounds[n][0]:.4f} {bounds[n][1]})"
+        for n in EVO_BWD) + f"; sum {sum(ms.values()):.4f} ms", flush=True)
+    plain_ms = lib_ms = None
+    if full:
+        plain_ms = cuda_ms(lambda: evo.torch_evoformer_bwd(
+            q, k, v, b1, b2, o, lse, do), reps=3, warmup=1)
+        qs, ks_, vs = (t.permute(0, 1, 3, 2, 4).reshape(B * N, H, S, D)
+                       .contiguous().requires_grad_() for t in (q, k, v))
+        mask = (b1.float() + b2.float()).to(q.dtype).expand(
+            B, N, H, S, S).reshape(B * N, H, S, S).contiguous()
+        mask.requires_grad_()
+        dout = do.permute(0, 1, 3, 2, 4).reshape(B * N, H, S, D)
+        out = F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask)
+        inputs = (qs, ks_, vs, mask)
+        try:
+            torch.autograd.grad(out, inputs, dout, retain_graph=True)
+            what = "dq, dk, dv and the mask's gradient"
+        except RuntimeError as e:
+            inputs = (qs, ks_, vs)
+            what = f"dq, dk, dv only (no mask gradient: {e})"
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, inputs, dout, retain_graph=True), reps=5)
+        del out, mask
+        print(f"  plain backward {plain_ms:.3f} ms; SDPA backward with the "
+              f"materialised mask ({what}) {lib_ms:.4f} ms", flush=True)
+    return {n: dict(shape=shape, ms=ms[n], plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bounds[n][0],
+                    bound_by=bounds[n][1]) for n in EVO_BWD}
+
+
+def _evo_counts(evo):
+    f = evo.cuda_evoformer_bwd
+    return dict(zip(EVO, (evo.cuda_evoformer_fwd.launches, f.dq_launches,
+                          f.dkv_launches, f.db2_launches, f.db1_launches)))
+
+
+def _evo_faults(torch, evo, q, k, v, b1, b2, do, raw):
+    """The backward check must see bias2 read through the neighbouring head
+    in every kernel, and a dbias2 summed over N - 1 rows (the kernel run on
+    the first N - 1 rows)."""
+    o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+    bad = evo.cuda_evoformer_bwd(q, k, v, b1, b2.roll(1, dims=2), o, lse, do)
+    for (name, lab), g, w in zip(GRADS, bad, raw):
+        r = _rows_off(g, w)[0]
+        print(f"  bias2 read through the neighbouring head moves the worst "
+              f"{lab} row by {r:.3e} of its max (check at {ROW_TOL})",
+              flush=True)
+        if not r > ROW_TOL:
+            fail(f"the {name} check cannot see a misread bias2 ({lab})")
+    B, N, S, H, D = q.shape
+    b1v, b2v = evo._bias_views(q, b1, b2)
+    m = slice(0, N - 1)
+    short = evo._bwd_kernel(
+        "db2", q[:, m], k[:, m], v[:, m], b1v[:, m], b2v,
+        lse.view(B, N, H, S)[:, m].reshape(-1, H, 1, S),
+        evo._delta(o, do).view(B, N, H, S)[:, m].reshape(-1, H, S),
+        do[:, m].contiguous())
+    r = _rows_off(short.view(raw[4].shape), raw[4])[0]
+    print(f"  a dbias2 summed over N - 1 = {N - 1} rows moves the worst row "
+          f"by {r:.3e} of its max (check at {ROW_TOL})", flush=True)
+    if not r > ROW_TOL:
+        fail("the dbias2 check cannot see a dropped MSA row")
+
+
+# the AlphaFold2 calls (Jumper et al. 2021: Algorithms 7 and 13, the
+# fine-tuning crop of Supplementary Table 4): (label, [B, N, S, H, D], keys
+# masked on a seeded half of the rows)
+EVO_CALLS = (("MSA row attention + pair bias", (1, 512, 384, 8, 32), 24),
+             ("triangle attention", (1, 384, 384, 4, 32), 16),
+             ("MSA row attention, S 383 (padded)", (1, 512, 383, 8, 32), 24))
+
+
 def phase_evoformer(torch, evo, dev):
-    """Kernel #13 against its plain version at small shapes (biases none /
-    one / both, D 8-128, S 13 / 64 / 383, fully masked rows), then the
-    AlphaFold2 calls through ``ops.evoformer_attention``: MSA row attention
-    with pair bias (N_clust 512, N_res 384, 8 heads x 32), triangle
-    attention (384 x 384, 4 heads x 32) and the MSA call at S 383 (padded
-    to 384).  One launch a call; held per row; the MSA call timed.  A
-    bias2 read through the neighbouring head must show; a backward through
-    the CUDA path must raise NotImplementedError naming A.13."""
+    """Kernels #13-#17 against their plain versions at small shapes
+    (biases none / one / both, D 8-128, S 13 / 64 / 383, fully masked
+    rows; the backward kernels on the plain o and lse), then the AlphaFold2
+    calls through ``ops.evoformer_attention`` and ``loss.backward()``: MSA
+    row attention with pair bias (N_clust 512, N_res 384, 8 heads x 32),
+    triangle attention (384 x 384, 4 heads x 32) and the MSA call at S 383
+    (padded to 384), q, k, v and both biases requiring grad.  One launch
+    of each kernel a call; o and every gradient held per row; the MSA call
+    timed, the triangle call's kernels too.  A bias2 read through the
+    neighbouring head must show, forward and backward, and a dbias2 over
+    N - 1 rows."""
     from deepspeed_tpu_torch import ops
     cases = [(8, 13, ()), (16, 64, ("b1",)), (32, 383, ("b2",)),
              (64, 64, ("b1", "b2")), (128, 383, ("b1", "b2")),
@@ -2103,38 +2306,54 @@ def phase_evoformer(torch, evo, dev):
                                       masked_keys=min(S, 5), bias=bias)
         if b1 is not None:
             b1[:, 1] = -1e9                     # every key of a row masked
-        _check_evo(torch, evo, f"D {D} S {S} biases {bias or 'none'}",
-                   q, k, v, b1, b2)
-    # the AlphaFold2 calls (Jumper et al. 2021: Algorithms 7 and 13, the
-    # fine-tuning crop of Supplementary Table 4)
-    calls = [("MSA row attention + pair bias", (1, 512, 384, 8, 32), 24),
-             ("triangle attention", (1, 384, 384, 4, 32), 16),
-             ("MSA row attention, S 383 (padded)", (1, 512, 383, 8, 32), 24)]
-    launches, result = 0, None
-    for i, (label, dims, masked) in enumerate(calls):
+        label = f"D {D} S {S} biases {bias or 'none'}"
+        o, lse = _check_evo(torch, evo, label, q, k, v, b1, b2)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(D + S)).to(q.dtype)
+        _check_evo_bwd(torch, evo, label,
+                       evo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, do),
+                       evo.torch_evoformer_bwd(q, k, v, b1, b2, o, lse, do))
+    launches, results = dict.fromkeys(EVO, 0), {}
+    for i, (label, dims, masked) in enumerate(EVO_CALLS):
         q, k, v, b1, b2 = _evo_inputs(torch, dev, *dims, seed=18 + i,
                                       masked_keys=masked)
+        do = torch.randn(q.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(28 + i)).to(q.dtype)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, b1, b2)]
         evo.cuda_evoformer_fwd.launches = 0
+        for name in ("dq", "dkv", "db2", "db1"):
+            setattr(evo.cuda_evoformer_bwd, name + "_launches", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = ops.evoformer_attention(q, k, v, b1, b2)
+        out = ops.evoformer_attention(*leaves)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n = evo.cuda_evoformer_fwd.launches
-        launches += n
-        print(f"  [{label}] q {list(q.shape)}: {wall * 1e3:.2f} ms wall, "
-              f"{n} launch", flush=True)
-        if n != 1:
-            fail(f"evoformer [{label}]: {n} launches, want 1")
+        t1 = time.perf_counter()
+        out.backward(do)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = _evo_counts(evo)
+        print(f"  [{label}] q {list(q.shape)}: forward {(t1 - t0) * 1e3:.2f} "
+              f"ms wall, backward {(t2 - t1) * 1e3:.2f} ms wall (a "
+              f"process's first backward includes one-time set-up), "
+              f"launches {counts}", flush=True)
+        if any(n != 1 for n in counts.values()):
+            fail(f"evoformer [{label}]: launches {counts}, want 1 each")
+        for name, n in counts.items():
+            launches[name] += n
         want = _evo_by_rows(torch, evo, q, k, v, b1, b2)
-        _check_rows(torch, "evoformer_fwd", label, out, want)
+        _check_rows(torch, "evoformer_fwd", label, out.detach(), want)
+        grads, raw, o_k = _evo_plain_grads(torch, evo, q, k, v, b1, b2, do)
+        if not torch.equal(o_k, out.detach()):
+            fail(f"evoformer_fwd [{label}]: a second launch differs")
+        _check_evo_bwd(torch, evo, label, [t.grad for t in leaves], grads)
         if i == 0:
-            result = _time_evo(torch, evo, q, k, v, b1, b2)
-            print(f"  [{label}] kernel {result['ms']:.4f} ms, plain "
-                  f"{result['plain_ms']:.4f} ms, SDPA + mask "
-                  f"{result['library_ms']:.4f} ms, bound "
-                  f"{result['bound_ms']:.4f} ms ({result['bound_by']})",
-                  flush=True)
+            results["evoformer_fwd"] = r = _time_evo(torch, evo, q, k, v, b1,
+                                                     b2)
+            print(f"  [{label}] kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, SDPA + mask "
+                  f"{r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+            results.update(_time_evo_bwd(torch, evo, q, k, v, b1, b2, do))
             # the check must see bias2 read through the neighbouring head
             got, _ = evo.cuda_evoformer_fwd(q, k, v, b1, b2.roll(1, dims=2))
             r = _row_err(torch, got, want)
@@ -2143,21 +2362,15 @@ def phase_evoformer(torch, evo, dev):
                   flush=True)
             if not r > ROW_TOL:
                 fail("the evoformer check cannot see a misread bias2")
-        del q, k, v, b1, b2, out, want
+            _evo_faults(torch, evo, q, k, v, b1, b2, do, raw)
+        elif i == 1:
+            fwd_ms = cuda_ms(lambda: evo.cuda_evoformer_fwd(q, k, v, b1, b2))
+            print(f"  [{label}] forward kernel {fwd_ms:.4f} ms", flush=True)
+            _time_evo_bwd(torch, evo, q, k, v, b1, b2, do, full=False)
+        del q, k, v, b1, b2, do, leaves, out, want, grads, raw, o_k
         gc.collect()
         torch.cuda.empty_cache()
-    q, k, v, b1, b2 = _evo_inputs(torch, dev, 1, 4, 64, 4, 32)
-    qg = q.detach().requires_grad_()
-    try:
-        ops.evoformer_attention(qg, k, v, b1, b2).float().sum().backward()
-    except NotImplementedError as e:
-        if "A.13" not in str(e):
-            fail(f"the evoformer backward raised without naming A.13: {e}")
-        print("  backward through the CUDA path raises NotImplementedError "
-              "naming A.13", flush=True)
-    else:
-        fail("a backward through the CUDA evoformer path did not raise")
-    return launches, result
+    return launches, results
 
 
 def main():
@@ -2200,7 +2413,7 @@ def main():
     t0 = time.perf_counter()
     builder.build(["paged_attention", "ragged_prefill", "flash_attention",
                    "wq_matmul", "lora_matmul", "sparse_attention",
-                   "evoformer"])
+                   "evoformer", "evoformer_bwd"])
     print(f"  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in builder.build_log.items():
         regs = [int(w) for line in log.splitlines() if "Used" in line
@@ -2319,11 +2532,11 @@ def main():
         results.update(sparse_results)
         torch.cuda.empty_cache()
     if 18 in phases:
-        print("== phase 18: evoformer forward, small shapes and AlphaFold2's "
-              "MSA row / triangle attention", flush=True)
-        launches["evoformer_fwd"], evo_result = phase_evoformer(torch, evo,
-                                                                dev)
-        results["evoformer_fwd"] = evo_result
+        print("== phase 18: evoformer forward + backward, small shapes and "
+              "AlphaFold2's MSA row / triangle attention", flush=True)
+        evo_launches, evo_results = phase_evoformer(torch, evo, dev)
+        launches.update(evo_launches)
+        results.update(evo_results)
 
     replaces = {"paged_attention":
                 "deepspeed_tpu/ops/paged_attention.py:152",
@@ -2342,11 +2555,16 @@ def main():
                 "sparse_fwd": "deepspeed_tpu/ops/sparse_attention.py:186",
                 "sparse_dq": "deepspeed_tpu/ops/sparse_attention.py:222",
                 "sparse_dkv": "deepspeed_tpu/ops/sparse_attention.py:252",
-                "evoformer_fwd": "deepspeed_tpu/ops/evoformer.py:89"}
+                "evoformer_fwd": "deepspeed_tpu/ops/evoformer.py:89",
+                "evoformer_dq": "deepspeed_tpu/ops/evoformer.py:203",
+                "evoformer_dkv": "deepspeed_tpu/ops/evoformer.py:224",
+                "evoformer_db2": "deepspeed_tpu/ops/evoformer.py:252",
+                "evoformer_db1": "deepspeed_tpu/ops/evoformer.py:272"}
     sources = {**dict.fromkeys(FLASH, "flash_attention"),
                **dict.fromkeys(WQ, "wq_matmul"),
                **dict.fromkeys(SPARSE, "sparse_attention"),
                "evoformer_fwd": "evoformer",
+               **dict.fromkeys(EVO_BWD, "evoformer_bwd"),
                "paged_attention_int8": "paged_attention",
                "ragged_prefill_int8": "ragged_prefill"}
     kernels = []

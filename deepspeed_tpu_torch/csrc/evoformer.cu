@@ -32,48 +32,9 @@
 //     HDP in {16, 32, 64, 128} with zeros in shared memory and registers.
 //   - any S: keys past S in the last tile are dropped, rows past S are not
 //     written.
-#include "flash_common.cuh"
+#include "evo_common.cuh"
 
 namespace dsk {
-
-struct EvoArgs {
-  const void *q, *k, *v, *b1, *b2;
-  void* o;
-  float* lse_out;
-  int B, N, S, H, D;
-  long long q_sb, q_sn, q_ss, q_sh, k_sb, k_sn, k_ss, k_sh, v_sb, v_sn, v_ss, v_sh;
-  long long b1_sb, b1_sn, b1_sk;         // bias1 viewed [B, N, S]
-  long long b2_sb, b2_sh, b2_sq, b2_sk;  // bias2 viewed [B, H, S, S]
-  int b1_code, b2_code;                  // -1 absent, 0 fp32, 1 fp16, 2 bf16
-  float scale;
-};
-
-constexpr int kEvoTile = 64, kEvoWarps = 4;
-
-__device__ __forceinline__ float load_bias(const void* p, long long i, int code) {
-  if (code == 0) return static_cast<const float*>(p)[i];
-  if (code == 1) return __half2float(static_cast<const __half*>(p)[i]);
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-// The block copies `rows` token rows (D contiguous elements each, token
-// stride st) into shared-memory rows of LD elements; tokens at or past S
-// are zero-filled.  Columns D..HDP of the rows are zeroed once by the
-// caller and never written here.  The caller commits the cp.async group.
-template <typename T, int LD>
-__device__ __forceinline__ void load_rows_d(T* dst, const T* __restrict__ base, long long st,
-                                            int row0, int rows, int S, int D) {
-  const int cpr = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * cpr; c += blockDim.x) {
-    const int row = c / cpr, cc = c % cpr;
-    char* d = reinterpret_cast<char*>(dst + row * LD) + 16 * cc;
-    const int t = row0 + row;
-    if (t < S)
-      cp_async16(d, reinterpret_cast<const char*>(base + (long long)t * st) + 16 * cc);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
 
 template <typename T, int HDP>
 __global__ void __launch_bounds__(kEvoWarps * 32) evo_fwd_kernel(EvoArgs p) {
@@ -167,12 +128,7 @@ __global__ void __launch_bounds__(kEvoWarps * 32) evo_fwd_kernel(EvoArgs p) {
           const int i = j >> 1;
           const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
           float s = kNegInf;
-          if (exists[i] && kpos < p.S) {
-            s = sc[nt][j] * p.scale;
-            if (p.b1_code >= 0) s = s + load_bias(p.b1, b1o + kpos * p.b1_sk, p.b1_code);
-            if (p.b2_code >= 0)
-              s = s + load_bias(p.b2, b2o + qpos[i] * p.b2_sq + kpos * p.b2_sk, p.b2_code);
-          }
+          if (exists[i] && kpos < p.S) s = evo_logit(p, sc[nt][j], b1o, b2o, qpos[i], kpos);
           sc[nt][j] = s;
           mx[i] = fmaxf(mx[i], s);
         }

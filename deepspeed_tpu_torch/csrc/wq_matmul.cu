@@ -28,8 +28,10 @@
 //   - 16-bit x: mma.sync m16n8k16 (fp32 accumulate); 8 warps a block, each
 //     owning 16 output columns over the 64-row tile; row tiles past M are
 //     skipped (decode runs one of four).
-//   - the block walks K in 128-deep steps (g | 128, so a step holds 128/g
-//     whole groups and a scale row per group): the x tile, the code tile and
+//   - the block walks K in 128-deep steps: for g <= 128 (g | 128) a step
+//     holds 128/g whole groups and a scale row per group, for g > 128 (a
+//     multiple of 128) it lies inside one group and needs its one scale
+//     row, k0 / g; the x tile, the code tile and
 //     its scale rows stream into shared memory with 16-byte cp.async,
 //     double-buffered (the next step's bytes are in flight while this step
 //     dequantizes and multiplies); the code tile is then dequantized into a
@@ -98,8 +100,9 @@ __device__ __forceinline__ void wq_stage(const T* __restrict__ x, const int8_t* 
         cs[r * WQ_KT + cc] = codes[(size_t)(n0 + r) * K + k0 + cc];
       }
     }
-    // scales [V/g, H]: rows n0/g .. (live), columns k0..k0+kc -> ss[j][KT]
-    const int srows = min(WQ_BN / g, (N - n0 + g - 1) / g);
+    // scales [V/g, H]: rows n0/g .. (live), columns k0..k0+kc -> ss[j][KT];
+    // a group of g >= BN columns covers the whole tile with one row
+    const int srows = g >= WQ_BN ? 1 : min(WQ_BN / g, (N - n0 + g - 1) / g);
     if (aligned) {
       const int ch = kc / 4;
       for (int c = tid; c < srows * ch; c += WQ_THREADS) {
@@ -130,8 +133,9 @@ __device__ __forceinline__ void wq_stage(const T* __restrict__ x, const int8_t* 
         cs[r * WQ_BN + cc] = codes[(size_t)(crow0 + r) * N + n0 + cc];
       }
     }
-    // scales [K/g, N]: kc/g rows -> ss[j][BN]
-    const int srows = kc / g;
+    // scales [K/g, N]: kc/g rows -> ss[j][BN]; a group of g > KT rows holds
+    // the whole step, one row (k0 / g)
+    const int srows = g > WQ_KT ? 1 : kc / g;
     if (aligned) {
       const int ch = (ncols + 3) / 4;
       for (int c = tid; c < srows * ch; c += WQ_THREADS) {
@@ -153,7 +157,9 @@ __device__ __forceinline__ int nibble_lo(int b) { return (int)((unsigned)b << 28
 __device__ __forceinline__ int nibble_hi(int b) { return b >> 4; }
 
 // Dequantize the staged step into the 16-bit tile wd: code * scale in fp32,
-// rounded once to T.
+// rounded once to T.  Tile-local k / g (n / g) picks the staged scale row:
+// the step (tile) starts on a group boundary, and for g above the step's
+// depth (width) every local index maps to row 0.
 template <typename T, int MODE>
 __device__ __forceinline__ void wq_dequant(const int8_t* cs, const float* ss, T* wd, int g,
                                            int kc) {
@@ -418,7 +424,8 @@ cudaError_t launch_mode(int dtype, const void* x, const int8_t* codes, const flo
 
 // x [M, K] (mode 1: [M, H], K = H); codes int8 [K, N] (mode 1: [N, K],
 // mode 2: [K/2, N]); scales fp32 [K/g, N] (mode 1: [N/g, K]); y [M, N].
-// g: power of two in 16..128 dividing the grouped dim; K % 16 == 0.
+// g: power of two >= 16 dividing the grouped dim (up to 128: a K step or
+// column tile holds 128/g groups; above: it lies in one); K % 16 == 0.
 // aligned: code and scale rows are 16-byte aligned (cp.async); else
 // element-wise loads.  splits > 1 (16-bit x only): K steps split over that
 // many blocks a tile, partials in part [splits, M, N] fp32; every split
@@ -426,7 +433,7 @@ cudaError_t launch_mode(int dtype, const void* x, const int8_t* codes, const flo
 extern "C" int ds_wq_matmul(const void* x, const void* codes, const void* scales, void* y,
                             void* part, int M, int N, int K, int g, int mode, int aligned,
                             int splits, int dtype, void* stream) {
-  if (g < 16 || g > 128 || (g & (g - 1)) || K % 16) return (int)cudaErrorInvalidValue;
+  if (g < 16 || (g & (g - 1)) || K % 16) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   auto c = static_cast<const int8_t*>(codes);

@@ -14,12 +14,13 @@ Implementations, chosen by the device of the tensors:
   on CPU tensors, differentiated by PyTorch's autograd; and
   ``torch_evoformer_fwd``, the forward kernel's formula without tiles with
   its logsumexp, the kernel's reference.
-- hand-written CUDA for Hopper, ``cuda_evoformer_fwd``
-  (csrc/evoformer.cu): the forward with the per-row logsumexp, never
-  materialising the logits; q, k, v and both biases read through their
-  strides.  Its backward (the reference's four kernels dq, dk/dv, dbias2,
-  dbias1) is not ported yet: a backward through the CUDA path raises
-  ``NotImplementedError`` naming ROADMAP A.13.
+- hand-written CUDA for Hopper: ``cuda_evoformer_fwd`` (csrc/evoformer.cu),
+  the forward with the per-row logsumexp, never materialising the logits;
+  and ``cuda_evoformer_bwd`` (csrc/evoformer_bwd.cu), the reference's four
+  backward kernels: dq, dk/dv, dbias2 and dbias1 (the last as per-head
+  column sums inside dk/dv, added over heads in order).  q, k, v and both
+  biases are read through their strides.  ``torch_evoformer_bwd`` is the
+  backward kernels' formula without tiles, their reference.
 
 ``evoformer_attention`` routes as the reference does: an S that no block
 tiles is padded (padded keys masked through bias1 = -1e9, padded query rows
@@ -31,6 +32,7 @@ on CUDA tensors — no plain body runs on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -79,6 +81,33 @@ def torch_evoformer_fwd(q, k, v, bias1=None, bias2=None):
     return o, lse
 
 
+def torch_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do):
+    """The backward kernels' formula without tiles (the reference's
+    _bwd_impl :291) → (dq, dk, dv, db1 fp32 [B, N, 1, 1, S] | None, db2
+    fp32 [B, 1, H, S, S] | None), from the forward's o and lse: the logits
+    recomputed in the forward's order, p = exp(s − lse) (0 on a row whose
+    lse is −1e30), ds = p·(do·vᵀ − delta) with delta = rowsum(o·do) in
+    fp32; ds is cast to k's / q's dtype before the dq / dk products (scale
+    applied to the fp32 sums) and p to do's dtype before dv, as the
+    reference casts; dbias2 = Σ_n ds, dbias1 = Σ_{h,q} ds."""
+    b, n, s, h, d = q.shape
+    scale = d ** -0.5
+    lse = lse.reshape(b, n, h, s, 1)
+    p = torch.where(lse > NEG_INF / 2,
+                    torch.exp(_logits(q, k, bias1, bias2) - lse), 0.0)
+    dp = torch.einsum("bnqhd,bnkhd->bnhqk", do.float(), v.float())
+    ds = p * (dp - _delta(o, do).reshape(b, n, h, s, 1))
+    dq = scale * torch.einsum("bnhqk,bnkhd->bnqhd", ds.to(k.dtype).float(),
+                              k.float())
+    dk = scale * torch.einsum("bnhqk,bnqhd->bnkhd", ds.to(q.dtype).float(),
+                              q.float())
+    dv = torch.einsum("bnhqk,bnqhd->bnkhd", p.to(do.dtype).float(),
+                      do.float())
+    db1 = None if bias1 is None else ds.sum((2, 3)).reshape(b, n, 1, 1, s)
+    db2 = None if bias2 is None else ds.sum(1).reshape(b, 1, h, s, s)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), db1, db2
+
+
 def _block_sizes(s: int, prefer: int = 512):
     """The reference's divisor ladder: the tile its blockwise kernel would
     use for S (None: S needs padding first)."""
@@ -118,7 +147,7 @@ def _problem(q, k, v, bias1=None, bias2=None) -> Optional[str]:
         return "q, k, v must all be [B, N, S, H, D] of one shape"
     b, n, s, h, d = q.shape
     if min(b, n, s, h) < 1 or h > 65535 or b * n > 2 ** 31 - 1 \
-            or -(-s // 64) > 65535:
+            or -(-s // 64) > 65535 or b * -(-s // 64) > 2 ** 31 - 1:
         return f"[B, N, S, H] = {[b, n, s, h]} outside the grid's range"
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
@@ -156,19 +185,48 @@ def supported(q, k, v, bias1=None, bias2=None, **_) -> bool:
     return _problem(q, k, v, bias1, bias2) is None
 
 
-def _lib():
-    """Build-and-load the kernel library once and declare its C interface."""
+def _lib(name="evoformer"):
+    """Build-and-load a kernel library (``evoformer``: the forward,
+    ``evoformer_bwd``: the backward) once and declare its C interface."""
     from deepspeed_tpu_torch.ops.builder import load_op
-    lib = load_op("evoformer")
+    lib = load_op(name)
     if not getattr(lib, "_ds_declared", False):
         P, I, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ds_evoformer_fwd.argtypes = ([P] * 7 + [I] * 5 + [P, P]
-                                         + [I, I, F_, I, P])
-        lib.ds_evoformer_fwd.restype = I
+        if name == "evoformer":
+            lib.ds_evoformer_fwd.argtypes = ([P] * 7 + [I] * 5 + [P, P]
+                                             + [I, I, F_, I, P])
+            lib.ds_evoformer_fwd.restype = I
+        else:
+            lib.ds_evoformer_bwd.argtypes = ([I] + [P] * 14 + [I] * 5
+                                             + [P, P] + [I, I, F_, I, P])
+            lib.ds_evoformer_bwd.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
         lib._ds_declared = True
     return lib
+
+
+def _strides(q, k, v, b1, b2):
+    """The kernels' stride arrays: q, k, v (batch, row, token, head) and
+    bias1 (batch, row, key) / bias2 (batch, head, query, key) of the
+    broadcast views (0 where absent)."""
+    qkv = (ctypes.c_longlong * 12)(*[x.stride(i) for x in (q, k, v)
+                                     for i in (0, 1, 2, 3)])
+    bst = (ctypes.c_longlong * 7)(
+        *([0, 0, 0] if b1 is None else [b1.stride(0), b1.stride(1),
+                                        b1.stride(4)]),
+        *([0, 0, 0, 0] if b2 is None else [b2.stride(i)
+                                           for i in (0, 2, 3, 4)]))
+    return qkv, bst
+
+
+def _codes(b1, b2):
+    return (-1 if b1 is None else _BIAS_CODE[b1.dtype],
+            -1 if b2 is None else _BIAS_CODE[b2.dtype])
+
+
+def _stream(q):
+    return ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def cuda_evoformer_fwd(q, k, v, bias1=None, bias2=None):
@@ -178,23 +236,13 @@ def cuda_evoformer_fwd(q, k, v, bias1=None, bias2=None):
         raise ValueError(f"cuda_evoformer_fwd: {problem}")
     b, n, s, h, d = q.shape
     b1, b2 = _bias_views(q, bias1, bias2)
-    qkv = (ctypes.c_longlong * 12)(*[x.stride(i) for x in (q, k, v)
-                                     for i in (0, 1, 2, 3)])
-    bst = (ctypes.c_longlong * 7)(
-        *([0, 0, 0] if b1 is None else [b1.stride(0), b1.stride(1),
-                                        b1.stride(4)]),
-        *([0, 0, 0, 0] if b2 is None else [b2.stride(i)
-                                           for i in (0, 2, 3, 4)]))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * n, h, s), dtype=torch.float32, device=q.device)
     lib = _lib()
     rc = lib.ds_evoformer_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(b1), _ptr(b2), _ptr(o), _ptr(lse),
-        b, n, s, h, d, qkv, bst,
-        -1 if b1 is None else _BIAS_CODE[b1.dtype],
-        -1 if b2 is None else _BIAS_CODE[b2.dtype], float(d ** -0.5),
-        _DTYPE_CODE[q.dtype],
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        b, n, s, h, d, *_strides(q, k, v, b1, b2), *_codes(b1, b2),
+        float(d ** -0.5), _DTYPE_CODE[q.dtype], _stream(q))
     _check_rc(lib, rc, "evoformer_fwd")
     cuda_evoformer_fwd.launches += 1
     return o, lse.view(b * n, h, 1, s)
@@ -203,10 +251,117 @@ def cuda_evoformer_fwd(q, k, v, bias1=None, bias2=None):
 cuda_evoformer_fwd.launches = 0
 
 
+def _delta(o, do):
+    """delta = rowsum(o·do) in fp32, from o in q's dtype → [B·N, H, S]
+    (the reference's _bwd_impl :299)."""
+    b, n, s, h, _ = o.shape
+    return ((o.float() * do.float()).sum(-1).permute(0, 1, 3, 2)
+            .reshape(b * n, h, s).contiguous())
+
+
+def _bwd_problem(q, k, v, bias1, bias2, o, lse, do) -> Optional[str]:
+    """Why the backward kernels cannot take this call (None: they can):
+    what the forward takes, with o and do [B, N, S, H, D] in q's dtype (do
+    contiguous: the kernels read it; o only feeds delta) and lse fp32
+    [B·N, H, 1, S] as the forward wrote it."""
+    problem = _problem(q, k, v, bias1, bias2)
+    if problem is not None:
+        return problem
+    b, n, s, h, _ = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            return f"{name} must be a {tuple(q.shape)} {q.dtype} tensor " \
+                   f"on {q.device}"
+    if not do.is_contiguous():
+        return "do must be contiguous"
+    if lse.dtype != torch.float32 or lse.numel() != b * n * h * s \
+            or lse.device != q.device or not lse.is_contiguous():
+        return f"lse must be a contiguous float32 [B·N, H, 1, S] = " \
+               f"{[b * n, h, 1, s]} tensor on {q.device}"
+    return None
+
+
+_BWD_KERNEL = {"dq": 0, "dkv": 1, "db2": 2, "db1": 3}
+
+
+def _bwd_kernel(which, q, k, v, b1, b2, lse, delta, do, part=None):
+    """Launch one backward kernel on checked inputs (b1 / b2 the broadcast
+    views) and return its output: dq; (dk, dv, part) — ``part=True``
+    also writes bias1's per-head column sums of ds, fp32 [B·N, H, S];
+    db2 fp32 [B, H, S, S]; or, from ``part``, db1 fp32 [B·N, S]."""
+    b, n, s, h, d = q.shape
+    empty = functools.partial(torch.empty, device=q.device)
+    out = dict.fromkeys(("dq", "dk", "dv", "part", "db1", "db2"))
+    if which == "dq":
+        out["dq"] = empty(q.shape, dtype=q.dtype)
+    elif which == "dkv":
+        out["dk"] = empty(q.shape, dtype=q.dtype)
+        out["dv"] = empty(q.shape, dtype=q.dtype)
+        if part:
+            out["part"] = empty((b * n, h, s), dtype=torch.float32)
+    elif which == "db2":
+        out["db2"] = empty((b, h, s, s), dtype=torch.float32)
+    else:
+        out["part"] = part
+        out["db1"] = empty((b * n, s), dtype=torch.float32)
+    lib = _lib("evoformer_bwd")
+    rc = lib.ds_evoformer_bwd(
+        _BWD_KERNEL[which], _ptr(q), _ptr(k), _ptr(v), _ptr(b1), _ptr(b2),
+        _ptr(do), _ptr(lse), _ptr(delta),
+        *(_ptr(out[x]) for x in ("dq", "dk", "dv", "part", "db1", "db2")),
+        b, n, s, h, d, *_strides(q, k, v, b1, b2), *_codes(b1, b2),
+        float(d ** -0.5), _DTYPE_CODE[q.dtype], _stream(q))
+    _check_rc(lib, rc, f"evoformer_{which}")
+    counter = f"{which}_launches"
+    setattr(cuda_evoformer_bwd, counter,
+            getattr(cuda_evoformer_bwd, counter) + 1)
+    if which == "dkv":
+        return out["dk"], out["dv"], out["part"]
+    return out[which]
+
+
+def cuda_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do, db1=None,
+                       db2=None):
+    """Backward on the card → (dq, dk, dv, db1 fp32 [B, N, 1, 1, S] | None,
+    db2 fp32 [B, 1, H, S, S] | None), through dq (#14), dk/dv (#15),
+    dbias2 (#16) and dbias1 (#17); ``db1`` / ``db2`` (default: whether
+    the bias is given) say whether the bias gradients are wanted, and the
+    reference's unused bias cotangents cost nothing here either."""
+    problem = _bwd_problem(q, k, v, bias1, bias2, o, lse, do)
+    if problem is not None:
+        raise ValueError(f"cuda_evoformer_bwd: {problem}")
+    b, n, s, h, _ = q.shape
+    want1 = bias1 is not None and (db1 is None or bool(db1))
+    want2 = bias2 is not None and (db2 is None or bool(db2))
+    b1, b2 = _bias_views(q, bias1, bias2)
+    args = (q, k, v, b1, b2, lse, _delta(o, do), do)
+    dq = _bwd_kernel("dq", *args)
+    dk, dv, part = _bwd_kernel("dkv", *args, part=want1)
+    g2 = _bwd_kernel("db2", *args).view(b, 1, h, s, s) if want2 else None
+    g1 = (_bwd_kernel("db1", *args, part=part).view(b, n, 1, 1, s)
+          if want1 else None)
+    return dq, dk, dv, g1, g2
+
+
+cuda_evoformer_bwd.dq_launches = 0
+cuda_evoformer_bwd.dkv_launches = 0
+cuda_evoformer_bwd.db2_launches = 0
+cuda_evoformer_bwd.db1_launches = 0
+
+
+def _bias_grads(db1, db2, bias1, bias2):
+    """The fp32 bias gradients of the broadcast problem ([B, N, 1, 1, S],
+    [B, 1, H, S, S]) as the caller's biases: cast to each bias's dtype, as
+    the reference's backward does (_evo_bwd :446-447), then summed over the
+    dims the bias was broadcast along, as autodiff of the reference's
+    ``broadcast_to`` does."""
+    return tuple(None if g is None else g.to(x.dtype).sum_to_size(x.shape)
+                 for g, x in ((db1, bias1), (db2, bias2)))
+
+
 class _Evoformer(torch.autograd.Function):
-    """o = evoformer(q, k, v, bias1, bias2) through the forward kernel;
-    saves the residuals the reference's backward reads (q, k, v, biases,
-    o, lse).  The backward kernels are ROADMAP A.13."""
+    """o = evoformer(q, k, v, bias1, bias2) through the forward kernel,
+    differentiated through the four backward kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias1, bias2):
@@ -216,11 +371,31 @@ class _Evoformer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "evoformer_attention: the backward on CUDA tensors needs the "
-            "evoformer backward kernels #14-#17 (dq, dk/dv, dbias2, dbias1), "
-            "ROADMAP A.13, not ported yet; the forward runs on the card, "
-            "the CPU path differentiates the plain body")
+        q, k, v, bias1, bias2, o, lse = ctx.saved_tensors
+        # ``.sum().backward()`` hands in a do whose strides are all 0; the
+        # kernels read 16-byte rows, so it is copied (not a fallback)
+        dq, dk, dv, db1, db2 = cuda_evoformer_bwd(
+            q, k, v, bias1, bias2, o, lse, do.contiguous(),
+            db1=ctx.needs_input_grad[3], db2=ctx.needs_input_grad[4])
+        return (dq, dk, dv) + _bias_grads(db1, db2, bias1, bias2)
+
+
+def _padded(q, k, v, bias1=None, bias2=None):
+    """The reference's padding route for an S that no block tiles: q, k, v
+    and both biases padded to a multiple of 32 (of 8 below 32), the padded
+    keys masked through bias1 = -1e9 (a zero bias1 is made where none is
+    given), so that the CPU and CUDA paths see the same padded problem."""
+    b, n, s0, h, _ = q.shape
+    tgt = 32 if s0 >= 32 else 8
+    pad = -(-s0 // tgt) * tgt - s0
+    qp, kp, vp = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+    b1 = (torch.broadcast_to(bias1, (b, n, 1, 1, s0)) if bias1 is not None
+          else torch.zeros((b, n, 1, 1, s0), dtype=torch.float32,
+                           device=q.device))
+    b1p = F.pad(b1, (0, pad), value=-1e9)
+    b2p = (F.pad(torch.broadcast_to(bias2, (b, 1, h, s0, s0)),
+                 (0, pad, 0, pad)) if bias2 is not None else None)
+    return qp, kp, vp, b1p, b2p
 
 
 _warned_fallback = set()
@@ -243,19 +418,8 @@ def evoformer_attention(q, k, v, bias1=None, bias2=None):
     if not _tiles(q, k, v):
         b, n, s0, h, d = q.shape
         if k.shape == q.shape and v.shape == q.shape and d % 8 == 0:
-            tgt = 32 if s0 >= 32 else 8
-            pad = -(-s0 // tgt) * tgt - s0
-            qp, kp, vp = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
-            b1 = (torch.broadcast_to(bias1, (b, n, 1, 1, s0))
-                  if bias1 is not None else
-                  torch.zeros((b, n, 1, 1, s0), dtype=torch.float32,
-                              device=q.device))
-            b1p = F.pad(b1, (0, pad), value=-1e9)          # mask padded keys
-            b2p = (F.pad(torch.broadcast_to(bias2, (b, 1, h, s0, s0)),
-                         (0, pad, 0, pad))
-                   if bias2 is not None else None)
-            out = evoformer_attention(qp, kp, vp, b1p, b2p)
-            return out[:, :, :s0]
+            return evoformer_attention(*_padded(q, k, v, bias1, bias2))[
+                :, :, :s0]
         if q.device.type != "cpu":
             raise ValueError(
                 f"evoformer_attention: shapes q={tuple(q.shape)} "

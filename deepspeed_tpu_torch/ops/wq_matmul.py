@@ -27,8 +27,10 @@ the device of the tensors:
 The JAX package's Mosaic tile rules and their silent dequantize fallbacks
 (``kernel_supported``, ``_preflight``) have no counterpart: every 2-D store
 the serving model routes here goes to the kernel on CUDA tensors, and a
-store the kernel cannot take raises.  The kernel takes groups that are
-powers of two from 16 to 128 dividing the contraction dimension.
+store the kernel cannot take raises.  The kernel takes every group the
+engine packs: a power of two of at least 16 dividing the grouped dimension
+(up to 128 a 128-deep K step holds 128/g groups, above it a step lies in
+one) — the JAX kernel's groups (W8 g % 32, W4 g % 64) and 16 besides.
 Tensor-parallel ``wq_matmul_tp`` is not ported (ROADMAP A.8).
 """
 
@@ -46,7 +48,6 @@ from deepspeed_tpu_torch.ops.quantization import (dequantize_weight,
                                                   is_quantized_weight4)
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_GROUPS = (16, 32, 64, 128)
 _W8, _W8T, _W4 = 0, 1, 2
 
 
@@ -155,8 +156,8 @@ def _problem(x, store, mode) -> Optional[str]:
         return f"scales {tuple(s.shape)} are not a dim-0 grouping of " \
                f"codes {tuple(v.shape)}"
     g = grouped // rows
-    if g not in _GROUPS:
-        return f"group {g} not in {_GROUPS}"
+    if g < 16 or g & (g - 1):
+        return f"group {g} is not a power of two of at least 16"
     if k % 16:
         return f"contraction dim {k} is not a multiple of 16"
     for t in (x, v, s):

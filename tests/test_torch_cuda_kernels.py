@@ -137,14 +137,16 @@ WQ = {"w8": ("cuda_wq_matmul", "torch_wq_matmul"),
                                        (torch.float16, 4e-3),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("mode", sorted(WQ))
-@pytest.mark.parametrize("g", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [16, 32, 64, 128, 256, 512])
 def test_wq_kernels_match_plain(cuda, dtype, tol, mode, g):
     """Each kernel against its plain version, per output row (tol of the
     row's largest value): odd M, N not a multiple of the 128-column tile
     (16-byte aligned rows and not), a K with a partial last step where the
-    group allows it, and a single row."""
-    K = 320 if g <= 64 else 384
-    Ns = (448, 3 * g) if mode == "w8t" else (200, 272)
+    group allows it, and a single row; groups above the 128-deep K step
+    (one scale row a step, or a column tile, split-K over the groups)."""
+    K = 320 if g <= 64 else 384 if g <= 128 else 2 * g
+    Ns = ((448 if g <= 128 else g, 3 * g) if mode == "w8t"
+          else (200, 272))
     kern, plain = getattr(wq, WQ[mode][0]), getattr(wq, WQ[mode][1])
     for M in (37, 1):
         for N in Ns:
@@ -166,9 +168,11 @@ def test_wq_unsupported_raise(cuda):
     from deepspeed_tpu_torch import ops
     from deepspeed_tpu_torch.ops import quantization as q
     x, store = _wq_case(cuda, "w8", 128, 4, 256, 512, torch.bfloat16)
-    big = q.quantize_weight(torch.randn(512, 256, device=cuda), group=256)
+    # groups of 96 (a store the engine never packs: not a power of two)
+    odd = {"v": store["v"][:384].contiguous(),
+           "s": torch.ones((4, 256), device=cuda)}
     with pytest.raises(ValueError, match="group"):
-        wq.cuda_wq_matmul(x, big)
+        wq.cuda_wq_matmul(x[:, :384].contiguous(), odd)
     with pytest.raises(ValueError, match="contiguous"):
         wq.cuda_wq_matmul(x[:, ::2].repeat(1, 2)[:, :512].t().contiguous()
                           .t(), store)
@@ -664,13 +668,51 @@ def test_evoformer_kernel_matches_plain(cuda, dtype, tol, case):
     _assert_rows("o", o, o_ref, tol)
 
 
+def _evo_bwd_counts():
+    f = evo.cuda_evoformer_bwd
+    return [f.dq_launches, f.dkv_launches, f.db2_launches, f.db1_launches]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3)])
+@pytest.mark.parametrize("case", sorted(EVO_CASES))
+def test_evoformer_bwd_kernels_match_plain(cuda, dtype, tol, case):
+    """dq (#14), dk/dv (#15), dbias2 (#16) and dbias1 (#17) against the
+    plain backward on the same o and lse, per row; each kernel launches
+    once, the bias kernels only with their bias."""
+    q, k, v, b1, b2 = _evo_case(cuda, dtype, *EVO_CASES[case])
+    o, lse = evo.torch_evoformer_fwd(q, k, v, b1, b2)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    do = torch.randn(q.shape, device=cuda, generator=gen).to(dtype)
+    before = _evo_bwd_counts()
+    got = evo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
+    want = evo.torch_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
+    assert [a - b for a, b in zip(_evo_bwd_counts(), before)] == \
+        [1, 1, int(b2 is not None), int(b1 is not None)]
+    for name, g, w in zip(("dq", "dk", "dv", "db1", "db2"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            _assert_rows(name, g, w, tol)
+
+
 @pytest.mark.requires_cuda
 def test_evoformer_op_on_card(cuda):
     """The op pads S 45 as the reference does and runs the kernel, equal to
     the same op on CPU copies (the same padded problem: a row whose every
-    key is -1e9 attends over the padded keys too, as in the reference); a
-    backward through it raises (the backward kernels are ROADMAP A.13);
-    the reference's einsum shapes raise on CUDA tensors."""
+    key is -1e9 attends over the padded keys too, as in the reference).
+    Its backward runs the four backward kernels once each and equals the
+    CPU on copies: the plain backward on CPU copies of the padded problem
+    and of the o and lse the forward kernel gave, mapped to the inputs
+    through the op's padding and the callers' broadcasts (bias1
+    [B, 1, 1, 1, S], bias2 expanded over B) by CPU autograd.  (CPU autograd
+    of the plain body differs from the kernel formula by design: delta =
+    rowsum(o·do) takes o rounded to bf16, as the reference's kernels do,
+    which moves a cancelling dq row beyond the 2e-2 row check.)  A
+    ``.sum().backward()`` (a do of stride 0) works; the reference's einsum
+    shapes raise on CUDA tensors."""
+    import torch.nn.functional as F
     from deepspeed_tpu_torch import ops
     q, k, v, b1, b2 = _evo_case(cuda, torch.bfloat16, 16, 45, "both")
     before = evo.cuda_evoformer_fwd.launches
@@ -678,9 +720,36 @@ def test_evoformer_op_on_card(cuda):
     assert evo.cuda_evoformer_fwd.launches == before + 1
     want = ops.evoformer_attention(*(x.cpu() for x in (q, k, v, b1, b2)))
     _assert_rows("o", out.cpu(), want, 2e-2)
-    qg = q.detach().requires_grad_()
-    with pytest.raises(NotImplementedError, match="A.13"):
-        ops.evoformer_attention(qg, k, v, b1, b2).float().sum().backward()
+    q, k, v, b1, b2 = _evo_case(cuda, torch.bfloat16, 16, 45, "broadcast")
+    b1 = b1.clone()
+    b1[..., -5:] = -1e9                         # a masked tail on every row
+    w = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    leaves = [x.detach().requires_grad_() for x in (q, k, v, b1, b2[:1])]
+    before = _evo_bwd_counts()
+    out = ops.evoformer_attention(*leaves[:4], leaves[4].expand(
+        2, *b2.shape[1:]))
+    (out.float() * w).sum().backward()
+    assert [a - b for a, b in zip(_evo_bwd_counts(), before)] == [1, 1, 1, 1]
+    cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v, b1, b2[:1])]
+    prob = evo._padded(*cpu[:4], cpu[4].expand(2, *b2.shape[1:]))
+    flat = [t.detach() for t in prob]
+    o, lse = evo.cuda_evoformer_fwd(*(t.to(cuda) for t in flat))
+    do = F.pad(w.cpu().to(torch.bfloat16),
+               (0, 0, 0, 0, 0, flat[0].shape[2] - 45))
+    raw = evo.torch_evoformer_bwd(*flat, o.cpu(), lse.cpu(), do)
+    torch.autograd.backward(prob, list(raw[:3]) + list(
+        evo._bias_grads(raw[3], raw[4], flat[3], flat[4])))
+    for name, g, c in zip(("dq", "dk", "dv", "db1", "db2"), leaves, cpu):
+        assert g.grad.shape == c.grad.shape, name
+        assert g.grad.dtype == c.grad.dtype, name
+        _assert_rows(name, g.grad.cpu(), c.grad, 2e-2)
+    qs = q[:, :, :32].detach().contiguous().requires_grad_()
+    ops.evoformer_attention(qs, k[:, :, :32], v[:, :, :32]).sum().backward()
+    qo = qs.detach().requires_grad_()
+    ops.evoformer_attention(qo, k[:, :, :32], v[:, :, :32]).backward(
+        torch.ones(qs.shape, dtype=qs.dtype, device=cuda))
+    assert torch.equal(qs.grad, qo.grad)
     q4 = q[..., :4].contiguous()
     with pytest.raises(ValueError, match="multiple of 8"):
         ops.evoformer_attention(q4, q4, q4)

@@ -3,10 +3,12 @@ and the forward kernel's plain version (``torch_evoformer_fwd``, with its
 logsumexp) held to the JAX package's einsum ground truth
 (``_evoformer_xla``) and to its Pallas kernel in interpret mode, through
 the reference's padding route for S that no block tiles; CPU gradients
-(dq, dk, dv, dbias1, dbias2) held to ``jax.grad`` of the einsum path — the
-numbers the evoformer backward kernels are to be held to.  fp32 on the
-CPU; forward at 1e-5, gradients at 1e-4 of each gradient's largest value.
-The CUDA kernel is held to the plain version on the card
+(dq, dk, dv, dbias1, dbias2) held to ``jax.grad`` of the einsum path; and
+the backward kernels' plain version (``torch_evoformer_bwd``) held to the
+reference's backward kernels in interpret mode on the same o and lse, the
+bias gradients reduced to the callers' broadcast shapes (``_bias_grads``)
+and the autograd Function's glue.  Tolerances are stated per test.  The
+CUDA kernels are held to the plain versions on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
 
 import importlib
@@ -167,3 +169,222 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tevo.cuda_evoformer_fwd(*args)
     assert tevo.cuda_evoformer_fwd.launches == 0
     assert "evoformer_attention" in tops.op_report()
+
+
+# ------------------------------------------------------------------ backward
+#
+# Tolerances, per row (a row: the last dim; a row whose true value is ~0 is
+# judged against 1% of the tensor's largest value): fp32 1e-5 of the row's
+# largest value (summation order only), bf16 2e-2 (one bf16 rounding of ds,
+# p and the output is 2^-8 of it).
+
+BWD_TOL = {np.float32: 1e-5, jnp.bfloat16: 2e-2}
+# Held end to end instead (each side runs its own forward), fp32 rows are
+# held at 1e-4: o's rounding enters delta = rowsum(o·do), which cancels in
+# dq — 2.2e-5 on a small dq row at S 13, where the reference's own kernel
+# path and its einsum differ by nearly as much.
+E2E_TOL = 1e-4
+
+
+def _assert_rows(got, want, tol, name):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    d = np.abs(got - want).max(-1)
+    floor = 1e-2 * np.abs(want).max()
+    row = d / np.maximum(np.abs(want).max(-1), floor)
+    assert row.max() <= tol, (name, float(row.max()))
+
+
+def _kernel_layout(x):
+    """[B·N, H, S, D] (the JAX kernels' layout) → [B, N, S, H, D]."""
+    return x.reshape(B, -1, *x.shape[1:]).transpose(0, 1, 3, 2, 4)
+
+
+def _bwd_case(bias, D, S, dtype, seed=3):
+    """Inputs, the JAX forward kernel's o and lse (interpret mode) and a
+    seeded do, as numpy arrays in ``dtype`` (biases: fp32 bias1, bias2 in
+    the inputs' dtype)."""
+    q, k, v, b1, b2 = _inputs(S=S, D=D, bias=bias, seed=seed)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape)
+    cast = [None if x is None else jnp.asarray(x, dtype)
+            for x in (q, k, v, do)]
+    jb1 = None if b1 is None else jnp.asarray(b1)
+    jb2 = None if b2 is None else jnp.asarray(b2, dtype)
+    o, lse = jevo._fwd(cast[0], cast[1], cast[2], jb1, jb2, True)
+    return cast[:3] + [jb1, jb2], _kernel_layout(o), lse, cast[3]
+
+
+def _to_torch(x):
+    if x is None:
+        return None
+    x = jnp.asarray(x)
+    if x.dtype == jnp.bfloat16:
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,S", [(8, 24), (32, 64)])
+@pytest.mark.parametrize("bias", ["none", "b1", "b2", "both"])
+def test_plain_bwd_matches_jax_kernel(bias, D, S, dtype):
+    """torch_evoformer_bwd against the reference's _bwd_impl in interpret
+    mode, both fed the o and lse of the reference's _fwd: S 24 tiles by 8
+    (a 3 x 3 grid of blocks), S 64 by 64."""
+    args, o, lse, do = _bwd_case(bias, D, S, dtype)
+    want = jevo._bwd_impl(*args, o, lse, do, True)
+    want = [_kernel_layout(w) for w in want[:3]] + list(want[3:])
+    got = tevo.torch_evoformer_bwd(*map(_to_torch, args), _to_torch(o),
+                                   _to_torch(lse), _to_torch(do))
+    for name, g, w in zip(("dq", "dk", "dv", "db1", "db2"), got, want):
+        assert (g is None) == (w is None), name
+        if w is not None:
+            if name in ("dq", "dk", "dv"):
+                assert g.dtype == _to_torch(args[0]).dtype, name
+            else:
+                assert g.dtype == torch.float32, name
+            _assert_rows(g.float().numpy(), np.asarray(w, np.float32),
+                         BWD_TOL[dtype], name)
+
+
+@pytest.mark.parametrize("bias", ["both", "b1", "b2", "none"])
+def test_autograd_and_plain_bwd_match_jax_grad(bias):
+    """All five gradients of PyTorch's autograd through
+    ops.evoformer_attention on CPU tensors, and torch_evoformer_bwd on
+    torch_evoformer_fwd's o and lse, against jax.vjp of _evoformer_xla
+    with the same cotangent (fp32)."""
+    args = _inputs(S=24, D=8, bias=bias, seed=5)
+    do = np.random.default_rng(6).standard_normal(args[0].shape).astype(
+        np.float32)
+    live = [i for i, x in enumerate(args) if x is not None]
+    jargs = _jnp(args)
+    _, vjp = jax.vjp(lambda *a: jevo._evoformer_xla(
+        *[a[live.index(i)] if i in live else None for i in range(5)]),
+        *[jargs[i] for i in live])
+    want = dict(zip(live, vjp(jnp.asarray(do))))
+    ts = _torch(args, grad=True)
+    tops.evoformer_attention(*ts).backward(torch.from_numpy(do))
+    o, lse = tevo.torch_evoformer_fwd(*_torch(args))
+    plain = tevo.torch_evoformer_bwd(*_torch(args), o, lse,
+                                     torch.from_numpy(do))
+    for i in live:
+        name = ("dq", "dk", "dv", "db1", "db2")[i]
+        _assert_rows(ts[i].grad.numpy(), want[i], 1e-5, "autograd " + name)
+        _assert_rows(plain[i].numpy(), want[i], 1e-5, "plain " + name)
+
+
+def test_masked_and_dead_rows_bwd():
+    """A row with every key at -1e9 and a dead row (bias1 -1e30: lse -1e30,
+    p = 0) give the reference kernel path's gradients; on the -1e9 row the
+    autograd of the plain body gives _evoformer_xla's."""
+    q, k, v, _, b2 = _inputs(S=24, D=8, bias="both", seed=7)
+    b1 = np.zeros((B, N, 1, 1, 24), np.float32)
+    b1[0, 1] = -1e9
+    b1[1, 2] = -1e30
+    args = [jnp.asarray(x) for x in (q, k, v, b1, b2)]
+    o, lse = jevo._fwd(*args, True)
+    assert float(lse[B * N - 1].max()) <= -1e30 / 2      # row (1, 2) is dead
+    o = _kernel_layout(o)
+    do = jnp.asarray(np.random.default_rng(8).standard_normal(q.shape),
+                     jnp.float32)
+    want = jevo._bwd_impl(*args, o, lse, do, True)
+    want = [_kernel_layout(w) for w in want[:3]] + list(want[3:])
+    got = tevo.torch_evoformer_bwd(*map(_to_torch, args), _to_torch(o),
+                                   _to_torch(lse), _to_torch(do))
+    for name, g, w in zip(("dq", "dk", "dv", "db1", "db2"), got, want):
+        _assert_rows(g.numpy(), w, 1e-5, name)
+    assert not got[0][1, 2].any() and not got[3][1, 2].any()  # dead: 0
+    b1[1, 2] = 0.0                   # the -1e9 row alone, against the softmax
+    ts = _torch((q, k, v, b1, b2), grad=True)
+    tops.evoformer_attention(*ts).backward(_to_torch(do))
+    ref = jax.vjp(jevo._evoformer_xla, *_jnp((q, k, v, b1, b2)))[1](do)
+    for name, t, w in zip(("dq", "dk", "dv", "db1", "db2"), ts, ref):
+        _assert_rows(t.grad.numpy(), w, 1e-5, "autograd " + name)
+
+
+def _jax_op_grads(args, do):
+    """jax.vjp of the reference op (kernel path, interpret mode; its own
+    padding route) with respect to every input."""
+    return jax.vjp(lambda *a: jevo.evoformer_attention(*a, interpret=True),
+                   *_jnp(args))[1](jnp.asarray(do))
+
+
+def _port_grads(args, do):
+    """The card path's gradients computed with the plain backward: the
+    op's padded problem where S needs it, torch_evoformer_fwd's o and lse,
+    torch_evoformer_bwd, ``_bias_grads`` to the padded biases' shapes, and
+    autograd through the padding and the callers' broadcasts."""
+    leaves = _torch(args, grad=True)
+    S0 = args[0].shape[2]
+    pad = not tevo._tiles(*leaves[:3])
+    prob = tevo._padded(*leaves) if pad else leaves
+    flat = [t.detach() for t in prob]
+    o, lse = tevo.torch_evoformer_fwd(*flat)
+    dop = torch.nn.functional.pad(torch.from_numpy(do),
+                                  (0, 0, 0, 0, 0, flat[0].shape[2] - S0))
+    raw = tevo.torch_evoformer_bwd(*flat, o, lse, dop)
+    grads = list(raw[:3]) + list(tevo._bias_grads(raw[3], raw[4], flat[3],
+                                                  flat[4]))
+    assert [g.shape for g in grads] == [t.shape for t in prob]
+    torch.autograd.backward(prob, grads)
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("S", [32, 13, 45])
+def test_bias_grads_broadcast_and_padding_match_jax(S):
+    """``_bias_grads`` reduces the fp32 bias gradients to the callers'
+    shapes as the reference's autodiff of broadcast_to does: bias1
+    [B, 1, 1, 1, S], bias2 [1, 1, H, S, S] broadcast over B; at S 13 and 45
+    through the padding route (F.pad of the broadcast biases)."""
+    args = _inputs(S=S, D=8, bias="broadcast", seed=9)
+    do = np.random.default_rng(10).standard_normal(args[0].shape).astype(
+        np.float32)
+    want = _jax_op_grads(args, do)
+    got = _port_grads(args, do)
+    for name, g, w in zip(("dq", "dk", "dv", "db1", "db2"), got, want):
+        assert g.shape == tuple(np.shape(w)), name
+        _assert_rows(g.numpy(), w, E2E_TOL, name)
+    b1, b2 = tevo._bias_grads(torch.ones(B, N, 1, 1, S),
+                              torch.ones(B, 1, H, S, S),
+                              torch.zeros(B, 1, 1, 1, S, dtype=torch.bfloat16),
+                              torch.zeros(S, S))
+    assert b1.dtype == torch.bfloat16 and b1.shape == (B, 1, 1, 1, S)
+    assert torch.all(b1 == N) and b2.shape == (S, S) and torch.all(
+        b2 == B * H)
+
+
+def test_autograd_function_glue(monkeypatch):
+    """_Evoformer's backward with the kernels' plain versions swapped in:
+    a do of stride 0 (``.sum().backward()``) is made contiguous, a bias
+    that needs no gradient gets none computed, and bias1 [B, 1, 1, 1, S]
+    and bias2 expanded over B get the reference op's gradients."""
+    seen = []
+
+    def bwd(q, k, v, b1, b2, o, lse, do, db1=None, db2=None):
+        seen.append((do.is_contiguous(), db1, db2))
+        g = tevo.torch_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
+        return g[:3] + (g[3] if db1 else None, g[4] if db2 else None)
+    monkeypatch.setattr(tevo, "cuda_evoformer_fwd", tevo.torch_evoformer_fwd)
+    monkeypatch.setattr(tevo, "cuda_evoformer_bwd", bwd)
+    q, k, v, b1, b2 = _inputs(S=32, D=8, bias="broadcast", seed=11)
+    ts = _torch((q, k, v, b1, b2), grad=True)
+    tevo._Evoformer.apply(*ts[:4], ts[4].expand(B, 1, H, 32, 32)).sum() \
+        .backward()
+    want = _jax_op_grads((q, k, v, b1, b2), np.ones(q.shape, np.float32))
+    for name, t, w in zip(("dq", "dk", "dv", "db1", "db2"), ts, want):
+        _assert_rows(t.grad.numpy(), w, E2E_TOL, name)
+    ts2 = _torch((q, k, v, b1, b2))
+    ts2[0].requires_grad_()
+    tevo._Evoformer.apply(*ts2).sum().backward()
+    assert seen == [(True, True, True), (True, False, False)]
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    q, k, v, b1, b2 = _torch(_inputs(D=16))
+    o, lse = tevo.torch_evoformer_fwd(q, k, v, b1, b2)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tevo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, torch.ones_like(o))
+    f = tevo.cuda_evoformer_bwd
+    assert (f.dq_launches, f.dkv_launches, f.db2_launches,
+            f.db1_launches) == (0, 0, 0, 0)

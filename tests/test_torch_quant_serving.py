@@ -44,6 +44,10 @@ MODELS = {
                                    max_seq_len=256),
     "gpt2": lambda lib: lib(vocab_size=500, num_layers=2, num_heads=4,
                             head_dim=32, hidden_size=128, max_seq_len=256),
+    # hidden 256: quant.group_size 256 packs whole groups of 256
+    "llama256": lambda lib: lib.llama(num_layers=2, hidden=256, heads=4,
+                                      num_kv_heads=2, vocab_size=512,
+                                      max_seq_len=256),
 }
 # oversubscribed pool (preemption), prompts longer than max_q_per_seq
 # (chunking), a tail of decode bursts — as in tests/test_torch_serving.py
@@ -56,10 +60,15 @@ QUANT = {
     "q8_kv8": {"quant": {"enabled": True, "bits": 8},
                "state_manager": dict(SM, kv_quant="int8")},
 }
+GROUP256 = {
+    "q8_g256": {"quant": {"enabled": True, "bits": 8, "group_size": 256}},
+    "q4_g256": {"quant": {"enabled": True, "bits": 4, "group_size": 256}},
+}
 
 
 def _config(name):
-    return {"dtype": "fp32", "state_manager": SM, **QUANT[name]}
+    return {"dtype": "fp32", "state_manager": SM,
+            **{**QUANT, **GROUP256}[name]}
 
 
 def _numpy_tree(model):
@@ -182,6 +191,38 @@ class TestPackedTree:
             np.testing.assert_allclose(got, jeng.put(uids, toks), atol=1e-4)
         jeng.flush([7, 8])
         assert jeng.query()["free_kv_blocks"] == SM["num_kv_blocks"]
+
+
+class TestGroup256:
+    """``quant.group_size: 256`` (the JAX engine's weight_group_size packs
+    groups of 256 wherever the dim allows): the packed tree is bit-equal to
+    the JAX engine's, holds groups of 256, and greedy generate is
+    token-exact (the card's kernels take these groups:
+    tests/test_torch_cuda_kernels.py)."""
+
+    @pytest.mark.parametrize("name", sorted(GROUP256))
+    def test_packed_and_greedy_equal_jax(self, trees, jax_engines, name):
+        jeng = jax_engines("llama256", name)
+        jtree = jax.tree_util.tree_map(np.asarray, jeng.params)
+        eng = _torch_engine(trees, "llama256", name)
+        groups = set()
+        for path, want, got in _walk(jtree, eng.params):
+            if isinstance(want, dict):
+                codes = "v4" if "v4" in want else "v"
+                for key in want:
+                    np.testing.assert_array_equal(got[key].numpy(),
+                                                  want[key], err_msg=str(path))
+                rows = got[codes].shape[0] * (2 if codes == "v4" else 1)
+                if got["s"].shape[1:] == got[codes].shape[1:]:
+                    groups.add(rows // got["s"].shape[0])
+            else:
+                np.testing.assert_array_equal(got.numpy(), want)
+        assert 256 in groups, groups
+        prompts = _prompts(n=3, vocab=512)
+        want = jeng.generate(prompts, max_new_tokens=12)
+        got = eng.generate(prompts, max_new_tokens=12)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g, w)
 
 
 class TestGenerateExact:
