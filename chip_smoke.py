@@ -31,9 +31,12 @@
 6. The three flash-attention kernels (forward, dq, dk/dv) against their
    plain versions in bf16, per output row at ROW_TOL (lse: absolute), at
    the training main path's shape, Llama-3-8B attention, a window, alibi,
-   alibi + window + GQA and a non-causal case; the check is shown to catch
-   one dropped K tile.  Each kernel is timed beside its bound, its plain
-   version and SDPA (forward; backward through autograd for dq + dk/dv).
+   alibi + window + GQA and a non-causal case, and at Phi-2's (32 x 80, T
+   2048), Phi-3-mini's (32 x 96, T 4096) and Gemma-7B's (16 x 256, T 8192)
+   attention widths in bf16 and in fp32 (F32_TOL, TF32 off); the check is
+   shown to catch one dropped K tile.  Each kernel is timed beside its
+   bound, its plain version and SDPA (forward; backward through autograd
+   for dq + dk/dv), the wide head dims in bf16 too.
 7. Small-config training parity: 2 layers, hidden 128, 2 heads x 64, T 128,
    fp32 with TF32 off - three ``train_batch`` steps (gas 2) on the card
    equal the same on the CPU in loss, grad norm and every parameter (1e-4).
@@ -45,16 +48,22 @@
    loss must fall and stay finite, no step may be skipped, and each flash
    kernel must launch 24 times a step.  The first layer's flash inputs of
    one step are kept and the kernels held to their plain versions on them
-   and timed.  ``--phases 8 --profile`` prints device time by kernel.
+   and timed.  Then 6 ``train_batch`` steps at Phi-2's widths (hidden 2560,
+   32 heads x 80, FFN 10240, vocabulary 51200, T 2048; depth cut from 32
+   to 4 layers), each launching each flash kernel 4 x 2 times, the loss
+   falling.  ``--phases 8 --profile`` prints device time by kernel.
 
 9. Quantized kernels against their plain versions in bf16: ``wq_matmul``
-   (#7) and ``wq_matmul4`` (#8) at every Llama-3-8B and GPT-2 small product
-   shape, ``wq_matmul_t`` (#6) at GPT-2's tied [50304, 768] table, the MLP
-   products and the tied table again at ``quant.group_size`` 256 (a K step
-   inside one group), each at M 16 and 256 and timed there beside its
-   bound; the int8-KV decode and
-   prefill variants at phase 2's shapes and variants.  The row check is
-   shown to see one zeroed scale group and one page read with another
+   (#7) and ``wq_matmul4`` (#8, the wgmma kernel) at every Llama-3-8B and
+   GPT-2 small product shape at M 1, 16, 17, 64, 256 and 300 and groups
+   16, 128 and 512 where the group divides K, and on code rows that are
+   not 16-byte aligned; ``wq_matmul_t`` (#6) at GPT-2's tied [50304, 768]
+   table; the MLP products and the tied table again at
+   ``quant.group_size`` 256; each timed at M 16 and 256 beside its bound
+   and one ``torch.matmul`` on the dequantized bf16 weight; the int8-KV
+   decode and prefill variants at phase 2's shapes and variants.  The row
+   check is shown to see one zeroed scale group, one dropped 64-deep K
+   stage, a swizzle slip of the B tile and one page read with another
    page's scales.
 10. Small-config quantized parity: W8 weights with int8 KV, and W4, in fp32
    with TF32 off — greedy ``generate`` on the card equals the CPU's.
@@ -65,7 +74,9 @@
    and KV-pool bytes against bf16 (W8 <= 0.53x, W4 <= 0.30x, int8 pool
    <= 0.53x), tok/s, peak memory, host syncs; the W8 engine's put() logits
    through the kernels against the plain versions swapped into the
-   registry; greedy agreement with phase 4 (printed, not gated).
+   registry; greedy agreement with phase 4 (printed, not gated); tok/s
+   against phase 4's bf16 engine.  ``--profile`` traces the W8 run and
+   sums the quantized products' device time.
 12. (with 11) Each new kernel held to its plain version and timed on its
    heaviest main-path call: kernel, plain, ``torch.matmul`` with the bf16
    weight (#6-#8) or SDPA over dequantized K/V (int8 variants), and bound.
@@ -93,10 +104,12 @@
 16. The block-sparse kernels (#10-#12: forward, dq, dk/dv) against their
    plain versions in bf16 (one fp16 case), per output row at ROW_TOL (lse
    absolute): Dense, Fixed, BSLongformer and BigBird layouts, causal and
-   not, GQA 1 and 4, blocks 16-128, head_dim 64 and 128, T 1024-2048.  K/V
-   blocks no table entry reads are poisoned with NaN and the outputs must
-   stay equal to the plain ones on clean inputs; one dropped table entry
-   must move a row beyond ROW_TOL.
+   not, GQA 1 and 4, blocks 16-128, head_dim 64 and 128, T 1024-2048; and
+   the CUDA-core family at block 8 and 24, head_dim 80 and in fp32
+   (F32_TOL).  K/V blocks no table entry reads are poisoned with NaN (at
+   block 16 and at block 8) and the outputs must stay equal to the plain
+   ones on clean inputs; one dropped table entry must move a row beyond
+   ROW_TOL.
 17. The block-sparse path at full Llama-3-8B attention width and its
    published context (B 1, T 8192, 32 / 8 heads x 128, bf16):
    ``ops.sparse_attention`` and its autograd backward with the default
@@ -108,7 +121,8 @@
 18. The evoformer kernels, forward (#13) and backward (#14 dq, #15 dk/dv,
    #16 dbias2, #17 dbias1), against their plain versions at small shapes
    (biases none / one / both, D 8-128, S 13 / 64 / 383, fully masked rows;
-   the backward kernels fed the plain o and lse), then AlphaFold2's MSA row
+   D 160 and 256 and fp32 on the CUDA-core variants; the backward kernels
+   fed the plain o and lse), then AlphaFold2's MSA row
    attention with pair bias (N_clust 512, N_res 384, 8 heads x 32),
    triangle attention (384 x 384, 4 heads x 32) and the MSA call at S 383
    (padded) through ``ops.evoformer_attention`` and ``loss.backward()``
@@ -144,6 +158,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 BF16_FLOPS = 989e12             # dense bf16 tensor-core peak
 ROW_TOL = 2e-2                  # of each output row's largest value
+F32_TOL = 1e-4                  # the same, fp32 kernels (TF32 off)
 E2E_TOL = 1e-1                  # of the largest logit, kernels vs plain path
 
 
@@ -474,6 +489,11 @@ def _report_profile(torch, prof, wall, reps=1, unprofiled=None):
     for e in rows[:25]:
         print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d}x "
               f"{e.key[:90]}", flush=True)
+    wq = [e for e in rows if "wq_" in e.key]
+    if wq:
+        print(f"  quantized products (wq_* kernels, split-K sums included): "
+              f"{sum(e.self_device_time_total for e in wq) / 1e3:.1f} ms "
+              f"device time", flush=True)
 
 
 def phase_main(torch, pa, dev, card, profile=False):
@@ -694,12 +714,12 @@ def phase_main_inputs(torch, pa, calls, eng):
 
 # --------------------------------------------------------------- phase 6
 
-def _rows_off(got, want):
+def _rows_off(got, want, floor_frac=1e-2):
     """(worst row's max |got - want| over that row's max |want|, floored at
-    1% of the tensor's largest; the largest difference)."""
+    ``floor_frac`` of the tensor's largest; the largest difference)."""
     wf = want.float()
     d = (got.float() - wf).abs().amax(-1)
-    floor = 1e-2 * wf.abs().max().item()
+    floor = floor_frac * wf.abs().max().item()
     return (d / wf.abs().amax(-1).clamp_min(floor)).max().item(), \
         d.max().item()
 
@@ -709,7 +729,10 @@ def _check_rows(torch, name, label, got, want, tol=ROW_TOL):
     dq: it sees one key, so dp - delta cancels) is judged against 1% of the
     tensor's largest value instead of its own."""
     torch.cuda.synchronize()
-    row, err = _rows_off(got, want)
+    # fp32 kernels: a row that cancels to 0 (a first query that sees one
+    # key: dp - delta = 0) keeps each side's summation noise, ~1e-6 of the
+    # tensor's largest, so it is judged against 10% of the largest
+    row, err = _rows_off(got, want, 1e-1 if tol <= F32_TOL else 1e-2)
     print(f"  {name}[{label}] max|kernel-plain| = {err:.3e}, worst row "
           f"{row:.3e} of its max", flush=True)
     if not (row <= tol) or not torch.isfinite(got).all():
@@ -718,11 +741,12 @@ def _check_rows(torch, name, label, got, want, tol=ROW_TOL):
     return row
 
 
-def _flash_inputs(torch, dev, B, T, N, Nkv, D, seed=0):
+def _flash_inputs(torch, dev, B, T, N, Nkv, D, seed=0, dtype=None):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rand(*shape):
-        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        return torch.randn(shape, device=dev, generator=gen).to(
+            dtype or torch.bfloat16)
     return (rand(B, T, N, D), rand(B, T, Nkv, D), rand(B, T, Nkv, D),
             rand(B, T, N, D))
 
@@ -730,22 +754,23 @@ def _flash_inputs(torch, dev, B, T, N, Nkv, D, seed=0):
 def _check_flash(torch, fa, label, q, k, v, do, kw):
     """o, lse, dq, dk, dv of the three kernels against the plain versions
     (the backward kernels get the plain o and lse, so each is judged on its
-    own)."""
+    own); fp32 at F32_TOL, 16-bit at ROW_TOL."""
+    tol = F32_TOL if q.dtype == torch.float32 else ROW_TOL
     o, lse = fa.cuda_flash_fwd(q, k, v, **kw)
     o_ref, lse_ref = fa.torch_flash_fwd(q, k, v, **kw)
-    _check_rows(torch, "flash_fwd", label + " o", o, o_ref)
+    _check_rows(torch, "flash_fwd", label + " o", o, o_ref, tol)
     lerr = (lse - lse_ref).abs().max().item()
     print(f"  flash_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
           flush=True)
-    if not lerr <= ROW_TOL:
+    if not lerr <= tol:
         fail(f"flash_fwd {label}: lse differs by {lerr}")
     dq = fa.cuda_flash_dq(q, k, v, o_ref, lse_ref, do, **kw)
     dk, dv = fa.cuda_flash_dkv(q, k, v, o_ref, lse_ref, do, **kw)
     dq_ref, dk_ref, dv_ref = fa.torch_flash_bwd(q, k, v, o_ref, lse_ref, do,
                                                 **kw)
-    _check_rows(torch, "flash_dq", label + " dq", dq, dq_ref)
-    _check_rows(torch, "flash_dkv", label + " dk", dk, dk_ref)
-    _check_rows(torch, "flash_dkv", label + " dv", dv, dv_ref)
+    _check_rows(torch, "flash_dq", label + " dq", dq, dq_ref, tol)
+    _check_rows(torch, "flash_dkv", label + " dk", dk, dk_ref, tol)
+    _check_rows(torch, "flash_dkv", label + " dv", dv, dv_ref, tol)
     return o_ref, lse_ref
 
 
@@ -822,8 +847,18 @@ def _time_flash(torch, fa, q, k, v, do, kw, library=True):
     return res
 
 
+# head dims the kernels pad (80 -> 96) or split over two column blocks
+# (256): (B, T, N, Nkv, D) at each model's attention width
+WIDE_HEADS = (("Phi-2", (1, 2048, 32, 32, 80)),
+              ("Phi-3-mini", (1, 4096, 32, 32, 96)),
+              ("Gemma-7B", (1, 8192, 16, 16, 256)))
+
+
 def phase_flash(torch, fa, dev):
-    """Kernels #3-#5 against their plain versions, every variant."""
+    """Kernels #3-#5 against their plain versions, every variant, and at
+    the wide head dims in bf16 and fp32 (TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from deepspeed_tpu_torch.ops import _attention_torch
     slopes12 = np.geomspace(0.5, 1 / 256, 12).astype(np.float32)
     slopes8 = np.geomspace(0.5, 1 / 256, 8).astype(np.float32)
@@ -836,12 +871,15 @@ def phase_flash(torch, fa, dev):
         ("alibi + window + GQA, ragged T", (2, 1000, 8, 2, 64),
          dict(causal=True, window=200, alibi_slopes=slopes8)),
         ("non-causal", (4, 1024, 12, 12, 64), dict(causal=False)),
-    ]
+    ] + [(f"{name} {dt}".replace("torch.", ""), dims, dict(causal=True),
+          dt) for name, dims in WIDE_HEADS
+         for dt in (torch.bfloat16, torch.float32)]
     results = {}
-    for label, dims, kw in cases:
-        q, k, v, do = _flash_inputs(torch, dev, *dims)
+    for label, dims, kw, *dt in cases:
+        q, k, v, do = _flash_inputs(torch, dev, *dims, dtype=dt and dt[0])
         _check_flash(torch, fa, label, q, k, v, do, kw)
-        if label in ("main path", "Llama-3-8B", "window 512"):
+        if label in ("main path", "Llama-3-8B", "window 512") or (
+                dt and dt[0] == torch.bfloat16):
             r = _time_flash(torch, fa, q, k, v, do, kw)
             if label == "main path":
                 results = r
@@ -1045,6 +1083,69 @@ def phase_train_main(torch, fa, dev, card, profile=False):
     return launches, results, e2e
 
 
+PHI2 = dict(num_layers=4, num_heads=32, head_dim=80, hidden_size=2560,
+            mlp_ratio=4, vocab_size=51200, max_seq_len=2048, use_rope=True,
+            rope_pct=0.4, parallel_block=True, qkv_bias=True,
+            attn_out_bias=True, mlp_bias=True, tie_embeddings=False,
+            unembed_bias=True, norm_eps=1e-5, loss_chunk=8192)
+# ^ microsoft/phi-2 config.json (32 layers cut to 4): head dim 80, which
+#   the flash kernels run padded to 96
+
+
+def phase_train_phi2(torch, fa, dev, card):
+    """initialize -> train_batch at Phi-2's widths (depth cut to 4 layers),
+    bf16 with fp32 masters: 2 warm-up and 4 timed steps, the flash
+    counters set to 0 just before and gated at 4 layers x gas 2 a step."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.models import GPTChunkedLoss, GPTConfig
+    from deepspeed_tpu_torch.models.gpt import count_params
+    cfg = GPTConfig(dtype=torch.bfloat16, **PHI2)
+    ds_config = {"train_micro_batch_size_per_gpu": 4,
+                 "gradient_accumulation_steps": 2,
+                 "optimizer": {"type": "adamw",
+                               "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                 "bf16": {"enabled": True},
+                 "gradient_clipping": 1.0, "steps_per_print": 0}
+    ids = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, 2048)).astype(np.int32)
+    model = GPTChunkedLoss(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    engine, _, loader, _ = ds.initialize(
+        model=model, config=ds_config,
+        training_data=[{"input_ids": row} for row in ids])
+    batch = next(iter(ds.RepeatingLoader(loader)))
+    tokens = int(np.prod(batch["input_ids"].shape))
+    counters = (fa.cuda_flash_fwd, fa.cuda_flash_dq, fa.cuda_flash_dkv)
+    for c in counters:
+        c.launches = 0
+    losses, times = [], []
+    for step in range(6):
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(engine.train_batch(batch).loss)
+        torch.cuda.synchronize()
+        if step >= 2:
+            times.append(time.perf_counter() - t0)
+        per_step = [c.launches - b for c, b in zip(counters, before)]
+        if per_step != [8, 8, 8]:
+            fail(f"Phi-2 step {step}: flash launches {per_step}, expected "
+                 f"8 of each (4 layers x gas 2)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"Phi-2 widths: losses {losses}")
+    med = statistics.median(times)
+    e2e = dict(model="Phi-2 widths, 4 of 32 layers",
+               params_m=count_params(cfg) / 1e6, step_ms_median=med * 1e3,
+               tokens_per_step=tokens, tokens_per_s=tokens / med,
+               loss_first=losses[0], loss_last=losses[-1],
+               flash_launches=[c.launches for c in counters])
+    print(f"  Phi-2 widths (4 of 32 layers, {e2e['params_m']:.0f}M params, "
+          f"32 heads x 80): losses {[round(x, 4) for x in losses]}; "
+          f"train_batch median {med * 1e3:.1f} ms = {tokens / med:.0f} "
+          f"tokens/s; card {card}", flush=True)
+    return e2e
+
+
 # --------------------------------------------------------------- phase 9
 
 LLAMA_PRODUCTS = (          # (label, K, N, group) of Llama-3-8B, then GPT-2
@@ -1093,51 +1194,103 @@ def _int8_kv(torch, quantize_kv_token, k, v, gen):
     return kq, vq, {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
 
 
+WQ_MS = (1, 16, 17, 64, 256, 300)   # rows of x #7 / #8 are held at
+WQ_GROUPS = (16, 128, 512)          # ... at each of these groups that fit
+WQ_MISALIGNED = ("misaligned code rows", 4096, 1000, 128)   # N % 16 != 0
+
+
+def _dequant(torch, name, store, dtype):
+    from deepspeed_tpu_torch.ops.quantization import (dequantize_weight,
+                                                      dequantize_weight4)
+    w = (dequantize_weight4(store, dtype) if name == "wq_matmul4"
+         else dequantize_weight(store, dtype))
+    return w.t() if name == "wq_matmul_t" else w
+
+
+def _wq_faults(torch, wqm, x, store):
+    """The row check must see each fault the wgmma kernel could make, each
+    applied to the plain product: one zeroed scale group (128 rows of K),
+    one dropped 64-deep K stage, and a swizzle slip (the 16-byte chunks of
+    every stage's B rows read from their neighbour's position: k rows
+    8c..8c+7 swapped with 8(c^1)..)."""
+    want = wqm.torch_wq_matmul(x, store)
+    bad = {"v": store["v"], "s": store["s"].clone()}
+    bad["s"][bad["s"].shape[0] // 2] = 0
+    w = _dequant(torch, "wq_matmul", store, x.dtype)
+    K = w.shape[0]
+    dropped = w.clone()
+    dropped[K // 2: K // 2 + 64] = 0
+    k = torch.arange(K, device=w.device)
+    slip = (k // 64) * 64 + (((k % 64) // 8) ^ 1) * 8 + k % 8
+    for what, got in (("one zeroed scale group",
+                       wqm.torch_wq_matmul(x, bad)),
+                      ("one dropped K stage", x @ dropped),
+                      ("a swizzle slip", x @ w[slip])):
+        r = _row_err(torch, got, want)
+        print(f"  {what} moves the worst row by {r:.3e} of its max (check "
+              f"at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the wq check cannot see {what}")
+
+
 def phase_quant_kernels(torch, wqm, pa, dev):
-    """#6-#8 at every Llama-3-8B and GPT-2 product shape (M 16 and 256,
-    bf16; the MLP and the tied table at group 256 too) and the int8-KV
-    variants of #1-#2 at phase 2's shapes, each
-    against its plain version; the check is shown to see one zeroed scale
-    group and one page with another page's scales.  Each product is timed
-    at both M beside its bound."""
+    """#7 and #8 (the wgmma kernel) at every Llama-3-8B and GPT-2 product
+    shape at M 1, 16, 17, 64, 256 and 300 and groups 16, 128 and 512 where
+    the group divides K, and on code rows that are not 16-byte aligned; #6
+    at the tied table (group 128 and 256) and #7 / #8 at group 256 on the
+    MLP, each at M 16 and 256; the int8-KV variants of #1-#2 at phase 2's
+    shapes and variants: each against its plain version.  The row check is
+    shown to see a zeroed scale group, a dropped K stage, a swizzle slip
+    and one page read with another page's scales.  Each product is timed at
+    M 16 and 256 (its own group) beside its bound and one torch.matmul on
+    the dequantized bf16 weight."""
     from deepspeed_tpu_torch.inference.v2.model import quantize_kv_token
     from deepspeed_tpu_torch.ops.quantization import (quantize_weight,
                                                       quantize_weight4)
     gen = torch.Generator(device=dev).manual_seed(0)
     dt = torch.bfloat16
     rows = []
-    for label, K, N, g in LLAMA_PRODUCTS + (GPT2_TIED,) + GROUP256:
+    checked = 0
+    for label, K, N, g0 in LLAMA_PRODUCTS + (GPT2_TIED, WQ_MISALIGNED) \
+            + GROUP256:
         tied = label.startswith(GPT2_TIED[0])
         w = torch.randn((N, K) if tied else (K, N), device=dev,
                         generator=gen) * 0.02
-        stores = {"wq_matmul_t": quantize_weight(w, group=g)} if tied else {
-            "wq_matmul": quantize_weight(w, group=g, dim=0),
-            "wq_matmul4": quantize_weight4(w, group=g)}
+        main = label in {p[0] for p in LLAMA_PRODUCTS}
+        groups = sorted({g0} | ({g for g in WQ_GROUPS if K % g == 0}
+                                if main else set()))
+        for g in groups:
+            stores = {"wq_matmul_t": quantize_weight(w, group=g)} if tied \
+                else {"wq_matmul": quantize_weight(w, group=g, dim=0),
+                      "wq_matmul4": quantize_weight4(w, group=g)}
+            for name, store in stores.items():
+                ms_list = WQ_MS if main or label == WQ_MISALIGNED[0] \
+                    else (16, 256)
+                for M in ms_list:
+                    x = torch.randn((M, K), device=dev, generator=gen).to(dt)
+                    _check_wq(torch, wqm, name, f"{label} g={g} M={M}", x,
+                              store)
+                    checked += 1
+                    if g != g0 or M not in (16, 256):
+                        continue
+                    fn = getattr(wqm, "cuda_" + name)
+                    wd = _dequant(torch, name, store, dt)
+                    rows.append((name, label, M, cuda_ms(lambda: fn(x, store)),
+                                 cuda_ms(lambda: torch.matmul(x, wd)),
+                                 *_wq_bound(name, x, store)))
+                    del wd
+            if label == "Llama q / attention out" and g == g0:
+                _wq_faults(torch, wqm, torch.randn(
+                    (16, K), device=dev, generator=gen).to(dt),
+                    stores["wq_matmul"])
+            del stores
         del w
-        for name, store in stores.items():
-            for M in (16, 256):
-                x = torch.randn((M, K), device=dev, generator=gen).to(dt)
-                _check_wq(torch, wqm, name, f"{label} M={M}", x, store)
-                fn = getattr(wqm, "cuda_" + name)
-                rows.append((name, label, M, cuda_ms(lambda: fn(x, store)),
-                             *_wq_bound(name, x, store)))
-        if label == "Llama q / attention out":
-            # the row check must see one zeroed scale group (128 rows of K)
-            store = stores["wq_matmul"]
-            x = torch.randn((16, K), device=dev, generator=gen).to(dt)
-            bad = {"v": store["v"], "s": store["s"].clone()}
-            bad["s"][bad["s"].shape[0] // 2] = 0
-            r = _row_err(torch, wqm.torch_wq_matmul(x, bad),
-                         wqm.torch_wq_matmul(x, store))
-            print(f"  one zeroed scale group moves the worst row by "
-                  f"{r:.3e} of its max (check at {ROW_TOL})", flush=True)
-            if not r > ROW_TOL:
-                fail("the wq check cannot see a zeroed scale group")
-        del stores
         torch.cuda.empty_cache()
-    for name, label, M, ms, bound_ms, by in rows:
-        print(f"  {name} {label} M={M}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({by}), {bound_ms / ms:.1%} of it", flush=True)
+    print(f"  {checked} products held per row at {ROW_TOL}", flush=True)
+    for name, label, M, ms, lib_ms, bound_ms, by in rows:
+        print(f"  {name} {label} M={M}: {ms:.4f} ms, torch.matmul bf16 "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}), "
+              f"{bound_ms / ms:.1%} of it", flush=True)
 
     # int8-KV decode and prefill at phase 2's shapes and variants
     torch.manual_seed(0)
@@ -1232,12 +1385,7 @@ def phase_quant_parity(torch, dev):
 def _time_wq(torch, wqm, name, x, store):
     """Kernel, plain and library (one torch.matmul of x with the weight in
     bf16, unquantized) device times of one product, beside its bound."""
-    from deepspeed_tpu_torch.ops.quantization import (dequantize_weight,
-                                                      dequantize_weight4)
-    w = (dequantize_weight4(store, x.dtype) if name == "wq_matmul4"
-         else dequantize_weight(store, x.dtype))
-    if name == "wq_matmul_t":
-        w = w.t()
+    w = _dequant(torch, name, store, x.dtype)
     bound_ms, bound_by = _wq_bound(name, x, store)
     codes = store["v4" if name == "wq_matmul4" else "v"]
     g = (codes.shape[0] if name == "wq_matmul_t"
@@ -1279,7 +1427,8 @@ def _quantized_engine(torch, label, cfg, params, ecfg, dev):
 
 
 def phase_quant_main(torch, wqm, pa, dev, card, llama_params=None,
-                     bf16_outs=None, bf16_pool=None, profile=False):
+                     bf16_outs=None, bf16_pool=None, profile=False,
+                     bf16_tok_s=None):
     """Quantized InferenceEngineV2.generate at full width: Llama-3-8B W8 +
     int8 KV and W4 (both built from one bf16 tree, one engine at a time),
     then GPT-2 small W8 (tied, vocabulary padded to 50304); each new kernel
@@ -1312,6 +1461,11 @@ def phase_quant_main(torch, wqm, pa, dev, card, llama_params=None,
                         "ragged_prefill_int8"), card, profile)
     rec.restore()
     e2e.update(sizes)
+    if bf16_tok_s:
+        e2e["tok_per_s_vs_bf16"] = e2e["generated_tok_per_s"] / bf16_tok_s
+        print(f"  {label}: {e2e['tok_per_s_vs_bf16']:.3f}x the bf16 "
+              f"engine's generated tok/s (phase 4, same requests)",
+              flush=True)
     e2e["kv_pool_ratio"] = e2e["kv_pool_gb"] * 1e9 / bf16_pool
     print(f"  int8 KV pool: {e2e['kv_pool_ratio']:.4f} of the bf16 pool's "
           f"{bf16_pool / 1e9:.3f} GB", flush=True)
@@ -1368,6 +1522,10 @@ def phase_quant_main(torch, wqm, pa, dev, card, llama_params=None,
                         "ragged_prefill"), card)
     rec.restore()
     e2e.update(sizes)
+    if bf16_tok_s:
+        e2e["tok_per_s_vs_bf16"] = e2e["generated_tok_per_s"] / bf16_tok_s
+        print(f"  {label}: {e2e['tok_per_s_vs_bf16']:.3f}x the bf16 "
+              f"engine's generated tok/s", flush=True)
     if e2e["store_ratio"] > 0.30:
         fail(f"W4 store at {e2e['store_ratio']} of bf16, above 0.30")
     results["wq_matmul4"] = _hold_and_time(torch, wqm, pa, rec, "wq_matmul4")
@@ -1785,14 +1943,15 @@ def _even_columns(sp):
 def _check_sparse(torch, sp, label, q, k, v, do, cfg, causal):
     """o, lse, dq, dk, dv of the three kernels against the plain versions
     (the backward kernels get the plain o and lse)."""
+    tol = F32_TOL if q.dtype == torch.float32 else ROW_TOL
     lay = cfg.make_layout(q.shape[1])
     o, lse = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
     o_ref, lse_ref = sp.torch_sparse_fwd(q, k, v, lay, cfg.block, causal)
-    _check_rows(torch, "sparse_fwd", label + " o", o, o_ref)
+    _check_rows(torch, "sparse_fwd", label + " o", o, o_ref, tol)
     lerr = (lse - lse_ref).abs().max().item()
     print(f"  sparse_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
           flush=True)
-    if not lerr <= ROW_TOL:
+    if not lerr <= tol:
         fail(f"sparse_fwd {label}: lse differs by {lerr}")
     dq = sp.cuda_sparse_dq(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
                            causal)
@@ -1800,9 +1959,9 @@ def _check_sparse(torch, sp, label, q, k, v, do, cfg, causal):
                                 causal)
     dq_ref, dk_ref, dv_ref = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do,
                                                  lay, cfg.block, causal)
-    _check_rows(torch, "sparse_dq", label + " dq", dq, dq_ref)
-    _check_rows(torch, "sparse_dkv", label + " dk", dk, dk_ref)
-    _check_rows(torch, "sparse_dkv", label + " dv", dv, dv_ref)
+    _check_rows(torch, "sparse_dq", label + " dq", dq, dq_ref, tol)
+    _check_rows(torch, "sparse_dkv", label + " dk", dk, dk_ref, tol)
+    _check_rows(torch, "sparse_dkv", label + " dv", dv, dv_ref, tol)
     return o_ref, lse_ref
 
 
@@ -1829,7 +1988,22 @@ def phase_sparse_kernels(torch, sp, dev):
          sp.DenseSparsityConfig(block=128), False, torch.bfloat16),
         ("dense b16 causal g1 d64", (2, 1024, 4, 4, 64),
          sp.DenseSparsityConfig(block=16), True, torch.bfloat16),
+        # the CUDA-core family: block 8, head dim 80, fp32
+        ("fixed b8 causal g4 d64", (1, 1024, 8, 2, 64),
+         sp.FixedSparsityConfig(block=8), True, torch.bfloat16),
+        ("bigbird b8 non-causal g1 d64", (1, 1024, 4, 4, 64),
+         sp.BigBirdSparsityConfig(block=8), False, torch.bfloat16),
+        ("fixed b16 causal g4 d80", (1, 2048, 8, 2, 80),
+         sp.FixedSparsityConfig(), True, torch.bfloat16),
+        ("longformer b24 causal g4 d80", (1, 1536, 8, 2, 80),
+         sp.BSLongformerSparsityConfig(block=24), True, torch.bfloat16),
+        ("fixed b16 causal g4 d128 fp32", (1, 2048, 8, 2, 128),
+         sp.FixedSparsityConfig(), True, torch.float32),
+        ("bigbird b8 non-causal g4 d80 fp32", (1, 1024, 8, 2, 80),
+         sp.BigBirdSparsityConfig(block=8), False, torch.float32),
     ]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     for label, dims, cfg, causal, dtype in cases:
         q, k, v, do = (t.to(dtype) for t in _flash_inputs(torch, dev, *dims))
         _check_sparse(torch, sp, label, q, k, v, do, cfg, causal)
@@ -1853,6 +2027,27 @@ def phase_sparse_kernels(torch, sp, dev):
             ("sparse_fwd", "sparse_dq", "sparse_dkv", "sparse_dkv"),
             ("o", "dq", "dk", "dv"), (o, dq, dk, dv), (o_ref,) + refs):
         _check_rows(torch, name, "NaN-poisoned dead blocks " + lab, got, want)
+    # ... and at block 8 on the CUDA-core family: the odd 8-key blocks
+    cfg = EvenColumns(block=8)
+    lay = cfg.make_layout(1024)
+    q, k, v, do = _flash_inputs(torch, dev, 1, 1024, 8, 2, 80)
+    o_ref, lse_ref = sp.torch_sparse_fwd(q, k, v, lay, 8)
+    refs = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do, lay, 8)
+    kp, vp = k.clone(), v.clone()
+    dead = np.flatnonzero(~lay.any(0))
+    for j in dead:
+        kp[:, 8 * j:8 * (j + 1)] = float("nan")
+        vp[:, 8 * j:8 * (j + 1)] = float("nan")
+    o, _ = sp.cuda_sparse_fwd(q, kp, vp, lay, 8)
+    dq = sp.cuda_sparse_dq(q, kp, vp, o_ref, lse_ref, do, lay, 8)
+    dk, dv = sp.cuda_sparse_dkv(q, kp, vp, o_ref, lse_ref, do, lay, 8)
+    print(f"  block 8: {dead.size} of {lay.shape[0]} K/V blocks unread and "
+          f"poisoned with NaN", flush=True)
+    for name, lab, got, want in zip(
+            ("sparse_fwd", "sparse_dq", "sparse_dkv", "sparse_dkv"),
+            ("o", "dq", "dk", "dv"), (o, dq, dk, dv), (o_ref,) + refs):
+        _check_rows(torch, name, "NaN-poisoned dead 8 x 8 blocks " + lab,
+                    got, want)
     # one active entry dropped from the table must move some row
     cfg = sp.FixedSparsityConfig()
     q, k, v, _ = _flash_inputs(torch, dev, 1, 2048, 8, 2, 128)
@@ -2037,14 +2232,16 @@ def phase_sparse_main(torch, sp, dev):
 # --------------------------------------------------------------- phase 18
 
 def _evo_inputs(torch, dev, B, N, S, H, D, seed=0, masked_keys=24,
-                bias=("b1", "b2")):
-    """q, k, v [B, N, S, H, D] bf16, bias1 [B, N, 1, 1, S] fp32 — the MSA
-    mask: -1e9 on the last ``masked_keys`` keys of a seeded half of the
-    rows — and bias2 [B, 1, H, S, S] bf16, from a seeded generator."""
+                bias=("b1", "b2"), dtype=None):
+    """q, k, v [B, N, S, H, D] bf16 (or ``dtype``), bias1 [B, N, 1, 1, S]
+    fp32 — the MSA mask: -1e9 on the last ``masked_keys`` keys of a seeded
+    half of the rows — and bias2 [B, 1, H, S, S] in q's dtype, from a
+    seeded generator."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def rand(*shape):
-        return torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        return torch.randn(shape, device=dev, generator=gen).to(
+            dtype or torch.bfloat16)
     q, k, v = (rand(B, N, S, H, D) for _ in range(3))
     b1 = torch.zeros((B, N, 1, 1, S), device=dev)
     rows = np.random.default_rng(seed).permutation(N)[:N // 2]
@@ -2055,13 +2252,14 @@ def _evo_inputs(torch, dev, B, N, S, H, D, seed=0, masked_keys=24,
 
 
 def _check_evo(torch, evo, label, q, k, v, b1, b2):
+    tol = F32_TOL if q.dtype == torch.float32 else ROW_TOL
     o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
     o_ref, lse_ref = evo.torch_evoformer_fwd(q, k, v, b1, b2)
-    _check_rows(torch, "evoformer_fwd", label + " o", o, o_ref)
+    _check_rows(torch, "evoformer_fwd", label + " o", o, o_ref, tol)
     lerr = (lse - lse_ref).abs().max().item()
     print(f"  evoformer_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
           flush=True)
-    if not lerr <= ROW_TOL:
+    if not lerr <= tol:
         fail(f"evoformer_fwd {label}: lse differs by {lerr}")
     return o_ref, lse_ref
 
@@ -2079,7 +2277,9 @@ def _check_evo_bwd(torch, evo, label, got, want):
         if (g is None) != (w is None):
             fail(f"{name} {label}: {lab} computed by one side only")
         if w is not None:
-            _check_rows(torch, name, f"{label} {lab}", g, w)
+            _check_rows(torch, name, f"{label} {lab}", g, w,
+                        F32_TOL if w.dtype == torch.float32
+                        and got[0].dtype == torch.float32 else ROW_TOL)
 
 
 def _evo_by_rows(torch, evo, q, k, v, b1, b2, chunk=128):
@@ -2298,15 +2498,25 @@ def phase_evoformer(torch, evo, dev):
     neighbouring head must show, forward and backward, and a dbias2 over
     N - 1 rows."""
     from deepspeed_tpu_torch import ops
-    cases = [(8, 13, ()), (16, 64, ("b1",)), (32, 383, ("b2",)),
-             (64, 64, ("b1", "b2")), (128, 383, ("b1", "b2")),
-             (32, 13, ("b1", "b2")), (8, 383, ("b1",))]
-    for D, S, bias in cases:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 13, (), bf16), (16, 64, ("b1",), bf16),
+             (32, 383, ("b2",), bf16), (64, 64, ("b1", "b2"), bf16),
+             (128, 383, ("b1", "b2"), bf16), (32, 13, ("b1", "b2"), bf16),
+             (8, 383, ("b1",), bf16),
+             # head dims above 128 and fp32: the CUDA-core variants
+             (256, 64, ("b1", "b2"), bf16), (160, 100, ("b1",), bf16),
+             (32, 64, ("b1", "b2"), f32), (256, 45, ("b1", "b2"), f32),
+             (88, 13, ("b2",), f32)]
+    for D, S, bias, dtype in cases:
         q, k, v, b1, b2 = _evo_inputs(torch, dev, 1, 4, S, 4, D,
-                                      masked_keys=min(S, 5), bias=bias)
+                                      masked_keys=min(S, 5), bias=bias,
+                                      dtype=dtype)
         if b1 is not None:
             b1[:, 1] = -1e9                     # every key of a row masked
-        label = f"D {D} S {S} biases {bias or 'none'}"
+        label = f"D {D} S {S} biases {bias or 'none'} {dtype}".replace(
+            "torch.", "")
         o, lse = _check_evo(torch, evo, label, q, k, v, b1, b2)
         do = torch.randn(q.shape, device=dev, generator=torch.Generator(
             device=dev).manual_seed(D + S)).to(q.dtype)
@@ -2421,7 +2631,8 @@ def main():
                 if nxt.startswith("registers")]
         spills = [int(line.split("bytes spill stores")[0].split(",")[-1])
                   for line in log.splitlines() if "spill stores" in line]
-        print(f"  [{name}] ptxas: {len(regs)} kernels, registers "
+        print(f"  [{name}] built in {builder.build_seconds[name]:.1f} s; "
+              f"ptxas: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, spill "
               f"stores up to {max(spills, default=0)} bytes", flush=True)
 
@@ -2491,7 +2702,8 @@ def main():
               "tied); phase 12: each new kernel held and timed on its "
               "heaviest main-path call", flush=True)
         quant_results, e2es = phase_quant_main(
-            torch, wqm, pa, dev, card, params, outs, pool, args.profile)
+            torch, wqm, pa, dev, card, params, outs, pool, args.profile,
+            e2e and e2e["generated_tok_per_s"])
         params = None
         for r in e2es:
             print("E2E_QUANT " + json.dumps(r), flush=True)
@@ -2517,6 +2729,10 @@ def main():
         launches.update(flash_launches)
         results.update(flash_results)
         print("E2E_TRAIN " + json.dumps(e2e), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("E2E_TRAIN_PHI2 " + json.dumps(
+            phase_train_phi2(torch, fa, dev, card)), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
     if 16 in phases:

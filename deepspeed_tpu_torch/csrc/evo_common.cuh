@@ -29,6 +29,9 @@ struct EvoArgs {
 };
 
 constexpr int kEvoTile = 64, kEvoWarps = 4;
+// the CUDA-core family (fp32 inputs; 16-bit at head_dim above 128): one
+// warp a query (key) row, 8 rows a block
+constexpr int kEvoSimtWarps = 8;
 
 __device__ __forceinline__ float load_bias(const void* p, long long i, int code) {
   if (code == 0) return static_cast<const float*>(p)[i];

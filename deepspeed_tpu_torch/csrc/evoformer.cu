@@ -30,6 +30,8 @@
 //   - both products on the tensor cores (mma.sync m16n8k16, fp32
 //     accumulate); head_dim D (any multiple of 8 up to 128) is padded to
 //     HDP in {16, 32, 64, 128} with zeros in shared memory and registers.
+//     fp32 inputs, and 16-bit inputs with D above 128, take evo_fwd_simt, a
+//     CUDA-core variant through the same logit function.
 //   - any S: keys past S in the last tile are dropped, rows past S are not
 //     written.
 #include "evo_common.cuh"
@@ -192,6 +194,49 @@ __global__ void __launch_bounds__(kEvoWarps * 32) evo_fwd_kernel(EvoArgs p) {
   }
 }
 
+// ------------------------------------------------- CUDA-core family (simt)
+// fp32 inputs at any head_dim, and 16-bit inputs at head_dim above 128
+// (where the tensor-core accumulators would not fit the registers): one warp
+// a query row, lane l owning the columns l, l + 32, ... (VEC = HD / 32, the
+// pad past D zero); keys one at a time straight from device memory through
+// the same logit function and the online softmax of RowState (p rounded to
+// T before p v, l summing the unrounded p).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kEvoSimtWarps * 32) evo_fwd_simt(EvoArgs p) {
+  constexpr int VEC = HD / 32;
+  const int bn = blockIdx.x, h = blockIdx.z;
+  const int b = bn / p.N, n = bn % p.N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qpos = blockIdx.y * kEvoSimtWarps + warp;
+  if (qpos >= p.S) return;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh;
+  const long long b1o = b * p.b1_sb + n * p.b1_sn;
+  const long long b2o = b * p.b2_sb + h * p.b2_sh;
+  float qr[VEC];
+  ld_cols_t<T, VEC>(qb + qpos * p.q_ss, lane, p.D, qr);
+  RowState<VEC> st;
+  st.init();
+  for (int kpos = 0; kpos < p.S; ++kpos) {
+    float kr[VEC], vr[VEC];
+    ld_cols_t<T, VEC>(kb + kpos * p.k_ss, lane, p.D, kr);
+    ld_cols_t<T, VEC>(vb + kpos * p.v_ss, lane, p.D, vr);
+    st.template update<T>(evo_logit(p, warp_sum_dot<VEC>(qr, kr), b1o, b2o, qpos, kpos), vr);
+  }
+  const float ll = st.l == 0.f ? 1.f : st.l;
+  st_cols_t<T, VEC>(static_cast<T*>(p.o) + (((long long)bn * p.S + qpos) * p.H + h) * p.D, lane,
+                    p.D, st.acc, 1.f / ll);
+  if (lane == 0) p.lse_out[((long long)bn * p.H + h) * p.S + qpos] = st.m + logf(ll);
+}
+
+template <typename T, int HD>
+cudaError_t launch_evo_simt(const EvoArgs& a, cudaStream_t st) {
+  const dim3 grid(a.B * a.N, (a.S + kEvoSimtWarps - 1) / kEvoSimtWarps, a.H);
+  evo_fwd_simt<T, HD><<<grid, kEvoSimtWarps * 32, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int HDP>
 cudaError_t launch_evo_t(const EvoArgs& a, cudaStream_t st) {
   constexpr int LD = HDP + 8;
@@ -208,7 +253,14 @@ cudaError_t launch_evo_d(const EvoArgs& a, cudaStream_t st) {
   if (a.D <= 16) return launch_evo_t<T, 16>(a, st);
   if (a.D <= 32) return launch_evo_t<T, 32>(a, st);
   if (a.D <= 64) return launch_evo_t<T, 64>(a, st);
-  return launch_evo_t<T, 128>(a, st);
+  if (a.D <= 128) return launch_evo_t<T, 128>(a, st);
+  return launch_evo_simt<T, 256>(a, st);
+}
+
+inline cudaError_t launch_evo_f32(const EvoArgs& a, cudaStream_t st) {
+  if (a.D <= 64) return launch_evo_simt<float, 64>(a, st);
+  if (a.D <= 128) return launch_evo_simt<float, 128>(a, st);
+  return launch_evo_simt<float, 256>(a, st);
 }
 
 }  // namespace dsk
@@ -217,14 +269,16 @@ cudaError_t launch_evo_d(const EvoArgs& a, cudaStream_t st) {
 // head; D contiguous, every stride a multiple of 8 elements); o [B, N, S, H,
 // D] contiguous; lse [B*N, H, S] fp32; bias1 through strides (batch, row,
 // key) and bias2 through (batch, head, query, key), either may be null
-// (code -1).  dtype: 1 fp16, 2 bf16; bias codes 0 fp32, 1 fp16, 2 bf16.
+// (code -1).  dtype: 0 fp32, 1 fp16, 2 bf16; bias codes 0 fp32, 1 fp16,
+// 2 bf16.  D: a multiple of 8 up to 256.
 extern "C" int ds_evoformer_fwd(const void* q, const void* k, const void* v, const void* b1,
                                 const void* b2, void* o, void* lse, int B, int N, int S, int H,
                                 int D, const long long* qkv_strides,
                                 const long long* bias_strides, int b1_code, int b2_code,
                                 float scale, int dtype, void* stream) {
-  if (B < 1 || N < 1 || S < 1 || H < 1 || H > 65535 || D < 8 || D > 128 || D % 8 != 0 ||
-      (S + dsk::kEvoTile - 1) / dsk::kEvoTile > 65535 || (long long)B * N > 2147483647LL)
+  if (B < 1 || N < 1 || S < 1 || H < 1 || H > 65535 || D < 8 || D > 256 || D % 8 != 0 ||
+      (S + dsk::kEvoSimtWarps - 1) / dsk::kEvoSimtWarps > 65535 ||
+      (long long)B * N > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   dsk::EvoArgs a{};
   a.q = q; a.k = k; a.v = v; a.b1 = b1; a.b2 = b2;
@@ -241,6 +295,7 @@ extern "C" int ds_evoformer_fwd(const void* q, const void* k, const void* v, con
   a.b2_code = b2 != nullptr ? b2_code : -1;
   a.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dsk::launch_evo_f32(a, st);
   if (dtype == 1) return (int)dsk::launch_evo_d<__half>(a, st);
   if (dtype == 2) return (int)dsk::launch_evo_d<__nv_bfloat16>(a, st);
   return (int)cudaErrorInvalidValue;

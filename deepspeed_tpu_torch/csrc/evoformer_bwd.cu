@@ -42,6 +42,9 @@
 //     deterministic.  q, k, v and both biases are read through their
 //     strides, head_dim is padded to HDP in {16, 32, 64, 128} with zeros in
 //     shared memory, and keys / rows past S are neither used nor written.
+//   - fp32 inputs, and 16-bit inputs with D above 128 (the dk/dv
+//     accumulators of 256 columns would need 256 fp32 registers a thread),
+//     take the CUDA-core variants evo_*_simt below.
 #include "evo_common.cuh"
 
 namespace dsk {
@@ -477,6 +480,133 @@ __global__ void evo_db1_kernel(const float* __restrict__ part, float* __restrict
   }
 }
 
+// ------------------------------------------------- CUDA-core family (simt)
+// fp32 inputs at any head_dim, and 16-bit inputs at head_dim above 128: one
+// warp a row (lane l owning the columns l, l + 32, ... of it), the other
+// operand's rows read one at a time straight from device memory, the same
+// recompute and casts as the tensor-core kernels (ds and p rounded to T
+// before their products, the scale applied to the fp32 sums).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kEvoSimtWarps * 32) evo_dq_simt(EvoArgs p) {
+  constexpr int VEC = HD / 32;
+  const int bn = blockIdx.x, h = blockIdx.z;
+  const int b = bn / p.N, n = bn % p.N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qpos = blockIdx.y * kEvoSimtWarps + warp;
+  if (qpos >= p.S) return;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh;
+  const long long b1o = b * p.b1_sb + n * p.b1_sn;
+  const long long b2o = b * p.b2_sb + h * p.b2_sh;
+  const long long row = ((long long)bn * p.S + qpos) * p.H + h;
+  const long long r = ((long long)bn * p.H + h) * p.S + qpos;
+  const float lse = p.lse[r], delta = p.delta[r];
+  float qr[VEC], dor[VEC], acc[VEC];
+  ld_cols_t<T, VEC>(static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh +
+                        qpos * p.q_ss, lane, p.D, qr);
+  ld_cols_t<T, VEC>(static_cast<const T*>(p.dout) + row * p.D, lane, p.D, dor);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+  const int nk = lse > 0.5f * kNegInf ? p.S : 0;  // a row that saw no key: zeros
+  for (int kpos = 0; kpos < nk; ++kpos) {
+    float kr[VEC], vr[VEC];
+    ld_cols_t<T, VEC>(kb + kpos * p.k_ss, lane, p.D, kr);
+    ld_cols_t<T, VEC>(vb + kpos * p.v_ss, lane, p.D, vr);
+    const float s = evo_logit(p, warp_sum_dot<VEC>(qr, kr), b1o, b2o, qpos, kpos);
+    const float ds = Bits<T>::round(expf(s - lse) * (warp_sum_dot<VEC>(dor, vr) - delta));
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[j] += ds * kr[j];
+  }
+  st_cols_t<T, VEC>(static_cast<T*>(p.dq) + row * p.D, lane, p.D, acc, p.scale);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kEvoSimtWarps * 32) evo_dkv_simt(EvoArgs p) {
+  constexpr int VEC = HD / 32;
+  const int bn = blockIdx.x, h = blockIdx.z;
+  const int b = bn / p.N, n = bn % p.N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kpos = blockIdx.y * kEvoSimtWarps + warp;
+  if (kpos >= p.S) return;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh;
+  const long long b1o = b * p.b1_sb + n * p.b1_sn;
+  const long long b2o = b * p.b2_sb + h * p.b2_sh;
+  const long long r0 = ((long long)bn * p.H + h) * p.S;  // this (row, head)'s lse / delta
+  float kr[VEC], vr[VEC], dk[VEC], dv[VEC];
+  ld_cols_t<T, VEC>(static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh +
+                        kpos * p.k_ss, lane, p.D, kr);
+  ld_cols_t<T, VEC>(static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh +
+                        kpos * p.v_ss, lane, p.D, vr);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) dk[j] = dv[j] = 0.f;
+  float colsum = 0.f;
+  for (int qpos = 0; qpos < p.S; ++qpos) {
+    const float lse = p.lse[r0 + qpos];
+    if (lse <= 0.5f * kNegInf) continue;  // a row that saw no key adds nothing
+    float qr[VEC], dor[VEC];
+    ld_cols_t<T, VEC>(qb + qpos * p.q_ss, lane, p.D, qr);
+    ld_cols_t<T, VEC>(static_cast<const T*>(p.dout) +
+                          (((long long)bn * p.S + qpos) * p.H + h) * p.D, lane, p.D, dor);
+    const float s = evo_logit(p, warp_sum_dot<VEC>(qr, kr), b1o, b2o, qpos, kpos);
+    const float pr = expf(s - lse);
+    const float ds = pr * (warp_sum_dot<VEC>(dor, vr) - p.delta[r0 + qpos]);
+    colsum += ds;
+    const float prr = Bits<T>::round(pr), dsr = Bits<T>::round(ds);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      dv[j] += prr * dor[j];
+      dk[j] += dsr * qr[j];
+    }
+  }
+  const long long out = (((long long)bn * p.S + kpos) * p.H + h) * p.D;
+  st_cols_t<T, VEC>(static_cast<T*>(p.dk) + out, lane, p.D, dk, p.scale);
+  st_cols_t<T, VEC>(static_cast<T*>(p.dv) + out, lane, p.D, dv, 1.f);
+  if (p.db1_part != nullptr && lane == 0) p.db1_part[r0 + kpos] = colsum;
+}
+
+// db2[b, h, q, k]: one warp a (query, key) pair, walking the N rows in order
+template <typename T, int HD>
+__global__ void __launch_bounds__(kEvoSimtWarps * 32) evo_db2_simt(EvoArgs p) {
+  constexpr int VEC = HD / 32;
+  const int b = blockIdx.x / p.S, qpos = blockIdx.x % p.S, h = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kpos = blockIdx.y * kEvoSimtWarps + warp;
+  if (kpos >= p.S) return;
+  const long long b2o = b * p.b2_sb + h * p.b2_sh;
+  float acc = 0.f;
+  for (int n = 0; n < p.N; ++n) {
+    const long long bn = (long long)b * p.N + n;
+    const long long r = (bn * p.H + h) * p.S + qpos;
+    const float lse = p.lse[r];
+    if (lse <= 0.5f * kNegInf) continue;
+    float qr[VEC], kr[VEC], vr[VEC], dor[VEC];
+    ld_cols_t<T, VEC>(static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh +
+                          qpos * p.q_ss, lane, p.D, qr);
+    ld_cols_t<T, VEC>(static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh +
+                          kpos * p.k_ss, lane, p.D, kr);
+    ld_cols_t<T, VEC>(static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh +
+                          kpos * p.v_ss, lane, p.D, vr);
+    ld_cols_t<T, VEC>(static_cast<const T*>(p.dout) + ((bn * p.S + qpos) * p.H + h) * p.D, lane,
+                      p.D, dor);
+    const float s = evo_logit(p, warp_sum_dot<VEC>(qr, kr), b * p.b1_sb + n * p.b1_sn, b2o,
+                              qpos, kpos);
+    acc += expf(s - lse) * (warp_sum_dot<VEC>(dor, vr) - p.delta[r]);
+  }
+  if (lane == 0) p.db2[(((long long)b * p.H + h) * p.S + qpos) * p.S + kpos] = acc;
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd_simt(int which, const EvoArgs& a, cudaStream_t st) {
+  const int rows = (a.S + kEvoSimtWarps - 1) / kEvoSimtWarps;
+  if (which == 0)
+    evo_dq_simt<T, HD><<<dim3(a.B * a.N, rows, a.H), kEvoSimtWarps * 32, 0, st>>>(a);
+  else if (which == 1)
+    evo_dkv_simt<T, HD><<<dim3(a.B * a.N, rows, a.H), kEvoSimtWarps * 32, 0, st>>>(a);
+  else
+    evo_db2_simt<T, HD><<<dim3(a.B * a.S, rows, a.H), kEvoSimtWarps * 32, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int HDP>
 cudaError_t launch_bwd_t(int which, const EvoArgs& a, cudaStream_t st) {
   constexpr size_t TILE = (size_t)kEvoTile * (HDP + 8) * sizeof(T);
@@ -505,7 +635,14 @@ cudaError_t launch_bwd_d(int which, const EvoArgs& a, cudaStream_t st) {
   if (a.D <= 16) return launch_bwd_t<T, 16>(which, a, st);
   if (a.D <= 32) return launch_bwd_t<T, 32>(which, a, st);
   if (a.D <= 64) return launch_bwd_t<T, 64>(which, a, st);
-  return launch_bwd_t<T, 128>(which, a, st);
+  if (a.D <= 128) return launch_bwd_t<T, 128>(which, a, st);
+  return launch_bwd_simt<T, 256>(which, a, st);
+}
+
+inline cudaError_t launch_bwd_f32(int which, const EvoArgs& a, cudaStream_t st) {
+  if (a.D <= 64) return launch_bwd_simt<float, 64>(which, a, st);
+  if (a.D <= 128) return launch_bwd_simt<float, 128>(which, a, st);
+  return launch_bwd_simt<float, 256>(which, a, st);
 }
 
 }  // namespace dsk
@@ -523,9 +660,9 @@ extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const v
                                 int D, const long long* qkv_strides,
                                 const long long* bias_strides, int b1_code, int b2_code,
                                 float scale, int dtype, void* stream) {
-  const long long ntiles = (S + dsk::kEvoTile - 1) / dsk::kEvoTile;
-  if (B < 1 || N < 1 || S < 1 || H < 1 || H > 65535 || D < 8 || D > 128 || D % 8 != 0 ||
-      ntiles > 65535 || (long long)B * N > 2147483647LL || B * ntiles > 2147483647LL)
+  const long long ntiles = (S + dsk::kEvoSimtWarps - 1) / dsk::kEvoSimtWarps;
+  if (B < 1 || N < 1 || S < 1 || H < 1 || H > 65535 || D < 8 || D > 256 || D % 8 != 0 ||
+      ntiles > 65535 || (long long)B * N > 2147483647LL || (long long)B * S > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (which == 3) {
@@ -559,6 +696,7 @@ extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const v
   a.b1_code = b1 != nullptr ? b1_code : -1;
   a.b2_code = b2 != nullptr ? b2_code : -1;
   a.scale = scale;
+  if (dtype == 0) return (int)dsk::launch_bwd_f32(which, a, st);
   if (dtype == 1) return (int)dsk::launch_bwd_d<__half>(which, a, st);
   if (dtype == 2) return (int)dsk::launch_bwd_d<__nv_bfloat16>(which, a, st);
   return (int)cudaErrorInvalidValue;

@@ -40,8 +40,17 @@
 //   - tensors are read through (batch, token, head) strides, so the model's
 //     [B, T, N, D] layout needs no transposes; any T is accepted, the
 //     ragged tail is masked.
+//   - any head_dim that is a multiple of 8 up to 256: the kernels are
+//     compiled at HD 64, 96, 128, 192 and 256 and a head_dim is padded
+//     with zeros up to the first that holds it (in shared memory and the
+//     q / do fragments; the pad adds nothing to q kT, and its output
+//     columns are never stored).  At 192 and 256 the output columns are
+//     split over two blocks (NCH), each recomputing the scores, so that
+//     the fp32 accumulators fit the registers (dk and dv of 256 columns
+//     would need 256 a thread).
 //   - fp32 inputs (the cuda-vs-cpu parity run) take CUDA-core variants:
-//     lanes split head_dim, warp reductions give the scores.
+//     lane l owns the columns l, l + 32, ..., warp reductions give the
+//     scores.
 #include "flash_common.cuh"
 
 namespace dsk {
@@ -51,7 +60,7 @@ struct FlashArgs {
   const float *lse, *delta, *slopes;
   void *o, *dq, *dk, *dv;
   float* lse_out;
-  int B, T, N, Nkv;
+  int B, T, N, Nkv, hd;  // hd: the real head_dim (the kernels' HD pads it)
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
   int causal, window;
@@ -83,16 +92,21 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int T, int causal, i
 }
 
 // ------------------------------------------------------------ forward, mma
-template <typename T, int HD>
+// HD: the compiled width, p.hd padded up to it with zeros in shared memory
+// and registers (they add nothing to q k^T, and the pad columns of o are
+// never stored).  NCH: blocks a (q tile, head) splits the output columns
+// over, DC = HD / NCH each, so that the accumulators of the wide widths
+// fit the registers; each recomputes the scores.
+template <typename T, int HD, int NCH>
 __global__ void __launch_bounds__(kFlashWarps * 32) flash_fwd_mma_kernel(FlashArgs p) {
-  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  constexpr int KSTEPS = HD / 16, DC = HD / NCH, DTILES = DC / 8, LD = HD + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* kbuf = reinterpret_cast<T*>(smem);  // [2][kTile*LD]
   T* vbuf = kbuf + 2 * kTile * LD;       // [2][kTile*LD]
 
   const int nqt = (p.T + kTile - 1) / kTile;
   const int qt = nqt - 1 - blockIdx.x;   // heaviest (latest) tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y / NCH, dc0 = (blockIdx.y % NCH) * DC, b = blockIdx.z;
   const int hk = h / (p.N / p.Nkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
@@ -121,9 +135,9 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_fwd_mma_kernel(FlashAr
     for (int j = 0; j < 4; ++j) {
       const int i = j & 1;
       const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
-      qa[ks][j] = exists[i] ? *reinterpret_cast<const uint32_t*>(
-                                  qb + (long long)qpos[i] * p.q_st + col)
-                            : 0u;
+      qa[ks][j] = exists[i] && col < p.hd ? *reinterpret_cast<const uint32_t*>(
+                                                qb + (long long)qpos[i] * p.q_st + col)
+                                          : 0u;
     }
   float acc[DTILES][4];
 #pragma unroll
@@ -136,17 +150,17 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_fwd_mma_kernel(FlashAr
   k_tile_range(q0, kTile, p.T, kTile, p.causal, p.window, kt_first, kt_last);
   const int n = kt_last - kt_first + 1;
 
-  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T);
-  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T);
+  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T, p.hd);
+  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T, p.hd);
   cp_async_commit();
   for (int it = 0; it < n; ++it) {
     const int kt = kt_first + it;
     const int bsel = it & 1;
     if (it + 1 < n) {
       load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * kTile * LD, kb, p.k_st, (kt + 1) * kTile, kTile,
-                           p.T);
+                           p.T, p.hd);
       load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * kTile * LD, vb, p.v_st, (kt + 1) * kTile, kTile,
-                           p.T);
+                           p.T, p.hd);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -214,7 +228,7 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_fwd_mma_kernel(FlashAr
       }
       const uint32_t pa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
                               Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
-      mma_rows<T, HD, LD>(acc, pa, vs_, t0, lane);
+      mma_rows<T, DC, LD>(acc, pa, vs_ + dc0, t0, lane);
     }
     __syncthreads();  // buffer bsel is refilled by the next iteration's copy
   }
@@ -224,33 +238,34 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_fwd_mma_kernel(FlashAr
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  T* ob = static_cast<T*>(p.o) + ((long long)b * p.T * p.N + h) * HD;
+  T* ob = static_cast<T*>(p.o) + ((long long)b * p.T * p.N + h) * p.hd + dc0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!exists[i]) continue;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);  // no visible key: zeros
-    T* orow = ob + (long long)qpos[i] * p.N * HD;
+    T* orow = ob + (long long)qpos[i] * p.N * p.hd;
 #pragma unroll
     for (int d = 0; d < DTILES; ++d)
-      *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * tig) =
-          Mma<T>::pack(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
-    if (tig == 0)  // ... and the finite lse of the TPU kernels
+      if (dc0 + d * 8 < p.hd)
+        *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * tig) =
+            Mma<T>::pack(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
+    if (tig == 0 && dc0 == 0)  // ... and the finite lse of the TPU kernels
       p.lse_out[((long long)b * p.N + h) * p.T + qpos[i]] =
           l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
   }
 }
 
 // ----------------------------------------------------------------- dq, mma
-template <typename T, int HD>
+template <typename T, int HD, int NCH>
 __global__ void __launch_bounds__(kFlashWarps * 32) flash_dq_mma_kernel(FlashArgs p) {
-  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  constexpr int KSTEPS = HD / 16, DC = HD / NCH, DTILES = DC / 8, LD = HD + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* kbuf = reinterpret_cast<T*>(smem);
   T* vbuf = kbuf + 2 * kTile * LD;
 
   const int nqt = (p.T + kTile - 1) / kTile;
   const int qt = nqt - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y / NCH, dc0 = (blockIdx.y % NCH) * DC, b = blockIdx.z;
   const int hk = h / (p.N / p.Nkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
@@ -261,7 +276,7 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dq_mma_kernel(FlashArg
   const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
   const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+  const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * p.hd;
 
   int qpos[2];
   float lse2[2], delta[2];
@@ -282,11 +297,11 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dq_mma_kernel(FlashArg
     for (int j = 0; j < 4; ++j) {
       const int i = j & 1;
       const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
-      const bool in = qpos[i] < p.T;
+      const bool in = qpos[i] < p.T && col < p.hd;
       qa[ks][j] = in ? *reinterpret_cast<const uint32_t*>(qb + (long long)qpos[i] * p.q_st + col)
                      : 0u;
       da[ks][j] = in ? *reinterpret_cast<const uint32_t*>(
-                           dob + (long long)qpos[i] * p.N * HD + col)
+                           dob + (long long)qpos[i] * p.N * p.hd + col)
                      : 0u;
     }
   float acc[DTILES][4];
@@ -299,17 +314,17 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dq_mma_kernel(FlashArg
   k_tile_range(q0, kTile, p.T, kTile, p.causal, p.window, kt_first, kt_last);
   const int n = kt_last - kt_first + 1;
 
-  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T);
-  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T);
+  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T, p.hd);
+  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T, p.hd);
   cp_async_commit();
   for (int it = 0; it < n; ++it) {
     const int kt = kt_first + it;
     const int bsel = it & 1;
     if (it + 1 < n) {
       load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * kTile * LD, kb, p.k_st, (kt + 1) * kTile, kTile,
-                           p.T);
+                           p.T, p.hd);
       load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * kTile * LD, vb, p.v_st, (kt + 1) * kTile, kTile,
-                           p.T);
+                           p.T, p.hd);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -345,27 +360,28 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dq_mma_kernel(FlashArg
         }
       const uint32_t dsa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
                                Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
-      mma_rows<T, HD, LD>(acc, dsa, ks_, t0, lane);  // dq += ds k
+      mma_rows<T, DC, LD>(acc, dsa, ks_ + dc0, t0, lane);  // dq += ds k
     }
     __syncthreads();
   }
 
-  T* dqb = static_cast<T*>(p.dq) + ((long long)b * p.T * p.N + h) * HD;
+  T* dqb = static_cast<T*>(p.dq) + ((long long)b * p.T * p.N + h) * p.hd + dc0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (qpos[i] >= p.T) continue;
-    T* row = dqb + (long long)qpos[i] * p.N * HD;
+    T* row = dqb + (long long)qpos[i] * p.N * p.hd;
 #pragma unroll
     for (int d = 0; d < DTILES; ++d)
-      *reinterpret_cast<uint32_t*>(row + d * 8 + 2 * tig) =
-          Mma<T>::pack(acc[d][2 * i], acc[d][2 * i + 1]);
+      if (dc0 + d * 8 < p.hd)
+        *reinterpret_cast<uint32_t*>(row + d * 8 + 2 * tig) =
+            Mma<T>::pack(acc[d][2 * i], acc[d][2 * i + 1]);
   }
 }
 
 // -------------------------------------------------------------- dk/dv, mma
-template <typename T, int HD>
+template <typename T, int HD, int NCH>
 __global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashArgs p) {
-  constexpr int KSTEPS = HD / 16, DTILES = HD / 8, LD = HD + 8;
+  constexpr int KSTEPS = HD / 16, DC = HD / NCH, DTILES = DC / 8, LD = HD + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks_ = reinterpret_cast<T*>(smem);   // [kTile*LD] this block's keys
   T* vs_ = ks_ + kTile * LD;             // [kTile*LD]
@@ -374,7 +390,8 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashAr
   float* lbuf = reinterpret_cast<float*>(dbuf + 2 * kTile * LD);  // [2][kTile] lse, log2 units
   float* ebuf = lbuf + 2 * kTile;                                   // [2][kTile] delta
 
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int kt = blockIdx.x, hk = blockIdx.y / NCH, dc0 = (blockIdx.y % NCH) * DC;
+  const int b = blockIdx.z;
   const int group = p.N / p.Nkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane >> 2, tig = lane & 3;
@@ -396,9 +413,10 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashAr
     const int h = hk * group + item / nq;
     const int q0 = (qt_first + item % nq) * kTile;
     const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
-    const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
-    load_rows<T, HD, LD>(qbuf + sel * kTile * LD, qb, p.q_st, q0, kTile, p.T);
-    load_rows<T, HD, LD>(dbuf + sel * kTile * LD, dob, (long long)p.N * HD, q0, kTile, p.T);
+    const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * p.hd;
+    load_rows<T, HD, LD>(qbuf + sel * kTile * LD, qb, p.q_st, q0, kTile, p.T, p.hd);
+    load_rows<T, HD, LD>(dbuf + sel * kTile * LD, dob, (long long)p.N * p.hd, q0, kTile, p.T,
+                         p.hd);
     const long long r = ((long long)b * p.N + h) * p.T + q0;
     for (int t = threadIdx.x; t < kTile; t += blockDim.x) {
       const bool in = q0 + t < p.T;
@@ -413,8 +431,8 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashAr
 #pragma unroll
     for (int j = 0; j < 4; ++j) dk[d][j] = dv[d][j] = 0.f;
 
-  load_rows<T, HD, LD>(ks_, kb, p.k_st, k0, kTile, p.T);
-  load_rows<T, HD, LD>(vs_, vb, p.v_st, k0, kTile, p.T);
+  load_rows<T, HD, LD>(ks_, kb, p.k_st, k0, kTile, p.T, p.hd);
+  load_rows<T, HD, LD>(vs_, vb, p.v_st, k0, kTile, p.T, p.hd);
   if (n > 0) load_item(0, 0);
   cp_async_commit();
   for (int it = 0; it < n; ++it) {
@@ -477,21 +495,22 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashAr
                               Mma<T>::pack(st[1][0], st[1][1]), Mma<T>::pack(st[1][2], st[1][3])};
       const uint32_t dsa[4] = {Mma<T>::pack(dp[0][0], dp[0][1]), Mma<T>::pack(dp[0][2], dp[0][3]),
                                Mma<T>::pack(dp[1][0], dp[1][1]), Mma<T>::pack(dp[1][2], dp[1][3])};
-      mma_rows<T, HD, LD>(dv, pa, ds_, t0, lane);   // dv += pT do
-      mma_rows<T, HD, LD>(dk, dsa, qs, t0, lane);   // dk += dsT q
+      mma_rows<T, DC, LD>(dv, pa, ds_ + dc0, t0, lane);   // dv += pT do
+      mma_rows<T, DC, LD>(dk, dsa, qs + dc0, t0, lane);   // dk += dsT q
     }
     __syncthreads();
   }
 
-  T* dkb = static_cast<T*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * HD;
-  T* dvb = static_cast<T*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * HD;
+  T* dkb = static_cast<T*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * p.hd + dc0;
+  T* dvb = static_cast<T*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * p.hd + dc0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kpos = wk0 + grp + 8 * i;
     if (kpos >= p.T) continue;
-    const long long off = (long long)kpos * p.Nkv * HD;
+    const long long off = (long long)kpos * p.Nkv * p.hd;
 #pragma unroll
     for (int d = 0; d < DTILES; ++d) {
+      if (dc0 + d * 8 >= p.hd) continue;
       *reinterpret_cast<uint32_t*>(dkb + off + d * 8 + 2 * tig) =
           Mma<T>::pack(dk[d][2 * i], dk[d][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dvb + off + d * 8 + 2 * tig) =
@@ -501,38 +520,31 @@ __global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashAr
 }
 
 // --------------------------------------------------- fp32, CUDA-core variants
-// 8 warps x 4 rows; the 32 lanes split head_dim (VEC columns each) and a
-// warp reduction gives each (row, key) score.  32-token tiles of the other
-// operand sit in shared memory.
+// 8 warps x 4 rows; lane l owns the columns l, l + 32, ... (VEC = HD / 32 of
+// them, the pad past p.hd zero) and a warp reduction gives each (row, key)
+// score.  32-token tiles of the other operand sit in shared memory, padded
+// to HD columns with zeros.
 constexpr int kF32Warps = 8, kF32Rows = 4, kF32Tile = 32;
 
 template <int HD>
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ base,
-                                              long long st, int row0, int Tlen) {
+                                              long long st, int row0, int Tlen, int hd) {
   for (int c = threadIdx.x; c < kF32Tile * HD / 4; c += blockDim.x) {
     const int row = c / (HD / 4), cc = c % (HD / 4);
     const int t = row0 + row;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < Tlen) val = *reinterpret_cast<const float4*>(base + (long long)t * st + 4 * cc);
+    if (t < Tlen && 4 * cc < hd)
+      val = *reinterpret_cast<const float4*>(base + (long long)t * st + 4 * cc);
     *reinterpret_cast<float4*>(dst + row * HD + 4 * cc) = val;
   }
-}
-
-template <int VEC>
-__device__ __forceinline__ float warp_dot(const float (&a)[VEC], const float (&b)[VEC]) {
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) s += a[j] * b[j];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
 }
 
 template <int HD>
 __global__ void __launch_bounds__(kF32Warps * 32) flash_fwd_f32_kernel(FlashArgs p) {
   constexpr int VEC = HD / 32, R = kF32Rows;
-  __shared__ __align__(16) float ks_[kF32Tile * HD];
-  __shared__ __align__(16) float vs_[kF32Tile * HD];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks_ = reinterpret_cast<float*>(smem);  // [kF32Tile * HD]
+  float* vs_ = ks_ + kF32Tile * HD;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.N / p.Nkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -551,34 +563,34 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_fwd_f32_kernel(FlashArgs
     st[i].init();
 #pragma unroll
     for (int j = 0; j < VEC; ++j) qr[i][j] = 0.f;
-    if (qpos[i] < p.T) load_vec<float, VEC>(qb + (long long)qpos[i] * p.q_st + lane * VEC, qr[i]);
+    if (qpos[i] < p.T) ld_cols_t<float, VEC>(qb + (long long)qpos[i] * p.q_st, lane, p.hd, qr[i]);
   }
   int kt_first, kt_last;
   k_tile_range(q0, kF32Tile, p.T, kF32Tile, p.causal, p.window, kt_first, kt_last);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     __syncthreads();
-    load_rows_f32<HD>(ks_, kb, p.k_st, kt * kF32Tile, p.T);
-    load_rows_f32<HD>(vs_, vb, p.v_st, kt * kF32Tile, p.T);
+    load_rows_f32<HD>(ks_, kb, p.k_st, kt * kF32Tile, p.T, p.hd);
+    load_rows_f32<HD>(vs_, vb, p.v_st, kt * kF32Tile, p.T, p.hd);
     __syncthreads();
     for (int t = 0; t < kF32Tile; ++t) {
       const int kpos = kt * kF32Tile + t;
       if (kpos >= p.T) break;
       float kr[VEC], vr[VEC];
-      load_vec<float, VEC>(ks_ + t * HD + lane * VEC, kr);
-      load_vec<float, VEC>(vs_ + t * HD + lane * VEC, vr);
+      ld_cols_t<float, VEC>(ks_ + t * HD, lane, HD, kr);
+      ld_cols_t<float, VEC>(vs_ + t * HD, lane, HD, vr);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const float s = warp_dot<VEC>(qr[i], kr) * p.scale + slope * (float)kpos;
+        const float s = warp_sum_dot<VEC>(qr[i], kr) * p.scale + slope * (float)kpos;
         if (visible(qpos[i], kpos, p.T, p.causal, p.window)) st[i].template update<float>(s, vr);
       }
     }
   }
-  float* ob = static_cast<float*>(p.o) + ((long long)b * p.T * p.N + h) * HD;
+  float* ob = static_cast<float*>(p.o) + ((long long)b * p.T * p.N + h) * p.hd;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     if (qpos[i] >= p.T) continue;
     const float ll = st[i].l == 0.f ? 1.f : st[i].l;
-    store_vec<float, VEC>(ob + (long long)qpos[i] * p.N * HD + lane * VEC, st[i].acc, 1.f / ll);
+    st_cols_t<float, VEC>(ob + (long long)qpos[i] * p.N * p.hd, lane, p.hd, st[i].acc, 1.f / ll);
     if (lane == 0) p.lse_out[((long long)b * p.N + h) * p.T + qpos[i]] = st[i].m + logf(ll);
   }
 }
@@ -586,8 +598,9 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_fwd_f32_kernel(FlashArgs
 template <int HD>
 __global__ void __launch_bounds__(kF32Warps * 32) flash_dq_f32_kernel(FlashArgs p) {
   constexpr int VEC = HD / 32, R = kF32Rows;
-  __shared__ __align__(16) float ks_[kF32Tile * HD];
-  __shared__ __align__(16) float vs_[kF32Tile * HD];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ks_ = reinterpret_cast<float*>(smem);  // [kF32Tile * HD]
+  float* vs_ = ks_ + kF32Tile * HD;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.N / p.Nkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -596,7 +609,7 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dq_f32_kernel(FlashArgs 
   const float* qb = static_cast<const float*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
   const float* kb = static_cast<const float*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-  const float* dob = static_cast<const float*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+  const float* dob = static_cast<const float*>(p.dout) + ((long long)b * p.T * p.N + h) * p.hd;
 
   int qpos[R];
   bool live[R];
@@ -612,27 +625,27 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dq_f32_kernel(FlashArgs 
 #pragma unroll
     for (int j = 0; j < VEC; ++j) qr[i][j] = dor[i][j] = acc[i][j] = 0.f;
     if (in) {
-      load_vec<float, VEC>(qb + (long long)qpos[i] * p.q_st + lane * VEC, qr[i]);
-      load_vec<float, VEC>(dob + (long long)qpos[i] * p.N * HD + lane * VEC, dor[i]);
+      ld_cols_t<float, VEC>(qb + (long long)qpos[i] * p.q_st, lane, p.hd, qr[i]);
+      ld_cols_t<float, VEC>(dob + (long long)qpos[i] * p.N * p.hd, lane, p.hd, dor[i]);
     }
   }
   int kt_first, kt_last;
   k_tile_range(q0, kF32Tile, p.T, kF32Tile, p.causal, p.window, kt_first, kt_last);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     __syncthreads();
-    load_rows_f32<HD>(ks_, kb, p.k_st, kt * kF32Tile, p.T);
-    load_rows_f32<HD>(vs_, vb, p.v_st, kt * kF32Tile, p.T);
+    load_rows_f32<HD>(ks_, kb, p.k_st, kt * kF32Tile, p.T, p.hd);
+    load_rows_f32<HD>(vs_, vb, p.v_st, kt * kF32Tile, p.T, p.hd);
     __syncthreads();
     for (int t = 0; t < kF32Tile; ++t) {
       const int kpos = kt * kF32Tile + t;
       if (kpos >= p.T) break;
       float kr[VEC], vr[VEC];
-      load_vec<float, VEC>(ks_ + t * HD + lane * VEC, kr);
-      load_vec<float, VEC>(vs_ + t * HD + lane * VEC, vr);
+      ld_cols_t<float, VEC>(ks_ + t * HD, lane, HD, kr);
+      ld_cols_t<float, VEC>(vs_ + t * HD, lane, HD, vr);
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const float s = warp_dot<VEC>(qr[i], kr) * p.scale + slope * (float)kpos;
-        const float dp = warp_dot<VEC>(dor[i], vr);
+        const float s = warp_sum_dot<VEC>(qr[i], kr) * p.scale + slope * (float)kpos;
+        const float dp = warp_sum_dot<VEC>(dor[i], vr);
         if (live[i] && visible(qpos[i], kpos, p.T, p.causal, p.window)) {
           const float ds = expf(s - lse[i]) * (dp - delta[i]) * p.scale;
 #pragma unroll
@@ -641,19 +654,21 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dq_f32_kernel(FlashArgs 
       }
     }
   }
-  float* dqb = static_cast<float*>(p.dq) + ((long long)b * p.T * p.N + h) * HD;
+  float* dqb = static_cast<float*>(p.dq) + ((long long)b * p.T * p.N + h) * p.hd;
 #pragma unroll
   for (int i = 0; i < R; ++i)
     if (qpos[i] < p.T)
-      store_vec<float, VEC>(dqb + (long long)qpos[i] * p.N * HD + lane * VEC, acc[i], 1.f);
+      st_cols_t<float, VEC>(dqb + (long long)qpos[i] * p.N * p.hd, lane, p.hd, acc[i], 1.f);
 }
 
 template <int HD>
 __global__ void __launch_bounds__(kF32Warps * 32) flash_dkv_f32_kernel(FlashArgs p) {
   constexpr int VEC = HD / 32, R = kF32Rows;
-  __shared__ __align__(16) float qs_[kF32Tile * HD];
-  __shared__ __align__(16) float dos_[kF32Tile * HD];
-  __shared__ float ls_[kF32Tile], es_[kF32Tile];
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs_ = reinterpret_cast<float*>(smem);  // [kF32Tile * HD]
+  float* dos_ = qs_ + kF32Tile * HD;
+  float* ls_ = dos_ + kF32Tile * HD;            // [kF32Tile]
+  float* es_ = ls_ + kF32Tile;
   const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.N / p.Nkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -669,8 +684,8 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dkv_f32_kernel(FlashArgs
 #pragma unroll
     for (int j = 0; j < VEC; ++j) kr[i][j] = vr[i][j] = dk[i][j] = dv[i][j] = 0.f;
     if (kpos[i] < p.T) {
-      load_vec<float, VEC>(kb + (long long)kpos[i] * p.k_st + lane * VEC, kr[i]);
-      load_vec<float, VEC>(vb + (long long)kpos[i] * p.v_st + lane * VEC, vr[i]);
+      ld_cols_t<float, VEC>(kb + (long long)kpos[i] * p.k_st, lane, p.hd, kr[i]);
+      ld_cols_t<float, VEC>(vb + (long long)kpos[i] * p.v_st, lane, p.hd, vr[i]);
     }
   }
   int qt_first, qt_last;
@@ -680,12 +695,12 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dkv_f32_kernel(FlashArgs
     const float slope = p.slopes != nullptr ? p.slopes[h] : 0.f;
     const float* qb =
         static_cast<const float*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
-    const float* dob = static_cast<const float*>(p.dout) + ((long long)b * p.T * p.N + h) * HD;
+    const float* dob = static_cast<const float*>(p.dout) + ((long long)b * p.T * p.N + h) * p.hd;
     for (int qt = qt_first; qt <= qt_last; ++qt) {
       const int q0 = qt * kF32Tile;
       __syncthreads();
-      load_rows_f32<HD>(qs_, qb, p.q_st, q0, p.T);
-      load_rows_f32<HD>(dos_, dob, (long long)p.N * HD, q0, p.T);
+      load_rows_f32<HD>(qs_, qb, p.q_st, q0, p.T, p.hd);
+      load_rows_f32<HD>(dos_, dob, (long long)p.N * p.hd, q0, p.T, p.hd);
       for (int t = threadIdx.x; t < kF32Tile; t += blockDim.x) {
         const bool in = q0 + t < p.T;
         const long long r = ((long long)b * p.N + h) * p.T + q0 + t;
@@ -697,13 +712,13 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dkv_f32_kernel(FlashArgs
         const int qpos = q0 + t;
         if (qpos >= p.T) break;
         float qv[VEC], dov[VEC];
-        load_vec<float, VEC>(qs_ + t * HD + lane * VEC, qv);
-        load_vec<float, VEC>(dos_ + t * HD + lane * VEC, dov);
+        ld_cols_t<float, VEC>(qs_ + t * HD, lane, HD, qv);
+        ld_cols_t<float, VEC>(dos_ + t * HD, lane, HD, dov);
         const float lse = ls_[t], delta = es_[t];
 #pragma unroll
         for (int i = 0; i < R; ++i) {
-          const float s = warp_dot<VEC>(kr[i], qv) * p.scale + slope * (float)kpos[i];
-          const float dp = warp_dot<VEC>(vr[i], dov);
+          const float s = warp_sum_dot<VEC>(kr[i], qv) * p.scale + slope * (float)kpos[i];
+          const float dp = warp_sum_dot<VEC>(vr[i], dov);
           if (lse > kNegInf * 0.5f && visible(qpos, kpos[i], p.T, p.causal, p.window)) {
             const float pr = expf(s - lse);
             const float ds = pr * (dp - delta) * p.scale;
@@ -717,13 +732,13 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dkv_f32_kernel(FlashArgs
       }
     }
   }
-  float* dkb = static_cast<float*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * HD;
-  float* dvb = static_cast<float*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * HD;
+  float* dkb = static_cast<float*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * p.hd;
+  float* dvb = static_cast<float*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * p.hd;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     if (kpos[i] >= p.T) continue;
-    store_vec<float, VEC>(dkb + (long long)kpos[i] * p.Nkv * HD + lane * VEC, dk[i], 1.f);
-    store_vec<float, VEC>(dvb + (long long)kpos[i] * p.Nkv * HD + lane * VEC, dv[i], 1.f);
+    st_cols_t<float, VEC>(dkb + (long long)kpos[i] * p.Nkv * p.hd, lane, p.hd, dk[i], 1.f);
+    st_cols_t<float, VEC>(dvb + (long long)kpos[i] * p.Nkv * p.hd, lane, p.hd, dv[i], 1.f);
   }
 }
 
@@ -732,25 +747,27 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int HD>
 cudaError_t launch_mma(int which, const FlashArgs& a, cudaStream_t st) {
-  constexpr int LD = HD + 8;
+  constexpr int LD = HD + 8, NCH = HD > 128 ? 2 : 1;
   const int tiles = (a.T + kTile - 1) / kTile;
   cudaError_t err;
   if (which == kDkv) {
     const size_t smem = 6 * (size_t)kTile * LD * sizeof(T) + 4 * kTile * sizeof(float);
-    err = allow_dynamic_smem<flash_dkv_mma_kernel<T, HD>>();
+    err = allow_dynamic_smem<flash_dkv_mma_kernel<T, HD, NCH>>();
     if (err != cudaSuccess) return err;
-    flash_dkv_mma_kernel<T, HD><<<dim3(tiles, a.Nkv, a.B), kFlashWarps * 32, smem, st>>>(a);
+    flash_dkv_mma_kernel<T, HD, NCH>
+        <<<dim3(tiles, a.Nkv * NCH, a.B), kFlashWarps * 32, smem, st>>>(a);
     return cudaGetLastError();
   }
   const size_t smem = 4 * (size_t)kTile * LD * sizeof(T);
+  const dim3 grid(tiles, a.N * NCH, a.B);
   if (which == kFwd) {
-    err = allow_dynamic_smem<flash_fwd_mma_kernel<T, HD>>();
+    err = allow_dynamic_smem<flash_fwd_mma_kernel<T, HD, NCH>>();
     if (err != cudaSuccess) return err;
-    flash_fwd_mma_kernel<T, HD><<<dim3(tiles, a.N, a.B), kFlashWarps * 32, smem, st>>>(a);
+    flash_fwd_mma_kernel<T, HD, NCH><<<grid, kFlashWarps * 32, smem, st>>>(a);
   } else {
-    err = allow_dynamic_smem<flash_dq_mma_kernel<T, HD>>();
+    err = allow_dynamic_smem<flash_dq_mma_kernel<T, HD, NCH>>();
     if (err != cudaSuccess) return err;
-    flash_dq_mma_kernel<T, HD><<<dim3(tiles, a.N, a.B), kFlashWarps * 32, smem, st>>>(a);
+    flash_dq_mma_kernel<T, HD, NCH><<<grid, kFlashWarps * 32, smem, st>>>(a);
   }
   return cudaGetLastError();
 }
@@ -758,12 +775,21 @@ cudaError_t launch_mma(int which, const FlashArgs& a, cudaStream_t st) {
 template <int HD>
 cudaError_t launch_f32(int which, const FlashArgs& a, cudaStream_t st) {
   const int tiles = (a.T + kF32Tile - 1) / kF32Tile;
-  if (which == kFwd)
-    flash_fwd_f32_kernel<HD><<<dim3(tiles, a.N, a.B), kF32Warps * 32, 0, st>>>(a);
-  else if (which == kDq)
-    flash_dq_f32_kernel<HD><<<dim3(tiles, a.N, a.B), kF32Warps * 32, 0, st>>>(a);
-  else
-    flash_dkv_f32_kernel<HD><<<dim3(tiles, a.Nkv, a.B), kF32Warps * 32, 0, st>>>(a);
+  const size_t smem = 2 * (size_t)kF32Tile * HD * sizeof(float) + 2 * kF32Tile * sizeof(float);
+  cudaError_t err;
+  if (which == kFwd) {
+    err = allow_dynamic_smem<flash_fwd_f32_kernel<HD>>();
+    if (err != cudaSuccess) return err;
+    flash_fwd_f32_kernel<HD><<<dim3(tiles, a.N, a.B), kF32Warps * 32, smem, st>>>(a);
+  } else if (which == kDq) {
+    err = allow_dynamic_smem<flash_dq_f32_kernel<HD>>();
+    if (err != cudaSuccess) return err;
+    flash_dq_f32_kernel<HD><<<dim3(tiles, a.N, a.B), kF32Warps * 32, smem, st>>>(a);
+  } else {
+    err = allow_dynamic_smem<flash_dkv_f32_kernel<HD>>();
+    if (err != cudaSuccess) return err;
+    flash_dkv_f32_kernel<HD><<<dim3(tiles, a.Nkv, a.B), kF32Warps * 32, smem, st>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -777,16 +803,18 @@ cudaError_t launch_dtype(int which, int dtype, const FlashArgs& a, cudaStream_t 
   }
 }
 
-inline cudaError_t launch_flash(int which, int hd, int dtype, const FlashArgs& a, void* stream) {
+// The compiled widths; a head_dim is padded up to the first that holds it
+// (ops/flash_attention.py's MAX_HEAD_DIM is the last).
+inline cudaError_t launch_flash(int which, int dtype, const FlashArgs& a, void* stream) {
   if (a.B < 1 || a.T < 1 || a.N < 1 || a.Nkv < 1 || a.N % a.Nkv != 0 || a.B > 65535 ||
-      a.N > 65535)
+      2 * a.N > 65535 || a.hd < 8 || a.hd > 256 || a.hd % 8 != 0)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64: return launch_dtype<64>(which, dtype, a, st);
-    case 128: return launch_dtype<128>(which, dtype, a, st);
-    default: return cudaErrorInvalidValue;
-  }
+  if (a.hd <= 64) return launch_dtype<64>(which, dtype, a, st);
+  if (a.hd <= 96) return launch_dtype<96>(which, dtype, a, st);
+  if (a.hd <= 128) return launch_dtype<128>(which, dtype, a, st);
+  if (a.hd <= 192) return launch_dtype<192>(which, dtype, a, st);
+  return launch_dtype<256>(which, dtype, a, st);
 }
 
 }  // namespace dsk
@@ -804,11 +832,11 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const v
   dsk::FlashArgs a{};
   a.q = q; a.k = k; a.v = v; a.slopes = static_cast<const float*>(slopes);
   a.o = o; a.lse_out = static_cast<float*>(lse);
-  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.hd = hd;
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal; a.window = window;
-  return (int)dsk::launch_flash(dsk::kFwd, hd, dtype, a, stream);
+  return (int)dsk::launch_flash(dsk::kFwd, dtype, a, stream);
 }
 
 // which: 1 writes dq, 2 writes dk and dv (the pointer not written may be null)
@@ -825,9 +853,9 @@ extern "C" int ds_flash_bwd(int which, const void* q, const void* k, const void*
   a.lse = static_cast<const float*>(lse); a.delta = static_cast<const float*>(delta);
   a.slopes = static_cast<const float*>(slopes);
   a.dq = dq; a.dk = dk; a.dv = dv;
-  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.hd = hd;
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal; a.window = window;
-  return (int)dsk::launch_flash(which, hd, dtype, a, stream);
+  return (int)dsk::launch_flash(which, dtype, a, stream);
 }

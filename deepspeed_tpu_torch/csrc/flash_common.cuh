@@ -2,7 +2,8 @@
 // (flash_attention.cu, sparse_attention.cu, evoformer.cu): cp.async row
 // staging into padded shared-memory rows, ldmatrix fragment loads and the
 // two mma.sync products of an attention tile (scores q kT and the p v / ds k
-// accumulation), on top of paged_common.cuh's dtype traits and Mma.
+// accumulation), on top of paged_common.cuh's dtype traits and Mma; and the
+// row helpers of their CUDA-core variants.
 #pragma once
 
 #include "paged_common.cuh"
@@ -11,18 +12,21 @@ namespace dsk {
 
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
-// The block copies `rows` token rows of one head (HD contiguous elements
-// each, token stride st) into shared memory rows of LD elements; tokens at
-// or past T are zero-filled.  The caller commits the cp.async group.
+// The block copies `rows` token rows of one head (hd contiguous elements
+// each, token stride st) into shared memory rows of LD elements, zero-padded
+// to HD columns; tokens at or past T are zero-filled.  hd % 8 == 0 (16-bit)
+// or % 4 (fp32), so a 16-byte chunk is wholly real or wholly pad.  The
+// caller commits the cp.async group.
 template <typename T, int HD, int LD>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ base, long long st,
-                                          int row0, int rows, int Tlen) {
-  constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks per row
+                                          int row0, int rows, int Tlen, int hd = HD) {
+  constexpr int EPC = 16 / (int)sizeof(T);       // elements a 16-byte chunk
+  constexpr int CPR = HD / EPC;                  // 16-byte chunks per row
   for (int c = threadIdx.x; c < rows * CPR; c += blockDim.x) {
     const int row = c / CPR, cc = c % CPR;
     char* d = reinterpret_cast<char*>(dst + row * LD) + 16 * cc;
     const int t = row0 + row;
-    if (t < Tlen)
+    if (t < Tlen && cc * EPC < hd)
       cp_async16(d, reinterpret_cast<const char*>(base + (long long)t * st) + 16 * cc);
     else
       *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
@@ -90,6 +94,35 @@ __device__ __forceinline__ void mma_rows(float (&acc)[HD / 8][4], const uint32_t
     Mma<T>::run(acc[d], a, b[0], b[1]);
     Mma<T>::run(acc[d + 1], a, b[2], b[3]);
   }
+}
+
+// CUDA-core (fp32 and wide head_dim) kernels: lane l of a warp owns the
+// columns l, l + 32, ... of a row (VEC of them); columns at or past hd read
+// as zero and are not stored.  warp_sum_dot: the row dot product, summed
+// over the warp (every lane gets it).
+template <typename T, int VEC>
+__device__ __forceinline__ void ld_cols_t(const T* row, int lane, int hd, float (&r)[VEC]) {
+  using U = typename Bits<T>::U;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    r[j] = lane + 32 * j < hd ? Bits<T>::to_f(reinterpret_cast<const U*>(row)[lane + 32 * j])
+                              : 0.f;
+}
+template <typename T, int VEC>
+__device__ __forceinline__ void st_cols_t(T* row, int lane, int hd, const float (&r)[VEC],
+                                          float mul) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    if (lane + 32 * j < hd) row[lane + 32 * j] = Bits<T>::from_f(r[j] * mul);
+}
+template <int VEC>
+__device__ __forceinline__ float warp_sum_dot(const float (&a)[VEC], const float (&b)[VEC]) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) s += a[j] * b[j];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
 // The backward kernels take exp2f(s2 - lse2) with both in log2 units.  A row

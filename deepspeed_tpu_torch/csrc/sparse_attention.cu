@@ -61,6 +61,7 @@ struct SparseArgs {
   void *o, *dq, *dk, *dv;
   float* lse_out;
   int B, T, N, Nkv, bs, hpb;  // hpb: q heads a block serves at once
+  int hd;                     // head_dim (the simt family pads it to HD)
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
   int causal;
@@ -492,6 +493,133 @@ __global__ void __launch_bounds__(kSpMaxWarps * 32) sparse_dkv_kernel(SparseArgs
   }
 }
 
+// ------------------------------------------------- CUDA-core family (simt)
+// fp32 inputs, and the 16-bit calls the tensor-core kernels above do not
+// take (a block that is not a multiple of 16 or above 128, a head_dim
+// other than 64 / 128).  One warp a query row (forward, dq) or key row (dk/dv), 8 warps a
+// block; lane l owns the columns l, l + 32, ... of the row (VEC = HD / 32,
+// past p.hd zero), and a warp reduction gives each score.  The warp walks
+// the same tables as the tensor-core kernels at the layout's own block
+// size, so a dead block - any size, 8 x 8 included - is never read; rows
+// are read straight from device memory (L1 keeps the block's shared keys).
+// The arithmetic is the plain version's: fp32 scores, probabilities (ds)
+// rounded to the input type before their products.
+constexpr int kSimtWarps = 8;
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kSimtWarps * 32) sparse_fwd_simt(SparseArgs p) {
+  constexpr int VEC = HD / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qpos = blockIdx.x * kSimtWarps + warp;  // T % 8 == 0: every row exists
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (p.N / p.Nkv);
+  const int ib = qpos / p.bs;
+  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+  float qr[VEC];
+  ld_cols_t<T, VEC>(qb + (long long)qpos * p.q_st, lane, p.hd, qr);
+  RowState<VEC> st;
+  st.init();
+  const int n = p.cnt[ib];
+  const int* cols = p.tab + (long long)ib * p.tab_w;
+  for (int it = 0; it < n; ++it) {
+    const int k0 = cols[it] * p.bs;
+    const int k1 = p.causal ? min(k0 + p.bs, qpos + 1) : k0 + p.bs;
+    for (int kpos = k0; kpos < k1; ++kpos) {
+      float kr[VEC], vr[VEC];
+      ld_cols_t<T, VEC>(kb + (long long)kpos * p.k_st, lane, p.hd, kr);
+      ld_cols_t<T, VEC>(vb + (long long)kpos * p.v_st, lane, p.hd, vr);
+      st.template update<T>(warp_sum_dot<VEC>(qr, kr) * p.scale, vr);
+    }
+  }
+  const float ll = st.l == 0.f ? 1.f : st.l;  // dead row block: zeros, lse -1e30
+  st_cols_t<T, VEC>(static_cast<T*>(p.o) + (((long long)b * p.T + qpos) * p.N + h) * p.hd, lane,
+                    p.hd, st.acc, 1.f / ll);
+  if (lane == 0) p.lse_out[((long long)b * p.N + h) * p.T + qpos] = st.m + logf(ll);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kSimtWarps * 32) sparse_dq_simt(SparseArgs p) {
+  constexpr int VEC = HD / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qpos = blockIdx.x * kSimtWarps + warp;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (p.N / p.Nkv);
+  const int ib = qpos / p.bs;
+  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
+  const long long row = ((long long)b * p.T + qpos) * p.N + h;
+  const long long r = ((long long)b * p.N + h) * p.T + qpos;
+  const float lse = p.lse[r], delta = p.delta[r];
+  float qr[VEC], dor[VEC], acc[VEC];
+  ld_cols_t<T, VEC>(qb + (long long)qpos * p.q_st, lane, p.hd, qr);
+  ld_cols_t<T, VEC>(static_cast<const T*>(p.dout) + row * p.hd, lane, p.hd, dor);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+  const int n = lse > 0.5f * kNegInf ? p.cnt[ib] : 0;  // a dead row: zeros
+  const int* cols = p.tab + (long long)ib * p.tab_w;
+  for (int it = 0; it < n; ++it) {
+    const int k0 = cols[it] * p.bs;
+    const int k1 = p.causal ? min(k0 + p.bs, qpos + 1) : k0 + p.bs;
+    for (int kpos = k0; kpos < k1; ++kpos) {
+      float kr[VEC], vr[VEC];
+      ld_cols_t<T, VEC>(kb + (long long)kpos * p.k_st, lane, p.hd, kr);
+      ld_cols_t<T, VEC>(vb + (long long)kpos * p.v_st, lane, p.hd, vr);
+      const float s = warp_sum_dot<VEC>(qr, kr) * p.scale;
+      const float dp = warp_sum_dot<VEC>(dor, vr);
+      const float ds = Bits<T>::round(expf(s - lse) * (dp - delta) * p.scale);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] += ds * kr[j];
+    }
+  }
+  st_cols_t<T, VEC>(static_cast<T*>(p.dq) + row * p.hd, lane, p.hd, acc, 1.f);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kSimtWarps * 32) sparse_dkv_simt(SparseArgs p) {
+  constexpr int VEC = HD / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kpos = blockIdx.x * kSimtWarps + warp;
+  const int hk = blockIdx.y, b = blockIdx.z, group = p.N / p.Nkv;
+  const int jb = kpos / p.bs;
+  float kr[VEC], vr[VEC], dk[VEC], dv[VEC];
+  ld_cols_t<T, VEC>(static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh +
+                        (long long)kpos * p.k_st, lane, p.hd, kr);
+  ld_cols_t<T, VEC>(static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh +
+                        (long long)kpos * p.v_st, lane, p.hd, vr);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) dk[j] = dv[j] = 0.f;
+  const int n = p.cnt[jb];
+  const int* rows = p.tab + (long long)jb * p.tab_w;
+  for (int g = 0; g < group; ++g) {
+    const int h = hk * group + g;
+    const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
+    for (int it = 0; it < n; ++it) {
+      const int r0 = rows[it] * p.bs;
+      for (int qpos = p.causal ? max(r0, kpos) : r0; qpos < r0 + p.bs; ++qpos) {
+        const long long r = ((long long)b * p.N + h) * p.T + qpos;
+        const float lse = p.lse[r];
+        if (lse <= 0.5f * kNegInf) continue;  // a dead row adds nothing
+        float qr[VEC], dor[VEC];
+        ld_cols_t<T, VEC>(qb + (long long)qpos * p.q_st, lane, p.hd, qr);
+        ld_cols_t<T, VEC>(static_cast<const T*>(p.dout) +
+                              (((long long)b * p.T + qpos) * p.N + h) * p.hd, lane, p.hd, dor);
+        const float pr = expf(warp_sum_dot<VEC>(qr, kr) * p.scale - lse);
+        const float ds = pr * (warp_sum_dot<VEC>(dor, vr) - p.delta[r]) * p.scale;
+        const float prr = Bits<T>::round(pr), dsr = Bits<T>::round(ds);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          dv[j] += prr * dor[j];
+          dk[j] += dsr * qr[j];
+        }
+      }
+    }
+  }
+  const long long out = (((long long)b * p.T + kpos) * p.Nkv + hk) * p.hd;
+  st_cols_t<T, VEC>(static_cast<T*>(p.dk) + out, lane, p.hd, dk, 1.f);
+  st_cols_t<T, VEC>(static_cast<T*>(p.dv) + out, lane, p.hd, dv, 1.f);
+}
+
 // ----------------------------------------------------------------- launchers
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
@@ -533,19 +661,47 @@ cudaError_t launch_sparse_t(int which, SparseArgs a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_sparse(int which, int hd, int dtype, const SparseArgs& a,
-                                 void* stream) {
+template <typename T, int HD>
+cudaError_t launch_simt_t(int which, const SparseArgs& a, cudaStream_t st) {
+  const dim3 grid(a.T / kSimtWarps, which == kDkv ? a.Nkv : a.N, a.B);
+  if (which == kFwd)
+    sparse_fwd_simt<T, HD><<<grid, kSimtWarps * 32, 0, st>>>(a);
+  else if (which == kDq)
+    sparse_dq_simt<T, HD><<<grid, kSimtWarps * 32, 0, st>>>(a);
+  else
+    sparse_dkv_simt<T, HD><<<grid, kSimtWarps * 32, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// the CUDA-core family's widths: head_dim padded up to the first that holds it
+template <typename T>
+cudaError_t launch_simt(int which, const SparseArgs& a, cudaStream_t st) {
+  if (a.hd <= 64) return launch_simt_t<T, 64>(which, a, st);
+  if (a.hd <= 128) return launch_simt_t<T, 128>(which, a, st);
+  return launch_simt_t<T, 256>(which, a, st);
+}
+
+// The tensor-core kernels take 16-bit inputs, head_dim 64 or 128 and a
+// block that is a multiple of 16 up to 128; every other call the C
+// interface takes (fp32, any block that is a multiple of 8, head_dim a
+// multiple of 8 up to 256) runs on the CUDA-core family.
+inline cudaError_t launch_sparse(int which, int dtype, const SparseArgs& a, void* stream) {
   if (a.B < 1 || a.T < 1 || a.N < 1 || a.Nkv < 1 || a.N % a.Nkv != 0 || a.B > 65535 ||
-      a.N > 65535 || a.bs < 16 || a.bs > 128 || a.bs % 16 != 0 || a.T % a.bs != 0 ||
-      a.tab_w < 1)
+      a.N > 65535 || a.bs < 8 || a.bs % 8 != 0 || a.T % a.bs != 0 || a.tab_w < 1 ||
+      a.hd < 8 || a.hd > 256 || a.hd % 8 != 0)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  const bool mma = a.bs % 16 == 0 && a.bs <= 128 && (a.hd == 64 || a.hd == 128);
+  if (dtype == 0) return launch_simt<float>(which, a, st);
   if (dtype == 1) {
-    if (hd == 64) return launch_sparse_t<__half, 64>(which, a, st);
-    if (hd == 128) return launch_sparse_t<__half, 128>(which, a, st);
-  } else if (dtype == 2) {
-    if (hd == 64) return launch_sparse_t<__nv_bfloat16, 64>(which, a, st);
-    if (hd == 128) return launch_sparse_t<__nv_bfloat16, 128>(which, a, st);
+    if (!mma) return launch_simt<__half>(which, a, st);
+    if (a.hd == 64) return launch_sparse_t<__half, 64>(which, a, st);
+    return launch_sparse_t<__half, 128>(which, a, st);
+  }
+  if (dtype == 2) {
+    if (!mma) return launch_simt<__nv_bfloat16>(which, a, st);
+    if (a.hd == 64) return launch_sparse_t<__nv_bfloat16, 64>(which, a, st);
+    return launch_sparse_t<__nv_bfloat16, 128>(which, a, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -556,7 +712,8 @@ inline cudaError_t launch_sparse(int which, int hd, int dtype, const SparseArgs&
 // (batch, token, head; head_dim contiguous); o, dout, dq [B, T, N, hd] and
 // dk, dv [B, T, Nkv, hd] contiguous; lse, delta [B, N, T] fp32; tab
 // [T/bs, tab_w] int32 and cnt [T/bs] int32 on the device (fwd / dq: the
-// row-major table, dkv: the column-major one).  dtype: 1 fp16, 2 bf16.
+// row-major table, dkv: the column-major one).  dtype: 0 fp32, 1 fp16,
+// 2 bf16.
 extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v, const void* tab,
                              const void* cnt, int tab_w, void* o, void* lse, int B, int T, int N,
                              int Nkv, int hd, int bs, long long q_sb, long long q_st,
@@ -567,11 +724,11 @@ extern "C" int ds_sparse_fwd(const void* q, const void* k, const void* v, const 
   a.q = q; a.k = k; a.v = v;
   a.tab = static_cast<const int*>(tab); a.cnt = static_cast<const int*>(cnt); a.tab_w = tab_w;
   a.o = o; a.lse_out = static_cast<float*>(lse);
-  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs; a.hd = hd;
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal;
-  return (int)dsk::launch_sparse(dsk::kFwd, hd, dtype, a, stream);
+  return (int)dsk::launch_sparse(dsk::kFwd, dtype, a, stream);
 }
 
 // which: 1 writes dq, 2 writes dk and dv (the pointers not written may be null)
@@ -588,9 +745,9 @@ extern "C" int ds_sparse_bwd(int which, const void* q, const void* k, const void
   a.lse = static_cast<const float*>(lse); a.delta = static_cast<const float*>(delta);
   a.tab = static_cast<const int*>(tab); a.cnt = static_cast<const int*>(cnt); a.tab_w = tab_w;
   a.dq = dq; a.dk = dk; a.dv = dv;
-  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs; a.hd = hd;
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal;
-  return (int)dsk::launch_sparse(which, hd, dtype, a, stream);
+  return (int)dsk::launch_sparse(which, dtype, a, stream);
 }

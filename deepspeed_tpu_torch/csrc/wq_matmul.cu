@@ -16,63 +16,74 @@
 // What bounds it on the H100: at decode (M = 16 serving slots) the BYTES of
 // the weight — 1 byte of code (1/2 for int4) + 4/g bytes of scale per
 // parameter against 2*M flops per parameter, far below the ~295 flop/byte
-// ridge.  So the design point is that every weight byte is read from HBM
-// once: the grid covers N (one 128-column tile a block), and a block loops
-// over its share of K, so for M <= 64 no code byte is read twice.  A block
-// keeps only one 16 KB step of codes in flight, so few blocks leave HBM
-// idle: where the column tiles are fewer than two waves of the card (k / v:
-// 8 tiles), K is split across blocks (split-K) until there are, each split
-// writing fp32 partials that a second small kernel sums in a fixed order
-// and casts once.  At prefill sizes (M = 256: 4 row tiles) the products do
-// enough work per byte that the tensor cores matter:
-//   - 16-bit x: mma.sync m16n8k16 (fp32 accumulate); 8 warps a block, each
-//     owning 16 output columns over the 64-row tile; row tiles past M are
-//     skipped (decode runs one of four).
-//   - the block walks K in 128-deep steps: for g <= 128 (g | 128) a step
-//     holds 128/g whole groups and a scale row per group, for g > 128 (a
-//     multiple of 128) it lies inside one group and needs its one scale
-//     row, k0 / g; the x tile, the code tile and
-//     its scale rows stream into shared memory with 16-byte cp.async,
-//     double-buffered (the next step's bytes are in flight while this step
-//     dequantizes and multiplies); the code tile is then dequantized into a
-//     16-bit tile in the layout the B fragments read ([k][n] for modes 0/2,
-//     [n][k] for mode 1, 8-element row pads against bank conflicts).
-//   - fp32 x: a CUDA-core version (32 x 64 tiles, same dequantization),
-//     used where exact fp32 is the point (tests, cuda-vs-cpu parity).
+// ridge; at prefill (M = 256) the OPERATIONS (2*256 flops a weight byte).
+//
+// Modes 0 and 2 with 16-bit x: wq_wgmma_kernel, warp-specialised for the
+// tensor cores' asynchronous product (wgmma).  A block owns a 128-column
+// tile over up to 256 rows of x, so each code byte is read and dequantized
+// once for every row (M above 256 takes further row blocks).  It walks its
+// share of K in 64-deep stages through a ring of 3-8 shared-memory stages
+// (as many as fit: 3 at M 256, 6 at M <= 64), each with three mbarriers:
+//   - warp 0 (producer): one thread keeps the TMA tensor copies of the x
+//     tile (landing in wgmma's 128-byte swizzle), the code tile and its
+//     scale rows in flight, three a stage, and the "raw full" barrier
+//     completes on their bytes (one warp's 16-byte cp.async through L1
+//     was the M-256 products' bottleneck);
+//   - warps 1-7 (dequantizers) turn the staged codes into the 16-bit B tile
+//     [128 n][64 k], K-major in the 128-byte swizzle that wgmma reads, and
+//     signal "B full" - so dequantizing stage k+1 overlaps the product of
+//     stage k;
+//   - warpgroups 2 and 3 (consumers) each own two 64-row tiles (rows 0-63
+//     and 128-191, 64-127 and 192-255) and run wgmma m64n128k16 with fp32
+//     accumulators straight from shared memory, then signal "empty".
+// Where the column tiles (times the row blocks) are fewer than the SMs, K
+// is split across blocks (split-K, from shapes alone: no host sync), each
+// split writing fp32 partials that wq_reduce_kernel sums in a fixed order
+// and casts once, so y does not depend on the run.
+//
+// Mode 1 (16-bit x): wq_mma_kernel, mma.sync m16n8k16 over 64 x 128 tiles
+// with cp.async double buffering; fp32 x (any mode): wq_simt_kernel, a
+// CUDA-core version used where exact fp32 is the point (tests, parity).
 // Code rows whose length or base is not 16-byte aligned are loaded element
-// by element.  wgmma, TMA and a deeper pipeline are later work.
+// by element (the wgmma kernel's producer then stages x by cp.async).
 #include "paged_common.cuh"
+
+#include <cuda.h>
 
 #include <algorithm>
 
 namespace dsk {
 
+enum { kW8 = 0, kW8T = 1, kW4 = 2 };
+
+// the low / high 4-bit code of a sign-extended byte, sign-extended
+__device__ __forceinline__ int nibble_lo(int b) { return (int)((unsigned)b << 28) >> 28; }
+__device__ __forceinline__ int nibble_hi(int b) { return b >> 4; }
+
+// ------------------------------------------------- mode 1: mma.sync tiles
 constexpr int WQ_BM = 64;        // output rows a block
 constexpr int WQ_BN = 128;       // output columns a block
 constexpr int WQ_KT = 128;       // contraction depth a step
 constexpr int WQ_THREADS = 256;  // 8 warps
 constexpr int WQ_LDX = WQ_KT + 8;  // x tile row (elements)
-constexpr int WQ_LDW = WQ_BN + 8;  // [k][n] dequantized tile row (modes 0, 2)
-constexpr int WQ_LDT = WQ_KT + 8;  // [n][k] dequantized tile row (mode 1)
-constexpr int WQ_SROWS = 8;        // scale rows a step holds at most (g >= 16)
-
-enum { kW8 = 0, kW8T = 1, kW4 = 2 };
+constexpr int WQ_LDT = WQ_KT + 8;  // [n][k] dequantized tile row
+constexpr int WQ_SROWS = 8;        // scale rows a tile holds at most (g >= 16)
 
 template <typename T>
 struct WqSmem {
   static constexpr size_t x_elems = (size_t)WQ_BM * WQ_LDX;
   static constexpr size_t code_bytes = (size_t)WQ_KT * WQ_BN;
-  static constexpr size_t scale_floats = (size_t)WQ_SROWS * WQ_KT;  // >= 8*BN too
-  static constexpr size_t w_elems = (size_t)WQ_KT * WQ_LDW;        // == BN*LDT
+  static constexpr size_t scale_floats = (size_t)WQ_SROWS * WQ_KT;
+  static constexpr size_t w_elems = (size_t)WQ_BN * WQ_LDT;
   static constexpr size_t bytes = 2 * x_elems * sizeof(T) + 2 * code_bytes +
                                   2 * scale_floats * sizeof(float) + w_elems * sizeof(T);
 };
 
-// Stage one K step (k0 .. k0+kc) of x, the codes and their scale rows into
-// one shared-memory buffer set, and commit one cp.async group.  Rows of x
-// past M and code columns past N are not loaded: they only ever feed output
-// rows / columns that are not stored.
-template <typename T, int MODE>
+// Stage one K step (k0 .. k0+kc) of x, the codes [V, H] and their scale
+// rows into one shared-memory buffer set, and commit one cp.async group.
+// Rows of x past M and code rows past N are not loaded: they only ever feed
+// output rows / columns that are not stored.
+template <typename T>
 __device__ __forceinline__ void wq_stage(const T* __restrict__ x, const int8_t* __restrict__ codes,
                                          const float* __restrict__ scales, T* xs, int8_t* cs,
                                          float* ss, int M, int N, int K, int g, int m0, int n0,
@@ -85,124 +96,56 @@ __device__ __forceinline__ void wq_stage(const T* __restrict__ x, const int8_t* 
     const int r = c / xch, cc = c % xch;
     cp_async16(xs + r * WQ_LDX + cc * XCH, x + (size_t)(m0 + r) * K + k0 + cc * XCH);
   }
-  if constexpr (MODE == kW8T) {
-    // codes [V, H]: rows n0.. (live: < N), columns k0..k0+kc -> cs[n][KT]
-    const int nrows = min(WQ_BN, N - n0);
-    if (aligned) {
-      const int ch = kc / 16;
-      for (int c = tid; c < nrows * ch; c += WQ_THREADS) {
-        const int r = c / ch, cc = c % ch;
-        cp_async16(cs + r * WQ_KT + cc * 16, codes + (size_t)(n0 + r) * K + k0 + cc * 16);
-      }
-    } else {
-      for (int c = tid; c < nrows * kc; c += WQ_THREADS) {
-        const int r = c / kc, cc = c % kc;
-        cs[r * WQ_KT + cc] = codes[(size_t)(n0 + r) * K + k0 + cc];
-      }
-    }
-    // scales [V/g, H]: rows n0/g .. (live), columns k0..k0+kc -> ss[j][KT];
-    // a group of g >= BN columns covers the whole tile with one row
-    const int srows = g >= WQ_BN ? 1 : min(WQ_BN / g, (N - n0 + g - 1) / g);
-    if (aligned) {
-      const int ch = kc / 4;
-      for (int c = tid; c < srows * ch; c += WQ_THREADS) {
-        const int r = c / ch, cc = c % ch;
-        cp_async16(ss + r * WQ_KT + cc * 4, scales + (size_t)(n0 / g + r) * K + k0 + cc * 4);
-      }
-    } else {
-      for (int c = tid; c < srows * kc; c += WQ_THREADS) {
-        const int r = c / kc, cc = c % kc;
-        ss[r * WQ_KT + cc] = scales[(size_t)(n0 / g + r) * K + k0 + cc];
-      }
+  // codes: rows n0.. (live: < N), columns k0..k0+kc -> cs[n][KT]
+  const int nrows = min(WQ_BN, N - n0);
+  if (aligned) {
+    const int ch = kc / 16;
+    for (int c = tid; c < nrows * ch; c += WQ_THREADS) {
+      const int r = c / ch, cc = c % ch;
+      cp_async16(cs + r * WQ_KT + cc * 16, codes + (size_t)(n0 + r) * K + k0 + cc * 16);
     }
   } else {
-    // codes [K, N] (mode 2: [K/2, N] bytes): rows of this step, columns
-    // n0 .. n0+BN (live: < N) -> cs[row][BN]
-    const int crow0 = MODE == kW4 ? k0 / 2 : k0;
-    const int crows = MODE == kW4 ? kc / 2 : kc;
-    const int ncols = min(WQ_BN, N - n0);
-    if (aligned) {  // N % 16 == 0: a 16-byte chunk is wholly in or out
-      const int ch = (ncols + 15) / 16;
-      for (int c = tid; c < crows * ch; c += WQ_THREADS) {
-        const int r = c / ch, cc = c % ch;
-        cp_async16(cs + r * WQ_BN + cc * 16, codes + (size_t)(crow0 + r) * N + n0 + cc * 16);
-      }
-    } else {
-      for (int c = tid; c < crows * ncols; c += WQ_THREADS) {
-        const int r = c / ncols, cc = c % ncols;
-        cs[r * WQ_BN + cc] = codes[(size_t)(crow0 + r) * N + n0 + cc];
-      }
+    for (int c = tid; c < nrows * kc; c += WQ_THREADS) {
+      const int r = c / kc, cc = c % kc;
+      cs[r * WQ_KT + cc] = codes[(size_t)(n0 + r) * K + k0 + cc];
     }
-    // scales [K/g, N]: kc/g rows -> ss[j][BN]; a group of g > KT rows holds
-    // the whole step, one row (k0 / g)
-    const int srows = g > WQ_KT ? 1 : kc / g;
-    if (aligned) {
-      const int ch = (ncols + 3) / 4;
-      for (int c = tid; c < srows * ch; c += WQ_THREADS) {
-        const int r = c / ch, cc = c % ch;
-        cp_async16(ss + r * WQ_BN + cc * 4, scales + (size_t)(k0 / g + r) * N + n0 + cc * 4);
-      }
-    } else {
-      for (int c = tid; c < srows * ncols; c += WQ_THREADS) {
-        const int r = c / ncols, cc = c % ncols;
-        ss[r * WQ_BN + cc] = scales[(size_t)(k0 / g + r) * N + n0 + cc];
-      }
+  }
+  // scales [V/g, H]: rows n0/g .. (live), columns k0..k0+kc -> ss[j][KT];
+  // a group of g >= BN columns covers the whole tile with one row
+  const int srows = g >= WQ_BN ? 1 : min(WQ_BN / g, (N - n0 + g - 1) / g);
+  if (aligned) {
+    const int ch = kc / 4;
+    for (int c = tid; c < srows * ch; c += WQ_THREADS) {
+      const int r = c / ch, cc = c % ch;
+      cp_async16(ss + r * WQ_KT + cc * 4, scales + (size_t)(n0 / g + r) * K + k0 + cc * 4);
+    }
+  } else {
+    for (int c = tid; c < srows * kc; c += WQ_THREADS) {
+      const int r = c / kc, cc = c % kc;
+      ss[r * WQ_KT + cc] = scales[(size_t)(n0 / g + r) * K + k0 + cc];
     }
   }
   cp_async_commit();
 }
 
-// the low / high 4-bit code of a sign-extended byte, sign-extended
-__device__ __forceinline__ int nibble_lo(int b) { return (int)((unsigned)b << 28) >> 28; }
-__device__ __forceinline__ int nibble_hi(int b) { return b >> 4; }
-
-// Dequantize the staged step into the 16-bit tile wd: code * scale in fp32,
-// rounded once to T.  Tile-local k / g (n / g) picks the staged scale row:
-// the step (tile) starts on a group boundary, and for g above the step's
-// depth (width) every local index maps to row 0.
-template <typename T, int MODE>
+// Dequantize the staged step into the 16-bit tile wd [n][k]: code * scale
+// in fp32, rounded once to T.  Tile-local n / g picks the staged scale row:
+// the tile starts on a group boundary, and for g above its width every
+// local index maps to row 0.
+template <typename T>
 __device__ __forceinline__ void wq_dequant(const int8_t* cs, const float* ss, T* wd, int g,
                                            int kc) {
-  const int tid = threadIdx.x;
-  if constexpr (MODE == kW8T) {
-    const int per_row = kc / 4;
-    for (int i = tid; i < WQ_BN * per_row; i += WQ_THREADS) {
-      const int n = i / per_row, k = (i % per_row) * 4;
-      const char4 c = *reinterpret_cast<const char4*>(cs + n * WQ_KT + k);
-      const float4 s = *reinterpret_cast<const float4*>(ss + (n / g) * WQ_KT + k);
-      const float v[4] = {(float)c.x * s.x, (float)c.y * s.y, (float)c.z * s.z, (float)c.w * s.w};
-      store4<T>(wd + n * WQ_LDT + k, v);
-    }
-  } else if constexpr (MODE == kW8) {
-    constexpr int per_row = WQ_BN / 4;
-    for (int i = tid; i < kc * per_row; i += WQ_THREADS) {
-      const int k = i / per_row, n = (i % per_row) * 4;
-      const char4 c = *reinterpret_cast<const char4*>(cs + k * WQ_BN + n);
-      const float4 s = *reinterpret_cast<const float4*>(ss + (k / g) * WQ_BN + n);
-      const float v[4] = {(float)c.x * s.x, (float)c.y * s.y, (float)c.z * s.z, (float)c.w * s.w};
-      store4<T>(wd + k * WQ_LDW + n, v);
-    }
-  } else {
-    constexpr int per_row = WQ_BN / 4;
-    for (int i = tid; i < (kc / 2) * per_row; i += WQ_THREADS) {
-      const int kk = i / per_row, n = (i % per_row) * 4;
-      const char4 c = *reinterpret_cast<const char4*>(cs + kk * WQ_BN + n);
-      const float4 s = *reinterpret_cast<const float4*>(ss + ((2 * kk) / g) * WQ_BN + n);
-      const int b[4] = {c.x, c.y, c.z, c.w};  // sign-extended bytes
-      const float sc[4] = {s.x, s.y, s.z, s.w};
-      float lo[4], hi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lo[j] = (float)nibble_lo(b[j]) * sc[j];
-        hi[j] = (float)nibble_hi(b[j]) * sc[j];
-      }
-      store4<T>(wd + (2 * kk) * WQ_LDW + n, lo);
-      store4<T>(wd + (2 * kk + 1) * WQ_LDW + n, hi);
-    }
+  const int per_row = kc / 4;
+  for (int i = threadIdx.x; i < WQ_BN * per_row; i += WQ_THREADS) {
+    const int n = i / per_row, k = (i % per_row) * 4;
+    const char4 c = *reinterpret_cast<const char4*>(cs + n * WQ_KT + k);
+    const float4 s = *reinterpret_cast<const float4*>(ss + (n / g) * WQ_KT + k);
+    const float v[4] = {(float)c.x * s.x, (float)c.y * s.y, (float)c.z * s.z, (float)c.w * s.w};
+    store4<T>(wd + n * WQ_LDT + k, v);
   }
 }
 
-template <typename T, int MODE>
+template <typename T>
 __global__ void __launch_bounds__(WQ_THREADS) wq_mma_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ codes, const float* __restrict__ scales,
     T* __restrict__ y, float* __restrict__ part, int M, int N, int K, int g, int per,
@@ -231,39 +174,31 @@ __global__ void __launch_bounds__(WQ_THREADS) wq_mma_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
 
-  wq_stage<T, MODE>(x, codes, scales, xs, cs, ss, M, N, K, g, m0, n0, s0 * WQ_KT,
-                    min(WQ_KT, K - s0 * WQ_KT), aligned != 0);
+  wq_stage<T>(x, codes, scales, xs, cs, ss, M, N, K, g, m0, n0, s0 * WQ_KT,
+              min(WQ_KT, K - s0 * WQ_KT), aligned != 0);
   for (int step = s0; step < s1; ++step) {
     const int b = (step - s0) & 1;
     const int k0 = step * WQ_KT, kc = min(WQ_KT, K - k0);
     if (step + 1 < s1) {
       const int k1 = k0 + WQ_KT;
-      wq_stage<T, MODE>(x, codes, scales, xs + (b ^ 1) * L::x_elems,
-                        cs + (b ^ 1) * L::code_bytes, ss + (b ^ 1) * L::scale_floats, M, N, K,
-                        g, m0, n0, k1, min(WQ_KT, K - k1), aligned != 0);
+      wq_stage<T>(x, codes, scales, xs + (b ^ 1) * L::x_elems, cs + (b ^ 1) * L::code_bytes,
+                  ss + (b ^ 1) * L::scale_floats, M, N, K, g, m0, n0, k1, min(WQ_KT, K - k1),
+                  aligned != 0);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    wq_dequant<T, MODE>(cs + b * L::code_bytes, ss + b * L::scale_floats, wd, g, kc);
+    wq_dequant<T>(cs + b * L::code_bytes, ss + b * L::scale_floats, wd, g, kc);
     __syncthreads();
     const T* xb = xs + b * L::x_elems;
-    const unsigned short* w16 = reinterpret_cast<const unsigned short*>(wd);
     for (int ks = 0; ks < kc / 16; ++ks) {
       uint32_t bf[2][2];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        const int n = warp * 16 + nt * 8 + grp;
-        if constexpr (MODE == kW8T) {
-          const T* wr = wd + n * WQ_LDT + ks * 16 + 2 * tig;
-          bf[nt][0] = *reinterpret_cast<const uint32_t*>(wr);
-          bf[nt][1] = *reinterpret_cast<const uint32_t*>(wr + 8);
-        } else {
-          const unsigned short* wc = w16 + (ks * 16 + 2 * tig) * WQ_LDW + n;
-          bf[nt][0] = (uint32_t)wc[0] | ((uint32_t)wc[WQ_LDW] << 16);
-          bf[nt][1] = (uint32_t)wc[8 * WQ_LDW] | ((uint32_t)wc[9 * WQ_LDW] << 16);
-        }
+        const T* wr = wd + (warp * 16 + nt * 8 + grp) * WQ_LDT + ks * 16 + 2 * tig;
+        bf[nt][0] = *reinterpret_cast<const uint32_t*>(wr);
+        bf[nt][1] = *reinterpret_cast<const uint32_t*>(wr + 8);
       }
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
@@ -300,6 +235,330 @@ __global__ void __launch_bounds__(WQ_THREADS) wq_mma_kernel(
         T* yr = y + (size_t)row * N;
         if (col < N) yr[col] = Bits<T>::from_f(acc[mt][nt][2 * h]);
         if (col + 1 < N) yr[col + 1] = Bits<T>::from_f(acc[mt][nt][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// --------------------------------------------- modes 0 and 2: wgmma ring
+constexpr int WG_BN = 128;        // output columns a block (one wgmma n128)
+constexpr int WG_BM = 256;        // rows of x a block: 4 m64 tiles
+constexpr int WG_BK = 64;         // contraction depth a stage: one 128-byte row
+constexpr int WG_THREADS = 512;   // 2 producer / dequantizer warpgroups, 2 consumers
+constexpr int WG_DQ = 224;        // dequantizer threads (warps 1-7)
+// registers a thread after the split: the producer / dequantizer warpgroups
+// give back what the consumers' two 64 x 128 fp32 accumulators need
+constexpr int WG_REG_DQ = 96, WG_REG_MMA = 160;
+constexpr int WG_MAX_STAGES = 8;
+constexpr int WG_SROWS = WG_BK / 16;  // scale rows a stage holds at most (g >= 16)
+// a stage: x [xrows][64] (swizzled), B [128 n][64 k] (swizzled), codes
+// [64][128] bytes, scale rows [4][128] fp32 - every part 1024-byte aligned
+constexpr int WG_B_BYTES = WG_BN * 128;
+constexpr int WG_C_BYTES = WG_BK * WG_BN;
+constexpr int WG_S_BYTES = WG_SROWS * WG_BN * 4;
+constexpr int WG_FIXED = WG_B_BYTES + WG_C_BYTES + WG_S_BYTES;
+constexpr int WG_BAR_BYTES = 3 * WG_MAX_STAGES * 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Wait for the phase of `parity` to complete.  A wait that outlasts ~10 s
+// of SM clocks traps: a broken ring fails the launch instead of hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (unsigned n = 0;; ++n) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((n & 1023) == 0) {
+      const long long t = clock64();
+      if (t0 == 0) t0 = t;
+      else if (t - t0 > 20000000000LL) __trap();
+    }
+  }
+}
+// arrive once and expect `bytes` of tensor copies to land on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// one 2-D tile of a tensor map (TMA): coordinates innermost first
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// generic-proxy shared-memory writes -> visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (SBO); the start address steps by 32 bytes per k16.
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define DSK_ACC8(b)                                                                    \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),      \
+      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define DSK_WGMMA_N128(TY)                                                              \
+  asm volatile(                                                                         \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                                    \
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                     \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                   \
+      : DSK_ACC8(0), DSK_ACC8(8), DSK_ACC8(16), DSK_ACC8(24), DSK_ACC8(32), DSK_ACC8(40), \
+        DSK_ACC8(48), DSK_ACC8(56)                                                      \
+      : "l"(da), "l"(db), "r"(1))
+
+// d[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, both K-major in shared memory
+template <typename T> struct Wgmma;
+template <> struct Wgmma<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db) {
+    DSK_WGMMA_N128("bf16");
+  }
+};
+template <> struct Wgmma<__half> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db) {
+    DSK_WGMMA_N128("f16");
+  }
+};
+#undef DSK_WGMMA_N128
+#undef DSK_ACC8
+
+// pin the accumulator registers here: no read or write of them moves across
+// a wgmma fence / wait
+__device__ __forceinline__ void wg_fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) : : "memory");
+}
+
+// code -> fp32 exactly (sign-extended int in [-128, 127]): 2^23 + 128 + c
+// read as a float, minus 2^23 + 128
+__device__ __forceinline__ float code_f(int c) {
+  return __fsub_rn(__int_as_float(0x4B000080 + c), 8388736.f);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(WG_THREADS, 1) wq_wgmma_kernel(
+    const T* __restrict__ x, const int8_t* __restrict__ codes, const float* __restrict__ scales,
+    T* __restrict__ y, float* __restrict__ part, int M, int N, int K, int g, int per, int nst,
+    int xrows, int aligned, const __grid_constant__ CUtensorMap tmx,
+    const __grid_constant__ CUtensorMap tmc, const __grid_constant__ CUtensorMap tms) {
+  // dynamic shared memory only (a static part would lower the opt-in cap):
+  // the mbarriers, then the ring aligned to 1024 bytes, where the swizzle
+  // pattern repeats
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(smem_raw);  // copies landed
+  uint64_t* b_full = raw_full + WG_MAX_STAGES;                  // B tile dequantized
+  uint64_t* empty = raw_full + 2 * WG_MAX_STAGES;               // consumers done
+  unsigned char* ring = smem_raw + WG_BAR_BYTES;
+  ring += (1024 - (smem_u32(ring) & 1023)) & 1023;
+  const int x_bytes = xrows * 128;
+  const int stage_bytes = x_bytes + WG_FIXED;
+
+  const int n0 = blockIdx.x * WG_BN, m0 = blockIdx.z * WG_BM;
+  const int s0 = blockIdx.y * per;
+  const int nit = min(s0 + per, (K + WG_BK - 1) / WG_BK) - s0;
+  const int mrows = min(WG_BM, M - m0);
+  const int mtiles = (mrows + 63) / 64;
+  const int consumers = min(2, mtiles);
+  const int wg = threadIdx.x / 128;
+  const int gshift = __ffs(g) - 1;  // g is a power of two
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&raw_full[s], aligned ? 1 : 32);
+      mbar_init(&b_full[s], WG_DQ);
+      mbar_init(&empty[s], 128 * consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg < 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_REG_DQ));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0) {
+      // ---- producer: the x tile, the code tile and the scale rows of
+      // each stage
+      const int crows = MODE == kW4 ? WG_BK / 2 : WG_BK;   // code rows a stage
+      const int srows = g > WG_BK ? 1 : WG_BK >> gshift;    // scale rows a stage
+      if (aligned) {
+        // TMA: one thread issues three tensor copies a stage; the x tile
+        // lands in the 128-byte swizzle wgmma reads, rows past M, K or N
+        // are zero-filled, and the barrier completes on the bytes
+        if (lane == 0)
+          for (int it = 0; it < nit; ++it) {
+            const int s = it % nst;
+            if (it >= nst) mbar_wait(&empty[s], (it / nst - 1) & 1);
+            unsigned char* st = ring + (size_t)s * stage_bytes;
+            const int k0 = (s0 + it) * WG_BK;
+            mbar_expect_tx(&raw_full[s], x_bytes + crows * WG_BN + srows * WG_BN * 4);
+            tma_load_2d(st, &tmx, k0, m0, &raw_full[s]);
+            tma_load_2d(st + x_bytes + WG_B_BYTES, &tmc, n0, MODE == kW4 ? k0 / 2 : k0,
+                        &raw_full[s]);
+            tma_load_2d(st + x_bytes + WG_B_BYTES + WG_C_BYTES, &tms, n0, k0 >> gshift,
+                        &raw_full[s]);
+          }
+      } else {
+        // code or scale rows not 16-byte aligned: x by 16-byte cp.async,
+        // codes and scales element by element
+        for (int it = 0; it < nit; ++it) {
+          const int s = it % nst;
+          if (it >= nst) mbar_wait(&empty[s], (it / nst - 1) & 1);
+          unsigned char* st = ring + (size_t)s * stage_bytes;
+          int8_t* cs = reinterpret_cast<int8_t*>(st + x_bytes + WG_B_BYTES);
+          float* ss = reinterpret_cast<float*>(st + x_bytes + WG_B_BYTES + WG_C_BYTES);
+          const int k0 = (s0 + it) * WG_BK, kc = min(WG_BK, K - k0);
+          const T* xs = x + (size_t)m0 * K + k0;
+          const int xch = kc / 8;
+          for (int c = lane; c < mrows * xch; c += 32) {
+            const int r = c / xch, cc = c % xch;
+            cp_async16(st + r * 128 + ((cc ^ (r & 7)) << 4), xs + (size_t)r * K + cc * 8);
+          }
+          const int ncols = min(WG_BN, N - n0);
+          const int kr = MODE == kW4 ? kc / 2 : kc, sr = g > WG_BK ? 1 : kc >> gshift;
+          const int8_t* cg = codes + (size_t)(MODE == kW4 ? k0 / 2 : k0) * N + n0;
+          const float* sg = scales + (size_t)(k0 >> gshift) * N + n0;
+          for (int c = lane; c < kr * ncols; c += 32) {
+            const int r = c / ncols, cc = c % ncols;
+            cs[r * WG_BN + cc] = cg[(size_t)r * N + cc];
+          }
+          for (int c = lane; c < sr * ncols; c += 32) {
+            const int r = c / ncols, cc = c % ncols;
+            ss[r * WG_BN + cc] = sg[(size_t)r * N + cc];
+          }
+          cp_async_wait<0>();
+          mbar_arrive(&raw_full[s]);
+        }
+      }
+    } else {
+      // ---- dequantizers: codes * scale -> B[n][k] (16-byte chunk of 8 k
+      // at one n per step; a warp covers 32 consecutive n of one chunk
+      // column, so its stores fill all eight swizzle positions)
+      const int t = threadIdx.x - 32;
+      for (int it = 0; it < nit; ++it) {
+        const int s = it % nst;
+        mbar_wait(&raw_full[s], (it / nst) & 1);
+        unsigned char* st = ring + (size_t)s * stage_bytes;
+        unsigned char* bt = st + x_bytes;
+        const int8_t* cs = reinterpret_cast<const int8_t*>(bt + WG_B_BYTES);
+        const float* ss = reinterpret_cast<const float*>(bt + WG_B_BYTES + WG_C_BYTES);
+        const int kc = min(WG_BK, K - (s0 + it) * WG_BK);
+        // a stage starts on a group boundary; for g above its depth every
+        // k maps to the one staged row
+        auto chunk = [&](int i) {
+          const int n = i & (WG_BN - 1), c = i / WG_BN;
+          const float sc = ss[(g > WG_BK ? 0 : (8 * c) >> gshift) * WG_BN + n];
+          float v[8];
+          if constexpr (MODE == kW8) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) v[j] = __fmul_rn(code_f(cs[(8 * c + j) * WG_BN + n]), sc);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int b = cs[(4 * c + j) * WG_BN + n];
+              v[2 * j] = __fmul_rn(code_f(nibble_lo(b)), sc);
+              v[2 * j + 1] = __fmul_rn(code_f(nibble_hi(b)), sc);
+            }
+          }
+          *reinterpret_cast<uint4*>(bt + n * 128 + ((c ^ (n & 7)) << 4)) =
+              make_uint4(Mma<T>::pack(v[0], v[1]), Mma<T>::pack(v[2], v[3]),
+                         Mma<T>::pack(v[4], v[5]), Mma<T>::pack(v[6], v[7]));
+        };
+        if (kc == WG_BK) {  // a whole stage: the same chunks every time, unrolled
+          constexpr int kChunks = 8 * WG_BN;
+#pragma unroll
+          for (int u = 0; u < (kChunks + WG_DQ - 1) / WG_DQ; ++u)
+            if (t + u * WG_DQ < kChunks) chunk(t + u * WG_DQ);
+        } else {
+          for (int i = t; i < (kc / 8) * WG_BN; i += WG_DQ) chunk(i);
+        }
+        fence_proxy_async();
+        mbar_arrive(&b_full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns row tiles cw and cw + 2
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_REG_MMA));
+  const int cw = wg - 2;
+  if (cw >= consumers) return;
+  const bool two = cw + 2 < mtiles;
+  float acc[2][64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[0][j] = acc[1][j] = 0.f;
+  for (int it = 0; it < nit; ++it) {
+    const int s = it % nst;
+    mbar_wait(&b_full[s], (it / nst) & 1);
+    fence_proxy_async();
+    const unsigned char* st = ring + (size_t)s * stage_bytes;
+    const int kc = min(WG_BK, K - (s0 + it) * WG_BK);
+    wg_fence_acc(acc[0]);
+    wg_fence_acc(acc[1]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int kk = 0; kk < kc / 16; ++kk) {
+      const uint64_t db = wg_desc(st + x_bytes + kk * 32);
+      Wgmma<T>::run(acc[0], wg_desc(st + cw * 64 * 128 + kk * 32), db);
+      if (two) Wgmma<T>::run(acc[1], wg_desc(st + (cw + 2) * 64 * 128 + kk * 32), db);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wg_fence_acc(acc[0]);
+    wg_fence_acc(acc[1]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // accumulator layout: warp w of the warpgroup holds rows 16w..16w+15 of
+  // the 64-row tile, each n8 slice j as mma.sync's C fragment:
+  // acc[4j + 2h + e] = (row 16w + lane/4 + 8h, column 8j + 2(lane%4) + e)
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (q == 1 && !two) break;
+    const int rbase = m0 + (cw + 2 * q) * 64 + w * 16 + lane / 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rbase + 8 * h;
+        if (row >= M) continue;
+        const float v0 = acc[q][4 * j + 2 * h], v1 = acc[q][4 * j + 2 * h + 1];
+        if (part != nullptr) {  // split-K: fp32 partial of split blockIdx.y
+          float* pr = part + ((size_t)blockIdx.y * M + row) * N;
+          if (col < N) pr[col] = v0;
+          if (col + 1 < N) pr[col + 1] = v1;
+        } else if ((N & 1) == 0 && col + 1 < N) {
+          *reinterpret_cast<uint32_t*>(y + (size_t)row * N + col) = Mma<T>::pack(v0, v1);
+        } else {
+          if (col < N) y[(size_t)row * N + col] = Bits<T>::from_f(v0);
+          if (col + 1 < N) y[(size_t)row * N + col + 1] = Bits<T>::from_f(v1);
+        }
       }
     }
   }
@@ -380,70 +639,167 @@ __global__ void wq_reduce_kernel(const float* __restrict__ part, T* __restrict__
   }
 }
 
-template <typename T, int MODE>
-cudaError_t launch_mma(const void* x, const int8_t* codes, const float* scales, void* y,
-                       float* part, int M, int N, int K, int g, int splits, int aligned,
-                       cudaStream_t stream) {
-  cudaError_t err = allow_dynamic_smem<wq_mma_kernel<T, MODE>>();
-  if (err != cudaSuccess) return err;
-  const int nsteps = (K + WQ_KT - 1) / WQ_KT;
+// K steps of `kt` a split owns; every split must own at least one
+inline int split_per(int K, int kt, int splits, float* part) {
+  const int nsteps = (K + kt - 1) / kt;
   const int per = (nsteps + splits - 1) / splits;
-  if ((nsteps + per - 1) / per != splits || (splits > 1) != (part != nullptr))
-    return cudaErrorInvalidValue;  // every split must own at least one step
-  const dim3 grid((N + WQ_BN - 1) / WQ_BN, (M + WQ_BM - 1) / WQ_BM, splits);
-  wq_mma_kernel<T, MODE><<<grid, WQ_THREADS, WqSmem<T>::bytes, stream>>>(
-      static_cast<const T*>(x), codes, scales, static_cast<T*>(y), part, M, N, K, g, per,
-      aligned);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
+  if ((nsteps + per - 1) / per != splits || (splits > 1) != (part != nullptr)) return 0;
+  return per;
+}
+
+template <typename T>
+cudaError_t launch_reduce(float* part, void* y, int M, int N, int splits, cudaStream_t stream) {
   const size_t MN = (size_t)M * N;
   const int blocks = (int)std::min<size_t>((MN + 255) / 256, 4096);
   wq_reduce_kernel<T><<<blocks, 256, 0, stream>>>(part, static_cast<T*>(y), MN, splits);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch_mode(int dtype, const void* x, const int8_t* codes, const float* scales,
-                        void* y, float* part, int M, int N, int K, int g, int splits,
-                        int aligned, cudaStream_t st) {
-  switch (dtype) {
-    case 0: {
-      if (splits != 1) return cudaErrorInvalidValue;
-      const dim3 grid((N + WQS_BN - 1) / WQS_BN, (M + WQS_BM - 1) / WQS_BM);
-      wq_simt_kernel<MODE><<<grid, 256, 0, st>>>(static_cast<const float*>(x), codes, scales,
-                                                  static_cast<float*>(y), M, N, K, g);
-      return cudaGetLastError();
-    }
-    case 1: return launch_mma<__half, MODE>(x, codes, scales, y, part, M, N, K, g, splits, aligned, st);
-    case 2: return launch_mma<__nv_bfloat16, MODE>(x, codes, scales, y, part, M, N, K, g, splits, aligned, st);
+template <typename T>
+cudaError_t launch_mma_t(const void* x, const int8_t* codes, const float* scales, void* y,
+                         float* part, int M, int N, int K, int g, int splits, int aligned,
+                         cudaStream_t stream) {
+  cudaError_t err = allow_dynamic_smem<wq_mma_kernel<T>>();
+  if (err != cudaSuccess) return err;
+  const int per = split_per(K, WQ_KT, splits, part);
+  if (per == 0) return cudaErrorInvalidValue;
+  const dim3 grid((N + WQ_BN - 1) / WQ_BN, (M + WQ_BM - 1) / WQ_BM, splits);
+  wq_mma_kernel<T><<<grid, WQ_THREADS, WqSmem<T>::bytes, stream>>>(
+      static_cast<const T*>(x), codes, scales, static_cast<T*>(y), part, M, N, K, g, per,
+      aligned);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_reduce<T>(part, y, M, N, splits, stream);
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime's
+// entry-point query (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a 2-D row-major [rows, cols] tensor of `elem`-byte elements, read in
+// [box_rows, box_cols] tiles, out-of-bounds elements zero-filled
+inline bool tensor_map(CUtensorMap* m, CUtensorMapDataType dt, int elem, const void* base,
+                       long long rows, long long cols, int box_rows, int box_cols,
+                       CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(m, dt, 2, const_cast<void*>(base), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// shared memory of the wgmma kernel: `stages` stages for x tiles of xrows
+// rows, the mbarriers and the slack that aligns the ring to 1024 bytes
+inline size_t wgmma_smem(int xrows, int stages) {
+  return (size_t)stages * (xrows * 128 + WG_FIXED) + WG_BAR_BYTES + 1024;
+}
+
+template <typename T, int MODE>
+cudaError_t launch_wgmma(const void* x, const int8_t* codes, const float* scales, void* y,
+                         float* part, int M, int N, int K, int g, int splits, int stages,
+                         int aligned, cudaStream_t stream) {
+  const int xrows = std::min(WG_BM, (M + 63) / 64 * 64);
+  const size_t smem = wgmma_smem(xrows, stages);
+  const int per = split_per(K, WG_BK, splits, part);
+  if (per == 0 || stages < 1 || stages > WG_MAX_STAGES) return cudaErrorInvalidValue;
+  // aligned rows: the producer's tensor maps (x in the 128-byte swizzle;
+  // codes [K, N] or [K/2, N] bytes; scales [K/g, N] fp32)
+  CUtensorMap tmx{}, tmc{}, tms{};
+  if (aligned) {
+    const int crows = MODE == kW4 ? WG_BK / 2 : WG_BK, srows = g > WG_BK ? 1 : WG_BK / g;
+    const CUtensorMapDataType xt = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (!tensor_map(&tmx, xt, 2, x, M, K, xrows, WG_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map(&tmc, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, MODE == kW4 ? K / 2 : K, N,
+                    crows, WG_BN, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !tensor_map(&tms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales, K / g, N, srows, WG_BN,
+                    CU_TENSOR_MAP_SWIZZLE_NONE))
+      return cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_dynamic_smem<wq_wgmma_kernel<T, MODE>>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + WG_BN - 1) / WG_BN, splits, (M + WG_BM - 1) / WG_BM);
+  wq_wgmma_kernel<T, MODE><<<grid, WG_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), codes, scales, static_cast<T*>(y), part, M, N, K, g, per,
+      stages, xrows, aligned, tmx, tmc, tms);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_reduce<T>(part, y, M, N, splits, stream);
+}
+
+template <typename T>
+cudaError_t launch_16bit(int mode, const void* x, const int8_t* codes, const float* scales,
+                         void* y, float* part, int M, int N, int K, int g, int splits,
+                         int stages, int aligned, cudaStream_t st) {
+  switch (mode) {
+    case kW8: return launch_wgmma<T, kW8>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, st);
+    case kW8T: return launch_mma_t<T>(x, codes, scales, y, part, M, N, K, g, splits, aligned, st);
+    case kW4: return launch_wgmma<T, kW4>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int MODE>
+cudaError_t launch_simt(const void* x, const int8_t* codes, const float* scales, void* y, int M,
+                        int N, int K, int g, cudaStream_t st) {
+  const dim3 grid((N + WQS_BN - 1) / WQS_BN, (M + WQS_BM - 1) / WQS_BM);
+  wq_simt_kernel<MODE><<<grid, 256, 0, st>>>(static_cast<const float*>(x), codes, scales,
+                                              static_cast<float*>(y), M, N, K, g);
+  return cudaGetLastError();
 }
 
 }  // namespace dsk
 
 // x [M, K] (mode 1: [M, H], K = H); codes int8 [K, N] (mode 1: [N, K],
 // mode 2: [K/2, N]); scales fp32 [K/g, N] (mode 1: [N/g, K]); y [M, N].
-// g: power of two >= 16 dividing the grouped dim (up to 128: a K step or
-// column tile holds 128/g groups; above: it lies in one); K % 16 == 0.
-// aligned: code and scale rows are 16-byte aligned (cp.async); else
-// element-wise loads.  splits > 1 (16-bit x only): K steps split over that
+// g: power of two >= 16 dividing the grouped dim.  K % 16 == 0.
+// aligned: code and scale rows are 16-byte aligned (TMA / cp.async);
+// else element-wise loads.  splits > 1 (16-bit x only): K steps split over that
 // many blocks a tile, partials in part [splits, M, N] fp32; every split
-// must own a step.  dtype: 0 fp32, 1 fp16, 2 bf16.
+// must own a step (64-deep for modes 0 / 2, 128-deep for mode 1).  stages:
+// the wgmma kernel's ring depth (modes 0 / 2, 16-bit x; 1..8, within the
+// card's shared memory: see wgmma_smem).  dtype: 0 fp32, 1 fp16, 2 bf16.
 extern "C" int ds_wq_matmul(const void* x, const void* codes, const void* scales, void* y,
                             void* part, int M, int N, int K, int g, int mode, int aligned,
-                            int splits, int dtype, void* stream) {
-  if (g < 16 || (g & (g - 1)) || K % 16) return (int)cudaErrorInvalidValue;
+                            int splits, int stages, int dtype, void* stream) {
+  if (g < 16 || (g & (g - 1)) || K % 16 || splits < 1) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   auto c = static_cast<const int8_t*>(codes);
   auto s = static_cast<const float*>(scales);
   auto p = static_cast<float*>(part);
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  switch (mode) {
-    case dsk::kW8: return (int)dsk::launch_mode<dsk::kW8>(dtype, x, c, s, y, p, M, N, K, g, splits, aligned, st);
-    case dsk::kW8T: return (int)dsk::launch_mode<dsk::kW8T>(dtype, x, c, s, y, p, M, N, K, g, splits, aligned, st);
-    case dsk::kW4: return (int)dsk::launch_mode<dsk::kW4>(dtype, x, c, s, y, p, M, N, K, g, splits, aligned, st);
+  switch (dtype) {
+    case 0:
+      if (splits != 1) return (int)cudaErrorInvalidValue;
+      switch (mode) {
+        case dsk::kW8: return (int)dsk::launch_simt<dsk::kW8>(x, c, s, y, M, N, K, g, st);
+        case dsk::kW8T: return (int)dsk::launch_simt<dsk::kW8T>(x, c, s, y, M, N, K, g, st);
+        case dsk::kW4: return (int)dsk::launch_simt<dsk::kW4>(x, c, s, y, M, N, K, g, st);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case 1: return (int)dsk::launch_16bit<__half>(mode, x, c, s, y, p, M, N, K, g, splits, stages, aligned, st);
+    case 2: return (int)dsk::launch_16bit<__nv_bfloat16>(mode, x, c, s, y, p, M, N, K, g, splits, stages, aligned, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+

@@ -70,6 +70,12 @@ class DeepSpeedEngine:
         self.config = config
         self.device = resolve_device(device)
         config.check_implemented()
+        # a model whose attention the CUDA kernels cannot take fails here,
+        # with the reason, not at its first step
+        problem = getattr(getattr(model, "cfg", None), "cuda_problem", None)
+        if self.device.type == "cuda" and problem is not None \
+                and problem() is not None:
+            raise ValueError(f"initialize: {problem()}")
         self.dp_world_size = 1
         config.resolve_batch_size(self.dp_world_size)
         self.zero_stage = config.zero_optimization.stage

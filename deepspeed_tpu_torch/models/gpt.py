@@ -104,6 +104,13 @@ class GPTConfig:
     def mlp_dim(self) -> int:
         return self.mlp_dim_override or self.hidden_size * self.mlp_ratio
 
+    def cuda_problem(self) -> Optional[str]:
+        """Why the CUDA attention kernels cannot train this model (None:
+        they can): their head_dim rule."""
+        from deepspeed_tpu_torch.ops.flash_attention import head_dim_problem
+        problem = head_dim_problem(self.head_dim)
+        return None if problem is None else f"GPTConfig: {problem}"
+
     @classmethod
     def gpt2_small(cls, **kw):
         return cls(num_layers=12, num_heads=12, head_dim=64, hidden_size=768,

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from typing import Dict, Iterable, List
 
 from deepspeed_tpu_torch.utils.logging import logger
@@ -31,6 +32,8 @@ _cache: Dict[str, ctypes.CDLL] = {}
 # ptxas's per-kernel resource report (registers, shared memory, spills) of
 # the builds this process ran, by kernel name
 build_log: Dict[str, str] = {}
+# wall seconds from the start of a build() call to each source's library
+build_seconds: Dict[str, float] = {}
 
 
 def nvcc_path() -> str:
@@ -57,32 +60,46 @@ def _so_path(name: str) -> str:
     return os.path.join(_BUILD, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def _start(name: str, so: str) -> subprocess.Popen:
+def _start(name: str, so: str, log) -> subprocess.Popen:
     src = os.path.join(_CSRC, f"{name}.cu")
     cmd = [nvcc_path()] + NVCC_FLAGS + ["-o", so + ".tmp", src]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
 
 
 def build(names: Iterable[str]) -> List[str]:
     """Compile every stale kernel in ``names`` — one nvcc per source, all
     started together — and return the shared-library paths.  Raises with
-    nvcc's stderr if any build fails."""
+    nvcc's output if any build fails.  Each build's wall time lands in
+    ``build_seconds``."""
     names = list(names)
     os.makedirs(_BUILD, exist_ok=True)
     sos = [_so_path(n) for n in names]
-    procs = {n: (so, _start(n, so)) for n, so in zip(names, sos)
-             if not os.path.exists(so)}
+    t0 = time.perf_counter()
+    procs = {}
+    for n, so in zip(names, sos):
+        if not os.path.exists(so):
+            log = open(so + ".log", "w+")
+            procs[n] = (so, log, _start(n, so, log))
     errors = []
-    for n, (so, p) in procs.items():
-        out, err = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"nvcc failed for {n}.cu (rc {p.returncode}):\n"
-                          f"{err}{out}")
-            continue
-        build_log[n] = err + out
-        os.replace(so + ".tmp", so)
-        logger.info(f"built CUDA kernel {n} -> {so}")
+    while procs:
+        for n, (so, log, p) in list(procs.items()):
+            if p.poll() is None:
+                continue
+            del procs[n]
+            build_seconds[n] = time.perf_counter() - t0
+            log.seek(0)
+            out = log.read()
+            log.close()
+            os.remove(so + ".log")
+            if p.returncode != 0:
+                errors.append(f"nvcc failed for {n}.cu (rc {p.returncode}):"
+                              f"\n{out}")
+                continue
+            build_log[n] = out
+            os.replace(so + ".tmp", so)
+            logger.info(f"built CUDA kernel {n} -> {so}")
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("\n".join(errors))
     return sos

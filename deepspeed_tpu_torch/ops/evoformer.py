@@ -128,7 +128,7 @@ def _tiles(q, k, v) -> bool:
 
 # ------------------------------------------------------------------ kernel
 
-_DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _BIAS_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
@@ -141,33 +141,31 @@ def _bias_views(q, bias1, bias2):
     return b1, b2
 
 
-def _problem(q, k, v, bias1=None, bias2=None) -> Optional[str]:
-    """Why the kernel cannot take this call (None: it can)."""
+def shape_problem(q, k, v, bias1=None, bias2=None) -> Optional[str]:
+    """The kernels' rules on shapes, dtypes, strides and biases, without
+    looking at the device (None: they take the call)."""
     if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
         return "q, k, v must all be [B, N, S, H, D] of one shape"
     b, n, s, h, d = q.shape
     if min(b, n, s, h) < 1 or h > 65535 or b * n > 2 ** 31 - 1 \
-            or -(-s // 64) > 65535 or b * -(-s // 64) > 2 ** 31 - 1:
+            or -(-s // 8) > 65535 or b * s > 2 ** 31 - 1:
         return f"[B, N, S, H] = {[b, n, s, h]} outside the grid's range"
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
-        return f"q, k, v must share one CUDA device (q on {q.device})"
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        return f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}: the kernel " \
-               f"takes float16 or bfloat16 for all three"
-    if d % 8 or not 8 <= d <= 128:
-        return f"head_dim {d}: the kernel takes multiples of 8 up to 128"
+        return f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}: the kernels " \
+               f"take float32, float16 or bfloat16 for all three"
+    if d % 8 or not 8 <= d <= 256:
+        return f"head_dim {d}: the kernels take multiples of 8 from 8 to " \
+               f"256 (ROADMAP C.1)"
+    per16 = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(4) != 1 or any(st % 8 for st in x.stride()[:4]) \
+        if x.stride(4) != 1 or any(st % per16 for st in x.stride()[:4]) \
                 or x.data_ptr() % 16:
             return f"{name}: head_dim must be contiguous and every other " \
                    f"stride and the base 16-byte aligned"
     for name, x in (("bias1", bias1), ("bias2", bias2)):
-        if x is None:
-            continue
-        if x.device != q.device or x.dtype not in _BIAS_CODE:
-            return f"{name} must be float32/float16/bfloat16 on {q.device}"
+        if x is not None and x.dtype not in _BIAS_CODE:
+            return f"{name} must be float32/float16/bfloat16"
     try:
         _bias_views(q, bias1, bias2)
     except RuntimeError:
@@ -177,11 +175,27 @@ def _problem(q, k, v, bias1=None, bias2=None) -> Optional[str]:
     return None
 
 
+def _problem(q, k, v, bias1=None, bias2=None) -> Optional[str]:
+    """Why the kernels cannot take this call (None: they can)."""
+    problem = shape_problem(q, k, v, bias1, bias2)
+    if problem is not None:
+        return problem
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        return f"q, k, v must share one CUDA device (q on {q.device})"
+    for name, x in (("bias1", bias1), ("bias2", bias2)):
+        if x is not None and x.device != q.device:
+            return f"{name} must be on {q.device}"
+    return None
+
+
 def supported(q, k, v, bias1=None, bias2=None, **_) -> bool:
-    """What the kernel takes: fp16/bf16 q, k, v [B, N, S, H, D] of one shape
-    on one CUDA device, head_dim a multiple of 8 up to 128, contiguous,
-    every other stride and the base 16-byte aligned; any S; biases fp32,
-    fp16 or bf16, broadcastable to [B, N, 1, 1, S] and [B, 1, H, S, S]."""
+    """What the kernels take: fp32/fp16/bf16 q, k, v [B, N, S, H, D] of one
+    shape on one CUDA device, head_dim a multiple of 8 up to 256,
+    contiguous, every other stride and the base 16-byte aligned; any S;
+    biases fp32, fp16 or bf16, broadcastable to [B, N, 1, 1, S] and
+    [B, 1, H, S, S].  16-bit inputs with head_dim up to 128 run on the
+    tensor cores, fp32 and wider head_dims on the CUDA-core variants."""
     return _problem(q, k, v, bias1, bias2) is None
 
 

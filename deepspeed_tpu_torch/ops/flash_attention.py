@@ -37,7 +37,9 @@ import torch
 
 NEG_INF = -1e30     # finite "minus infinity" of the kernels
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
+# the widest head_dim the kernels take (csrc/flash_attention.cu pads a
+# head_dim up to 64, 96, 128, 192 or 256)
+MAX_HEAD_DIM = 256
 
 
 def _slopes(alibi_slopes, n_heads: int, device):
@@ -133,28 +135,35 @@ def torch_flash_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 # ------------------------------------------------------------------ kernels
 
 
-def _problem(q, k, v, *, causal=True, scale=None, window=None,
-             alibi_slopes=None) -> Optional[str]:
-    """Why the kernels cannot take this call (None: they can)."""
+def head_dim_problem(d: int) -> Optional[str]:
+    """Why the kernels cannot take head_dim ``d`` (None: they can)."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        return f"head_dim {d}: the kernels take multiples of 8 from 8 to " \
+               f"{MAX_HEAD_DIM} (ROADMAP C.1)"
+    return None
+
+
+def shape_problem(q, k, v, *, causal=True, window=None,
+                  alibi_slopes=None) -> Optional[str]:
+    """The kernels' rules on shapes, dtypes, strides and options, without
+    looking at the device (None: they take the call)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         return "q must be [B, T, N, D] and k, v both [B, T, Nkv, D]"
     b, t, n, d = q.shape
     if k.shape[0] != b or k.shape[1] != t or k.shape[3] != d:
         return f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)} " \
                f"(equal batch, sequence length and head_dim needed)"
-    if b < 1 or t < 1 or b > 65535 or n > 65535:
+    if b < 1 or t < 1 or b > 65535 or 2 * n > 65535:
         return f"batch {b} / heads {n} / length {t} outside the grid's range"
     if k.shape[2] < 1 or n % k.shape[2] != 0:
         return f"kv heads {k.shape[2]} must divide q heads {n}"
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
-        return f"q, k, v must share one CUDA device (q on {q.device})"
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         return f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}: need one of " \
                f"float32/float16/bfloat16 for all three"
-    if d not in _HEAD_DIMS:
-        return f"head_dim {d} not in {_HEAD_DIMS}"
+    problem = head_dim_problem(d)
+    if problem is not None:
+        return problem
     per16 = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(s % per16 for s in x.stride()[:3]) \
@@ -169,10 +178,24 @@ def _problem(q, k, v, *, causal=True, scale=None, window=None,
     return None
 
 
+def _problem(q, k, v, *, causal=True, scale=None, window=None,
+             alibi_slopes=None) -> Optional[str]:
+    """Why the kernels cannot take this call (None: they can)."""
+    problem = shape_problem(q, k, v, causal=causal, window=window,
+                            alibi_slopes=alibi_slopes)
+    if problem is not None:
+        return problem
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        return f"q, k, v must share one CUDA device (q on {q.device})"
+    return None
+
+
 def supported(q, k, v, *, causal=True, scale=None, window=None,
               alibi_slopes=None, **_) -> bool:
     """What the kernels take: fp32/fp16/bf16 q [B, T, N, D] and k, v
-    [B, T, Nkv, D] on one CUDA device with head_dim 64 or 128 contiguous
+    [B, T, Nkv, D] on one CUDA device with head_dim a multiple of 8 from 8
+    to 256 (run zero-padded to 64, 96, 128, 192 or 256) contiguous
     and 16-byte-aligned rows, any GQA group that divides N, any T (the tail
     is masked); causal or not; window and alibi with causal only."""
     return _problem(q, k, v, causal=causal, window=window,

@@ -17,7 +17,10 @@ Implementations, chosen by the device of the tensors:
   kernels' reference.
 - hand-written CUDA for Hopper, ``cuda_sparse_fwd`` / ``cuda_sparse_dq`` /
   ``cuda_sparse_dkv`` (csrc/sparse_attention.cu, built by ops/builder.py at
-  first use, bound with ctypes).  Each block walks only its row's (or
+  first use, bound with ctypes): tensor-core kernels for 16-bit inputs at
+  head_dim 64 / 128 with a block that is a multiple of 16, a CUDA-core
+  family for every other call (fp32, block 8, other head dims).  Each
+  block walks only its row's (or
   column's) live entries of the layout's index tables, which are built on
   the host once per (layout, causal, device) and kept on the device, so a
   call costs no upload and no host sync.  Each wrapper checks its inputs,
@@ -46,6 +49,8 @@ from deepspeed_tpu_torch.ops.flash_attention import (_bwd_inputs, _check_rc,
                                                      _ptr, masked_bwd,
                                                      masked_fwd)
 from deepspeed_tpu_torch.ops.flash_attention import _problem as _flash_problem
+from deepspeed_tpu_torch.ops.flash_attention import \
+    shape_problem as _flash_shape_problem
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,30 +255,42 @@ def torch_sparse_attention(q, k, v, config: SparsityConfig, *,
 
 # ------------------------------------------------------------------ kernels
 
-_DTYPE_CODE = {torch.float16: 1, torch.bfloat16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
-def _problem(q, k, v, block: int) -> Optional[str]:
-    """Why the kernels cannot take this call (None: they can): the flash
-    kernels' conditions on q, k, v, then 16-bit types only and the block."""
-    problem = _flash_problem(q, k, v)
+def shape_problem(q, k, v, block: int) -> Optional[str]:
+    """The kernels' rules on shapes, dtypes, strides and the block, without
+    looking at the device (None: they take the call): the flash kernels'
+    rules on q, k, v, then a block that is a multiple of 8 and divides
+    T."""
+    problem = _flash_shape_problem(q, k, v)
     if problem is not None:
         return problem
-    if q.dtype not in _DTYPE_CODE:
-        return f"dtype {q.dtype}: the kernels take float16 or bfloat16"
-    if block % 16 or not 16 <= block <= 128:
-        return f"block {block}: the kernels take multiples of 16 up to 128"
+    if block % 8 or block < 8:
+        return f"block {block}: the kernels take multiples of 8 " \
+               f"(ROADMAP C.1)"
     if q.shape[1] % block:
         return f"seq_len {q.shape[1]} not divisible by block {block}"
     return None
 
 
+def _problem(q, k, v, block: int) -> Optional[str]:
+    """Why the kernels cannot take this call (None: they can)."""
+    problem = shape_problem(q, k, v, block)
+    if problem is not None:
+        return problem
+    return _flash_problem(q, k, v)
+
+
 def block_sparse_supported(q, k, v, config: SparsityConfig, *,
                            causal: bool = True, dropout_fn=None, **_) -> bool:
-    """What the kernels take: fp16/bf16 q [B, T, N, D] and k, v
-    [B, T, Nkv, D] on one CUDA device, head_dim 64 or 128 contiguous with
-    16-byte-aligned rows, any GQA group that divides N, a block that is a
-    multiple of 16 up to 128 and divides T; causal or not; no dropout."""
+    """What the kernels take: fp32/fp16/bf16 q [B, T, N, D] and k, v
+    [B, T, Nkv, D] on one CUDA device, head_dim a multiple of 8 up to 256
+    contiguous with 16-byte-aligned rows, any GQA group that divides N, a
+    block that is a multiple of 8 and divides T; causal or not; no
+    dropout.  16-bit calls at head_dim 64 / 128 with a block that is a
+    multiple of 16 up to 128 run on the tensor cores, every other on CUDA
+    cores."""
     return dropout_fn is None and _problem(q, k, v, config.block) is None
 
 

@@ -18,7 +18,9 @@ the device of the tensors:
   kernels' reference.
 - hand-written CUDA for Hopper, ``cuda_wq_matmul`` / ``cuda_wq_matmul_t`` /
   ``cuda_wq_matmul4`` (csrc/wq_matmul.cu, built by ops/builder.py at first
-  use, bound with ctypes).  Each checks device, dtype, shape and
+  use, bound with ctypes; 16-bit x runs #7 / #8 on a warp-specialised
+  wgmma kernel, #6 on mma.sync tiles; ``wq_plan`` picks split-K and the
+  ring depth from shapes alone).  Each checks device, dtype, shape and
   contiguity, allocates its output with ``torch.empty``, launches on the
   current stream, raises on a non-zero ``cudaError_t`` and counts its
   launches in ``<wrapper>.launches`` (the counterpart of JAX's
@@ -27,10 +29,10 @@ the device of the tensors:
 The JAX package's Mosaic tile rules and their silent dequantize fallbacks
 (``kernel_supported``, ``_preflight``) have no counterpart: every 2-D store
 the serving model routes here goes to the kernel on CUDA tensors, and a
-store the kernel cannot take raises.  The kernel takes every group the
+store the kernel cannot take raises.  The kernels take every group the
 engine packs: a power of two of at least 16 dividing the grouped dimension
-(up to 128 a 128-deep K step holds 128/g groups, above it a step lies in
-one) — the JAX kernel's groups (W8 g % 32, W4 g % 64) and 16 besides.
+(a K step holds whole groups, or lies inside one) — the JAX kernel's
+groups (W8 g % 32, W4 g % 64) and 16 besides.
 Tensor-parallel ``wq_matmul_tp`` is not ported (ROADMAP A.8).
 """
 
@@ -121,7 +123,7 @@ def _lib():
     lib = load_op("wq_matmul")
     if not getattr(lib, "_ds_declared", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ds_wq_matmul.argtypes = [P] * 5 + [I] * 8 + [P]
+        lib.ds_wq_matmul.argtypes = [P] * 5 + [I] * 9 + [P]
         lib.ds_wq_matmul.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
@@ -174,7 +176,17 @@ def _supported(mode):
     return supported
 
 
-_BM, _BN, _KT = 64, 128, 128     # the kernel's tile (csrc/wq_matmul.cu)
+# the kernels' tiles (csrc/wq_matmul.cu): mode 1's mma.sync tile and K step;
+# modes 0 / 2's wgmma block (128 columns over up to 256 rows), K stage and
+# the bytes of a stage besides its x tile (B tile, codes, scale rows)
+_T_BM, _T_BN, _T_KT = 64, 128, 128
+_WG_BM, _WG_BN, _WG_BK = 256, 128, 64
+_WG_FIXED = _WG_BN * 128 + _WG_BK * _WG_BN + (_WG_BK // 16) * _WG_BN * 4
+_WG_MAX_STAGES = 8
+SMEM_PER_BLOCK = 232448           # the H100's 227 KB a block (opt-in)
+# besides the stages: the wgmma kernel's mbarriers and its 1024-byte
+# alignment slack
+_WG_EXTRA = 3 * _WG_MAX_STAGES * 8 + 1024
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,16 +194,29 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def wq_splits(M: int, N: int, K: int, device) -> int:
-    """K splits a tile (split-K) for 16-bit x: as many as keep the blocks
-    within one wave of two an SM (two fit one), each split at least one
-    128-deep step — computed from shapes alone, so choosing never syncs
-    the host."""
-    tiles = -(-N // _BN) * -(-M // _BM)
-    steps = -(-K // _KT)
-    want = max(1, min(steps, 2 * _sm_count(device.index or 0) // tiles))
+def wq_plan(M: int, N: int, K: int, mode: int, dtype, sms: int) -> dict:
+    """The launch of one product, from shapes alone (choosing never syncs
+    the host): ``splits`` (split-K: blocks a tile, each owning ``per``
+    consecutive ``kt``-deep K steps) and, for the wgmma kernel (modes 0 / 2
+    with 16-bit x), its ring depth ``stages`` and dynamic shared memory
+    ``smem``.  The splits fill the card's ``sms`` SMs: one wgmma block an
+    SM (its ring takes most of the shared memory), two mode-1 blocks."""
+    if dtype == torch.float32:
+        return {"splits": 1, "per": 0, "kt": 0, "stages": 0, "smem": 0}
+    if mode == _W8T:
+        tiles, kt, blocks = -(-N // _T_BN) * -(-M // _T_BM), _T_KT, 2 * sms
+        stages = smem = 0
+    else:
+        xrows = min(_WG_BM, -(-M // 64) * 64)
+        stage = xrows * 128 + _WG_FIXED
+        stages = min(_WG_MAX_STAGES, (SMEM_PER_BLOCK - _WG_EXTRA) // stage)
+        smem = stages * stage + _WG_EXTRA
+        tiles, kt, blocks = -(-N // _WG_BN) * -(-M // _WG_BM), _WG_BK, sms
+    steps = -(-K // kt)
+    want = max(1, min(steps, blocks // tiles))
     per = -(-steps // want)
-    return -(-steps // per)
+    return {"splits": -(-steps // per), "per": per, "kt": kt,
+            "stages": stages, "smem": smem}
 
 
 def _launch(x, store, mode, name):
@@ -215,7 +240,8 @@ def _launch(x, store, mode, name):
     row_bytes = K if mode == _W8T else N
     aligned = int(row_bytes % 16 == 0 and v.data_ptr() % 16 == 0
                   and s.data_ptr() % 16 == 0)
-    splits = 1 if x.dtype == torch.float32 else wq_splits(M, N, K, x.device)
+    plan = wq_plan(M, N, K, mode, x.dtype, _sm_count(x.device.index or 0))
+    splits = plan["splits"]
     part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
     lib = _lib()
@@ -223,7 +249,8 @@ def _launch(x, store, mode, name):
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(v.data_ptr()),
         ctypes.c_void_p(s.data_ptr()), ctypes.c_void_p(y.data_ptr()),
         None if part is None else ctypes.c_void_p(part.data_ptr()),
-        M, N, K, g, mode, aligned, splits, _DTYPE_CODE[x.dtype],
+        M, N, K, g, mode, aligned, splits, plan["stages"],
+        _DTYPE_CODE[x.dtype],
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if rc != 0:
         msg = lib.ds_cuda_error_string(rc).decode()
@@ -232,7 +259,8 @@ def _launch(x, store, mode, name):
 
 
 def cuda_wq_matmul(x, store):
-    """#7 on the card (csrc/wq_matmul.cu): int8 store [K, N]."""
+    """#7 on the card (csrc/wq_matmul.cu; 16-bit x: the wgmma kernel):
+    int8 store [K, N]."""
     y, launched = _launch(x, store, _W8, "wq_matmul")
     cuda_wq_matmul.launches += int(launched)
     return y
@@ -246,7 +274,8 @@ def cuda_wq_matmul_t(x, store):
 
 
 def cuda_wq_matmul4(x, store):
-    """#8 on the card: nibble-packed store {"v4": [K/2, N]}."""
+    """#8 on the card (16-bit x: the wgmma kernel): nibble-packed store
+    {"v4": [K/2, N]}."""
     y, launched = _launch(x, store, _W4, "wq_matmul4")
     cuda_wq_matmul4.launches += int(launched)
     return y

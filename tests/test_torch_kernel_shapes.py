@@ -1,0 +1,353 @@
+"""PyTorch port, the shapes the CUDA kernels take (ROADMAP C.1) and the
+quantized product's launch plan, on the CPU:
+
+- the flash, block-sparse and evoformer plain paths at the head dims the
+  kernels now pad or route to their CUDA-core variants (flash 40, 80, 96,
+  256; block-sparse block 8 at 40 and 80; evoformer 160 and 256), forward
+  and gradients against the JAX package (its xla path, ``jax.grad``, and
+  the evoformer's backward kernels in interpret mode), fp32: forward at
+  1e-5, gradients at 1e-4 of each gradient's largest value (summation
+  order only);
+- each kernel family's shape rules (``shape_problem``), which look at no
+  device: the calls they accept and the ones they refuse, naming C.1;
+- a GPT with head dim 80 (Phi-2's) trained 2 steps by both engines from the
+  same weights: loss and grad norm at 1e-5, and its config accepted by the
+  CUDA rule that ``initialize`` applies, a head dim of 264 refused;
+- ``wq_plan``, the wgmma product's split-K and ring plan: every split owns
+  at least one K step, the splits cover K exactly, and the shared memory
+  stays within the H100's 227 KB a block.
+
+The kernels themselves are held to these plain paths on the card
+(tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu
+import deepspeed_tpu_torch as dst
+from deepspeed_tpu import ops as jops
+from deepspeed_tpu.models import gpt as jgpt
+from deepspeed_tpu.parallel.mesh import single_device_mesh
+from deepspeed_tpu_torch import ops as tops
+from deepspeed_tpu_torch.models import gpt as tgpt
+
+tfa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
+tsp = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
+jsp = importlib.import_module("deepspeed_tpu.ops.sparse_attention")
+tevo = importlib.import_module("deepspeed_tpu_torch.ops.evoformer")
+jevo = importlib.import_module("deepspeed_tpu.ops.evoformer")
+twq = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
+
+FWD = dict(atol=1e-5, rtol=0)
+
+
+def _rand(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _assert_grads(got, want, names):
+    for name, a, b in zip(names, got, want):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-4 * float(np.abs(b).max()),
+                                   err_msg=f"d{name}")
+
+
+# ------------------------------------------------------------------ flash
+
+SLOPES = np.geomspace(0.5, 1 / 16, 4).astype(np.float32)
+FLASH_DIMS = {
+    "d40_gqa": (40, 4, 2, {}),
+    "d80_window": (80, 4, 4, {"window": 9}),
+    "d96_alibi": (96, 4, 2, {"alibi_slopes": SLOPES}),
+    "d256_noncausal": (256, 2, 1, {"causal": False}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_DIMS))
+def test_flash_head_dims_match_xla(case):
+    """The flash path (plain versions through the autograd Function on CPU
+    tensors) at head dims the kernels pad, against JAX's xla attention."""
+    d, n, nkv, kw = FLASH_DIMS[case]
+    rng = np.random.default_rng(d)
+    q, k, v = _rand(rng, 2, 24, n, d), _rand(rng, 2, 24, nkv, d), \
+        _rand(rng, 2, 24, nkv, d)
+    fn = lambda *a: jops.causal_attention(*a, impl="xla", **kw)  # noqa: E731
+    ref = np.asarray(fn(*map(jnp.asarray, (q, k, v))))
+    gref = jax.grad(lambda *a: jnp.sum(fn(*a) ** 2), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tfa.flash_attention(*ts, **kw)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **FWD)
+    got = torch.autograd.grad(out.square().sum(), ts)
+    _assert_grads([g.numpy() for g in got], gref, "qkv")
+
+
+@pytest.mark.parametrize("d", [8, 40, 72, 80, 96, 104, 136, 200, 256])
+def test_flash_head_dim_rule_accepts(d):
+    assert tfa.head_dim_problem(d) is None
+
+
+def _flash_tensors(d, dtype=torch.bfloat16, n=4, nkv=2, t=16):
+    return (torch.zeros((2, t, n, d), dtype=dtype),
+            torch.zeros((2, t, nkv, d), dtype=dtype),
+            torch.zeros((2, t, nkv, d), dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 40, 80, 96, 136, 256])
+def test_flash_shape_rules_accept(d, dtype):
+    """The rules alone (no device): CPU tensors of every head dim the
+    kernels take pass; the wrapper still refuses them for their device."""
+    q, k, v = _flash_tensors(d, dtype)
+    assert tfa.shape_problem(q, k, v) is None
+    assert "CUDA device" in tfa._problem(q, k, v)
+
+
+@pytest.mark.parametrize("d", [4, 12, 44, 260, 264, 512])
+def test_flash_shape_rules_refuse_head_dims(d):
+    problem = tfa.shape_problem(*_flash_tensors(d))
+    assert f"head_dim {d}" in problem and "C.1" in problem
+
+
+def test_flash_shape_rules_refuse_layouts():
+    q, k, v = _flash_tensors(80)
+    assert "float32/float16/bfloat16" in tfa.shape_problem(
+        q.double(), k.double(), v.double())
+    assert "must divide" in tfa.shape_problem(q, k[:, :, :1].expand(
+        2, 16, 3, 80).contiguous(), v[:, :, :1].expand(2, 16, 3, 80)
+        .contiguous())
+    wide = torch.zeros((2, 16, 4, 81), dtype=torch.bfloat16)[..., :80]
+    assert "16-byte aligned" in tfa.shape_problem(wide, wide, wide)
+    assert "causal" in tfa.shape_problem(q, k, v, causal=False, window=4)
+
+
+# ------------------------------------------------------------ block-sparse
+
+SPARSE8 = {
+    "fixed": tsp.FixedSparsityConfig(block=8, num_local_blocks=2,
+                                     num_global_blocks=1),
+    "longformer": tsp.BSLongformerSparsityConfig(
+        block=8, num_sliding_window_blocks=2, global_block_indices=(0,)),
+    "bigbird": tsp.BigBirdSparsityConfig(block=8, num_random_blocks=1,
+                                         num_sliding_window_blocks=2,
+                                         num_global_blocks=1),
+}
+
+
+def _jax_cfg(cfg):
+    import dataclasses
+    return getattr(jsp, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("name", sorted(SPARSE8))
+def test_sparse_block8_head_dims_match_jax(name, d, causal):
+    """block_sparse_flash (the kernels' plain versions) at block 8 on the
+    reference tests' layouts and head dims the CUDA-core family takes,
+    against JAX's masked-dense op and jax.grad of it (GQA 4 over 2)."""
+    cfg = SPARSE8[name]
+    rng = np.random.default_rng(d)
+    q, k, v = _rand(rng, 2, 64, 4, d), _rand(rng, 2, 64, 2, d), \
+        _rand(rng, 2, 64, 2, d)
+    fn = lambda *a: jsp.sparse_attention(  # noqa: E731
+        *a, _jax_cfg(cfg), causal=causal, impl="xla")
+    ref = np.asarray(fn(*map(jnp.asarray, (q, k, v))))
+    gref = jax.grad(lambda *a: jnp.sum(fn(*a) ** 2), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = tsp.block_sparse_flash(*ts, cfg, causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **FWD)
+    got = torch.autograd.grad(out.square().sum(), ts)
+    _assert_grads([g.numpy() for g in got], gref, "qkv")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,d", [(8, 64), (8, 80), (24, 40), (16, 256),
+                                     (128, 128), (64, 96), (192, 64)])
+def test_sparse_shape_rules_accept(block, d, dtype):
+    q, k, v = _flash_tensors(d, dtype, t=384)
+    assert tsp.shape_problem(q, k, v, block) is None
+    assert "CUDA device" in tsp._problem(q, k, v, block)
+
+
+@pytest.mark.parametrize("block,d,t,what", [
+    (4, 64, 384, "block 4"), (12, 64, 384, "block 12"),
+    (20, 64, 380, "block 20"), (8, 264, 384, "head_dim 264"),
+    (8, 36, 384, "head_dim 36")])
+def test_sparse_shape_rules_refuse(block, d, t, what):
+    problem = tsp.shape_problem(*_flash_tensors(d, t=t), block)
+    assert what in problem and "C.1" in problem
+
+
+def test_sparse_shape_rules_refuse_ragged_length():
+    assert "not divisible" in tsp.shape_problem(
+        *_flash_tensors(64, t=100), 8)
+
+
+# --------------------------------------------------------------- evoformer
+
+def _evo_inputs(D, S=16, seed=0, B=1, N=2, H=2):
+    rng = np.random.default_rng(seed)
+    q, k, v = (_rand(rng, B, N, S, H, D) for _ in range(3))
+    b1 = _rand(rng, B, N, 1, 1, S)
+    b1[:, 1, ..., -3:] = -1e9               # a masked tail on one row
+    b2 = _rand(rng, B, 1, H, S, S)
+    return q, k, v, b1, b2
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_evoformer_wide_head_dims_match_jax(D):
+    """The op and its gradients (dq, dk, dv, dbias1, dbias2 of sum(o²))
+    against JAX's einsum path and jax.grad of it."""
+    args = _evo_inputs(D)
+    ja = [jnp.asarray(x) for x in args]
+    ref = np.asarray(jevo._evoformer_xla(*ja))
+    gref = jax.grad(lambda *a: jnp.sum(jevo._evoformer_xla(*a) ** 2),
+                    argnums=(0, 1, 2, 3, 4))(*ja)
+    ts = [torch.from_numpy(x).requires_grad_() for x in args]
+    out = tops.evoformer_attention(*ts)
+    np.testing.assert_allclose(out.detach().numpy(), ref, **FWD)
+    got = torch.autograd.grad(out.square().sum(), ts)
+    _assert_grads([g.numpy() for g in got], gref,
+                  ("q", "k", "v", "bias1", "bias2"))
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_evoformer_wide_plain_versions_match_jax_kernels(D):
+    """torch_evoformer_fwd / torch_evoformer_bwd (the kernels' plain
+    versions) against the reference's forward and backward kernels in
+    interpret mode, the backward on the reference forward's o and lse."""
+    q, k, v, b1, b2 = _evo_inputs(D, seed=1)
+    do = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
+    ja = [jnp.asarray(x) for x in (q, k, v, b1, b2)]
+    o_ref, lse_ref = jevo._fwd(*ja, True)
+    o, lse = tevo.torch_evoformer_fwd(*map(torch.from_numpy,
+                                           (q, k, v, b1, b2)))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), **FWD)
+    B, N, S, H, _ = q.shape
+    o_k = np.array(np.asarray(o_ref).reshape(B, N, H, S, D)
+                   .transpose(0, 1, 3, 2, 4))
+    np.testing.assert_allclose(o.numpy(), o_k, **FWD)
+    want = jevo._bwd_impl(*ja, jnp.asarray(o_k), lse_ref, jnp.asarray(do),
+                          True)
+    got = tevo.torch_evoformer_bwd(
+        *map(torch.from_numpy, (q, k, v, b1, b2)), torch.from_numpy(o_k),
+        torch.from_numpy(np.array(lse_ref)), torch.from_numpy(do))
+    want = [np.asarray(w).reshape(B, N, H, S, D).transpose(0, 1, 3, 2, 4)
+            for w in want[:3]] + [np.asarray(w) for w in want[3:]]
+    _assert_grads([g.numpy() for g in got], want,
+                  ("q", "k", "v", "bias1", "bias2"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 32, 136, 160, 256])
+def test_evoformer_shape_rules_accept(D, dtype):
+    q = torch.zeros((1, 2, 13, 2, D), dtype=dtype)
+    b1 = torch.zeros((1, 2, 1, 1, 13))
+    assert tevo.shape_problem(q, q, q, b1, None) is None
+    assert "CUDA device" in tevo._problem(q, q, q, b1, None)
+
+
+@pytest.mark.parametrize("D", [4, 12, 264])
+def test_evoformer_shape_rules_refuse(D):
+    q = torch.zeros((1, 2, 13, 2, D), dtype=torch.bfloat16)
+    problem = tevo.shape_problem(q, q, q)
+    assert f"head_dim {D}" in problem and "C.1" in problem
+    assert "float32, float16 or bfloat16" in tevo.shape_problem(
+        q.double(), q.double(), q.double())
+    assert "broadcast" in tevo.shape_problem(
+        *(torch.zeros((1, 2, 13, 2, 16)),) * 3, torch.zeros(1, 2, 1, 1, 7))
+
+
+# --------------------------------------------------- GPT at head dim 80
+
+PHI2_LIKE = dict(num_layers=2, num_heads=2, head_dim=80, hidden_size=160,
+                 mlp_ratio=2, vocab_size=256, max_seq_len=32, loss_chunk=24)
+DS = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+      "optimizer": {"type": "AdamW",
+                    "params": {"lr": 1e-3, "weight_decay": 0.1}},
+      "gradient_clipping": 0.5, "zero_optimization": {"stage": 2},
+      "steps_per_print": 0}
+
+
+def test_head_dim_80_gpt_trains_like_jax():
+    """Two train_batch steps of a GPT with Phi-2's head dim (80) from the
+    same initial weights on both engines (fp32): loss and grad norm at
+    1e-5 each step, then the trained weights held through eval_batch at
+    1e-5.  (Element by element AdamW's m / sqrt(v) magnifies rounding where
+    a gradient is near 0: one of wv's 25600 weights differs by 3.3e-5.)"""
+    rng = np.random.default_rng(0)
+    batches = [{"input_ids": rng.integers(0, 256, (4, 16)).astype(np.int32)}
+               for _ in range(3)]
+    jeng, *_ = deepspeed_tpu.initialize(
+        model=jgpt.GPTChunkedLoss(jgpt.GPTConfig(**PHI2_LIKE)),
+        config=dict(DS),
+        example_batch={k: v[:2] for k, v in batches[0].items()},
+        mesh=single_device_mesh())
+    init = jax.tree_util.tree_map(
+        lambda x: np.asarray(jnp.asarray(x).astype(jnp.float32)),
+        jeng.state.params)
+    model = tgpt.GPTChunkedLoss(tgpt.GPTConfig(**PHI2_LIKE)).load_params(init)
+    teng, *_ = dst.initialize(model=model, config=dict(DS), device="cpu")
+    for b in batches[:2]:
+        jm, tm = jeng.train_batch(b), teng.train_batch(b)
+        assert abs(float(jm.loss) - tm.loss) <= 1e-5
+        assert abs(float(jm.grad_norm) - tm.grad_norm) <= 1e-5
+    assert abs(float(jeng.eval_batch(batches[2]))
+               - float(teng.eval_batch(batches[2]))) <= 1e-5
+
+
+def test_gpt_config_cuda_rule():
+    """The CUDA rule ``initialize`` applies before building an engine on the
+    card: Phi-2 (80), Phi-3-mini (96) and Gemma (256) head dims pass, 264
+    and 44 are refused with the reason."""
+    for d in (64, 80, 96, 128, 256):
+        assert tgpt.GPTConfig(head_dim=d).cuda_problem() is None
+    for d in (44, 264):
+        problem = tgpt.GPTConfig(head_dim=d).cuda_problem()
+        assert f"head_dim {d}" in problem and "C.1" in problem
+
+
+# ------------------------------------------------------------ wq planner
+
+SMS = 132
+WQ_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+             (4096, 128256), (768, 768), (768, 2304), (3072, 768),
+             (768, 50304), (4096, 1000), (80, 128), (16, 16)]
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("M", [1, 16, 17, 64, 65, 256, 300, 1024])
+@pytest.mark.parametrize("K,N", WQ_SHAPES)
+def test_wq_plan_covers_k_and_fits(K, N, M, mode):
+    plan = twq.wq_plan(M, N, K, mode, torch.bfloat16, SMS)
+    steps = -(-K // plan["kt"])
+    splits, per = plan["splits"], plan["per"]
+    assert splits >= 1 and per >= 1
+    assert splits * per >= steps                # the splits cover K ...
+    assert (splits - 1) * per < steps           # ... each owning a step
+    if mode == 1:
+        assert plan["kt"] == 128 and plan["stages"] == 0
+        return
+    assert plan["kt"] == 64
+    assert 3 <= plan["stages"] <= 8
+    assert plan["smem"] <= twq.SMEM_PER_BLOCK
+    xrows = min(256, -(-M // 64) * 64)
+    assert plan["smem"] >= plan["stages"] * (xrows * 128 + 128 * 128
+                                             + 64 * 128 + 4 * 128 * 4)
+    tiles = -(-N // 128) * -(-M // 256)
+    assert splits == 1 or tiles * splits <= SMS  # one wave of blocks
+
+
+def test_wq_plan_fp32_is_one_split():
+    assert twq.wq_plan(16, 4096, 4096, 0, torch.float32, SMS)["splits"] == 1
