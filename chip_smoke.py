@@ -847,8 +847,10 @@ def _time_flash(torch, fa, q, k, v, do, kw, library=True):
     return res
 
 
-# head dims the kernels pad (80 -> 96) or split over two column blocks
-# (256): (B, T, N, Nkv, D) at each model's attention width
+# head dims the kernels pad (80 -> 96) and the widest (256, where the
+# forward's O accumulator takes 128 registers a thread and the backward
+# splits its columns over two blocks): (B, T, N, Nkv, D) at each model's
+# attention width
 WIDE_HEADS = (("Phi-2", (1, 2048, 32, 32, 80)),
               ("Phi-3-mini", (1, 4096, 32, 32, 96)),
               ("Gemma-7B", (1, 8192, 16, 16, 256)))
@@ -2583,6 +2585,31 @@ def phase_evoformer(torch, evo, dev):
     return launches, results
 
 
+def _ptxas_report(build_log, kernel):
+    """ptxas's registers, spills and stack for each instantiation of
+    ``kernel`` (template arguments demangled where c++filt exists)."""
+    import shutil
+    import subprocess
+    for name, log in build_log.items():
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if kernel in line else None
+            elif entry and ("spill stores" in line or "Used" in line):
+                if "Used" in line:
+                    args = entry
+                    if shutil.which("c++filt"):
+                        args = subprocess.run(
+                            ["c++filt", entry], capture_output=True,
+                            text=True).stdout.strip()
+                    args = args[args.find("<"):args.find(">(") + 1] or args
+                    print(f"  [{name}] {kernel}{args}: {spill.strip()}; "
+                          f"{line.split(':', 1)[1].strip()}", flush=True)
+                    entry = None
+                else:
+                    spill = line
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
@@ -2635,6 +2662,7 @@ def main():
               f"ptxas: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, spill "
               f"stores up to {max(spills, default=0)} bytes", flush=True)
+    _ptxas_report(builder.build_log, "attn_fwd_kernel")
 
     results = {}
     if 2 in phases:
@@ -2776,13 +2804,16 @@ def main():
                 "evoformer_dkv": "deepspeed_tpu/ops/evoformer.py:224",
                 "evoformer_db2": "deepspeed_tpu/ops/evoformer.py:252",
                 "evoformer_db1": "deepspeed_tpu/ops/evoformer.py:272"}
-    sources = {**dict.fromkeys(FLASH, "flash_attention"),
-               **dict.fromkeys(WQ, "wq_matmul"),
-               **dict.fromkeys(SPARSE, "sparse_attention"),
-               "evoformer_fwd": "evoformer",
-               **dict.fromkeys(EVO_BWD, "evoformer_bwd"),
-               "paged_attention_int8": "paged_attention",
-               "ragged_prefill_int8": "ragged_prefill"}
+    # the 16-bit forwards (#3, #13) share one kernel template, built into
+    # flash_attention.cu and evoformer.cu
+    sources = {**dict.fromkeys(FLASH, "flash_attention.cu"),
+               **dict.fromkeys(WQ, "wq_matmul.cu"),
+               **dict.fromkeys(SPARSE, "sparse_attention.cu"),
+               "flash_fwd": "attn_fwd_hopper.cuh",
+               "evoformer_fwd": "attn_fwd_hopper.cuh",
+               **dict.fromkeys(EVO_BWD, "evoformer_bwd.cu"),
+               "paged_attention_int8": "paged_attention.cu",
+               "ragged_prefill_int8": "ragged_prefill.cu"}
     kernels = []
     for name in ("paged_attention", "ragged_prefill") + FLASH + WQ + INT8 \
             + LORA + SPARSE + EVO:
@@ -2794,7 +2825,8 @@ def main():
             flush=True)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"deepspeed_tpu_torch/csrc/{sources.get(name, name)}.cu",
+            "source": "deepspeed_tpu_torch/csrc/"
+                      + sources.get(name, name + ".cu"),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": ERRS[name] if r else None, "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),

@@ -47,11 +47,17 @@ __device__ __forceinline__ float load_bias(const void* p, long long i, int code)
 // whole steps of it.  b1o / b2o are the (batch, row) and (batch, head)
 // offsets of the two biases; a caller that holds the bias values already
 // passes them to evo_logit_v.
-__device__ __forceinline__ float evo_logit_v(const EvoArgs& p, float qk, float b1, float b2) {
-  float s = qk * p.scale;
-  if (p.b1_code >= 0) s = s + b1;
-  if (p.b2_code >= 0) s = s + b2;
+// Each step is rounded on its own (no fused multiply-add), as the
+// reference's separate operations round.
+__device__ __forceinline__ float evo_logit_s(float qk, float scale, bool has1, float b1,
+                                             bool has2, float b2) {
+  float s = __fmul_rn(qk, scale);
+  if (has1) s = __fadd_rn(s, b1);
+  if (has2) s = __fadd_rn(s, b2);
   return s;
+}
+__device__ __forceinline__ float evo_logit_v(const EvoArgs& p, float qk, float b1, float b2) {
+  return evo_logit_s(qk, p.scale, p.b1_code >= 0, b1, p.b2_code >= 0, b2);
 }
 __device__ __forceinline__ float bias1_at(const EvoArgs& p, long long b1o, int kpos) {
   return load_bias(p.b1, b1o + kpos * p.b1_sk, p.b1_code);
@@ -61,10 +67,9 @@ __device__ __forceinline__ float bias2_at(const EvoArgs& p, long long b2o, int q
 }
 __device__ __forceinline__ float evo_logit(const EvoArgs& p, float qk, long long b1o,
                                            long long b2o, int qpos, int kpos) {
-  float s = qk * p.scale;
-  if (p.b1_code >= 0) s = s + bias1_at(p, b1o, kpos);
-  if (p.b2_code >= 0) s = s + bias2_at(p, b2o, qpos, kpos);
-  return s;
+  return evo_logit_s(qk, p.scale, p.b1_code >= 0,
+                     p.b1_code >= 0 ? bias1_at(p, b1o, kpos) : 0.f, p.b2_code >= 0,
+                     p.b2_code >= 0 ? bias2_at(p, b2o, qpos, kpos) : 0.f);
 }
 
 // The block copies `rows` token rows (D contiguous elements each, token

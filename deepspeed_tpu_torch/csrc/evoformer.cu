@@ -1,198 +1,35 @@
 // Evoformer attention forward on Hopper (sm_90a).
 //
 // Replaces the TPU kernel of deepspeed_tpu/ops/evoformer.py:
-//   _fwd_kernel (launched by _fwd) -> evo_fwd_kernel
+//   _fwd_kernel (launched by _fwd) -> attn_fwd_kernel<..., EVO = true>
+//   (16-bit, D up to 128; its design in attn_fwd_hopper.cuh), evo_fwd_simt
+//   (fp32, and D above 128)
 // Same function: for q, k, v [B, N, S, H, D] (N: MSA rows or residue pairs),
 //   o = softmax(q kT * D^-1/2 + bias1 + bias2) v,   bias1 [B, N, 1, 1, S]
 //   (per-key mask bias), bias2 [B, 1, H, S, S] (pair bias shared over N),
 // with the per-row logsumexp saved for the backward (lse [B*N, H, S] fp32).
 // The logits are summed in the reference's order, all in fp32: (q . k) *
-// scale, then + bias1, then + bias2 (_tile_scores).  The order matters: a
-// -1e9 mask bias puts a fully masked row's logits where the fp32 spacing is
-// 64, and such a row agrees with the reference only if its logits round the
-// same way.  A row whose running maximum stays at -1e30 gives probabilities
-// 0 (the reference's guard), o = 0 and lse -1e30.
+// scale, then + bias1, then + bias2 (_tile_scores; evo_logit_s, which the
+// backward kernels call too).  The order matters: a -1e9 mask bias puts a
+// fully masked row's logits where the fp32 spacing is 64, and such a row
+// agrees with the reference only if its logits round the same way.  A row
+// whose running maximum stays at -1e30 gives probabilities 0 (the
+// reference's guard), o = 0 and lse -1e30.
 //
-// What bounds it on the H100: bytes at AlphaFold2's widths.  With D = 32 a
-// (query, key) pair costs 4*D = 128 flops while q, k, v, o are read or
-// written once per element and bias2 once per (head, query, key) - about
-// 190 flops a byte at N_res 384, under the card's ~295 flop/byte line.
-// What the design does about it:
-//   - one block per (batch * MSA row, 64-query tile, head), 4 warps x 16
-//     query rows; the key loop runs inside the block over 64-key tiles
-//     staged through shared memory with 16-byte cp.async, double buffered.
-//     blockIdx.x walks the N MSA rows fastest, so the blocks in flight at
-//     one time share the same (head, query tile) and read the same bias2
-//     tile from L2: bias2 crosses device memory about once.
-//   - q, k, v and both biases are read through their strides: the
-//     [B, N, S, H, D] layout needs no transpose, and a broadcast bias
-//     (stride 0 over N, or over B) is never materialised.
-//   - both products on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulate); head_dim D (any multiple of 8 up to 128) is padded to
-//     HDP in {16, 32, 64, 128} with zeros in shared memory and registers.
-//     fp32 inputs, and 16-bit inputs with D above 128, take evo_fwd_simt, a
-//     CUDA-core variant through the same logit function.
-//   - any S: keys past S in the last tile are dropped, rows past S are not
-//     written.
-#include "evo_common.cuh"
+// What bounds it on the H100: bytes and exponentials at AlphaFold2's
+// widths.  With D = 32 a (query, key) pair costs 4*D = 128 flops and one
+// exp, while q, k, v, o are read or written once per element and bias2
+// once per (head, query, key).  The tensor-core forward keeps the logits
+// and the staged biases out of device memory, reads each (row, head)'s K
+// and V once from it (its q tiles run one after another), and stages the
+// bias2 tile by TMA beside K and V instead of 2-byte loads per logit.
+// q, k, v and both biases are read through their strides: the [B, N, S,
+// H, D] layout needs no transpose, and a broadcast bias (stride 0 over N,
+// or over B) is never materialised.  Any S: keys past S are masked, rows
+// past S are not written.
+#include "attn_fwd_hopper.cuh"
 
 namespace dsk {
-
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kEvoWarps * 32) evo_fwd_kernel(EvoArgs p) {
-  constexpr int KSTEPS = HDP / 16, DTILES = HDP / 8, LD = HDP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* kbuf = reinterpret_cast<T*>(smem);  // [2][kEvoTile*LD]
-  T* vbuf = kbuf + 2 * kEvoTile * LD;    // [2][kEvoTile*LD]
-
-  const int bn = blockIdx.x, qt = blockIdx.y, h = blockIdx.z;
-  const int b = bn / p.N, n = bn % p.N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int q0 = qt * kEvoTile;
-  const int D = p.D;
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh;
-  const long long b1o = b * p.b1_sb + n * p.b1_sn;
-  const long long b2o = b * p.b2_sb + h * p.b2_sh;
-
-  // the padded head_dim columns of all four staging buffers read as zeros
-  if (D < HDP) {
-    unsigned short* raw = reinterpret_cast<unsigned short*>(smem);
-    for (int i = threadIdx.x; i < 4 * kEvoTile * (HDP - D); i += blockDim.x) {
-      const int row = i / (HDP - D), c = D + i % (HDP - D);
-      raw[row * LD + c] = 0;
-    }
-  }
-
-  int qpos[2];
-  bool exists[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qpos[i] = q0 + warp * 16 + grp + 8 * i;
-    exists[i] = qpos[i] < p.S;
-  }
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j & 1;
-      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
-      qa[ks][j] = (exists[i] && col < D)
-                      ? *reinterpret_cast<const uint32_t*>(qb + qpos[i] * p.q_ss + col)
-                      : 0u;
-    }
-  float acc[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const int nkt = (p.S + kEvoTile - 1) / kEvoTile;
-  load_rows_d<T, LD>(kbuf, kb, p.k_ss, 0, kEvoTile, p.S, D);
-  load_rows_d<T, LD>(vbuf, vb, p.v_ss, 0, kEvoTile, p.S, D);
-  cp_async_commit();
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int bsel = kt & 1;
-    if (kt + 1 < nkt) {
-      load_rows_d<T, LD>(kbuf + (bsel ^ 1) * kEvoTile * LD, kb, p.k_ss, (kt + 1) * kEvoTile,
-                         kEvoTile, p.S, D);
-      load_rows_d<T, LD>(vbuf + (bsel ^ 1) * kEvoTile * LD, vb, p.v_ss, (kt + 1) * kEvoTile,
-                         kEvoTile, p.S, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // also orders the pad zeroing before the first reads
-    const T* ks_ = kbuf + bsel * kEvoTile * LD;
-    const T* vs_ = vbuf + bsel * kEvoTile * LD;
-    for (int t0 = 0; t0 < kEvoTile; t0 += 16) {
-      const int kv0 = kt * kEvoTile + t0;
-      if (kv0 >= p.S) break;
-      float sc[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
-      mma_rows_t<T, HDP, LD>(sc, qa, ks_, t0, lane);
-      // natural-unit logits in the reference's order; a key past S or a
-      // row past S is absent (-1e30, probability 0 below)
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = j >> 1;
-          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
-          float s = kNegInf;
-          if (exists[i] && kpos < p.S) s = evo_logit(p, sc[nt][j], b1o, b2o, qpos[i], kpos);
-          sc[nt][j] = s;
-          mx[i] = fmaxf(mx[i], s);
-        }
-      float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float mnew = fmaxf(m[i], mx[i]);
-        alpha[i] = exp2f((m[i] - mnew) * kLog2e);
-        m[i] = mnew;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = j >> 1;
-          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
-          // a row whose maximum is still -1e30 must not alias exp(0) to 1
-          const float pr = (exists[i] && kpos < p.S && m[i] > 0.5f * kNegInf)
-                               ? exp2f((sc[nt][j] - m[i]) * kLog2e)
-                               : 0.f;
-          sc[nt][j] = pr;
-          psum[i] += pr;
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
-#pragma unroll
-      for (int d = 0; d < DTILES; ++d) {
-        acc[d][0] *= alpha[0];
-        acc[d][1] *= alpha[0];
-        acc[d][2] *= alpha[1];
-        acc[d][3] *= alpha[1];
-      }
-      const uint32_t pa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
-                              Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
-      mma_rows<T, HDP, LD>(acc, pa, vs_, t0, lane);
-    }
-    __syncthreads();  // buffer bsel is refilled by the next iteration's copy
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  T* ob = static_cast<T*>(p.o) + ((long long)bn * p.S * p.H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!exists[i]) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];
-    const float inv = 1.f / li;
-    T* orow = ob + (long long)qpos[i] * p.H * D;
-#pragma unroll
-    for (int d = 0; d < DTILES; ++d)
-      if (d * 8 < D)
-        *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * tig) =
-            Mma<T>::pack(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
-    if (tig == 0)
-      p.lse_out[((long long)bn * p.H + h) * p.S + qpos[i]] = m[i] + logf(li);
-  }
-}
 
 // ------------------------------------------------- CUDA-core family (simt)
 // fp32 inputs at any head_dim, and 16-bit inputs at head_dim above 128
@@ -237,23 +74,54 @@ cudaError_t launch_evo_simt(const EvoArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int HDP>
-cudaError_t launch_evo_t(const EvoArgs& a, cudaStream_t st) {
-  constexpr int LD = HDP + 8;
-  const size_t smem = 4 * (size_t)kEvoTile * LD * sizeof(T);
-  cudaError_t err = allow_dynamic_smem<evo_fwd_kernel<T, HDP>>();
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.N, (a.S + kEvoTile - 1) / kEvoTile, a.H);
-  evo_fwd_kernel<T, HDP><<<grid, kEvoWarps * 32, smem, st>>>(a);
-  return cudaGetLastError();
+// The 16-bit forward on attn_fwd_kernel (attn_fwd_hopper.cuh): q, k, v
+// [B, N, S, H, D] as 5-D tensor maps (D, head, token, row, batch) read in
+// boxes of [rows, 64 columns] in the 128-byte swizzle, the columns past D
+// zero-filled; bias2 [B, H, S, S] as a 4-D map in boxes of [128 queries,
+// 128 bytes of keys] where its layout allows (keys contiguous, 16-byte
+// aligned base and strides), else staged element by element.
+template <typename T, int HD>
+cudaError_t launch_evo_wgmma(const EvoArgs& a, int stages, int qslots, cudaStream_t st) {
+  constexpr int BN = HD <= 64 ? 128 : 64;
+  FwdArgs p{};
+  p.o = a.o;
+  p.lse = a.lse_out;
+  p.B = a.B * a.N; p.T = a.S; p.N = a.H; p.Nkv = a.H; p.hd = a.D; p.rows = a.N;
+  p.stages = stages; p.qslots = qslots;
+  p.scale = a.scale;
+  p.b1 = a.b1; p.b1_sb = a.b1_sb; p.b1_sn = a.b1_sn; p.b1_sk = a.b1_sk; p.b1_code = a.b1_code;
+  p.b2 = a.b2; p.b2_sb = a.b2_sb; p.b2_sh = a.b2_sh; p.b2_sq = a.b2_sq; p.b2_sk = a.b2_sk;
+  p.b2_code = a.b2_code;
+  const long long dims[5] = {a.D, a.H, a.S, a.N, a.B};
+  const long long sq[5] = {1, a.q_sh, a.q_ss, a.q_sn, a.q_sb},
+                  sk[5] = {1, a.k_sh, a.k_ss, a.k_sn, a.k_sb},
+                  sv[5] = {1, a.v_sh, a.v_ss, a.v_sn, a.v_sb};
+  const int box_q[5] = {64, 1, kFwdRows, 1, 1}, box_kv[5] = {64, 1, BN, 1, 1};
+  CUtensorMap tmq{}, tmk{}, tmv{}, tmb2{};
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_nd(&tmq, tma_dtype<T>(), 2, a.q, 5, dims, sq, box_q, sw, &p.cq) ||
+      !tensor_map_nd(&tmk, tma_dtype<T>(), 2, a.k, 5, dims, sk, box_kv, sw, &p.ck) ||
+      !tensor_map_nd(&tmv, tma_dtype<T>(), 2, a.v, 5, dims, sv, box_kv, sw, &p.cv))
+    return cudaErrorInvalidValue;
+  if (a.b2_code >= 0) {
+    const int esz = a.b2_code == 0 ? 4 : 2;
+    const CUtensorMapDataType dt = a.b2_code == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : a.b2_code == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const long long d2[4] = {a.S, a.S, a.H, a.B}, s2[4] = {a.b2_sk, a.b2_sq, a.b2_sh, a.b2_sb};
+    const int box2[4] = {128 / esz, kFwdRows, 1, 1};
+    p.b2_tma = (reinterpret_cast<uintptr_t>(a.b2) % 16 == 0) &&
+               tensor_map_nd(&tmb2, dt, esz, a.b2, 4, d2, s2, box2, sw, &p.cb2);
+  }
+  return launch_attn_fwd<T, HD, BN, true>(p, tmq, tmk, tmv, tmb2, st);
 }
 
 template <typename T>
-cudaError_t launch_evo_d(const EvoArgs& a, cudaStream_t st) {
-  if (a.D <= 16) return launch_evo_t<T, 16>(a, st);
-  if (a.D <= 32) return launch_evo_t<T, 32>(a, st);
-  if (a.D <= 64) return launch_evo_t<T, 64>(a, st);
-  if (a.D <= 128) return launch_evo_t<T, 128>(a, st);
+cudaError_t launch_evo_d(const EvoArgs& a, int stages, int qslots, cudaStream_t st) {
+  if (a.D <= 16) return launch_evo_wgmma<T, 16>(a, stages, qslots, st);
+  if (a.D <= 32) return launch_evo_wgmma<T, 32>(a, stages, qslots, st);
+  if (a.D <= 64) return launch_evo_wgmma<T, 64>(a, stages, qslots, st);
+  if (a.D <= 128) return launch_evo_wgmma<T, 128>(a, stages, qslots, st);
   return launch_evo_simt<T, 256>(a, st);
 }
 
@@ -270,12 +138,13 @@ inline cudaError_t launch_evo_f32(const EvoArgs& a, cudaStream_t st) {
 // D] contiguous; lse [B*N, H, S] fp32; bias1 through strides (batch, row,
 // key) and bias2 through (batch, head, query, key), either may be null
 // (code -1).  dtype: 0 fp32, 1 fp16, 2 bf16; bias codes 0 fp32, 1 fp16,
-// 2 bf16.  D: a multiple of 8 up to 256.
+// 2 bf16.  D: a multiple of 8 up to 256.  stages, qslots: the 16-bit
+// forward's ring depth and Q slots (ops/evoformer.py evo_fwd_plan).
 extern "C" int ds_evoformer_fwd(const void* q, const void* k, const void* v, const void* b1,
                                 const void* b2, void* o, void* lse, int B, int N, int S, int H,
                                 int D, const long long* qkv_strides,
                                 const long long* bias_strides, int b1_code, int b2_code,
-                                float scale, int dtype, void* stream) {
+                                float scale, int stages, int qslots, int dtype, void* stream) {
   if (B < 1 || N < 1 || S < 1 || H < 1 || H > 65535 || D < 8 || D > 256 || D % 8 != 0 ||
       (S + dsk::kEvoSimtWarps - 1) / dsk::kEvoSimtWarps > 65535 ||
       (long long)B * N > 2147483647LL)
@@ -296,7 +165,7 @@ extern "C" int ds_evoformer_fwd(const void* q, const void* k, const void* v, con
   a.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dsk::launch_evo_f32(a, st);
-  if (dtype == 1) return (int)dsk::launch_evo_d<__half>(a, st);
-  if (dtype == 2) return (int)dsk::launch_evo_d<__nv_bfloat16>(a, st);
+  if (dtype == 1) return (int)dsk::launch_evo_d<__half>(a, stages, qslots, st);
+  if (dtype == 2) return (int)dsk::launch_evo_d<__nv_bfloat16>(a, stages, qslots, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
 // Flash attention for training on Hopper (sm_90a): forward, dq and dk/dv.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/flash_attention.py:
-//   _fwd_kernel (launched by _fwd)       -> flash_fwd_*_kernel
+//   _fwd_kernel (launched by _fwd)       -> attn_fwd_kernel (16-bit; its
+//                                           design in attn_fwd_hopper.cuh),
+//                                           flash_fwd_f32_kernel (fp32)
 //   _dq_kernel  (launched by _bwd_impl)  -> flash_dq_*_kernel
 //   _dkv_kernel (launched by _bwd_impl)  -> flash_dkv_*_kernel
 // Same function: softmax(q kT * scale [+ slope * kpos]) v over canonical
@@ -13,18 +15,18 @@
 //
 // What bounds it on the H100: operations.  At T = 1024, D = 64 the forward
 // does 4*D flops per visible (query, key) pair against 2*D*2 bytes per key
-// read once per 64-query tile, far above the card's ~295 flop/byte line;
+// read once per 128-query tile, far above the card's ~295 flop/byte line;
 // the backward more so (dq recomputes s and does 3 products, dk/dv 4).
-// What the design does about it:
+// The 16-bit forward is warp-specialised on TMA and wgmma (attn_fwd_hopper.
+// cuh).  What the backward's design does about it:
 //   - 16-bit inputs run every product on the tensor cores (mma.sync
-//     m16n8k16, fp32 accumulate).  wgmma, TMA and warp specialisation are
-//     later work; this version is the simple one that is right.
-//   - forward and dq: one block per (batch, q head, 64-query tile), 4 warps
-//     x 16 rows.  The TPU grid ran K tiles in order and carried (m, l, acc)
-//     in VMEM scratch; here the K loop is inside the block, the state lives
-//     in registers, and the loop runs only from the window's first K tile
-//     to the causal diagonal's, so dead tiles cost nothing.  K/V tiles
-//     (64 keys) stream through shared memory with 16-byte cp.async, double
+//     m16n8k16, fp32 accumulate).
+//   - dq: one block per (batch, q head, 64-query tile), 4 warps x 16 rows.
+//     The TPU grid ran K tiles in order and carried its state in VMEM
+//     scratch; here the K loop is inside the block, the state lives in
+//     registers, and the loop runs only from the window's first K tile to
+//     the causal diagonal's, so dead tiles cost nothing.  K/V tiles (64
+//     keys) stream through shared memory with 16-byte cp.async, double
 //     buffered, rows padded by 8 elements so that ldmatrix's eight row
 //     addresses fall in distinct banks.
 //   - dk/dv: one block per (batch, KV head, 64-key tile), each warp owning
@@ -44,14 +46,14 @@
 //     compiled at HD 64, 96, 128, 192 and 256 and a head_dim is padded
 //     with zeros up to the first that holds it (in shared memory and the
 //     q / do fragments; the pad adds nothing to q kT, and its output
-//     columns are never stored).  At 192 and 256 the output columns are
-//     split over two blocks (NCH), each recomputing the scores, so that
-//     the fp32 accumulators fit the registers (dk and dv of 256 columns
-//     would need 256 a thread).
+//     columns are never stored).  At 192 and 256 the backward's output
+//     columns are split over two blocks (NCH), each recomputing the
+//     scores, so that dk and dv fit the registers (256 columns would need
+//     256 a thread).
 //   - fp32 inputs (the cuda-vs-cpu parity run) take CUDA-core variants:
 //     lane l owns the columns l, l + 32, ..., warp reductions give the
 //     scores.
-#include "flash_common.cuh"
+#include "attn_fwd_hopper.cuh"
 
 namespace dsk {
 
@@ -64,196 +66,11 @@ struct FlashArgs {
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
   int causal, window;
+  int stages, qslots;  // forward, 16-bit: the ring depth and Q slots (flash_fwd_plan)
 };
 
 constexpr int kTile = 64;      // queries per block (fwd, dq), keys per block (dkv)
 constexpr int kFlashWarps = 4;
-
-// first and last (inclusive) K tile a q tile [q0, q0 + rows) can see
-__device__ __forceinline__ void k_tile_range(int q0, int rows, int T, int tile, int causal,
-                                             int window, int& first, int& last) {
-  const int q_last = min(q0 + rows, T) - 1;
-  last = (causal ? min(q_last, T - 1) : T - 1) / tile;
-  first = window > 0 ? max(q0 - window + 1, 0) / tile : 0;
-}
-
-// first and last (inclusive) q tile that can see the K tile [k0, k0 + rows)
-__device__ __forceinline__ void q_tile_range(int k0, int rows, int T, int tile, int causal,
-                                             int window, int& first, int& last) {
-  first = causal ? k0 / tile : 0;
-  const int k_last = min(k0 + rows, T) - 1;
-  last = (T - 1) / tile;
-  if (window > 0) last = min(last, (k_last + window - 1) / tile);
-}
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int T, int causal, int window) {
-  return qpos < T && kpos < T && (!causal || kpos <= qpos) &&
-         (window <= 0 || kpos > qpos - window);
-}
-
-// ------------------------------------------------------------ forward, mma
-// HD: the compiled width, p.hd padded up to it with zeros in shared memory
-// and registers (they add nothing to q k^T, and the pad columns of o are
-// never stored).  NCH: blocks a (q tile, head) splits the output columns
-// over, DC = HD / NCH each, so that the accumulators of the wide widths
-// fit the registers; each recomputes the scores.
-template <typename T, int HD, int NCH>
-__global__ void __launch_bounds__(kFlashWarps * 32) flash_fwd_mma_kernel(FlashArgs p) {
-  constexpr int KSTEPS = HD / 16, DC = HD / NCH, DTILES = DC / 8, LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* kbuf = reinterpret_cast<T*>(smem);  // [2][kTile*LD]
-  T* vbuf = kbuf + 2 * kTile * LD;       // [2][kTile*LD]
-
-  const int nqt = (p.T + kTile - 1) / kTile;
-  const int qt = nqt - 1 - blockIdx.x;   // heaviest (latest) tiles first
-  const int h = blockIdx.y / NCH, dc0 = (blockIdx.y % NCH) * DC, b = blockIdx.z;
-  const int hk = h / (p.N / p.Nkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int q0 = qt * kTile;
-  // the softmax runs in log2 units: exp2f is one instruction where expf is many
-  const float scale2 = p.scale * kLog2e;
-  const float slope2 = (p.slopes != nullptr ? p.slopes[h] : 0.f) * kLog2e;
-
-  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-
-  int qpos[2];
-  bool exists[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qpos[i] = q0 + warp * 16 + grp + 8 * i;
-    exists[i] = qpos[i] < p.T;
-  }
-  const int warp_min = q0 + warp * 16, warp_max = min(warp_min + 15, p.T - 1);
-
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j & 1;
-      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
-      qa[ks][j] = exists[i] && col < p.hd ? *reinterpret_cast<const uint32_t*>(
-                                                qb + (long long)qpos[i] * p.q_st + col)
-                                          : 0u;
-    }
-  float acc[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  int kt_first, kt_last;
-  k_tile_range(q0, kTile, p.T, kTile, p.causal, p.window, kt_first, kt_last);
-  const int n = kt_last - kt_first + 1;
-
-  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T, p.hd);
-  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T, p.hd);
-  cp_async_commit();
-  for (int it = 0; it < n; ++it) {
-    const int kt = kt_first + it;
-    const int bsel = it & 1;
-    if (it + 1 < n) {
-      load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * kTile * LD, kb, p.k_st, (kt + 1) * kTile, kTile,
-                           p.T, p.hd);
-      load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * kTile * LD, vb, p.v_st, (kt + 1) * kTile, kTile,
-                           p.T, p.hd);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* ks_ = kbuf + bsel * kTile * LD;
-    const T* vs_ = vbuf + bsel * kTile * LD;
-    for (int t0 = 0; t0 < kTile; t0 += 16) {
-      const int kv0 = kt * kTile + t0;
-      if (kv0 >= p.T || (p.causal && kv0 > warp_max)) break;
-      if (p.window > 0 && kv0 + 15 <= warp_min - p.window) continue;
-      float sc[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[nt][j] = 0.f;
-      mma_rows_t<T, HD, LD>(sc, qa, ks_, t0, lane);
-      // every (row, key) pair of the sub-tile visible: no tests needed
-      const bool full = (!p.causal || kv0 + 15 <= warp_min) &&
-                        (p.window <= 0 || kv0 > warp_min + 15 - p.window) &&
-                        kv0 + 16 <= p.T && warp_min + 15 < p.T;
-      // scores in log2 units; a masked entry is kNegInf and becomes
-      // probability 0 below, never exp(s - m): a row whose window lies
-      // outside this sub-tile cannot alias to 1
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = j >> 1;
-          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
-          float v = sc[nt][j] * scale2 + slope2 * (float)kpos;
-          if (!full && !visible(qpos[i], kpos, p.T, p.causal, p.window)) v = kNegInf;
-          sc[nt][j] = v;
-          mx[i] = fmaxf(mx[i], v);
-        }
-      float alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float mnew = fmaxf(m[i], mx[i]);
-        alpha[i] = exp2f(m[i] - mnew);  // 1 while the row has seen no key
-        m[i] = mnew;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = j >> 1;
-          const float v = sc[nt][j];
-          const float pr = (full || v > 0.5f * kNegInf) ? exp2f(v - m[i]) : 0.f;
-          sc[nt][j] = pr;
-          psum[i] += pr;
-        }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
-#pragma unroll
-      for (int d = 0; d < DTILES; ++d) {
-        acc[d][0] *= alpha[0];
-        acc[d][1] *= alpha[0];
-        acc[d][2] *= alpha[1];
-        acc[d][3] *= alpha[1];
-      }
-      const uint32_t pa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
-                              Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
-      mma_rows<T, DC, LD>(acc, pa, vs_ + dc0, t0, lane);
-    }
-    __syncthreads();  // buffer bsel is refilled by the next iteration's copy
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-  T* ob = static_cast<T*>(p.o) + ((long long)b * p.T * p.N + h) * p.hd + dc0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!exists[i]) continue;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);  // no visible key: zeros
-    T* orow = ob + (long long)qpos[i] * p.N * p.hd;
-#pragma unroll
-    for (int d = 0; d < DTILES; ++d)
-      if (dc0 + d * 8 < p.hd)
-        *reinterpret_cast<uint32_t*>(orow + d * 8 + 2 * tig) =
-            Mma<T>::pack(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
-    if (tig == 0 && dc0 == 0)  // ... and the finite lse of the TPU kernels
-      p.lse_out[((long long)b * p.N + h) * p.T + qpos[i]] =
-          l[i] == 0.f ? kNegInf : m[i] * kLn2 + logf(l[i]);
-  }
-}
 
 // ----------------------------------------------------------------- dq, mma
 template <typename T, int HD, int NCH>
@@ -759,17 +576,39 @@ cudaError_t launch_mma(int which, const FlashArgs& a, cudaStream_t st) {
     return cudaGetLastError();
   }
   const size_t smem = 4 * (size_t)kTile * LD * sizeof(T);
-  const dim3 grid(tiles, a.N * NCH, a.B);
-  if (which == kFwd) {
-    err = allow_dynamic_smem<flash_fwd_mma_kernel<T, HD, NCH>>();
-    if (err != cudaSuccess) return err;
-    flash_fwd_mma_kernel<T, HD, NCH><<<grid, kFlashWarps * 32, smem, st>>>(a);
-  } else {
-    err = allow_dynamic_smem<flash_dq_mma_kernel<T, HD, NCH>>();
-    if (err != cudaSuccess) return err;
-    flash_dq_mma_kernel<T, HD, NCH><<<grid, kFlashWarps * 32, smem, st>>>(a);
-  }
+  err = allow_dynamic_smem<flash_dq_mma_kernel<T, HD, NCH>>();
+  if (err != cudaSuccess) return err;
+  flash_dq_mma_kernel<T, HD, NCH>
+      <<<dim3(tiles, a.N * NCH, a.B), kFlashWarps * 32, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+// The 16-bit forward on attn_fwd_kernel (attn_fwd_hopper.cuh): q [B, T, N,
+// hd] and k, v [B, T, Nkv, hd] as 4-D tensor maps (hd, head, token, batch)
+// read in boxes of [rows, 64 columns] in the 128-byte swizzle, the columns
+// past hd zero-filled up to HD.
+template <typename T, int HD>
+cudaError_t launch_fwd_wgmma(const FlashArgs& a, cudaStream_t st) {
+  constexpr int BN = HD <= 128 ? 128 : 64;
+  FwdArgs p{};
+  p.o = a.o;
+  p.lse = a.lse_out;
+  p.B = a.B; p.T = a.T; p.N = a.N; p.Nkv = a.Nkv; p.hd = a.hd; p.rows = 1;
+  p.stages = a.stages; p.qslots = a.qslots;
+  p.scale = a.scale * kLog2e;
+  p.slopes = a.slopes; p.causal = a.causal; p.window = a.window;
+  p.b1_code = p.b2_code = -1;
+  const long long dq[4] = {a.hd, a.N, a.T, a.B}, dkv[4] = {a.hd, a.Nkv, a.T, a.B};
+  const long long sq[4] = {1, a.q_sh, a.q_st, a.q_sb}, sk[4] = {1, a.k_sh, a.k_st, a.k_sb},
+                  sv[4] = {1, a.v_sh, a.v_st, a.v_sb};
+  const int box_q[4] = {64, 1, kFwdRows, 1}, box_kv[4] = {64, 1, BN, 1};
+  CUtensorMap tmq{}, tmk{}, tmv{}, unused{};
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_nd(&tmq, tma_dtype<T>(), 2, a.q, 4, dq, sq, box_q, sw, &p.cq) ||
+      !tensor_map_nd(&tmk, tma_dtype<T>(), 2, a.k, 4, dkv, sk, box_kv, sw, &p.ck) ||
+      !tensor_map_nd(&tmv, tma_dtype<T>(), 2, a.v, 4, dkv, sv, box_kv, sw, &p.cv))
+    return cudaErrorInvalidValue;
+  return launch_attn_fwd<T, HD, BN, false>(p, tmq, tmk, tmv, unused, st);
 }
 
 template <int HD>
@@ -797,8 +636,11 @@ template <int HD>
 cudaError_t launch_dtype(int which, int dtype, const FlashArgs& a, cudaStream_t st) {
   switch (dtype) {
     case 0: return launch_f32<HD>(which, a, st);
-    case 1: return launch_mma<__half, HD>(which, a, st);
-    case 2: return launch_mma<__nv_bfloat16, HD>(which, a, st);
+    case 1:
+      return which == kFwd ? launch_fwd_wgmma<__half, HD>(a, st) : launch_mma<__half, HD>(which, a, st);
+    case 2:
+      return which == kFwd ? launch_fwd_wgmma<__nv_bfloat16, HD>(a, st)
+                           : launch_mma<__nv_bfloat16, HD>(which, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -823,12 +665,14 @@ inline cudaError_t launch_flash(int which, int dtype, const FlashArgs& a, void* 
 // (batch, token, head; head_dim contiguous); o, dout, dq [B, T, N, hd] and
 // dk, dv [B, T, Nkv, hd] contiguous; lse, delta [B, N, T] fp32; slopes [N]
 // fp32 or null.  dtype: 0 fp32, 1 fp16, 2 bf16.  window <= 0: none.
+// stages, qslots: the 16-bit forward's ring depth (1..8) and Q slots (1..2),
+// within the card's shared memory (ops/flash_attention.py flash_fwd_plan).
 extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const void* slopes,
                             void* o, void* lse, int B, int T, int N, int Nkv, int hd,
                             long long q_sb, long long q_st, long long q_sh, long long k_sb,
                             long long k_st, long long k_sh, long long v_sb, long long v_st,
-                            long long v_sh, float scale, int causal, int window, int dtype,
-                            void* stream) {
+                            long long v_sh, float scale, int causal, int window, int stages,
+                            int qslots, int dtype, void* stream) {
   dsk::FlashArgs a{};
   a.q = q; a.k = k; a.v = v; a.slopes = static_cast<const float*>(slopes);
   a.o = o; a.lse_out = static_cast<float*>(lse);
@@ -836,6 +680,7 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const v
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal; a.window = window;
+  a.stages = stages; a.qslots = qslots;
   return (int)dsk::launch_flash(dsk::kFwd, dtype, a, stream);
 }
 

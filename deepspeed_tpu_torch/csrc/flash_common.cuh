@@ -2,8 +2,9 @@
 // (flash_attention.cu, sparse_attention.cu, evoformer.cu): cp.async row
 // staging into padded shared-memory rows, ldmatrix fragment loads and the
 // two mma.sync products of an attention tile (scores q kT and the p v / ds k
-// accumulation), on top of paged_common.cuh's dtype traits and Mma; and the
-// row helpers of their CUDA-core variants.
+// accumulation), on top of paged_common.cuh's dtype traits and Mma; the
+// causal / window tile ranges and visibility test; and the row helpers of
+// their CUDA-core variants.
 #pragma once
 
 #include "paged_common.cuh"
@@ -123,6 +124,28 @@ __device__ __forceinline__ float warp_sum_dot(const float (&a)[VEC], const float
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
+}
+
+// first and last (inclusive) K tile a q tile [q0, q0 + rows) can see
+__device__ __forceinline__ void k_tile_range(int q0, int rows, int T, int tile, int causal,
+                                             int window, int& first, int& last) {
+  const int q_last = min(q0 + rows, T) - 1;
+  last = (causal ? min(q_last, T - 1) : T - 1) / tile;
+  first = window > 0 ? max(q0 - window + 1, 0) / tile : 0;
+}
+
+// first and last (inclusive) q tile that can see the K tile [k0, k0 + rows)
+__device__ __forceinline__ void q_tile_range(int k0, int rows, int T, int tile, int causal,
+                                             int window, int& first, int& last) {
+  first = causal ? k0 / tile : 0;
+  const int k_last = min(k0 + rows, T) - 1;
+  last = (T - 1) / tile;
+  if (window > 0) last = min(last, (k_last + window - 1) / tile);
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int T, int causal, int window) {
+  return qpos < T && kpos < T && (!causal || kpos <= qpos) &&
+         (window <= 0 || kpos > qpos - window);
 }
 
 // The backward kernels take exp2f(s2 - lse2) with both in log2 units.  A row

@@ -46,9 +46,7 @@
 // CUDA-core version used where exact fp32 is the point (tests, parity).
 // Code rows whose length or base is not 16-byte aligned are loaded element
 // by element (the wgmma kernel's producer then stages x by cp.async).
-#include "paged_common.cuh"
-
-#include <cuda.h>
+#include "hopper_common.cuh"
 
 #include <algorithm>
 
@@ -259,102 +257,6 @@ constexpr int WG_S_BYTES = WG_SROWS * WG_BN * 4;
 constexpr int WG_FIXED = WG_B_BYTES + WG_C_BYTES + WG_S_BYTES;
 constexpr int WG_BAR_BYTES = 3 * WG_MAX_STAGES * 8;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Wait for the phase of `parity` to complete.  A wait that outlasts ~10 s
-// of SM clocks traps: a broken ring fails the launch instead of hanging
-// the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (unsigned n = 0;; ++n) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 1023) == 0) {
-      const long long t = clock64();
-      if (t0 == 0) t0 = t;
-      else if (t - t0 > 20000000000LL) __trap();
-    }
-  }
-}
-// arrive once and expect `bytes` of tensor copies to land on the barrier
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// one 2-D tile of a tensor map (TMA): coordinates innermost first
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-// generic-proxy shared-memory writes -> visible to wgmma's async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (SBO); the start address steps by 32 bytes per k16.
-__device__ __forceinline__ uint64_t wg_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-#define DSK_ACC8(b)                                                                    \
-  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),      \
-      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-#define DSK_WGMMA_N128(TY)                                                              \
-  asm volatile(                                                                         \
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                                    \
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                     \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                                   \
-      : DSK_ACC8(0), DSK_ACC8(8), DSK_ACC8(16), DSK_ACC8(24), DSK_ACC8(32), DSK_ACC8(40), \
-        DSK_ACC8(48), DSK_ACC8(56)                                                      \
-      : "l"(da), "l"(db), "r"(1))
-
-// d[64 x 128] (+)= A[64 x 16] * B[128 x 16]^T, both K-major in shared memory
-template <typename T> struct Wgmma;
-template <> struct Wgmma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db) {
-    DSK_WGMMA_N128("bf16");
-  }
-};
-template <> struct Wgmma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db) {
-    DSK_WGMMA_N128("f16");
-  }
-};
-#undef DSK_WGMMA_N128
-#undef DSK_ACC8
-
-// pin the accumulator registers here: no read or write of them moves across
-// a wgmma fence / wait
-__device__ __forceinline__ void wg_fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) : : "memory");
-}
-
 // code -> fp32 exactly (sign-extended int in [-128, 127]): 2^23 + 128 + c
 // read as a float, minus 2^23 + 128
 __device__ __forceinline__ float code_f(int c) {
@@ -394,12 +296,12 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wq_wgmma_kernel(
       mbar_init(&b_full[s], WG_DQ);
       mbar_init(&empty[s], 128 * consumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 
   if (wg < 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_REG_DQ));
+    setmaxnreg_dec<WG_REG_DQ>();
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (warp == 0) {
       // ---- producer: the x tile, the code tile and the scale rows of
@@ -505,7 +407,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wq_wgmma_kernel(
   }
 
   // ---- consumers: warpgroup cw owns row tiles cw and cw + 2
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_REG_MMA));
+  setmaxnreg_inc<WG_REG_MMA>();
   const int cw = wg - 2;
   if (cw >= consumers) return;
   const bool two = cw + 2 < mtiles;
@@ -518,18 +420,18 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wq_wgmma_kernel(
     fence_proxy_async();
     const unsigned char* st = ring + (size_t)s * stage_bytes;
     const int kc = min(WG_BK, K - (s0 + it) * WG_BK);
-    wg_fence_acc(acc[0]);
-    wg_fence_acc(acc[1]);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wg_fence_regs(acc[0]);
+    wg_fence_regs(acc[1]);
+    wg_fence();
     for (int kk = 0; kk < kc / 16; ++kk) {
       const uint64_t db = wg_desc(st + x_bytes + kk * 32);
-      Wgmma<T>::run(acc[0], wg_desc(st + cw * 64 * 128 + kk * 32), db);
-      if (two) Wgmma<T>::run(acc[1], wg_desc(st + (cw + 2) * 64 * 128 + kk * 32), db);
+      Wgmma<T>::ss128(acc[0], wg_desc(st + cw * 64 * 128 + kk * 32), db);
+      if (two) Wgmma<T>::ss128(acc[1], wg_desc(st + (cw + 2) * 64 * 128 + kk * 32), db);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    wg_fence_acc(acc[0]);
-    wg_fence_acc(acc[1]);
+    wg_commit();
+    wg_wait<0>();
+    wg_fence_regs(acc[0]);
+    wg_fence_regs(acc[1]);
     mbar_arrive(&empty[s]);
   }
 
@@ -670,41 +572,6 @@ cudaError_t launch_mma_t(const void* x, const int8_t* codes, const float* scales
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return launch_reduce<T>(part, y, M, N, splits, stream);
-}
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime's
-// entry-point query (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a 2-D row-major [rows, cols] tensor of `elem`-byte elements, read in
-// [box_rows, box_cols] tiles, out-of-bounds elements zero-filled
-inline bool tensor_map(CUtensorMap* m, CUtensorMapDataType dt, int elem, const void* base,
-                       long long rows, long long cols, int box_rows, int box_cols,
-                       CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  return fn(m, dt, 2, const_cast<void*>(base), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // shared memory of the wgmma kernel: `stages` stages for x tiles of xrows

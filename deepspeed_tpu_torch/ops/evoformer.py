@@ -15,7 +15,10 @@ Implementations, chosen by the device of the tensors:
   ``torch_evoformer_fwd``, the forward kernel's formula without tiles with
   its logsumexp, the kernel's reference.
 - hand-written CUDA for Hopper: ``cuda_evoformer_fwd`` (csrc/evoformer.cu),
-  the forward with the per-row logsumexp, never materialising the logits;
+  the forward with the per-row logsumexp, never materialising the logits
+  (16-bit with head dim up to 128: the warp-specialised TMA + wgmma kernel
+  of csrc/attn_fwd_hopper.cuh, tiled by ``evo_fwd_plan``; fp32 and wider
+  head dims: a CUDA-core kernel);
   and ``cuda_evoformer_bwd`` (csrc/evoformer_bwd.cu), the reference's four
   backward kernels: dq, dk/dv, dbias2 and dbias1 (the last as per-head
   column sums inside dk/dv, added over heads in order).  q, k, v and both
@@ -38,7 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.ops.flash_attention import _check_rc, _ptr
+from deepspeed_tpu_torch.ops.flash_attention import _check_rc, _ptr, fwd_plan
 
 NEG_INF = -1e30     # finite "minus infinity" of the kernels
 
@@ -132,6 +135,19 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _BIAS_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
+def evo_fwd_plan(d: int, bias2_bytes: int = 2) -> dict:
+    """The 16-bit forward's tiles for head dim ``d`` (8..128): compiled width
+    hd_k (16, 32, 64 or 128; the pad is TMA's zero fill), 128 queries a
+    unit, ``bn`` keys a tile (128 up to hd_k 64, else 64), and, beside K
+    and V in each stage, the [128, bn] bias2 tile of ``bias2_bytes`` an
+    element (0: no bias2) and the bias1 slice (fp32, always staged: -inf
+    past S masks the ragged key tile); Q slots, ring depth and
+    shared-memory bytes as ``flash_attention.fwd_plan``."""
+    hd_k = next(w for w in (16, 32, 64, 128) if d <= w)
+    bn = 128 if hd_k <= 64 else 64
+    return fwd_plan(hd_k, bn, 128 * bn * bias2_bytes + 4 * bn)
+
+
 def _bias_views(q, bias1, bias2):
     """bias1 as a [B, N, 1, 1, S] view and bias2 as a [B, 1, H, S, S] view
     (stride 0 where broadcast; nothing is materialised)."""
@@ -157,12 +173,17 @@ def shape_problem(q, k, v, bias1=None, bias2=None) -> Optional[str]:
     if d % 8 or not 8 <= d <= 256:
         return f"head_dim {d}: the kernels take multiples of 8 from 8 to " \
                f"256 (ROADMAP C.1)"
+    # the 16-bit forward reads q, k, v by TMA, which takes a 16-byte-aligned
+    # base and strides that are multiples of 16 bytes; the other kernels
+    # load 16-byte rows
     per16 = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(4) != 1 or any(st % per16 for st in x.stride()[:4]) \
                 or x.data_ptr() % 16:
             return f"{name}: head_dim must be contiguous and every other " \
-                   f"stride and the base 16-byte aligned"
+                   f"stride and the base 16-byte aligned (TMA's rule: " \
+                   f"strides {tuple(x.stride())}, base offset " \
+                   f"{x.data_ptr() % 16} bytes)"
     for name, x in (("bias1", bias1), ("bias2", bias2)):
         if x is not None and x.dtype not in _BIAS_CODE:
             return f"{name} must be float32/float16/bfloat16"
@@ -208,7 +229,7 @@ def _lib(name="evoformer"):
         P, I, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "evoformer":
             lib.ds_evoformer_fwd.argtypes = ([P] * 7 + [I] * 5 + [P, P]
-                                             + [I, I, F_, I, P])
+                                             + [I, I, F_, I, I, I, P])
             lib.ds_evoformer_fwd.restype = I
         else:
             lib.ds_evoformer_bwd.argtypes = ([I] + [P] * 14 + [I] * 5
@@ -252,11 +273,15 @@ def cuda_evoformer_fwd(q, k, v, bias1=None, bias2=None):
     b1, b2 = _bias_views(q, bias1, bias2)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * n, h, s), dtype=torch.float32, device=q.device)
+    plan = (evo_fwd_plan(d, 0 if b2 is None else b2.element_size())
+            if q.dtype != torch.float32 and d <= 128 else
+            dict(stages=0, qslots=0))        # the CUDA-core kernel's call
     lib = _lib()
     rc = lib.ds_evoformer_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(b1), _ptr(b2), _ptr(o), _ptr(lse),
         b, n, s, h, d, *_strides(q, k, v, b1, b2), *_codes(b1, b2),
-        float(d ** -0.5), _DTYPE_CODE[q.dtype], _stream(q))
+        float(d ** -0.5), plan["stages"], plan["qslots"],
+        _DTYPE_CODE[q.dtype], _stream(q))
     _check_rc(lib, rc, "evoformer_fwd")
     cuda_evoformer_fwd.launches += 1
     return o, lse.view(b * n, h, 1, s)

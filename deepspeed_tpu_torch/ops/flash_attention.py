@@ -16,7 +16,10 @@ Two implementations, chosen by the device of the tensors:
   reference.
 - hand-written CUDA for Hopper, ``cuda_flash_fwd`` / ``cuda_flash_dq`` /
   ``cuda_flash_dkv`` (csrc/flash_attention.cu, built by ops/builder.py at
-  first use, bound with ctypes).  Each wrapper checks its inputs, allocates
+  first use, bound with ctypes; the 16-bit forward is the warp-specialised
+  TMA + wgmma kernel of csrc/attn_fwd_hopper.cuh, tiled by
+  ``flash_fwd_plan``, the fp32 one a CUDA-core kernel; dq and dk/dv run on
+  mma.sync).  Each wrapper checks its inputs, allocates
   its outputs with ``torch.empty``, launches on the current stream, raises
   on a non-zero ``cudaError_t`` and counts its launches in
   ``<wrapper>.launches``.
@@ -40,6 +43,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # the widest head_dim the kernels take (csrc/flash_attention.cu pads a
 # head_dim up to 64, 96, 128, 192 or 256)
 MAX_HEAD_DIM = 256
+# shared memory a block may use on the H100 (227 KB, opt-in)
+SMEM_LIMIT = 232448
 
 
 def _slopes(alibi_slopes, n_heads: int, device):
@@ -135,6 +140,42 @@ def torch_flash_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 # ------------------------------------------------------------------ kernels
 
 
+def fwd_plan(hd_k: int, bn: int, stage_extra: int = 0,
+             max_stages: int = 8) -> dict:
+    """Shared memory of the 16-bit attention forward (csrc/attn_fwd_hopper.cuh
+    FwdLayout, the same formula) for compiled head dim ``hd_k`` and ``bn``
+    keys a stage, ``stage_extra`` bytes a stage beside K and V: Q slots of
+    [128 rows, hdp] and a ring of stages, hdp = hd_k padded to 64 (TMA
+    boxes of 64 16-bit columns).  Two Q slots (the next unit's Q loads
+    while this one runs) where a ring of 2 still fits beside them, else
+    one; then as many stages as fit, at most ``max_stages``."""
+    hdp = -(-hd_k // 64) * 64
+    q_bytes = 128 * hdp * 2
+    stage = -(-(2 * bn * hdp * 2 + stage_extra) // 1024) * 1024
+    fixed = (4 + 4 * max_stages) * 8 + 1024      # mbarriers, alignment slack
+    fits = {qslots: min(max_stages,
+                        (SMEM_LIMIT - fixed - qslots * q_bytes) // stage)
+            for qslots in (2, 1)}
+    qslots = 2 if fits[2] >= 2 else 1
+    stages = fits[qslots]
+    if stages < 2:
+        raise ValueError(f"no forward plan fits {SMEM_LIMIT} bytes at "
+                         f"head dim {hd_k}, {bn} keys a stage")
+    return dict(hd_k=hd_k, hdp=hdp, bn=bn, qslots=qslots, stages=stages,
+                stage_bytes=stage,
+                smem=fixed + qslots * q_bytes + stages * stage)
+
+
+def flash_fwd_plan(d: int) -> dict:
+    """The 16-bit forward's tiles for head_dim ``d``: compiled width hd_k
+    (64, 96, 128, 192 or 256; the pad is TMA's zero fill), 128 queries a
+    unit, ``bn`` keys a tile (128 up to hd_k 128, 64 above, where the
+    fp32 O accumulator takes 128 registers a thread), Q slots, ring depth
+    and shared-memory bytes (``fwd_plan``)."""
+    hd_k = next(w for w in (64, 96, 128, 192, 256) if d <= w)
+    return fwd_plan(hd_k, 128 if hd_k <= 128 else 64)
+
+
 def head_dim_problem(d: int) -> Optional[str]:
     """Why the kernels cannot take head_dim ``d`` (None: they can)."""
     if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
@@ -164,12 +205,17 @@ def shape_problem(q, k, v, *, causal=True, window=None,
     problem = head_dim_problem(d)
     if problem is not None:
         return problem
+    # the 16-bit forward reads q, k, v by TMA, which takes a 16-byte-aligned
+    # base and strides that are multiples of 16 bytes; the other kernels
+    # load 16-byte rows
     per16 = 16 // q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(s % per16 for s in x.stride()[:3]) \
                 or x.data_ptr() % 16:
             return f"{name}: head_dim must be contiguous and every other " \
-                   f"stride and the base 16-byte aligned"
+                   f"stride and the base 16-byte aligned (TMA's rule: " \
+                   f"strides {tuple(x.stride())}, base offset " \
+                   f"{x.data_ptr() % 16} bytes)"
     if window is not None and (not causal or int(window) <= 0):
         return f"window={window} needs causal=True and a positive width"
     if alibi_slopes is not None and (
@@ -210,7 +256,7 @@ def _lib():
         P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
         tail = [I] * 5 + [L] * 9 + [F, I, I, I, P]
-        lib.ds_flash_fwd.argtypes = [P] * 6 + tail
+        lib.ds_flash_fwd.argtypes = [P] * 6 + tail[:-2] + [I, I] + tail[-2:]
         lib.ds_flash_fwd.restype = I
         lib.ds_flash_bwd.argtypes = [I] + [P] * 10 + tail
         lib.ds_flash_bwd.restype = I
@@ -261,9 +307,12 @@ def cuda_flash_fwd(q, k, v, *, causal: bool = True,
     b, t, n, d = q.shape
     o = torch.empty((b, t, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, t), dtype=torch.float32, device=q.device)
+    plan = flash_fwd_plan(d)
+    tail = _tail(q, k, v, scale, causal, window)
     lib = _lib()
     rc = lib.ds_flash_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(slopes), _ptr(o),
-                          _ptr(lse), *_tail(q, k, v, scale, causal, window))
+                          _ptr(lse), *tail[:-2], plan["stages"],
+                          plan["qslots"], *tail[-2:])
     _check_rc(lib, rc, "flash_fwd")
     cuda_flash_fwd.launches += 1
     return o, lse.view(b, n, 1, t)

@@ -16,6 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 pa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
 
 
@@ -261,8 +265,10 @@ FLASH_CASES = {
     "alibi_window_gqa": dict(N=4, Nkv=2, window=50, alibi=True),
     "ragged_tail": dict(T=173),
     "short": dict(T=5),
-    # head dims the kernels pad (40 -> 64, 80 / 96 -> 96, 136 -> 192) or
-    # split over two column blocks (192, 256)
+    # the training main path's call (GPT-2 small, T 1024)
+    "main_b16_t1024": dict(B=16, T=1024, N=12, Nkv=12),
+    # head dims the kernels pad (40 -> 64, 80 / 96 -> 96, 136 -> 192); the
+    # widest (256) in one block column of the forward
     "d40_gqa": dict(N=4, Nkv=2, D=40),
     "d80": dict(D=80, T=173),
     "d96_window": dict(D=96, window=37),
@@ -680,6 +686,8 @@ EVO_CASES = {
     "none_d64": (64, 13, "none"),
     "both_d128_s100": (128, 100, "both"),
     "broadcast_d32_s383": (32, 383, "broadcast"),
+    # AlphaFold2's MSA row call's S and D (both biases)
+    "both_d32_s384": (32, 384, "both"),
     # head dims above 128: the CUDA-core variants
     "both_d160_s100": (160, 100, "both"),
     "broadcast_d256_s45": (256, 45, "broadcast"),

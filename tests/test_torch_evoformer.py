@@ -21,6 +21,10 @@ import torch
 
 from deepspeed_tpu_torch import ops as tops
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 jevo = importlib.import_module("deepspeed_tpu.ops.evoformer")
 tevo = importlib.import_module("deepspeed_tpu_torch.ops.evoformer")
 

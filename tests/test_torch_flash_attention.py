@@ -18,6 +18,10 @@ import torch
 from deepspeed_tpu import ops as jops
 from deepspeed_tpu_torch import ops as tops
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 # the modules (both ops/__init__ re-export a function of the same name)
 tfa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
 jfa = importlib.import_module("deepspeed_tpu.ops.flash_attention")

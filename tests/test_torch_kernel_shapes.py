@@ -15,7 +15,12 @@ quantized product's launch plan, on the CPU:
   CUDA rule that ``initialize`` applies, a head dim of 264 refused;
 - ``wq_plan``, the wgmma product's split-K and ring plan: every split owns
   at least one K step, the splits cover K exactly, and the shared memory
-  stays within the H100's 227 KB a block.
+  stays within the H100's 227 KB a block;
+- ``flash_fwd_plan`` / ``evo_fwd_plan``, the 16-bit forwards' tiles, Q
+  slots and ring: every head dim (and the evoformer's bias layouts and
+  any S) gets one that fits the 227 KB, and the rules refuse a q / k / v
+  that TMA cannot read (a stride or base not 16-byte aligned), naming
+  the rule.
 
 The kernels themselves are held to these plain paths on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
@@ -35,6 +40,10 @@ from deepspeed_tpu.models import gpt as jgpt
 from deepspeed_tpu.parallel.mesh import single_device_mesh
 from deepspeed_tpu_torch import ops as tops
 from deepspeed_tpu_torch.models import gpt as tgpt
+
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
 
 tfa = importlib.import_module("deepspeed_tpu_torch.ops.flash_attention")
 tsp = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
@@ -351,3 +360,69 @@ def test_wq_plan_covers_k_and_fits(K, N, M, mode):
 
 def test_wq_plan_fp32_is_one_split():
     assert twq.wq_plan(16, 4096, 4096, 0, torch.float32, SMS)["splits"] == 1
+
+
+# ------------------------------------- the 16-bit attention forward's plan
+
+SMEM = 232448          # the H100's shared memory a block (227 KB, opt-in)
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_flash_fwd_plan_fits(d):
+    """Every head dim the flash kernels take gets one block column: a
+    compiled width that holds it (TMA's zero fill pads the rest), 128 or
+    64 keys a tile, 1-2 Q slots and a ring of 2-8 stages in the card's
+    shared memory."""
+    plan = tfa.flash_fwd_plan(d)
+    assert plan["hd_k"] >= d and plan["hd_k"] in (64, 96, 128, 192, 256)
+    assert plan["hdp"] % 64 == 0 and plan["hdp"] >= plan["hd_k"]
+    assert plan["bn"] == (128 if plan["hd_k"] <= 128 else 64)
+    assert plan["qslots"] in (1, 2) and 2 <= plan["stages"] <= 8
+    q_bytes = 128 * plan["hdp"] * 2
+    assert plan["stage_bytes"] >= 2 * plan["bn"] * plan["hdp"] * 2
+    assert plan["smem"] >= plan["qslots"] * q_bytes \
+        + plan["stages"] * plan["stage_bytes"]
+    assert plan["smem"] <= SMEM
+
+
+@pytest.mark.parametrize("bias2_bytes", [0, 2, 4])
+@pytest.mark.parametrize("d", range(8, 129, 8))
+def test_evo_fwd_plan_fits(d, bias2_bytes):
+    """Every 16-bit head dim the evoformer's tensor-core forward takes, with
+    bias2 absent, 16-bit or fp32, fits the card; the stage holds K, V, the
+    [128, bn] bias2 tile and the bias1 slice (always: it masks the keys
+    past S)."""
+    plan = tevo.evo_fwd_plan(d, bias2_bytes)
+    assert plan["hd_k"] >= d and plan["hd_k"] in (16, 32, 64, 128)
+    assert plan["bn"] == (128 if plan["hd_k"] <= 64 else 64)
+    assert plan["stage_bytes"] >= 2 * plan["bn"] * plan["hdp"] * 2 \
+        + 128 * plan["bn"] * bias2_bytes + 4 * plan["bn"]
+    assert plan["qslots"] in (1, 2) and 2 <= plan["stages"] <= 8
+    assert plan["smem"] <= SMEM
+
+
+@pytest.mark.parametrize("S", [1, 7, 64, 127, 128, 383, 384, 1000])
+@pytest.mark.parametrize("D", [8, 32, 128])
+def test_evoformer_any_length_takes_the_tensor_core_forward(S, D):
+    """Any S (TMA zero-fills the ragged key and query tiles, the kernel
+    masks the keys) at 16-bit head dims up to 128: the rules accept it and
+    the plan does not depend on S."""
+    q = torch.zeros((1, 2, S, 2, D), dtype=torch.bfloat16)
+    b1 = torch.zeros((1, 2, 1, 1, S), dtype=torch.bfloat16)
+    b2 = torch.zeros((1, 1, 2, S, S), dtype=torch.bfloat16)
+    assert tevo.shape_problem(q, q, q, b1, b2) is None
+    assert tevo.evo_fwd_plan(D)["smem"] <= SMEM
+
+
+def test_tma_rule_refuses_misaligned_strides_and_bases():
+    """q, k, v are read by TMA: a stride that is not a multiple of 16 bytes
+    or a base that is not 16-byte aligned is refused by the rules, and the
+    message names the rule."""
+    wide = torch.zeros((2, 16, 4, 81), dtype=torch.bfloat16)[..., :80]
+    assert "TMA's rule" in tfa.shape_problem(wide, wide, wide)
+    flat = torch.zeros(2 * 16 * 4 * 80 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 16, 4, 80)
+    problem = tfa.shape_problem(shifted, shifted, shifted)
+    assert "TMA's rule" in problem and "base offset 2 bytes" in problem
+    q = torch.zeros((1, 2, 13, 2, 33), dtype=torch.bfloat16)[..., :32]
+    assert "TMA's rule" in tevo.shape_problem(q, q, q)

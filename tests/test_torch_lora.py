@@ -36,6 +36,10 @@ from deepspeed_tpu_torch import params_from_numpy
 from deepspeed_tpu_torch.inference.v2.ragged import BlockedAllocator
 from deepspeed_tpu_torch.serving import adapters as tadapters
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 jlora = importlib.import_module("deepspeed_tpu.ops.lora_matmul")
 tlora = importlib.import_module("deepspeed_tpu_torch.ops.lora_matmul")
 

@@ -29,6 +29,10 @@ from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
 from deepspeed_tpu_torch import params_from_numpy
 from deepspeed_tpu_torch.serving import random_adapter_weights
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 # the serving tests' llama-style model (GQA g = 2, head_dim 32):
 # q_dim 4 x 32, v_dim 2 x 32
 MODEL = dict(num_layers=2, hidden=128, heads=4, num_kv_heads=2,

@@ -21,6 +21,10 @@ from deepspeed_tpu.ops.paged_attention import (pallas_paged_attention,
                                                xla_ragged_prefill)
 from deepspeed_tpu_torch import ops as tops
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 # the module (ops/__init__ re-exports a function of the same name)
 tpa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
 

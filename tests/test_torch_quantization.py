@@ -32,6 +32,10 @@ from deepspeed_tpu_torch import ops as tops
 from deepspeed_tpu_torch.inference.v2.model import quantize_kv_token
 from deepspeed_tpu_torch.ops import quantization as tq
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 twq = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
 tpa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
 

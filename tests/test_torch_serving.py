@@ -37,6 +37,10 @@ from deepspeed_tpu_torch.inference.v2.ragged import (DSStateManager,
                                                      build_ragged_batch)
 from deepspeed_tpu_torch.models.gpt import count_params, init_params
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 # bench_serving.py's smoke model with GQA added (g = 2)
 MODEL = dict(num_layers=2, hidden=128, heads=4, num_kv_heads=2,
              vocab_size=512, max_seq_len=256)

@@ -19,6 +19,10 @@ import torch
 
 from deepspeed_tpu_torch import ops as tops
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 jsp = importlib.import_module("deepspeed_tpu.ops.sparse_attention")
 tsp = importlib.import_module("deepspeed_tpu_torch.ops.sparse_attention")
 

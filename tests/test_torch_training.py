@@ -33,6 +33,10 @@ from deepspeed_tpu_torch.runtime import lr_schedules as tsched
 from deepspeed_tpu_torch.runtime import optimizers as topt
 from deepspeed_tpu_torch.runtime import precision as tprec
 
+# one intra-op thread: the suite runs in several pytest-xdist workers at
+# once, and a thread per core in each would oversubscribe the CPU
+torch.set_num_threads(1)
+
 
 # ------------------------------------------------------------ cross entropy
 
