@@ -45,6 +45,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 MAX_HEAD_DIM = 256
 # shared memory a block may use on the H100 (227 KB, opt-in)
 SMEM_LIMIT = 232448
+# the forward's deepest ring: csrc/attn_fwd_hopper.cuh kFwdMaxStages, which
+# also sizes the mbarrier block at the head of its shared memory
+_FWD_MAX_STAGES = 8
 
 
 def _slopes(alibi_slopes, n_heads: int, device):
@@ -140,20 +143,19 @@ def torch_flash_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 # ------------------------------------------------------------------ kernels
 
 
-def fwd_plan(hd_k: int, bn: int, stage_extra: int = 0,
-             max_stages: int = 8) -> dict:
+def fwd_plan(hd_k: int, bn: int, stage_extra: int = 0) -> dict:
     """Shared memory of the 16-bit attention forward (csrc/attn_fwd_hopper.cuh
     FwdLayout, the same formula) for compiled head dim ``hd_k`` and ``bn``
     keys a stage, ``stage_extra`` bytes a stage beside K and V: Q slots of
     [128 rows, hdp] and a ring of stages, hdp = hd_k padded to 64 (TMA
     boxes of 64 16-bit columns).  Two Q slots (the next unit's Q loads
     while this one runs) where a ring of 2 still fits beside them, else
-    one; then as many stages as fit, at most ``max_stages``."""
+    one; then as many stages as fit, at most ``_FWD_MAX_STAGES``."""
     hdp = -(-hd_k // 64) * 64
     q_bytes = 128 * hdp * 2
     stage = -(-(2 * bn * hdp * 2 + stage_extra) // 1024) * 1024
-    fixed = (4 + 4 * max_stages) * 8 + 1024      # mbarriers, alignment slack
-    fits = {qslots: min(max_stages,
+    fixed = (4 + 4 * _FWD_MAX_STAGES) * 8 + 1024  # mbarriers, alignment slack
+    fits = {qslots: min(_FWD_MAX_STAGES,
                         (SMEM_LIMIT - fixed - qslots * q_bytes) // stage)
             for qslots in (2, 1)}
     qslots = 2 if fits[2] >= 2 else 1

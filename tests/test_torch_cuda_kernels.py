@@ -724,6 +724,37 @@ def test_evoformer_kernel_matches_plain(cuda, dtype, tol, case):
     _assert_rows("o", o, o_ref, tol)
 
 
+FWD_PLAN_CASES = ([("flash", d, None) for d in (64, 96, 128, 192, 256)]
+                  + [("evo", d, b2) for d in (16, 32, 64, 128)
+                     for b2 in (None, torch.bfloat16, torch.float32)])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel,d,b2_dtype", FWD_PLAN_CASES)
+def test_fwd_plan_is_what_the_kernel_takes(cuda, kernel, d, b2_dtype):
+    """The wrappers' device-free plans (``flash_fwd_plan``, ``evo_fwd_plan``)
+    mirror csrc/attn_fwd_hopper.cuh ``FwdLayout``: at every compiled width
+    of the 16-bit forward, and for the evoformer at every bias2 width, the
+    plan's shared memory fits the card's opt-in limit, and the kernel run
+    on the plan's ring depth and Q slots (a launch the C side refuses
+    raises) agrees with the plain version."""
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    if kernel == "flash":
+        assert fa.flash_fwd_plan(d)["smem"] <= optin
+        q, k, v, _, kw = _flash_case(cuda, torch.bfloat16, T=200, D=d)
+        o, lse = fa.cuda_flash_fwd(q, k, v, **kw)
+        o_ref, lse_ref = fa.torch_flash_fwd(q, k, v, **kw)
+    else:
+        q, k, v, b1, b2 = _evo_case(cuda, torch.bfloat16, d, 200, "both")
+        b2 = None if b2_dtype is None else b2.to(b2_dtype)
+        assert evo.evo_fwd_plan(
+            d, 0 if b2 is None else b2.element_size())["smem"] <= optin
+        o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+        o_ref, lse_ref = evo.torch_evoformer_fwd(q, k, v, b1, b2)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-2, rtol=0)
+    _assert_rows("o", o, o_ref, 2e-2)
+
+
 def _evo_bwd_counts():
     f = evo.cuda_evoformer_bwd
     return [f.dq_launches, f.dkv_launches, f.db2_launches, f.db1_launches]
