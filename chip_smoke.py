@@ -6,7 +6,9 @@
 1. The card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of every CUDA kernel of the serving and training
    paths from the sources in this checkout (one nvcc per source, started
-   together).
+   together); ptxas's registers and spills of the 16-bit flash kernels and
+   the HGMMA / WARPGROUP.DEPBAR counts of their SASS (a backward kernel
+   with a wait after every product, serialised by ptxas, fails).
 2. Each kernel against its plain PyTorch version on the card at Llama-3-8B
    attention shapes (bf16, nkv=8, g=4, hd=128, 64-token pages, 16 slots,
    KV lengths 0..2048, shuffled block tables) in every variant: plain,
@@ -33,10 +35,15 @@
    the training main path's shape, Llama-3-8B attention, a window, alibi,
    alibi + window + GQA and a non-causal case, and at Phi-2's (32 x 80, T
    2048), Phi-3-mini's (32 x 96, T 4096) and Gemma-7B's (16 x 256, T 8192)
-   attention widths in bf16 and in fp32 (F32_TOL, TF32 off); the check is
-   shown to catch one dropped K tile.  Each kernel is timed beside its
-   bound, its plain version and SDPA (forward; backward through autograd
-   for dq + dk/dv), the wide head dims in bf16 too.
+   attention widths in bf16 and in fp32 (F32_TOL, TF32 off); the delta
+   the 16-bit dq makes is held to the eager fp32 sum (F32_TOL of the
+   largest).  The check is shown to catch one dropped K tile, and the
+   backward's one 128-key tile left out of dq's walk and one 128-query
+   tile left out of dk/dv's; the backward run twice at the main call is
+   bitwise equal.  Each kernel is timed beside its bound, its plain
+   version and SDPA (forward; backward through autograd for dq + dk/dv),
+   the wide head dims in bf16 too, and the whole backward (dq making
+   delta, then dk/dv) beside SDPA's backward.
 7. Small-config training parity: 2 layers, hidden 128, 2 heads x 64, T 128,
    fp32 with TF32 off - three ``train_batch`` steps (gas 2) on the card
    equal the same on the CPU in loss, grad norm and every parameter (1e-4).
@@ -764,10 +771,20 @@ def _check_flash(torch, fa, label, q, k, v, do, kw):
           flush=True)
     if not lerr <= tol:
         fail(f"flash_fwd {label}: lse differs by {lerr}")
-    dq = fa.cuda_flash_dq(q, k, v, o_ref, lse_ref, do, **kw)
+    # the 16-bit dq makes delta = rowsum(o * do) (its producer warps); it is
+    # held to the eager fp32 sum
+    B, T, N, _ = q.shape
+    delta = torch.full((B, N, T), float("nan"), device=q.device)
+    dq = fa.cuda_flash_dq(q, k, v, o_ref, lse_ref, do, delta_out=delta, **kw)
     dk, dv = fa.cuda_flash_dkv(q, k, v, o_ref, lse_ref, do, **kw)
     dq_ref, dk_ref, dv_ref = fa.torch_flash_bwd(q, k, v, o_ref, lse_ref, do,
                                                 **kw)
+    d_ref = fa._delta(o_ref, do)
+    derr = ((delta - d_ref).abs().max() / d_ref.abs().max()).item()
+    print(f"  flash_dq[{label} delta] max|kernel-plain| = {derr:.3e} of the "
+          f"largest", flush=True)
+    if not derr <= F32_TOL:
+        fail(f"flash_dq {label}: delta differs by {derr} of the largest")
     _check_rows(torch, "flash_dq", label + " dq", dq, dq_ref, tol)
     _check_rows(torch, "flash_dkv", label + " dk", dk, dk_ref, tol)
     _check_rows(torch, "flash_dkv", label + " dv", dv, dv_ref, tol)
@@ -783,9 +800,9 @@ def _live_pairs(T, causal, window):
 
 
 def _time_flash(torch, fa, q, k, v, do, kw, library=True):
-    """Device times of the three kernels, of the plain forward and backward
-    and of SDPA forward / backward on the same inputs, beside each kernel's
-    bound.  Operations: 2*D flops per visible (query, key) pair and product
+    """Device times of the three kernels, of the whole backward (dq making
+    delta, then dk/dv), of the plain forward and backward and of SDPA
+    forward / backward on the same inputs, beside each kernel's bound.  Operations: 2*D flops per visible (query, key) pair and product
     - the forward has 2 products (s, p v), dq 3 (s, dp, ds k), dk/dv 4
     (s, dp, pT do, dsT q).  Bytes: each input once, each output once."""
     import torch.nn.functional as F
@@ -801,12 +818,20 @@ def _time_flash(torch, fa, q, k, v, do, kw, library=True):
         "flash_dq": _bound(2 * nq + 2 * nk + 2 * rows + nq, 6 * D * pairs),
         "flash_dkv": _bound(2 * nq + 2 * nk + 2 * rows + 2 * nk,
                             8 * D * pairs)}
+    o = o.contiguous()
+
+    def backward():
+        # as the autograd Function runs it: dq makes delta, dk/dv reads it
+        d = torch.empty((B, N, T), dtype=torch.float32, device=q.device)
+        fa.cuda_flash_dq(q, k, v, o, lse, do, delta_out=d, **kw)
+        fa.cuda_flash_dkv(q, k, v, o, lse, do, delta=d, **kw)
     ms = {
         "flash_fwd": cuda_ms(lambda: fa.cuda_flash_fwd(q, k, v, **kw)),
         "flash_dq": cuda_ms(lambda: fa.cuda_flash_dq(
             q, k, v, o, lse, do, delta=delta, **kw)),
         "flash_dkv": cuda_ms(lambda: fa.cuda_flash_dkv(
-            q, k, v, o, lse, do, delta=delta, **kw))}
+            q, k, v, o, lse, do, delta=delta, **kw)),
+        "backward": cuda_ms(backward)}
     plain_fwd = cuda_ms(lambda: fa.torch_flash_fwd(q, k, v, **kw), reps=5)
     plain_bwd = cuda_ms(lambda: fa.torch_flash_bwd(q, k, v, o, lse, do, **kw),
                         reps=5)
@@ -844,13 +869,64 @@ def _time_flash(torch, fa, q, k, v, do, kw, library=True):
           f"bwd (dq+dk+dv) "
           f"{'-' if lib_bwd is None else format(lib_bwd, '.4f')} ms",
           flush=True)
+    whole = ms["backward"]
+    print(f"  {shape}: whole backward (delta + dq + dk/dv) {whole:.4f} ms; "
+          f"SDPA backward "
+          f"{'-' if lib_bwd is None else format(lib_bwd, '.4f')} ms"
+          + ("" if lib_bwd is None else f" ({whole / lib_bwd:.2f}x)"),
+          flush=True)
+    res["backward"] = dict(shape=shape, ms=whole, library_ms=lib_bwd)
     return res
 
 
+def _flash_deterministic(torch, fa, q, k, v, do, kw):
+    """The backward twice on the same inputs, as the autograd Function runs
+    it (dq making delta, dk/dv reading it): bitwise equal outputs."""
+    o, lse = fa.cuda_flash_fwd(q, k, v, **kw)
+    B, T, N, _ = q.shape
+    runs = []
+    for _ in range(2):
+        d = torch.empty((B, N, T), dtype=torch.float32, device=q.device)
+        dq = fa.cuda_flash_dq(q, k, v, o, lse, do, delta_out=d, **kw)
+        runs.append((d, dq) + fa.cuda_flash_dkv(q, k, v, o, lse, do,
+                                                 delta=d, **kw))
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    print(f"  two backward runs bitwise equal (delta, dq, dk, dv): {same}",
+          flush=True)
+    if not all(same):
+        fail("the flash backward is not deterministic")
+
+
+def _flash_bwd_faults(torch, fa, dev):
+    """The backward's row check must see one 128-key tile left out of dq's
+    walk and one 128-query tile left out of dk/dv's (the plain backward on
+    the same o and lse with those pairs masked)."""
+    q, k, v, do = _flash_inputs(torch, dev, 2, 1024, 12, 12, 64)
+    o, lse = fa.torch_flash_fwd(q, k, v)
+    want = fa.torch_flash_bwd(q, k, v, o, lse, do)
+    ok = torch.ones((1024, 1024), dtype=torch.bool, device=dev).tril()
+    scale = 64 ** -0.5
+    no_keys, no_queries = ok.clone(), ok.clone()
+    no_keys[:, 128:256] = False
+    no_queries[128:256] = False
+    dq_lost = fa.masked_bwd(q, k, v, o, lse, do, no_keys, scale)[0]
+    dk_lost = fa.masked_bwd(q, k, v, o, lse, do, no_queries, scale)[1]
+    for what, got, ref in (("128-key tile left out of dq's walk", dq_lost,
+                            want[0]),
+                           ("128-query tile left out of dk/dv's walk",
+                            dk_lost, want[1])):
+        r, _ = _rows_off(got, ref)
+        print(f"  one {what} moves the worst row by {r:.3e} of its max "
+              f"(check at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the flash backward check cannot see one {what}")
+
+
 # head dims the kernels pad (80 -> 96) and the widest (256, where the
-# forward's O accumulator takes 128 registers a thread and the backward
-# splits its columns over two blocks): (B, T, N, Nkv, D) at each model's
-# attention width
+# forward's O and dq's accumulators take 128 registers a thread and dk/dv's
+# two warpgroups split the column blocks of one 64-key unit): (B, T, N,
+# Nkv, D) at each model's attention width
 WIDE_HEADS = (("Phi-2", (1, 2048, 32, 32, 80)),
               ("Phi-3-mini", (1, 4096, 32, 32, 96)),
               ("Gemma-7B", (1, 8192, 16, 16, 256)))
@@ -880,6 +956,8 @@ def phase_flash(torch, fa, dev):
     for label, dims, kw, *dt in cases:
         q, k, v, do = _flash_inputs(torch, dev, *dims, dtype=dt and dt[0])
         _check_flash(torch, fa, label, q, k, v, do, kw)
+        if label == "main path":
+            _flash_deterministic(torch, fa, q, k, v, do, kw)
         if label in ("main path", "Llama-3-8B", "window 512") or (
                 dt and dt[0] == torch.bfloat16):
             r = _time_flash(torch, fa, q, k, v, do, kw)
@@ -887,6 +965,7 @@ def phase_flash(torch, fa, dev):
                 results = r
         del q, k, v, do
         torch.cuda.empty_cache()
+    _flash_bwd_faults(torch, fa, dev)
     # the row check must see one dropped K tile (64 keys)
     q, k, v, _ = _flash_inputs(torch, dev, 2, 1024, 12, 12, 64)
     want, _ = fa.torch_flash_fwd(q, k, v)
@@ -2610,6 +2689,45 @@ def _ptxas_report(build_log, kernel):
                     spill = line
 
 
+def _sass_report(so, kernels, gate=()):
+    """Counts of ``HGMMA`` (wgmma) and ``WARPGROUP.DEPBAR`` (its waits) in
+    the SASS of each instantiation of ``kernels`` in the library ``so``.
+    ptxas serialises every wgmma of a kernel (one wait after each product,
+    silently) when one sits behind a branch it cannot prove uniform: a
+    kernel named in ``gate`` with as many waits as products fails."""
+    import shutil
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    r = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"cuobjdump -sass: {r.stderr.strip()[:400]}")
+    counts, name = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            name = fn if any(k in fn for k in kernels) else None
+            if name:
+                counts[name] = [0, 0]
+        elif name and "HGMMA." in line:
+            counts[name][0] += 1
+        elif name and "WARPGROUP.DEPBAR" in line:
+            counts[name][1] += 1
+    for fn, (hg, dep) in sorted(counts.items()):
+        label = fn
+        if shutil.which("c++filt"):
+            label = subprocess.run(["c++filt", fn], capture_output=True,
+                                   text=True).stdout.strip()
+            label = label[:label.find("(")] if "(" in label else label
+        print(f"  SASS {label}: {hg} HGMMA, {dep} WARPGROUP.DEPBAR",
+              flush=True)
+        if any(k in fn for k in gate) and hg and dep >= hg:
+            fail(f"{label}: every wgmma waited on ({dep} waits, {hg} "
+                 f"products): ptxas serialised the kernel")
+    if not any(any(k in fn for k in gate) for fn in counts):
+        fail(f"no SASS found for {gate} in {so}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
@@ -2662,7 +2780,11 @@ def main():
               f"ptxas: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, spill "
               f"stores up to {max(spills, default=0)} bytes", flush=True)
-    _ptxas_report(builder.build_log, "attn_fwd_kernel")
+    for kernel in ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+        _ptxas_report(builder.build_log, kernel)
+    _sass_report(builder._so_path("flash_attention"),
+                 ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+                 gate=("flash_dq_kernel", "flash_dkv_kernel"))
 
     results = {}
     if 2 in phases:
@@ -2805,11 +2927,14 @@ def main():
                 "evoformer_db2": "deepspeed_tpu/ops/evoformer.py:252",
                 "evoformer_db1": "deepspeed_tpu/ops/evoformer.py:272"}
     # the 16-bit forwards (#3, #13) share one kernel template, built into
-    # flash_attention.cu and evoformer.cu
+    # flash_attention.cu and evoformer.cu; the 16-bit flash backward (#4,
+    # #5) is a header built into flash_attention.cu
     sources = {**dict.fromkeys(FLASH, "flash_attention.cu"),
                **dict.fromkeys(WQ, "wq_matmul.cu"),
                **dict.fromkeys(SPARSE, "sparse_attention.cu"),
                "flash_fwd": "attn_fwd_hopper.cuh",
+               "flash_dq": "attn_bwd_hopper.cuh",
+               "flash_dkv": "attn_bwd_hopper.cuh",
                "evoformer_fwd": "attn_fwd_hopper.cuh",
                **dict.fromkeys(EVO_BWD, "evoformer_bwd.cu"),
                "paged_attention_int8": "paged_attention.cu",

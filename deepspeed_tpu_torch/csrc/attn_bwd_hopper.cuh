@@ -1,0 +1,719 @@
+// The flash-attention backward on Hopper (sm_90a), 16-bit q, k, v, do:
+// flash_dq_kernel (#4) and flash_dkv_kernel (#5), built in
+// flash_attention.cu.  They replace the TPU kernels _dq_kernel and
+// _dkv_kernel of deepspeed_tpu/ops/flash_attention.py (both launched by
+// _bwd_impl) and compute what those compute: from the forward's per-row
+// logsumexp, p = exp(q kT * scale [+ slope * kpos] - lse), ds = p (do vT -
+// delta) * scale with delta = rowsum(o * do), dq = ds k, dk = dsT q, dv =
+// pT do; causal or not, a sliding window, alibi, GQA (k / v at head h /
+// group, never expanded; dk, dv summed over the group), any T.
+//
+// What bounds them on the H100: operations.  dq does 3 products a visible
+// (query, key) pair (s, dp, ds k: 6*D flops), dk/dv 4 (s, dp, pT do, dsT q:
+// 8*D flops), against the 989 TFLOP/s dense bf16 peak; the bytes (each
+// tensor read once a 128-row tile) are far below the card's ~295
+// flop/byte line.  Beside the products, each pair takes one exponential
+// and ~6 scalar operations, which at head dim 64 cost about as many issue
+// slots as the products take tensor-core cycles.  The design:
+//   - both kernels are warp-specialised and persistent, as the forward
+//     (attn_fwd_hopper.cuh): one block of 3 warpgroups an SM walks units
+//     blockIdx.x + i * gridDim.x; warpgroup 0 gives its registers back
+//     (setmaxnreg) and issues TMA copies into a "slot" (the unit's fixed
+//     tiles, 1-2 slots so the next unit's load overlaps this one) and a
+//     ring of stages (the tiles the unit walks); every tile is 64 16-bit
+//     columns a box (128 bytes) in the 128-byte swizzle wgmma reads both
+//     K-major and MN-major (the transpose bit), a head dim short of a
+//     multiple of 64 zero-filled by TMA;
+//   - warpgroups 1 and 2 take 64 rows each and every product is a wgmma
+//     (fp32 accumulate): the two score-like products with both operands
+//     K-major in shared memory, then p / ds packed in place to 16 bits as
+//     the register A operand of the accumulating products, whose B is the
+//     same shared-memory tile read MN-major - no transposed copy is made.
+//     The two warpgroups take turns at issuing (named barriers), so one's
+//     exponentials run under the other's products;
+//   - dq: a unit is (batch, q head, 128 queries), the heaviest causal ones
+//     first; Q and dO sit in the slot, K and V stream through the ring
+//     (128 keys a stage at head dim 64, 64 up to 192, 32 at 256).  The dq
+//     accumulator is 64 x HD fp32 a warpgroup (128 registers a thread at
+//     256), so no head dim splits its columns over blocks.  Three warps of
+//     the producer warpgroup make each unit's delta = rowsum(o * do) (when
+//     the caller gives none) a slot ahead of the consumers and write it
+//     out [B, N, T] for dk/dv;
+//   - dk/dv: a unit is (batch, kv head, 128 keys), the heaviest causal ones
+//     first; K and V sit in the slot, and the ring streams the Q and dO
+//     tiles (128 queries at head dim 64, 64 above) of every q head of the
+//     GQA group and every q tile that sees the unit's keys, with their lse
+//     (log2 units) and delta rows, in a fixed order: dk and dv are summed
+//     over the group in registers, with no atomics.  Above head dim 128,
+//     dk + dv of 64 keys fill a warpgroup's registers, so a unit is 64
+//     keys and the two warpgroups split dk / dv's 64-column blocks between
+//     them (each recomputes the unit's sT and dpT; Q and dO still load
+//     once a unit);
+//   - each consumer warpgroup runs one tile at a time (products, then its
+//     exponentials, then the accumulating products): keeping the next
+//     tile's products in flight under this one's exponentials, as the
+//     forward does, measured slower here (it holds two ring stages and
+//     more registers);
+//   - masking: only a tile that crosses the causal diagonal, the window's
+//     edge or T is tested entry by entry (every wgmma is issued on every
+//     path: a wgmma behind a branch ptxas cannot prove uniform makes it
+//     serialise them all); scores are in log2 units; a row that sees no
+//     key (lse -1e30) gets probabilities 0, so zeros;
+//   - deterministic: no atomics, a fixed walk; dq, dk, dv are bitwise
+//     equal from run to run.
+// ops/flash_attention.py flash_bwd_plan gives the tiles, ring depth and
+// slots by BwdLayout's formula.
+#pragma once
+
+#include "attn_fwd_hopper.cuh"
+
+namespace dsk {
+
+constexpr int kBwdThreads = 384;       // producer + 2 consumer warpgroups
+constexpr int kBwdMaxStages = 8;
+// registers a thread after setmaxnreg: dq's producer warpgroup also makes
+// delta (three warps), dk/dv's only loads.  The consumers can take only what
+// the producer gives back of the block's 384 x 168 (a larger ask waits
+// forever).
+constexpr int kDqRegProducer = 56, kDqRegConsumer = 224;
+constexpr int kDkvRegProducer = 40, kDkvRegConsumer = 232;
+static_assert(128 * kDqRegProducer + 256 * kDqRegConsumer <= 384 * 168 &&
+                  128 * kDkvRegProducer + 256 * kDkvRegConsumer <= 384 * 168,
+              "setmaxnreg beyond the block's registers");
+constexpr int kBwdBarBytes = (4 + 2 * kBwdMaxStages) * 8;
+constexpr int kDqRows = 128;           // queries a dq unit
+
+// queries a dk/dv stage: 128 at head dim 64, 64 above (where dk + dv take
+// 128 registers a thread)
+template <int HD>
+__host__ __device__ constexpr int dkv_bm() {
+  return HD > 64 ? 64 : 128;
+}
+
+// keys a dq stage: 128 at head dim 64, 64 up to 192, 32 at 256 (where Q
+// and dO take 128 KB and dq 128 registers a thread)
+template <int HD>
+__host__ __device__ constexpr int dq_bn() {
+  return HD > 192 ? 32 : (HD > 64 ? 64 : 128);
+}
+
+// Shared memory: the mbarriers, slack to align the rest to 1024 bytes (the
+// swizzle's period), `slots` slots of two [HDP/64][slot_rows][128 B] tiles
+// (dq: Q, dO; dk/dv: K, V), then the ring's stages of two [HDP/64]
+// [ring_rows][128 B] tiles (dq: K, V; dk/dv: Q, dO, then the lse and delta
+// rows, ring_rows fp32 each), a stage rounded up to 1024 bytes; dq then
+// keeps each slot's delta rows (slot_rows fp32) after the ring.
+struct BwdLayout {
+  int slot_tile, ring_tile, slot_bytes, stage_bytes, slot_delta;
+  __host__ __device__ BwdLayout(int hdp, int slot_rows, int ring_rows, bool dq) {
+    slot_tile = slot_rows * hdp * 2;
+    ring_tile = ring_rows * hdp * 2;
+    slot_bytes = 2 * slot_tile;
+    stage_bytes = (2 * ring_tile + (dq ? 0 : 2 * ring_rows * 4) + 1023) / 1024 * 1024;
+    slot_delta = dq ? slot_rows * 4 : 0;
+  }
+  size_t smem(int stages, int slots) const {
+    return (size_t)kBwdBarBytes + 1024 + (size_t)slots * (slot_bytes + slot_delta) +
+           (size_t)stages * stage_bytes;
+  }
+};
+
+struct BwdArgs {
+  const float* lse;     // [B, N, T], natural log
+  const float* delta;   // [B, N, T] rowsum(o * do), or null: dq makes it
+  float* delta_out;     // dq: where the delta it makes goes, or null
+  const void* o;        // dq without delta: o [B, T, N, hd] contiguous
+  const void* dout;     // do [B, T, N, hd] contiguous
+  void *dq, *dk, *dv;   // contiguous [B, T, N or Nkv, hd]
+  const float* slopes;  // alibi [N] fp32 or null
+  int B, T, N, Nkv, hd;
+  int units, ntiles, stages, slots;
+  int cq, ck, cv, cdo;  // collapsed dims of the tensor maps (coordinate 0)
+  float scale;          // natural units
+  int causal, window;
+};
+
+// two 16-bit values (one 32-bit word) as floats
+template <typename T>
+__device__ __forceinline__ float2 to_f2(uint32_t w) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+// d[64 x N] = A[64 x HD] B[N x HD]T: A the 64 rows at `a` of a [HDP/64]
+// [a_rows][128 B] tile, B the [HDP/64][N][128 B] tile at `b`, both K-major;
+// not committed
+template <typename T, int HD, int N>
+__device__ __forceinline__ void kmajor_product(float (&d)[N / 2], const unsigned char* a,
+                                               int a_rows, const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t da = wg_desc(a + (kk / 4) * a_rows * 128 + (kk % 4) * 32);
+    const uint64_t db = wg_desc(b + (kk / 4) * N * 128 + (kk % 4) * 32);
+    if constexpr (N == 128)
+      Wgmma<T>::ss128(d, da, db, kk > 0);
+    else if constexpr (N == 64)
+      Wgmma<T>::ss64(d, da, db, kk > 0);
+    else
+      Wgmma<T>::ss32(d, da, db, kk > 0);
+  }
+}
+
+// the A fragments (k16 step kk: n8 slices 2kk, 2kk + 1) of a 64 x N fp32
+// accumulator, rounded to 16 bits
+template <typename T, int N>
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[N / 16][4], const float (&v)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = Mma<T>::pack(v[8 * kk + 2 * r], v[8 * kk + 2 * r + 1]);
+}
+
+// delta = rowsum(o * do) (0 past T) of a dq unit's 128 rows into `delta`,
+// by warp dw (0..2) of three: 8 lanes a row, 4 rows a step, each lane
+// 16-byte chunks of o and do (fp32 sums of the 16-bit products); taken from
+// the caller when given, else made and written to delta_out too.
+template <typename T, int HD>
+__device__ __forceinline__ void dq_row_delta(const BwdArgs& p, int b, int h, int q0, float* delta,
+                                             int dw, int lane) {
+  constexpr int CH = (HD + 63) / 64;  // chunks a lane a row
+  const long long rows = ((long long)b * p.N + h) * p.T;
+#pragma unroll 2
+  for (int r0 = 4 * dw; r0 < kDqRows; r0 += 12) {
+    const int r = r0 + lane / 8, row = q0 + r;
+    const bool in = row < p.T;
+    float s = 0.f;
+    if (p.delta != nullptr) {
+      s = in ? p.delta[rows + row] : 0.f;
+    } else {
+      const long long off = (((long long)b * p.T + row) * p.N + h) * p.hd;
+      const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
+      const uint4* d = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
+#pragma unroll
+      for (int t = 0; t < CH; ++t) {
+        const int cch = lane % 8 + 8 * t;
+        if (in && cch * 8 < p.hd) {
+          const uint4 x4 = o[cch], y4 = d[cch];
+          const uint32_t xw[4] = {x4.x, x4.y, x4.z, x4.w}, yw[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = to_f2<T>(xw[e]), y = to_f2<T>(yw[e]);
+            s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+          }
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      if (p.delta_out != nullptr && in && lane % 8 == 0) p.delta_out[rows + row] = s;
+    }
+    if (lane % 8 == 0) delta[r] = s;
+  }
+}
+
+// dq unit u -> (batch, q head, q tile): the last (heaviest causal) q tiles
+// of every (batch, head) first
+__device__ __forceinline__ void dq_unit(const BwdArgs& p, int u, int& b, int& h, int& qt) {
+  const int bh = u % (p.B * p.N);
+  qt = p.ntiles - 1 - u / (p.B * p.N);
+  h = bh % p.N;
+  b = bh / p.N;
+}
+
+// dk/dv unit u -> (batch, kv head, key tile): the first (heaviest causal)
+// key tiles of every (batch, kv head) first
+__device__ __forceinline__ void dkv_unit(const BwdArgs& p, int u, int& b, int& hk, int& kt) {
+  const int bh = u % (p.B * p.Nkv);
+  kt = u / (p.B * p.Nkv);
+  hk = bh % p.Nkv;
+  b = bh / p.Nkv;
+}
+
+// slot full / empty, then stage full / empty; empty: one arrival a consumer
+// warp
+__device__ __forceinline__ void init_bwd_barriers(uint64_t* bars, int stages, int slot_count,
+                                                  int full_count) {
+  for (int s = 0; s < 2; ++s) {
+    mbar_init(&bars[s], slot_count);
+    mbar_init(&bars[2 + s], 8);
+  }
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&bars[4 + s], full_count);
+    mbar_init(&bars[4 + kBwdMaxStages + s], 8);
+  }
+  fence_mbar_init();
+}
+
+// ------------------------------------------------------------------- dq
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dq_kernel(const __grid_constant__ BwdArgs p, const __grid_constant__ CUtensorMap tmq,
+                    const __grid_constant__ CUtensorMap tmdo,
+                    const __grid_constant__ CUtensorMap tmk,
+                    const __grid_constant__ CUtensorMap tmv) {
+  constexpr int HDP = (HD + 63) / 64 * 64, NAT = HDP / 64, BN = dq_bn<HD>(), NS = BN / 2;
+  static_assert(HD % 16 == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* slot_full = bars;
+  uint64_t* slot_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = full + kBwdMaxStages;
+  unsigned char* base = smem_raw + kBwdBarBytes;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;
+  const BwdLayout lay(HDP, kDqRows, BN, true);
+  unsigned char* ring = base + p.slots * lay.slot_bytes;
+  float* deltas = reinterpret_cast<float*>(ring + p.stages * lay.stage_bytes);  // [slots][128]
+  // the warpgroup index, visibly uniform (see attn_fwd_kernel)
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  // a slot is full once its Q and dO have landed and the three delta warps
+  // have written its rows' delta
+  if (threadIdx.x == 0) init_bwd_barriers(bars, p.stages, 4, 1);
+  __syncthreads();
+  const int group = p.N / p.Nkv;
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kDqRegProducer>();
+    const int pw = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (pw > 0) {
+      // warps 1-3: each unit's delta rows, a slot ahead of the consumers
+      // when there are two
+      for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+        int b, h, qt;
+        dq_unit(p, u, b, h, qt);
+        const int slot = i % p.slots;
+        if (i >= p.slots) mbar_wait(&slot_empty[slot], (i / p.slots - 1) & 1);
+        dq_row_delta<T, HD>(p, b, h, qt * kDqRows, deltas + slot * kDqRows, pw - 1, lane);
+        warp_arrive(&slot_full[slot], lane);
+      }
+      return;
+    }
+    if (lane != 0) return;
+    int it = 0;
+    for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+      int b, h, qt, first, last;
+      dq_unit(p, u, b, h, qt);
+      const int q0 = qt * kDqRows, hk = h / group;
+      k_tile_range(q0, kDqRows, p.T, BN, p.causal, p.window, first, last);
+      const int slot = i % p.slots;
+      if (i >= p.slots) mbar_wait(&slot_empty[slot], (i / p.slots - 1) & 1);
+      unsigned char* sl = base + slot * lay.slot_bytes;
+      mbar_expect_tx(&slot_full[slot], lay.slot_bytes);
+#pragma unroll
+      for (int cb = 0; cb < NAT; ++cb) {
+        tma_load_4d(sl + cb * kDqRows * 128, &tmq, cb * 64, tma_c(p.cq, 1, h), q0,
+                    tma_c(p.cq, 3, b), &slot_full[slot]);
+        tma_load_4d(sl + lay.slot_tile + cb * kDqRows * 128, &tmdo, cb * 64,
+                    tma_c(p.cdo, 1, h), q0, tma_c(p.cdo, 3, b), &slot_full[slot]);
+      }
+      for (int kt = first; kt <= last; ++kt, ++it) {
+        const int s = it % p.stages;
+        if (it >= p.stages) mbar_wait(&empty[s], (it / p.stages - 1) & 1);
+        unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+        mbar_expect_tx(&full[s], 2 * lay.ring_tile);
+#pragma unroll
+        for (int cb = 0; cb < NAT; ++cb) {
+          tma_load_4d(st + cb * BN * 128, &tmk, cb * 64, tma_c(p.ck, 1, hk), kt * BN,
+                      tma_c(p.ck, 3, b), &full[s]);
+          tma_load_4d(st + lay.ring_tile + cb * BN * 128, &tmv, cb * 64, tma_c(p.cv, 1, hk),
+                      kt * BN, tma_c(p.cv, 3, b), &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kDqRegConsumer>();
+  const int c = wg - 1;
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tq = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  float acc[NAT][32];
+  float sc[NS], dp[NS];
+  uint32_t da[BN / 16][4];
+  auto fence_all = [&]() {
+    wg_fence_regs(sc);
+    wg_fence_regs(dp);
+#pragma unroll
+    for (int a = 0; a < NAT; ++a) wg_fence_regs(acc[a]);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wg_fence_regs(da[kk]);
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) sc[j] = dp[j] = 0.f;
+  int it = 0;
+  if (c == 1) turn_pass(c);  // the first consumer warpgroup takes the first turn
+  for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+    int b, h, qt, first, last;
+    dq_unit(p, u, b, h, qt);
+    const int q0 = qt * kDqRows;
+    k_tile_range(q0, kDqRows, p.T, BN, p.causal, p.window, first, last);
+    const int r0 = q0 + 64 * c;           // this warpgroup's first row
+    const int rw = r0 + 16 * w + grp;     // this thread's rows rw, rw + 8
+    const int slot = i % p.slots;
+    const float slope2 = p.slopes != nullptr ? p.slopes[h] * kLog2e : 0.f;
+    const long long rows = ((long long)b * p.N + h) * p.T;
+    float lse2[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = rw + 8 * hh;
+      lse2[hh] = dead_or_log2(row < p.T ? p.lse[rows + row] : kNegInf);
+    }
+#pragma unroll
+    for (int a = 0; a < NAT; ++a)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[a][j] = 0.f;
+    mbar_wait(&slot_full[slot], (i / p.slots) & 1);
+    float dls[2];  // -delta * scale
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) dls[hh] = -deltas[slot * kDqRows + rw - q0 + 8 * hh] * p.scale;
+    const unsigned char* qs = base + slot * lay.slot_bytes + c * 64 * 128;
+    const unsigned char* dos = qs + lay.slot_tile;
+    for (int kt = first; kt <= last; ++kt, ++it) {
+      const int s = it % p.stages;
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      const unsigned char* ks = ring + (size_t)s * lay.stage_bytes;
+      const unsigned char* vs = ks + lay.ring_tile;
+      // s = q kT, dp = do vT
+      fence_all();
+      turn_wait(c);
+      wg_fence();
+      kmajor_product<T, HD, BN>(sc, qs, kDqRows, ks);
+      kmajor_product<T, HD, BN>(dp, dos, kDqRows, vs);
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      wg_fence_regs(sc);
+      wg_fence_regs(dp);
+      // p = 2^(s scale2 + slope2 kpos - lse2), ds = p (dp - delta) scale;
+      // the key's offset within the tile is a constant of the unrolled loop
+      const int k0 = kt * BN;
+      const bool whole = (!p.causal || k0 + BN - 1 <= r0) &&
+                         (p.window <= 0 || k0 > r0 + 63 - p.window) && k0 + BN <= p.T;
+      const float kb = slope2 * (float)(k0 + 2 * tq);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * hh + e, kpos = k0 + 8 * j + 2 * tq + e;
+            float pr = ex2(fmaf(sc[x], scale2, fmaf(slope2, (float)(8 * j + e), kb - lse2[hh])));
+            if (!whole && !visible(rw + 8 * hh, kpos, p.T, p.causal, p.window)) pr = 0.f;
+            sc[x] = pr * fmaf(dp[x], p.scale, dls[hh]);
+          }
+      pack_a<T, BN>(da, sc);
+      // dq += ds k: k read MN-major from the same tile
+      fence_all();
+      turn_wait(c);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+          Wgmma<T>::rs64(acc[a], da[kk], wg_desc(ks + a * BN * 128 + kk * 16 * 128));
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_all();
+      warp_arrive(&empty[s], lane);
+    }
+    warp_arrive(&slot_empty[slot], lane);
+
+    // ---- epilogue: dq rows
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = rw + 8 * hh;
+      if (row >= p.T) continue;
+      T* out = static_cast<T*>(p.dq) + (((long long)b * p.T + row) * p.N + h) * p.hd;
+#pragma unroll
+      for (int a = 0; a < NAT; ++a)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * a + 8 * j + 2 * tq;
+          if (col < p.hd)
+            *reinterpret_cast<uint32_t*>(out + col) =
+                Mma<T>::pack(acc[a][4 * j + 2 * hh], acc[a][4 * j + 2 * hh + 1]);
+        }
+    }
+  }
+}
+
+// ----------------------------------------------------------------- dk/dv
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_dkv_kernel(const __grid_constant__ BwdArgs p, const __grid_constant__ CUtensorMap tmk,
+                     const __grid_constant__ CUtensorMap tmv,
+                     const __grid_constant__ CUtensorMap tmq,
+                     const __grid_constant__ CUtensorMap tmdo) {
+  constexpr int HDP = (HD + 63) / 64 * 64, NAT = HDP / 64;
+  // above 128 the two warpgroups share 64 keys and split the column blocks
+  constexpr bool SPLIT = HD > 128;
+  constexpr int KR = SPLIT ? 64 : 128, BM = dkv_bm<HD>(), NS = BM / 2;
+  constexpr int NATC = SPLIT ? (NAT + 1) / 2 : NAT;  // column blocks a warpgroup
+  static_assert(HD % 16 == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* slot_full = bars;
+  uint64_t* slot_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = full + kBwdMaxStages;
+  unsigned char* base = smem_raw + kBwdBarBytes;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;
+  const BwdLayout lay(HDP, KR, BM, false);
+  unsigned char* ring = base + p.slots * lay.slot_bytes;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  // a stage is full once its TMA bytes have landed and the producer warp's
+  // 32 lanes have written the lse and delta rows
+  if (threadIdx.x == 0) init_bwd_barriers(bars, p.stages, 1, 32);
+  __syncthreads();
+  const int group = p.N / p.Nkv;
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kDkvRegProducer>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int it = 0;
+    for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+      int b, hk, kt, qf, ql;
+      dkv_unit(p, u, b, hk, kt);
+      const int k0 = kt * KR;
+      q_tile_range(k0, KR, p.T, BM, p.causal, p.window, qf, ql);
+      const int nq = max(ql - qf + 1, 0);
+      if (lane == 0) {
+        const int slot = i % p.slots;
+        if (i >= p.slots) mbar_wait(&slot_empty[slot], (i / p.slots - 1) & 1);
+        unsigned char* sl = base + slot * lay.slot_bytes;
+        mbar_expect_tx(&slot_full[slot], lay.slot_bytes);
+#pragma unroll
+        for (int cb = 0; cb < NAT; ++cb) {
+          tma_load_4d(sl + cb * KR * 128, &tmk, cb * 64, tma_c(p.ck, 1, hk), k0,
+                      tma_c(p.ck, 3, b), &slot_full[slot]);
+          tma_load_4d(sl + lay.slot_tile + cb * KR * 128, &tmv, cb * 64, tma_c(p.cv, 1, hk), k0,
+                      tma_c(p.cv, 3, b), &slot_full[slot]);
+        }
+      }
+      for (int item = 0; item < group * nq; ++item, ++it) {
+        const int h = hk * group + item / nq, q0 = (qf + item % nq) * BM;
+        const int s = it % p.stages;
+        if (it >= p.stages) mbar_wait(&empty[s], (it / p.stages - 1) & 1);
+        unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+        if (lane == 0) {
+          mbar_expect_tx_only(&full[s], 2 * lay.ring_tile);  // the lanes arrive below
+#pragma unroll
+          for (int cb = 0; cb < NAT; ++cb) {
+            tma_load_4d(st + cb * BM * 128, &tmq, cb * 64, tma_c(p.cq, 1, h), q0,
+                        tma_c(p.cq, 3, b), &full[s]);
+            tma_load_4d(st + lay.ring_tile + cb * BM * 128, &tmdo, cb * 64, tma_c(p.cdo, 1, h),
+                        q0, tma_c(p.cdo, 3, b), &full[s]);
+          }
+        }
+        // lse in log2 units (+inf: a row that sees no key, or past T) and
+        // delta (0 past T)
+        float* stats = reinterpret_cast<float*>(st + 2 * lay.ring_tile);
+        const long long rows = ((long long)b * p.N + h) * p.T;
+        float l[BM / 32], d[BM / 32];  // every load first, then the stores
+#pragma unroll
+        for (int j = 0; j < BM / 32; ++j) {
+          const bool in = q0 + lane + 32 * j < p.T;
+          l[j] = in ? __ldg(p.lse + rows + q0 + lane + 32 * j) : kNegInf;
+          d[j] = in ? __ldg(p.delta + rows + q0 + lane + 32 * j) : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < BM / 32; ++j) {
+          stats[lane + 32 * j] = dead_or_log2(l[j]);
+          stats[BM + lane + 32 * j] = d[j];
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kDkvRegConsumer>();
+  const int c = wg - 1;
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tq = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  float dk[NATC][32], dv[NATC][32];
+  float st[NS], dpt[NS];
+  uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+  auto fence_all = [&]() {
+    wg_fence_regs(st);
+    wg_fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < NATC; ++j) {
+      wg_fence_regs(dk[j]);
+      wg_fence_regs(dv[j]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      wg_fence_regs(pa[kk]);
+      wg_fence_regs(dsa[kk]);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) st[j] = dpt[j] = 0.f;
+  int it = 0;
+  if (c == 1) turn_pass(c);
+  for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+    int b, hk, kt, qf, ql;
+    dkv_unit(p, u, b, hk, kt);
+    const int k0 = kt * KR;
+    q_tile_range(k0, KR, p.T, BM, p.causal, p.window, qf, ql);
+    const int nq = max(ql - qf + 1, 0);
+    const int kw0 = k0 + (SPLIT ? 0 : 64 * c);  // this warpgroup's first key
+    const int kr = kw0 + 16 * w + grp;           // this thread's keys kr, kr + 8
+    const int slot = i % p.slots;
+#pragma unroll
+    for (int j = 0; j < NATC; ++j)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dk[j][x] = dv[j][x] = 0.f;
+    mbar_wait(&slot_full[slot], (i / p.slots) & 1);
+    const unsigned char* ks = base + slot * lay.slot_bytes + (SPLIT ? 0 : c * 64 * 128);
+    const unsigned char* vs = ks + lay.slot_tile;
+    for (int item = 0; item < group * nq; ++item, ++it) {
+      const int h = hk * group + item / nq, q0 = (qf + item % nq) * BM;
+      const float slope2 = p.slopes != nullptr ? p.slopes[h] * kLog2e : 0.f;
+      const int s = it % p.stages;
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      const unsigned char* qs = ring + (size_t)s * lay.stage_bytes;
+      const unsigned char* dos = qs + lay.ring_tile;
+      const float* ls = reinterpret_cast<const float*>(qs + 2 * lay.ring_tile);
+      // sT = k qT, dpT = v doT (keys are the accumulator rows)
+      fence_all();
+      turn_wait(c);
+      wg_fence();
+      kmajor_product<T, HD, BM>(st, ks, KR, qs);
+      kmajor_product<T, HD, BM>(dpt, vs, KR, dos);
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      wg_fence_regs(st);
+      wg_fence_regs(dpt);
+      // pT = 2^(sT scale2 + slope2 kpos - lse2), dsT = pT (dpT - delta) scale
+      const bool whole = (!p.causal || kw0 + 63 <= q0) &&
+                         (p.window <= 0 || kw0 > q0 + BM - 1 - p.window) && q0 + BM <= p.T &&
+                         kw0 + 64 <= p.T;
+      const float kb0 = slope2 * (float)kr, kb1 = slope2 * (float)(kr + 8);
+      // each k16 step's two n8 slices, then their A fragments (the fp32
+      // values die as they are packed)
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int qi = 8 * j + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+        const float2 d2 = *reinterpret_cast<const float2*>(ls + BM + qi);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * hh + e;
+            float pr = ex2(fmaf(st[x], scale2, (hh ? kb1 : kb0) - (e ? l2.y : l2.x)));
+            if (!whole && !visible(q0 + qi + e, kr + 8 * hh, p.T, p.causal, p.window)) pr = 0.f;
+            st[x] = pr;
+            dpt[x] = pr * fmaf(dpt[x], p.scale, -(e ? d2.y : d2.x) * p.scale);
+          }
+        if (j % 2 == 1) {
+          const int kk = j / 2;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = Mma<T>::pack(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            dsa[kk][r] = Mma<T>::pack(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          }
+        }
+      }
+      // dv += pT do, dk += dsT q: do and q read MN-major from the same tiles
+      fence_all();
+      turn_wait(c);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < NATC; ++j) {
+          const int a = SPLIT ? min(c + 2 * j, NAT - 1) : j;
+          Wgmma<T>::rs64(dv[j], pa[kk], wg_desc(dos + a * BM * 128 + kk * 16 * 128));
+          Wgmma<T>::rs64(dk[j], dsa[kk], wg_desc(qs + a * BM * 128 + kk * 16 * 128));
+        }
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_all();
+      warp_arrive(&empty[s], lane);
+    }
+    warp_arrive(&slot_empty[slot], lane);
+
+    // ---- epilogue: dk, dv rows (a split's last column block, when NAT is
+    // odd, is computed by both warpgroups and stored by the one it is for)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = kr + 8 * hh;
+      if (key >= p.T) continue;
+      const long long off = (((long long)b * p.T + key) * p.Nkv + hk) * p.hd;
+      T* dko = static_cast<T*>(p.dk) + off;
+      T* dvo = static_cast<T*>(p.dv) + off;
+#pragma unroll
+      for (int j = 0; j < NATC; ++j) {
+        const int a = SPLIT ? c + 2 * j : j;
+        if (a >= NAT) continue;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int col = 64 * a + 8 * jj + 2 * tq;
+          if (col < p.hd) {
+            *reinterpret_cast<uint32_t*>(dko + col) =
+                Mma<T>::pack(dk[j][4 * jj + 2 * hh], dk[j][4 * jj + 2 * hh + 1]);
+            *reinterpret_cast<uint32_t*>(dvo + col) =
+                Mma<T>::pack(dv[j][4 * jj + 2 * hh], dv[j][4 * jj + 2 * hh + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Launch dq (which 1) or dk/dv (which 2): `p` filled in but for units,
+// ntiles and the grid; the tensor maps built by the caller (dq: q, do in
+// boxes of 128 rows, k, v of dq_bn<HD>(); dk/dv: k, v in boxes of 128 keys,
+// 64 above head dim 128, q, do of dkv_bm<HD>()).  The grid is one block an SM (or
+// one a unit, if fewer).
+template <typename T, int HD>
+cudaError_t launch_attn_bwd(int which, BwdArgs p, const CUtensorMap& tm0, const CUtensorMap& tm1,
+                            const CUtensorMap& tm2, const CUtensorMap& tm3, cudaStream_t st) {
+  constexpr int HDP = (HD + 63) / 64 * 64;
+  constexpr int KR = HD > 128 ? 64 : 128;
+  if (p.stages < 1 || p.stages > kBwdMaxStages || p.slots < 1 || p.slots > 2)
+    return cudaErrorInvalidValue;
+  const BwdLayout lay = which == 1 ? BwdLayout(HDP, kDqRows, dq_bn<HD>(), true)
+                                   : BwdLayout(HDP, KR, dkv_bm<HD>(), false);
+  const size_t smem = lay.smem(p.stages, p.slots);
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (smem > (size_t)optin) return cudaErrorInvalidValue;
+  const int rows = which == 1 ? kDqRows : KR;
+  p.ntiles = (p.T + rows - 1) / rows;
+  const long long units = (long long)p.B * (which == 1 ? p.N : p.Nkv) * p.ntiles;
+  if (units > 2147483647LL) return cudaErrorInvalidValue;
+  p.units = (int)units;
+  const int grid = (int)std::min<long long>(units, sms);
+  if (which == 1) {
+    err = allow_dynamic_smem<flash_dq_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    flash_dq_kernel<T, HD><<<grid, kBwdThreads, smem, st>>>(p, tm0, tm1, tm2, tm3);
+  } else {
+    err = allow_dynamic_smem<flash_dkv_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    flash_dkv_kernel<T, HD><<<grid, kBwdThreads, smem, st>>>(p, tm0, tm1, tm2, tm3);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace dsk

@@ -4,337 +4,51 @@
 //   _fwd_kernel (launched by _fwd)       -> attn_fwd_kernel (16-bit; its
 //                                           design in attn_fwd_hopper.cuh),
 //                                           flash_fwd_f32_kernel (fp32)
-//   _dq_kernel  (launched by _bwd_impl)  -> flash_dq_*_kernel
-//   _dkv_kernel (launched by _bwd_impl)  -> flash_dkv_*_kernel
+//   _dq_kernel  (launched by _bwd_impl)  -> flash_dq_kernel (16-bit; its
+//                                           design in attn_bwd_hopper.cuh),
+//                                           flash_dq_f32_kernel (fp32)
+//   _dkv_kernel (launched by _bwd_impl)  -> flash_dkv_kernel (16-bit, the
+//                                           same header),
+//                                           flash_dkv_f32_kernel (fp32)
 // Same function: softmax(q kT * scale [+ slope * kpos]) v over canonical
 // positions (query t sits at position t), causal or not, optional sliding
 // window (kpos > qpos - window) and alibi, GQA by kv head = q head / group
 // with K/V never expanded; the forward saves the per-row logsumexp and the
-// backward recomputes the probabilities from it (delta = rowsum(o * do) is
-// computed by the caller).  Rows that see no key give zeros and lse -1e30.
+// backward recomputes the probabilities from it.  delta = rowsum(o * do):
+// the 16-bit dq makes it in its units when the caller gives none and
+// writes it out for dk/dv; the fp32 kernels take it from the caller.  Rows
+// that see no key give zeros and lse -1e30.
 //
-// What bounds it on the H100: operations.  At T = 1024, D = 64 the forward
-// does 4*D flops per visible (query, key) pair against 2*D*2 bytes per key
-// read once per 128-query tile, far above the card's ~295 flop/byte line;
-// the backward more so (dq recomputes s and does 3 products, dk/dv 4).
-// The 16-bit forward is warp-specialised on TMA and wgmma (attn_fwd_hopper.
-// cuh).  What the backward's design does about it:
-//   - 16-bit inputs run every product on the tensor cores (mma.sync
-//     m16n8k16, fp32 accumulate).
-//   - dq: one block per (batch, q head, 64-query tile), 4 warps x 16 rows.
-//     The TPU grid ran K tiles in order and carried its state in VMEM
-//     scratch; here the K loop is inside the block, the state lives in
-//     registers, and the loop runs only from the window's first K tile to
-//     the causal diagonal's, so dead tiles cost nothing.  K/V tiles (64
-//     keys) stream through shared memory with 16-byte cp.async, double
-//     buffered, rows padded by 8 elements so that ldmatrix's eight row
-//     addresses fall in distinct banks.
-//   - dk/dv: one block per (batch, KV head, 64-key tile), each warp owning
-//     16 keys; the block loops over every q head of the GQA group and every
-//     live q tile and keeps dk, dv in fp32 registers - no atomics, so the
-//     result is deterministic.  The products are taken transposed
-//     (sT = K QT, dpT = V dOT) so that keys are the accumulator rows.
-//   - the scalar work around the mma's is what the tensor cores wait for, so
-//     it is kept small: scores live in log2 units (exp2f is one instruction),
-//     fragments come from shared memory with ldmatrix (.trans for the
-//     token-major operands), and a 16 x 16 sub-tile that lies wholly inside
-//     the causal / window region skips the per-entry visibility tests.
-//   - tensors are read through (batch, token, head) strides, so the model's
-//     [B, T, N, D] layout needs no transposes; any T is accepted, the
-//     ragged tail is masked.
-//   - any head_dim that is a multiple of 8 up to 256: the kernels are
-//     compiled at HD 64, 96, 128, 192 and 256 and a head_dim is padded
-//     with zeros up to the first that holds it (in shared memory and the
-//     q / do fragments; the pad adds nothing to q kT, and its output
-//     columns are never stored).  At 192 and 256 the backward's output
-//     columns are split over two blocks (NCH), each recomputing the
-//     scores, so that dk and dv fit the registers (256 columns would need
-//     256 a thread).
-//   - fp32 inputs (the cuda-vs-cpu parity run) take CUDA-core variants:
-//     lane l owns the columns l, l + 32, ..., warp reductions give the
-//     scores.
-#include "attn_fwd_hopper.cuh"
+// What bounds it on the H100: operations.  The forward does 4*D flops a
+// visible (query, key) pair, dq 6*D (s, dp, ds k), dk/dv 8*D (s, dp, pT do,
+// dsT q), against the 989 TFLOP/s dense bf16 peak; each operand is read
+// once a 128-row tile, far above the card's ~295 flop/byte line.  The
+// 16-bit kernels are warp-specialised on TMA and wgmma: a producer
+// warpgroup streams tiles through a ring of mbarrier-guarded stages, two
+// consumer warpgroups take turns at the tensor cores, p / ds are packed in
+// place as the register A operand of the accumulating products, and every
+// head dim up to 256 runs in one block column (the dq accumulator is 64 x
+// HD fp32 a warpgroup; above 128, dk/dv's two warpgroups split the column
+// blocks of one 64-key unit).  Tensors are read by TMA through their
+// (batch, token, head) strides, zero-filled past T and past the head dim,
+// which is padded to 64, 96, 128, 192 or 256.  The fp32 inputs (the
+// cuda-vs-cpu parity run) take CUDA-core variants: lane l owns the columns
+// l, l + 32, ..., warp reductions give the scores.
+#include "attn_bwd_hopper.cuh"
 
 namespace dsk {
 
 struct FlashArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta, *slopes;
-  void *o, *dq, *dk, *dv;
-  float* lse_out;
+  void *o, *dq, *dk, *dv;   // o: the forward's output, the 16-bit dq's input
+  float *lse_out, *delta_out;
   int B, T, N, Nkv, hd;  // hd: the real head_dim (the kernels' HD pads it)
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
   int causal, window;
-  int stages, qslots;  // forward, 16-bit: the ring depth and Q slots (flash_fwd_plan)
+  int stages, slots;  // 16-bit: the ring depth and slots (flash_fwd_plan, flash_bwd_plan)
 };
-
-constexpr int kTile = 64;      // queries per block (fwd, dq), keys per block (dkv)
-constexpr int kFlashWarps = 4;
-
-// ----------------------------------------------------------------- dq, mma
-template <typename T, int HD, int NCH>
-__global__ void __launch_bounds__(kFlashWarps * 32) flash_dq_mma_kernel(FlashArgs p) {
-  constexpr int KSTEPS = HD / 16, DC = HD / NCH, DTILES = DC / 8, LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* kbuf = reinterpret_cast<T*>(smem);
-  T* vbuf = kbuf + 2 * kTile * LD;
-
-  const int nqt = (p.T + kTile - 1) / kTile;
-  const int qt = nqt - 1 - blockIdx.x;
-  const int h = blockIdx.y / NCH, dc0 = (blockIdx.y % NCH) * DC, b = blockIdx.z;
-  const int hk = h / (p.N / p.Nkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int q0 = qt * kTile;
-  const float scale2 = p.scale * kLog2e;
-  const float slope2 = (p.slopes != nullptr ? p.slopes[h] : 0.f) * kLog2e;
-
-  const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * p.hd;
-
-  int qpos[2];
-  float lse2[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qpos[i] = q0 + warp * 16 + grp + 8 * i;
-    const bool in = qpos[i] < p.T;
-    const long long r = ((long long)b * p.N + h) * p.T + qpos[i];
-    delta[i] = in ? p.delta[r] : 0.f;
-    lse2[i] = dead_or_log2(in ? p.lse[r] : kNegInf);
-  }
-  const int warp_min = q0 + warp * 16, warp_max = min(warp_min + 15, p.T - 1);
-
-  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j & 1;
-      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
-      const bool in = qpos[i] < p.T && col < p.hd;
-      qa[ks][j] = in ? *reinterpret_cast<const uint32_t*>(qb + (long long)qpos[i] * p.q_st + col)
-                     : 0u;
-      da[ks][j] = in ? *reinterpret_cast<const uint32_t*>(
-                           dob + (long long)qpos[i] * p.N * p.hd + col)
-                     : 0u;
-    }
-  float acc[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
-
-  int kt_first, kt_last;
-  k_tile_range(q0, kTile, p.T, kTile, p.causal, p.window, kt_first, kt_last);
-  const int n = kt_last - kt_first + 1;
-
-  load_rows<T, HD, LD>(kbuf, kb, p.k_st, kt_first * kTile, kTile, p.T, p.hd);
-  load_rows<T, HD, LD>(vbuf, vb, p.v_st, kt_first * kTile, kTile, p.T, p.hd);
-  cp_async_commit();
-  for (int it = 0; it < n; ++it) {
-    const int kt = kt_first + it;
-    const int bsel = it & 1;
-    if (it + 1 < n) {
-      load_rows<T, HD, LD>(kbuf + (bsel ^ 1) * kTile * LD, kb, p.k_st, (kt + 1) * kTile, kTile,
-                           p.T, p.hd);
-      load_rows<T, HD, LD>(vbuf + (bsel ^ 1) * kTile * LD, vb, p.v_st, (kt + 1) * kTile, kTile,
-                           p.T, p.hd);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* ks_ = kbuf + bsel * kTile * LD;
-    const T* vs_ = vbuf + bsel * kTile * LD;
-    for (int t0 = 0; t0 < kTile; t0 += 16) {
-      const int kv0 = kt * kTile + t0;
-      if (kv0 >= p.T || (p.causal && kv0 > warp_max)) break;
-      if (p.window > 0 && kv0 + 15 <= warp_min - p.window) continue;
-      float sc[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
-      mma_rows_t<T, HD, LD>(sc, qa, ks_, t0, lane);
-      mma_rows_t<T, HD, LD>(dp, da, vs_, t0, lane);
-      // every (row, key) pair of the sub-tile visible: no tests needed
-      const bool full = (!p.causal || kv0 + 15 <= warp_min) &&
-                        (p.window <= 0 || kv0 > warp_min + 15 - p.window) &&
-                        kv0 + 16 <= p.T && warp_min + 15 < p.T;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = j >> 1;
-          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
-          float pr = exp2f(sc[nt][j] * scale2 + slope2 * (float)kpos - lse2[i]);
-          if (!full && !visible(qpos[i], kpos, p.T, p.causal, p.window)) pr = 0.f;
-          sc[nt][j] = pr * (dp[nt][j] - delta[i]) * p.scale;  // ds
-        }
-      const uint32_t dsa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
-                               Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
-      mma_rows<T, DC, LD>(acc, dsa, ks_ + dc0, t0, lane);  // dq += ds k
-    }
-    __syncthreads();
-  }
-
-  T* dqb = static_cast<T*>(p.dq) + ((long long)b * p.T * p.N + h) * p.hd + dc0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (qpos[i] >= p.T) continue;
-    T* row = dqb + (long long)qpos[i] * p.N * p.hd;
-#pragma unroll
-    for (int d = 0; d < DTILES; ++d)
-      if (dc0 + d * 8 < p.hd)
-        *reinterpret_cast<uint32_t*>(row + d * 8 + 2 * tig) =
-            Mma<T>::pack(acc[d][2 * i], acc[d][2 * i + 1]);
-  }
-}
-
-// -------------------------------------------------------------- dk/dv, mma
-template <typename T, int HD, int NCH>
-__global__ void __launch_bounds__(kFlashWarps * 32) flash_dkv_mma_kernel(FlashArgs p) {
-  constexpr int KSTEPS = HD / 16, DC = HD / NCH, DTILES = DC / 8, LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks_ = reinterpret_cast<T*>(smem);   // [kTile*LD] this block's keys
-  T* vs_ = ks_ + kTile * LD;             // [kTile*LD]
-  T* qbuf = vs_ + kTile * LD;            // [2][kTile*LD]
-  T* dbuf = qbuf + 2 * kTile * LD;       // [2][kTile*LD]
-  float* lbuf = reinterpret_cast<float*>(dbuf + 2 * kTile * LD);  // [2][kTile] lse, log2 units
-  float* ebuf = lbuf + 2 * kTile;                                   // [2][kTile] delta
-
-  const int kt = blockIdx.x, hk = blockIdx.y / NCH, dc0 = (blockIdx.y % NCH) * DC;
-  const int b = blockIdx.z;
-  const int group = p.N / p.Nkv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int k0 = kt * kTile;
-  const int wk0 = k0 + warp * 16;        // this warp's first key
-  const float scale2 = p.scale * kLog2e;
-
-  const T* kb = static_cast<const T*>(p.k) + (long long)b * p.k_sb + (long long)hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + (long long)b * p.v_sb + (long long)hk * p.v_sh;
-
-  int qt_first, qt_last;
-  q_tile_range(k0, kTile, p.T, kTile, p.causal, p.window, qt_first, qt_last);
-  const int nq = max(qt_last - qt_first + 1, 0);
-  const int n = nq * group;
-
-  // item -> (q head of the group, q tile); the block copies its Q, dO rows
-  // and their lse, delta into buffer `sel`
-  auto load_item = [&](int item, int sel) {
-    const int h = hk * group + item / nq;
-    const int q0 = (qt_first + item % nq) * kTile;
-    const T* qb = static_cast<const T*>(p.q) + (long long)b * p.q_sb + (long long)h * p.q_sh;
-    const T* dob = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.N + h) * p.hd;
-    load_rows<T, HD, LD>(qbuf + sel * kTile * LD, qb, p.q_st, q0, kTile, p.T, p.hd);
-    load_rows<T, HD, LD>(dbuf + sel * kTile * LD, dob, (long long)p.N * p.hd, q0, kTile, p.T,
-                         p.hd);
-    const long long r = ((long long)b * p.N + h) * p.T + q0;
-    for (int t = threadIdx.x; t < kTile; t += blockDim.x) {
-      const bool in = q0 + t < p.T;
-      lbuf[sel * kTile + t] = dead_or_log2(in ? p.lse[r + t] : kNegInf);
-      ebuf[sel * kTile + t] = in ? p.delta[r + t] : 0.f;
-    }
-  };
-
-  float dk[DTILES][4], dv[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[d][j] = dv[d][j] = 0.f;
-
-  load_rows<T, HD, LD>(ks_, kb, p.k_st, k0, kTile, p.T, p.hd);
-  load_rows<T, HD, LD>(vs_, vb, p.v_st, k0, kTile, p.T, p.hd);
-  if (n > 0) load_item(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < n; ++it) {
-    const int bsel = it & 1;
-    if (it + 1 < n) {
-      load_item(it + 1, bsel ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int h = hk * group + it / nq;
-    const int q0 = (qt_first + it % nq) * kTile;
-    const float slope2 = (p.slopes != nullptr ? p.slopes[h] : 0.f) * kLog2e;
-    const T* qs = qbuf + bsel * kTile * LD;
-    const T* ds_ = dbuf + bsel * kTile * LD;
-    const float* ls = lbuf + bsel * kTile;
-    const float* es = ebuf + bsel * kTile;
-    for (int t0 = 0; t0 < kTile; t0 += 16) {
-      const int qv0 = q0 + t0;                         // this sub-tile's first query
-      if (qv0 >= p.T) break;
-      if (p.causal && qv0 + 15 < wk0) continue;        // every query before every key
-      if (p.window > 0 && wk0 + 15 <= qv0 - p.window) break;  // keys left of every window
-      float st[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[nt][j] = dp[nt][j] = 0.f;
-      const T* krows = ks_ + warp * 16 * LD;
-      const T* vrows = vs_ + warp * 16 * LD;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t ka[4], va[4], qb[4], db[4];
-        load_a_frag<T>(ka, krows, LD, ks, lane);
-        load_a_frag<T>(va, vrows, LD, ks, lane);
-        load_b_rows_t<T>(qb, qs, LD, t0, ks, lane);
-        load_b_rows_t<T>(db, ds_, LD, t0, ks, lane);
-        Mma<T>::run(st[0], ka, qb[0], qb[1]);  // sT = k qT
-        Mma<T>::run(st[1], ka, qb[2], qb[3]);
-        Mma<T>::run(dp[0], va, db[0], db[1]);  // dpT = v doT
-        Mma<T>::run(dp[1], va, db[2], db[3]);
-      }
-      // every (key, query) pair of the sub-tile visible: no tests needed
-      const bool full = (!p.causal || wk0 + 15 <= qv0) &&
-                        (p.window <= 0 || wk0 > qv0 + 15 - p.window) &&
-                        qv0 + 16 <= p.T && wk0 + 16 <= p.T;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kpos = wk0 + grp + 8 * (j >> 1);
-          const int qi = t0 + nt * 8 + 2 * tig + (j & 1);
-          float pr = exp2f(st[nt][j] * scale2 + slope2 * (float)kpos - ls[qi]);
-          if (!full && !visible(q0 + qi, kpos, p.T, p.causal, p.window)) pr = 0.f;
-          st[nt][j] = pr;                                       // pT
-          dp[nt][j] = pr * (dp[nt][j] - es[qi]) * p.scale;      // dsT
-        }
-      const uint32_t pa[4] = {Mma<T>::pack(st[0][0], st[0][1]), Mma<T>::pack(st[0][2], st[0][3]),
-                              Mma<T>::pack(st[1][0], st[1][1]), Mma<T>::pack(st[1][2], st[1][3])};
-      const uint32_t dsa[4] = {Mma<T>::pack(dp[0][0], dp[0][1]), Mma<T>::pack(dp[0][2], dp[0][3]),
-                               Mma<T>::pack(dp[1][0], dp[1][1]), Mma<T>::pack(dp[1][2], dp[1][3])};
-      mma_rows<T, DC, LD>(dv, pa, ds_ + dc0, t0, lane);   // dv += pT do
-      mma_rows<T, DC, LD>(dk, dsa, qs + dc0, t0, lane);   // dk += dsT q
-    }
-    __syncthreads();
-  }
-
-  T* dkb = static_cast<T*>(p.dk) + ((long long)b * p.T * p.Nkv + hk) * p.hd + dc0;
-  T* dvb = static_cast<T*>(p.dv) + ((long long)b * p.T * p.Nkv + hk) * p.hd + dc0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kpos = wk0 + grp + 8 * i;
-    if (kpos >= p.T) continue;
-    const long long off = (long long)kpos * p.Nkv * p.hd;
-#pragma unroll
-    for (int d = 0; d < DTILES; ++d) {
-      if (dc0 + d * 8 >= p.hd) continue;
-      *reinterpret_cast<uint32_t*>(dkb + off + d * 8 + 2 * tig) =
-          Mma<T>::pack(dk[d][2 * i], dk[d][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + off + d * 8 + 2 * tig) =
-          Mma<T>::pack(dv[d][2 * i], dv[d][2 * i + 1]);
-    }
-  }
-}
 
 // --------------------------------------------------- fp32, CUDA-core variants
 // 8 warps x 4 rows; lane l owns the columns l, l + 32, ... (VEC = HD / 32 of
@@ -562,27 +276,6 @@ __global__ void __launch_bounds__(kF32Warps * 32) flash_dkv_f32_kernel(FlashArgs
 // ----------------------------------------------------------------- launchers
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int HD>
-cudaError_t launch_mma(int which, const FlashArgs& a, cudaStream_t st) {
-  constexpr int LD = HD + 8, NCH = HD > 128 ? 2 : 1;
-  const int tiles = (a.T + kTile - 1) / kTile;
-  cudaError_t err;
-  if (which == kDkv) {
-    const size_t smem = 6 * (size_t)kTile * LD * sizeof(T) + 4 * kTile * sizeof(float);
-    err = allow_dynamic_smem<flash_dkv_mma_kernel<T, HD, NCH>>();
-    if (err != cudaSuccess) return err;
-    flash_dkv_mma_kernel<T, HD, NCH>
-        <<<dim3(tiles, a.Nkv * NCH, a.B), kFlashWarps * 32, smem, st>>>(a);
-    return cudaGetLastError();
-  }
-  const size_t smem = 4 * (size_t)kTile * LD * sizeof(T);
-  err = allow_dynamic_smem<flash_dq_mma_kernel<T, HD, NCH>>();
-  if (err != cudaSuccess) return err;
-  flash_dq_mma_kernel<T, HD, NCH>
-      <<<dim3(tiles, a.N * NCH, a.B), kFlashWarps * 32, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
 // The 16-bit forward on attn_fwd_kernel (attn_fwd_hopper.cuh): q [B, T, N,
 // hd] and k, v [B, T, Nkv, hd] as 4-D tensor maps (hd, head, token, batch)
 // read in boxes of [rows, 64 columns] in the 128-byte swizzle, the columns
@@ -594,7 +287,7 @@ cudaError_t launch_fwd_wgmma(const FlashArgs& a, cudaStream_t st) {
   p.o = a.o;
   p.lse = a.lse_out;
   p.B = a.B; p.T = a.T; p.N = a.N; p.Nkv = a.Nkv; p.hd = a.hd; p.rows = 1;
-  p.stages = a.stages; p.qslots = a.qslots;
+  p.stages = a.stages; p.qslots = a.slots;
   p.scale = a.scale * kLog2e;
   p.slopes = a.slopes; p.causal = a.causal; p.window = a.window;
   p.b1_code = p.b2_code = -1;
@@ -609,6 +302,37 @@ cudaError_t launch_fwd_wgmma(const FlashArgs& a, cudaStream_t st) {
       !tensor_map_nd(&tmv, tma_dtype<T>(), 2, a.v, 4, dkv, sv, box_kv, sw, &p.cv))
     return cudaErrorInvalidValue;
   return launch_attn_fwd<T, HD, BN, false>(p, tmq, tmk, tmv, unused, st);
+}
+
+// The 16-bit backward on flash_dq_kernel / flash_dkv_kernel
+// (attn_bwd_hopper.cuh): q, do [B, T, N, hd] and k, v [B, T, Nkv, hd] as
+// 4-D tensor maps (hd, head, token, batch) in boxes of [rows, 64 columns],
+// 128-byte swizzle; do contiguous.
+template <typename T, int HD>
+cudaError_t launch_bwd_wgmma(int which, const FlashArgs& a, cudaStream_t st) {
+  BwdArgs p{};
+  p.lse = a.lse; p.delta = a.delta; p.delta_out = a.delta_out; p.o = a.o; p.dout = a.dout;
+  p.dq = a.dq; p.dk = a.dk; p.dv = a.dv; p.slopes = a.slopes;
+  p.B = a.B; p.T = a.T; p.N = a.N; p.Nkv = a.Nkv; p.hd = a.hd;
+  p.stages = a.stages; p.slots = a.slots;
+  p.scale = a.scale; p.causal = a.causal; p.window = a.window;
+  if (p.delta == nullptr && (which == kDkv || p.o == nullptr)) return cudaErrorInvalidValue;
+  const int q_rows = which == kDq ? kDqRows : dkv_bm<HD>();
+  const int kv_rows = which == kDq ? dq_bn<HD>() : (HD > 128 ? 64 : 128);
+  const long long dq[4] = {a.hd, a.N, a.T, a.B}, dkv[4] = {a.hd, a.Nkv, a.T, a.B};
+  const long long sq[4] = {1, a.q_sh, a.q_st, a.q_sb}, sk[4] = {1, a.k_sh, a.k_st, a.k_sb},
+                  sv[4] = {1, a.v_sh, a.v_st, a.v_sb},
+                  sdo[4] = {1, a.hd, (long long)a.N * a.hd, (long long)a.T * a.N * a.hd};
+  const int box_q[4] = {64, 1, q_rows, 1}, box_kv[4] = {64, 1, kv_rows, 1};
+  CUtensorMap tmq{}, tmdo{}, tmk{}, tmv{};
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_nd(&tmq, tma_dtype<T>(), 2, a.q, 4, dq, sq, box_q, sw, &p.cq) ||
+      !tensor_map_nd(&tmdo, tma_dtype<T>(), 2, a.dout, 4, dq, sdo, box_q, sw, &p.cdo) ||
+      !tensor_map_nd(&tmk, tma_dtype<T>(), 2, a.k, 4, dkv, sk, box_kv, sw, &p.ck) ||
+      !tensor_map_nd(&tmv, tma_dtype<T>(), 2, a.v, 4, dkv, sv, box_kv, sw, &p.cv))
+    return cudaErrorInvalidValue;
+  if (which == kDq) return launch_attn_bwd<T, HD>(1, p, tmq, tmdo, tmk, tmv, st);
+  return launch_attn_bwd<T, HD>(2, p, tmk, tmv, tmq, tmdo, st);
 }
 
 template <int HD>
@@ -637,10 +361,11 @@ cudaError_t launch_dtype(int which, int dtype, const FlashArgs& a, cudaStream_t 
   switch (dtype) {
     case 0: return launch_f32<HD>(which, a, st);
     case 1:
-      return which == kFwd ? launch_fwd_wgmma<__half, HD>(a, st) : launch_mma<__half, HD>(which, a, st);
+      return which == kFwd ? launch_fwd_wgmma<__half, HD>(a, st)
+                           : launch_bwd_wgmma<__half, HD>(which, a, st);
     case 2:
       return which == kFwd ? launch_fwd_wgmma<__nv_bfloat16, HD>(a, st)
-                           : launch_mma<__nv_bfloat16, HD>(which, a, st);
+                           : launch_bwd_wgmma<__nv_bfloat16, HD>(which, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -680,27 +405,36 @@ extern "C" int ds_flash_fwd(const void* q, const void* k, const void* v, const v
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal; a.window = window;
-  a.stages = stages; a.qslots = qslots;
+  a.stages = stages; a.slots = qslots;
   return (int)dsk::launch_flash(dsk::kFwd, dtype, a, stream);
 }
 
-// which: 1 writes dq, 2 writes dk and dv (the pointer not written may be null)
+// which: 1 writes dq, 2 writes dk and dv (the pointer not written may be
+// null).  delta [B, N, T] fp32, or (16-bit dq) null: the kernel makes it
+// from o [B, T, N, hd] (contiguous) and dout, and writes it to delta_out if
+// that is not null.  stages, slots: the 16-bit kernel's ring depth (1..8)
+// and slots (1..2), within the card's shared memory (ops/flash_attention.py
+// flash_bwd_plan).
 extern "C" int ds_flash_bwd(int which, const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse, const void* delta,
-                            const void* slopes, void* dq, void* dk, void* dv, int B, int T,
-                            int N, int Nkv, int hd, long long q_sb, long long q_st,
+                            const void* o, const void* dout, const void* lse, const void* delta,
+                            void* delta_out, const void* slopes, void* dq, void* dk, void* dv,
+                            int B, int T, int N, int Nkv, int hd, long long q_sb, long long q_st,
                             long long q_sh, long long k_sb, long long k_st, long long k_sh,
                             long long v_sb, long long v_st, long long v_sh, float scale,
-                            int causal, int window, int dtype, void* stream) {
+                            int causal, int window, int stages, int slots, int dtype,
+                            void* stream) {
   if (which != dsk::kDq && which != dsk::kDkv) return (int)cudaErrorInvalidValue;
+  if (delta == nullptr && dtype == 0) return (int)cudaErrorInvalidValue;
   dsk::FlashArgs a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.o = const_cast<void*>(o);
   a.lse = static_cast<const float*>(lse); a.delta = static_cast<const float*>(delta);
+  a.delta_out = static_cast<float*>(delta_out);
   a.slopes = static_cast<const float*>(slopes);
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.hd = hd;
   a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal; a.window = window;
+  a.stages = stages; a.slots = slots;
   return (int)dsk::launch_flash(which, dtype, a, stream);
 }

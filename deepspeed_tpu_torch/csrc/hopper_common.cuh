@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
 // (wq_matmul.cu, and the attention forwards of flash_attention.cu and
-// evoformer.cu through attn_fwd_hopper.cuh): mbarriers, TMA tensor copies
+// evoformer.cu through attn_fwd_hopper.cuh, the flash backward through
+// attn_bwd_hopper.cuh): mbarriers, TMA tensor copies
 // (2-D to 5-D) and the host-side tensor-map encoding, register hand-over
 // between warpgroups (setmaxnreg), and the asynchronous warpgroup products
 // (wgmma) with both operands in shared memory or A in registers.
@@ -153,6 +154,8 @@ __device__ __forceinline__ void wg_fence_regs(uint32_t (&d)[N]) {
 #define DSK_ACC8(b)                                                                    \
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),      \
       "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define DSK_REGS16                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define DSK_REGS32                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "             \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -162,6 +165,7 @@ __device__ __forceinline__ void wg_fence_regs(uint32_t (&d)[N]) {
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "    \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
+#define DSK_ACC16 DSK_ACC8(0), DSK_ACC8(8)
 #define DSK_ACC32 DSK_ACC8(0), DSK_ACC8(8), DSK_ACC8(16), DSK_ACC8(24)
 #define DSK_ACC64 DSK_ACC32, DSK_ACC8(32), DSK_ACC8(40), DSK_ACC8(48), DSK_ACC8(56)
 
@@ -180,6 +184,12 @@ __device__ __forceinline__ void wg_fence_regs(uint32_t (&d)[N]) {
                " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSK_REGS32  \
                ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                       \
                : DSK_ACC32                                                             \
+               : "l"(da), "l"(db), "r"(acc))
+#define DSK_WGMMA_SS32(TY)                                                             \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"                         \
+               " wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " DSK_REGS16  \
+               ", %16, %17, p, 1, 1, 0, 0;\n}\n"                                       \
+               : DSK_ACC16                                                             \
                : "l"(da), "l"(db), "r"(acc))
 // d[64 x 64] += A[64 x 16] (registers: mma.sync's A fragment of each warp's
 // 16 rows) * B[16 x 64], B MN-major in shared memory (transpose bit)
@@ -201,6 +211,10 @@ template <typename T> struct Wgmma;
                                                 uint64_t db, int acc = 1) {             \
       DSK_WGMMA_SS64(TY);                                                               \
     }                                                                                   \
+    static __device__ __forceinline__ void ss32(float (&d)[16], uint64_t da,            \
+                                                uint64_t db, int acc = 1) {             \
+      DSK_WGMMA_SS32(TY);                                                               \
+    }                                                                                   \
     static __device__ __forceinline__ void rs64(float (&d)[32], const uint32_t (&a)[4], \
                                                 uint64_t db) {                          \
       DSK_WGMMA_RS64(TY);                                                               \
@@ -211,11 +225,14 @@ DSK_WGMMA_STRUCT(__half, "f16")
 #undef DSK_WGMMA_STRUCT
 #undef DSK_WGMMA_RS64
 #undef DSK_WGMMA_SS64
+#undef DSK_WGMMA_SS32
 #undef DSK_WGMMA_SS128
 #undef DSK_ACC64
 #undef DSK_ACC32
+#undef DSK_ACC16
 #undef DSK_REGS64
 #undef DSK_REGS32
+#undef DSK_REGS16
 #undef DSK_ACC8
 
 // ------------------------------------------------------- host: tensor maps

@@ -18,8 +18,9 @@ Two implementations, chosen by the device of the tensors:
   ``cuda_flash_dkv`` (csrc/flash_attention.cu, built by ops/builder.py at
   first use, bound with ctypes; the 16-bit forward is the warp-specialised
   TMA + wgmma kernel of csrc/attn_fwd_hopper.cuh, tiled by
-  ``flash_fwd_plan``, the fp32 one a CUDA-core kernel; dq and dk/dv run on
-  mma.sync).  Each wrapper checks its inputs, allocates
+  ``flash_fwd_plan``; the 16-bit dq and dk/dv the warp-specialised TMA +
+  wgmma kernels of csrc/attn_bwd_hopper.cuh, tiled by ``flash_bwd_plan``;
+  fp32 runs on CUDA-core kernels).  Each wrapper checks its inputs, allocates
   its outputs with ``torch.empty``, launches on the current stream, raises
   on a non-zero ``cudaError_t`` and counts its launches in
   ``<wrapper>.launches``.
@@ -48,6 +49,10 @@ SMEM_LIMIT = 232448
 # the forward's deepest ring: csrc/attn_fwd_hopper.cuh kFwdMaxStages, which
 # also sizes the mbarrier block at the head of its shared memory
 _FWD_MAX_STAGES = 8
+# the backward's (csrc/attn_bwd_hopper.cuh): kBwdMaxStages, the same role;
+# kDqRows queries a dq unit
+_BWD_MAX_STAGES = 8
+_DQ_ROWS = 128
 
 
 def _slopes(alibi_slopes, n_heads: int, device):
@@ -178,6 +183,54 @@ def flash_fwd_plan(d: int) -> dict:
     return fwd_plan(hd_k, 128 if hd_k <= 128 else 64)
 
 
+def bwd_plan(hd_k: int, slot_rows: int, ring_rows: int, dq: bool) -> dict:
+    """Shared memory of one 16-bit backward kernel (csrc/attn_bwd_hopper.cuh
+    BwdLayout, the same formula) for compiled head dim ``hd_k``: slots of
+    two [slot_rows, hdp] tiles (dq: Q, dO; dk/dv: K, V) and a ring of
+    stages of two [ring_rows, hdp] tiles (dq: K, V; dk/dv: Q, dO and their
+    lse and delta rows, a stage rounded up to 1024 bytes); dq adds each
+    slot's delta rows.  Two slots (the next unit's loads, and dq's delta,
+    overlap this unit) where a ring of 3 still fits beside them, else one;
+    then as many stages as fit, at most ``_BWD_MAX_STAGES``."""
+    hdp = -(-hd_k // 64) * 64
+    slot = 2 * slot_rows * hdp * 2 + (slot_rows * 4 if dq else 0)
+    stage = -(-(2 * ring_rows * hdp * 2 + (0 if dq else 2 * ring_rows * 4))
+              // 1024) * 1024
+    fixed = (4 + 2 * _BWD_MAX_STAGES) * 8 + 1024  # mbarriers, alignment slack
+    fits = {slots: min(_BWD_MAX_STAGES,
+                       (SMEM_LIMIT - fixed - slots * slot) // stage)
+            for slots in (2, 1)}
+    slots = 2 if fits[2] >= 3 else 1
+    stages = fits[slots]
+    if stages < 2:
+        raise ValueError(f"no backward plan fits {SMEM_LIMIT} bytes at head "
+                         f"dim {hd_k}, {ring_rows} rows a stage")
+    return dict(slots=slots, stages=stages, slot_bytes=slot,
+                stage_bytes=stage,
+                smem=fixed + slots * slot + stages * stage)
+
+
+def flash_bwd_plan(d: int) -> dict:
+    """The 16-bit backward's tiles for head_dim ``d``: compiled width hd_k
+    (as the forward's), and for each kernel its ``bwd_plan``.  dq: 128
+    queries a unit, ``bn`` keys a stage (128 at hd_k 64, 64 up to 192, 32
+    at 256, where Q and dO take 128 KB).  dk/dv: ``keys`` a unit (128; 64
+    above hd_k 128, where the two consumer warpgroups ``split`` dk / dv's
+    column blocks), ``bm`` queries a stage (128 at hd_k 64, 64 above, where
+    dk + dv take 128 registers a thread)."""
+    hd_k = next(w for w in (64, 96, 128, 192, 256) if d <= w)
+    # dq_bn / dkv_bm of the header
+    bn = 32 if hd_k > 192 else (64 if hd_k > 64 else 128)
+    bm = 64 if hd_k > 64 else 128
+    split = hd_k > 128
+    keys = 64 if split else 128
+    return dict(hd_k=hd_k, hdp=-(-hd_k // 64) * 64,
+                dq=dict(bwd_plan(hd_k, _DQ_ROWS, bn, True), rows=_DQ_ROWS,
+                        bn=bn),
+                dkv=dict(bwd_plan(hd_k, keys, bm, False), keys=keys, bm=bm,
+                         split=split))
+
+
 def head_dim_problem(d: int) -> Optional[str]:
     """Why the kernels cannot take head_dim ``d`` (None: they can)."""
     if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
@@ -260,7 +313,8 @@ def _lib():
         tail = [I] * 5 + [L] * 9 + [F, I, I, I, P]
         lib.ds_flash_fwd.argtypes = [P] * 6 + tail[:-2] + [I, I] + tail[-2:]
         lib.ds_flash_fwd.restype = I
-        lib.ds_flash_bwd.argtypes = [I] + [P] * 10 + tail
+        lib.ds_flash_bwd.argtypes = [I] + [P] * 12 + tail[:-2] + [I, I] \
+            + tail[-2:]
         lib.ds_flash_bwd.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
@@ -323,42 +377,71 @@ def cuda_flash_fwd(q, k, v, *, causal: bool = True,
 cuda_flash_fwd.launches = 0
 
 
-def _bwd_inputs(name, q, o, lse, do):
+def _bwd_checked(name, q, lse, do):
+    """do and lse as the kernels read them (contiguous), checked."""
     b, t, n, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"{name}: do must match q in shape, dtype, device")
     if lse.dtype != torch.float32 or lse.numel() != b * n * t:
         raise ValueError(f"{name}: lse must be fp32 [B, N, 1, T]")
-    do = do.contiguous()
-    # delta = rowsum(o * do) in fp32, outside the kernels as in the reference
-    delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
-    return do, lse.contiguous(), delta
+    return do.contiguous(), lse.contiguous()
 
 
-def _launch_bwd(which, name, q, k, v, do, lse, delta, slopes, dq, dk, dv,
-                scale, causal, window):
+def _delta(o, do):
+    """delta = rowsum(o * do) in fp32, [B, N, T], eagerly (the 16-bit dq
+    makes it inside its units instead)."""
+    return (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _bwd_inputs(name, q, o, lse, do):
+    """do, lse (checked, contiguous) and the eager delta: what a backward
+    kernel that does not make delta itself reads (dk/dv without a delta,
+    and the block-sparse backward)."""
+    do, lse = _bwd_checked(name, q, lse, do)
+    return do, lse, _delta(o, do)
+
+
+def _launch_bwd(which, name, q, k, v, o, do, lse, delta, delta_out, slopes,
+                dq, dk, dv, scale, causal, window):
+    plan = flash_bwd_plan(q.shape[-1])["dq" if which == 1 else "dkv"]
+    tail = _tail(q, k, v, scale, causal, window)
     lib = _lib()
-    rc = lib.ds_flash_bwd(which, _ptr(q), _ptr(k), _ptr(v), _ptr(do),
-                          _ptr(lse), _ptr(delta), _ptr(slopes), _ptr(dq),
-                          _ptr(dk), _ptr(dv),
-                          *_tail(q, k, v, scale, causal, window))
+    rc = lib.ds_flash_bwd(which, _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+                          _ptr(do), _ptr(lse), _ptr(delta), _ptr(delta_out),
+                          _ptr(slopes), _ptr(dq), _ptr(dk), _ptr(dv),
+                          *tail[:-2], plan["stages"], plan["slots"],
+                          *tail[-2:])
     _check_rc(lib, rc, name)
 
 
 def cuda_flash_dq(q, k, v, o, lse, do, *, causal: bool = True,
                   scale: Optional[float] = None, window=None,
-                  alibi_slopes=None, delta=None):
-    """dq on the card.  ``delta`` [B, N, T] fp32 may be passed by a caller
-    that already ran ``_bwd_inputs`` (the autograd Function shares its
-    result between dq and dk/dv); ``do`` and ``lse`` are then taken as
-    returned by it."""
+                  alibi_slopes=None, delta=None, delta_out=None):
+    """dq on the card.  ``delta`` [B, N, T] fp32 = rowsum(o * do) is taken
+    as given; without it the 16-bit kernel makes it in its units from o
+    and do (fp32: eagerly) and, if ``delta_out`` [B, N, T] fp32 is given,
+    writes it there (the autograd Function hands it on to dk/dv)."""
     scale, slopes = _prepare("cuda_flash_dq", q, k, v, causal, scale, window,
                              alibi_slopes)
-    if delta is None:
-        do, lse, delta = _bwd_inputs("cuda_flash_dq", q, o, lse, do)
+    do, lse = _bwd_checked("cuda_flash_dq", q, lse, do)
+    if delta_out is not None and (
+            delta_out.dtype != torch.float32 or not delta_out.is_contiguous()
+            or delta_out.numel() != lse.numel()
+            or delta_out.device != q.device):
+        raise ValueError("cuda_flash_dq: delta_out must be contiguous fp32 "
+                         "[B, N, T] on q's device")
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError("cuda_flash_dq: o must match q in shape, dtype, "
+                         "device")
+    if delta is None and q.dtype == torch.float32:
+        delta = _delta(o, do)
+        if delta_out is not None:
+            delta_out.copy_(delta.view_as(delta_out))
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd(1, "flash_dq", q, k, v, do, lse, delta, slopes, dq, None,
-                None, scale, causal, window)
+    _launch_bwd(1, "flash_dq", q, k, v,
+                o.contiguous() if delta is None else None, do, lse, delta,
+                delta_out if delta is None else None, slopes, dq, None, None,
+                scale, causal, window)
     cuda_flash_dq.launches += 1
     return dq
 
@@ -369,15 +452,19 @@ cuda_flash_dq.launches = 0
 def cuda_flash_dkv(q, k, v, o, lse, do, *, causal: bool = True,
                    scale: Optional[float] = None, window=None,
                    alibi_slopes=None, delta=None):
-    """dk, dv on the card, summed over the GQA group without atomics."""
+    """dk, dv on the card, summed over the GQA group without atomics.
+    ``delta`` [B, N, T] fp32 as ``cuda_flash_dq`` wrote it; without it,
+    computed eagerly from o and do."""
     scale, slopes = _prepare("cuda_flash_dkv", q, k, v, causal, scale,
                              window, alibi_slopes)
     if delta is None:
         do, lse, delta = _bwd_inputs("cuda_flash_dkv", q, o, lse, do)
+    else:
+        do, lse = _bwd_checked("cuda_flash_dkv", q, lse, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd(2, "flash_dkv", q, k, v, do, lse, delta, slopes, None, dk,
-                dv, scale, causal, window)
+    _launch_bwd(2, "flash_dkv", q, k, v, None, do, lse, delta, None, slopes,
+                None, dk, dv, scale, causal, window)
     cuda_flash_dkv.launches += 1
     return dk, dv
 
@@ -405,8 +492,12 @@ class _Flash(torch.autograd.Function):
         if q.device.type != "cuda":
             dq, dk, dv = torch_flash_bwd(q, k, v, o, lse, do, **ctx.kw)
         else:
-            do, lse, delta = _bwd_inputs("flash_attention", q, o, lse, do)
-            dq = cuda_flash_dq(q, k, v, o, lse, do, delta=delta, **ctx.kw)
+            # dq makes delta = rowsum(o * do) in its units and hands it on
+            b, t, n, _ = q.shape
+            delta = torch.empty((b, n, t), dtype=torch.float32,
+                                device=q.device)
+            dq = cuda_flash_dq(q, k, v, o, lse, do, delta_out=delta,
+                               **ctx.kw)
             dk, dv = cuda_flash_dkv(q, k, v, o, lse, do, delta=delta,
                                     **ctx.kw)
         return dq, dk, dv, None, None, None, None    # slopes: no gradient

@@ -755,6 +755,58 @@ def test_fwd_plan_is_what_the_kernel_takes(cuda, kernel, d, b2_dtype):
     _assert_rows("o", o, o_ref, 2e-2)
 
 
+BWD_PLAN_CASES = {
+    f"d{d}": dict(D=d, T=200) for d in (64, 96, 128, 192, 256)}
+BWD_PLAN_CASES.update({
+    "d256_gqa_window_alibi": dict(D=256, N=4, Nkv=2, T=300, window=70,
+                                  alibi=True),
+    "d192_gqa_ragged": dict(D=192, N=6, Nkv=2, T=131),
+    "d128_gqa4_window": dict(D=128, N=8, Nkv=2, T=517, window=129),
+    "d64_alibi_ragged": dict(D=64, T=389, alibi=True),
+    "d80_noncausal_ragged": dict(D=80, T=77, causal=False),
+})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(BWD_PLAN_CASES))
+def test_bwd_plan_is_what_the_kernel_takes(cuda, dtype, case):
+    """``flash_bwd_plan`` mirrors csrc/attn_bwd_hopper.cuh ``BwdLayout``: at
+    every compiled width, and with GQA, a window, alibi and a ragged T, the
+    plan's shared memory fits the card's opt-in limit and dq and dk/dv run
+    on the plan's ring depth and slots (a launch the C side refuses
+    raises), each held per row to the plain backward on the same o and lse
+    (2e-2 of the row's largest value; a row whose true value is ~0 against
+    1% of the tensor's largest).  dq's delta = rowsum(o * do), made in its
+    units, matches the eager fp32 sum; two runs are bitwise equal."""
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    params = dict(BWD_PLAN_CASES[case])
+    plan = fa.flash_bwd_plan(params["D"])
+    assert plan["dq"]["smem"] <= optin and plan["dkv"]["smem"] <= optin
+    q, k, v, do, kw = _flash_case(cuda, dtype, **params)
+    o, lse = fa.torch_flash_fwd(q, k, v, **kw)
+    runs = []
+    for _ in range(2):
+        delta = torch.full(lse.shape[:2] + lse.shape[3:], float("nan"),
+                           device=cuda)
+        dq = fa.cuda_flash_dq(q, k, v, o, lse, do, delta_out=delta, **kw)
+        runs.append((delta, dq) + fa.cuda_flash_dkv(q, k, v, o, lse, do,
+                                                     delta=delta, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    delta, dq, dk, dv = runs[0]
+    want = fa._delta(o, do)
+    assert (delta - want).abs().max() <= 1e-4 * want.abs().max()
+    tol = 2e-2 if dtype == torch.bfloat16 else 4e-3
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                              fa.torch_flash_bwd(q, k, v, o, lse, do, **kw)):
+        d = (got.float() - ref.float()).abs().amax(-1)
+        floor = 1e-2 * ref.float().abs().max().item()
+        row = d / ref.float().abs().amax(-1).clamp_min(floor)
+        assert torch.isfinite(got).all(), name
+        assert row.max().item() <= tol, (name, row.max().item())
+
+
 def _evo_bwd_counts():
     f = evo.cuda_evoformer_bwd
     return [f.dq_launches, f.dkv_launches, f.db2_launches, f.db1_launches]

@@ -17,7 +17,8 @@ quantized product's launch plan, on the CPU:
   at least one K step, the splits cover K exactly, and the shared memory
   stays within the H100's 227 KB a block;
 - ``flash_fwd_plan`` / ``evo_fwd_plan``, the 16-bit forwards' tiles, Q
-  slots and ring: every head dim (and the evoformer's bias layouts and
+  slots and ring, and ``flash_bwd_plan``, the 16-bit flash backward's
+  (dq and dk/dv): every head dim (and the evoformer's bias layouts and
   any S) gets one that fits the 227 KB, and the rules refuse a q / k / v
   that TMA cannot read (a stride or base not 16-byte aligned), naming
   the rule.
@@ -383,6 +384,42 @@ def test_flash_fwd_plan_fits(d):
     assert plan["smem"] >= plan["qslots"] * q_bytes \
         + plan["stages"] * plan["stage_bytes"]
     assert plan["smem"] <= SMEM
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_flash_bwd_plan_fits(d):
+    """Every head dim the flash kernels take gets one backward block column
+    for dq and for dk/dv: a compiled width that holds it, 128 queries a dq
+    unit with 128 keys a stage at width 64, 64 up to 192 and 32 at 256, 128
+    keys a dk/dv unit (64 above 128, the column blocks split over the two
+    warpgroups) with 128 queries (64 above width 64) and their lse and
+    delta rows a stage (dq keeps its rows' delta
+    a slot), 1-2 slots and a ring of 2-8 stages in the card's shared
+    memory."""
+    plan = tfa.flash_bwd_plan(d)
+    assert plan["hd_k"] >= d and plan["hd_k"] in (64, 96, 128, 192, 256)
+    assert plan["hd_k"] == tfa.flash_fwd_plan(d)["hd_k"]
+    hdp = plan["hdp"]
+    assert hdp % 64 == 0 and hdp >= plan["hd_k"]
+    dq, dkv = plan["dq"], plan["dkv"]
+    assert dq["rows"] == 128
+    assert dq["bn"] == {64: 128, 256: 32}.get(plan["hd_k"], 64)
+    assert dkv["split"] == (plan["hd_k"] > 128)
+    assert dkv["keys"] == (64 if dkv["split"] else 128)
+    assert dkv["bm"] == (128 if plan["hd_k"] == 64 else 64)
+    # dq's slot holds its rows' delta, dk/dv's stage its q rows' lse, delta
+    for k, slot_rows, ring_rows, slot_stats, ring_stats in (
+            (dq, 128, dq["bn"], 128 * 4, 0),
+            (dkv, dkv["keys"], dkv["bm"], 0, 2 * dkv["bm"] * 4)):
+        assert k["slots"] in (1, 2) and 2 <= k["stages"] <= 8
+        assert k["slot_bytes"] == 2 * slot_rows * hdp * 2 + slot_stats
+        assert k["stage_bytes"] >= 2 * ring_rows * hdp * 2 + ring_stats
+        assert k["stage_bytes"] % 1024 == 0
+        assert k["smem"] >= k["slots"] * k["slot_bytes"] \
+            + k["stages"] * k["stage_bytes"]
+        assert k["smem"] <= SMEM
+        # two slots only where a ring of three still fits beside them
+        assert k["slots"] == 1 or k["stages"] >= 3
 
 
 @pytest.mark.parametrize("bias2_bytes", [0, 2, 4])
