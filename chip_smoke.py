@@ -6,17 +6,22 @@
 1. The card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of every CUDA kernel of the serving and training
    paths from the sources in this checkout (one nvcc per source, started
-   together); ptxas's registers and spills of the 16-bit flash kernels and
-   the HGMMA / WARPGROUP.DEPBAR counts of their SASS (a backward kernel
-   with a wait after every product, serialised by ptxas, fails).
+   together); ptxas's registers and spills of the 16-bit flash kernels, the
+   16-bit decode and #6's kernel (a spill in either of the last two
+   fails), and the HGMMA / WARPGROUP.DEPBAR counts of the SASS of every
+   wgmma kernel (the attention forward in both of its builds, the flash
+   backward, wq_wgmma_kernel in each mode, #6's kernel); a forward, flash
+   backward or #6 kernel with a wait after every product, or named in a
+   ptxas warning that it serialised the products, fails.
 2. Each kernel against its plain PyTorch version on the card at Llama-3-8B
    attention shapes (bf16, nkv=8, g=4, hd=128, 64-token pages, 16 slots,
    KV lengths 0..2048, shuffled block tables) in every variant: plain,
    sliding window, alibi, and the one-pass (one-page table) and split
    decode.  Each output row (one query head of one token) may differ from
    the plain version by ROW_TOL of its largest value; the check is shown
-   to catch one lost page of the longest slot.  The plain case is timed as
-   in phase 5.
+   to catch one lost page of the longest slot and one ring stage (page)
+   of it skipped; two decode runs are bitwise equal.  The plain case is
+   timed as in phase 5.
 3. Small-config parity: the test model (2 layers, hidden 128, GQA g=2) in
    fp32 with TF32 off — greedy ``generate`` on the card equals the same on
    the CPU token for token, through chunking, bursts and preemption.
@@ -65,13 +70,16 @@
    GPT-2 small product shape at M 1, 16, 17, 64, 256 and 300 and groups
    16, 128 and 512 where the group divides K, and on code rows that are
    not 16-byte aligned; ``wq_matmul_t`` (#6) at GPT-2's tied [50304, 768]
-   table; the MLP products and the tied table again at
-   ``quant.group_size`` 256; each timed at M 16 and 256 beside its bound
-   and one ``torch.matmul`` on the dequantized bf16 weight; the int8-KV
-   decode and prefill variants at phase 2's shapes and variants.  The row
-   check is shown to see one zeroed scale group, one dropped 64-deep K
-   stage, a swizzle slip of the B tile and one page read with another
-   page's scales.
+   table at the same M and groups 16 and 128; the MLP products and the
+   tied table again at ``quant.group_size`` 256; each timed at M 16 and
+   256 (the tied table at every M) beside its bound and one
+   ``torch.matmul`` on the dequantized bf16 weight; the int8-KV decode
+   and prefill variants at phase 2's shapes and variants.  The row check
+   is shown to see one zeroed scale group, one dropped 64-deep K stage, a
+   swizzle slip of the B tile, one tied-table scale row read from the
+   neighbouring group, one page read with another page's scales and one
+   skipped ring stage of the int8 decode; two int8 decode runs are
+   bitwise equal.
 10. Small-config quantized parity: W8 weights with int8 KV, and W4, in fp32
    with TF32 off — greedy ``generate`` on the card equals the CPU's.
 11. The quantized main path at full width, each engine built from a bf16
@@ -86,7 +94,8 @@
    sums the quantized products' device time.
 12. (with 11) Each new kernel held to its plain version and timed on its
    heaviest main-path call: kernel, plain, ``torch.matmul`` with the bf16
-   weight (#6-#8) or SDPA over dequantized K/V (int8 variants), and bound.
+   weight (#6-#8) or SDPA over dequantized K/V (int8 variants), and bound;
+   the int8 decode also on its table padded to the engine's full width.
 
 13. The batched-gather LoRA kernel (#9) against its plain version in bf16
    at Llama-3-8B's q (4096 -> 4096) and v (4096 -> 1024) projections, ranks
@@ -154,6 +163,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -321,10 +331,14 @@ def _time_decode(torch, pa, q, k, v, bt, lens, kw):
     mask = (torch.arange(K, device=q.device)[None, :]
             < lens[:, None])[:, None, None, :]
     ms = cuda_ms(lambda: pa.cuda_paged_attention(q, k, v, bt, lens, **kw))
+    plan = pa.decode_plan(S, nkv, g, hd, bs, k.element_size(),
+                          torch.cuda.get_device_properties(
+                              q.device).multi_processor_count)
     return dict(
         shape=f"q[{S},{nkv},{g},{hd}] table[{S},{bt.shape[1]}] "
-              f"({pa.num_kv_splits_for(S, nkv, bt.shape[1], q.device)} "
-              f"splits) pages[{k.shape[0]},{nkv},{bs},{hd}] {q.dtype} "
+              f"({plan['blocks']} blocks, {plan['stages']} stages, chunks "
+              f"of {plan['chunk']}+ pages) pages[{k.shape[0]},{nkv},{bs},{hd}] "
+              f"{k.dtype} "
               f"kv_lens {lens_np.min()}..{lens_np.max()} (sum {live})",
         ms=ms,
         plain_ms=cuda_ms(lambda: pa.torch_paged_attention(
@@ -374,6 +388,46 @@ def _time_prefill(torch, pa, q, k, v, bt, kvl, starts, counts, kw):
         bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _decode_faults(torch, pa, q, k, v, bt, lens, kw):
+    """Two runs of the decode give the same bits (the slots split over
+    blocks merge in block order), and the row check must see one ring
+    stage (one whole page) of the longest slot skipped: the plain version
+    with that page taken out of the slot's table and length."""
+    runs = [pa.cuda_paged_attention(q, k, v, bt, lens, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0], runs[1])
+    print(f"  two decode runs bitwise equal: {same}", flush=True)
+    if not same:
+        fail("the decode is not deterministic")
+    s = int(lens.argmax())
+    bs, pages = k.shape[2], -(-int(lens[s]) // k.shape[2])
+    skip = bt.clone()
+    row = [p for i, p in enumerate(bt[s].tolist()) if i != pages // 2]
+    skip[s] = torch.tensor(row + row[-1:], dtype=bt.dtype)
+    short = lens.clone()
+    short[s] -= bs
+    r = _row_err(torch, pa.torch_paged_attention(q, k, v, skip, short, **kw),
+                 pa.torch_paged_attention(q, k, v, bt, lens, **kw))
+    print(f"  one ring stage (page {pages // 2} of a {int(lens[s])}-token "
+          f"slot) skipped moves its worst row by {r:.3e} of its max (check "
+          f"at {ROW_TOL})", flush=True)
+    if not r > ROW_TOL:
+        fail("the decode check cannot see a skipped ring stage")
+
+
+def _decode_full_width(torch, pa, name, q, k, v, bt, lens, kw, width):
+    """The decode held and timed with its table padded to ``width``
+    columns (the engine's max_blocks_per_seq), the width it had before the
+    engine cut tables to their live blocks."""
+    full = torch.zeros((bt.shape[0], width), dtype=bt.dtype, device=bt.device)
+    full[:, :bt.shape[1]] = bt
+    _check(torch, name, "main path, full-width table",
+           pa.cuda_paged_attention(q, k, v, full, lens, **kw),
+           pa.torch_paged_attention(q, k, v, full, lens, **kw))
+    return _time_decode(torch, pa, q, k, v, full, lens, kw)
+
+
 def _print_times(results, library="SDPA"):
     for name, r in results.items():
         print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -415,6 +469,7 @@ def phase_kernels(torch, pa, dev):
           f"worst row by {r:.3e} of its max (check at {ROW_TOL})", flush=True)
     if not r > ROW_TOL:
         fail("the kernel check cannot see a lost page")
+    _decode_faults(torch, pa, q, k, v, bt, lens, {})
     results = {"paged_attention": _time_decode(torch, pa, q, k, v, bt, lens,
                                                {})}
 
@@ -703,13 +758,8 @@ def phase_main_inputs(torch, pa, calls, eng):
            pa.torch_paged_attention(q, k, v, bt, lens, **kw))
     results["paged_attention"] = _time_decode(torch, pa, q, k, v, bt, lens,
                                               kw)
-    full = torch.zeros((bt.shape[0], eng.state.max_blocks_per_seq),
-                       dtype=bt.dtype, device=bt.device)
-    full[:, :bt.shape[1]] = bt
-    _check(torch, "paged_attention", "main path, full-width table",
-           pa.cuda_paged_attention(q, k, v, full, lens, **kw),
-           pa.torch_paged_attention(q, k, v, full, lens, **kw))
-    wide = _time_decode(torch, pa, q, k, v, full, lens, kw)
+    wide = _decode_full_width(torch, pa, "paged_attention", q, k, v, bt,
+                              lens, kw, eng.state.max_blocks_per_seq)
     args, kw = calls.pick("ragged_prefill")
     _check(torch, "ragged_prefill", "main path",
            pa.cuda_ragged_prefill(*args, **kw),
@@ -1314,6 +1364,22 @@ def _wq_faults(torch, wqm, x, store):
             fail(f"the wq check cannot see {what}")
 
 
+def _wq_t_fault(torch, wqm, x, store):
+    """The row check must see #6 read one scale row (a group of V's rows)
+    from the neighbouring group: the plain product with that row
+    replaced."""
+    bad = {"v": store["v"], "s": store["s"].clone()}
+    r0 = bad["s"].shape[0] // 2
+    bad["s"][r0] = store["s"][r0 + 1]
+    r = _row_err(torch, wqm.torch_wq_matmul_t(x, bad),
+                 wqm.torch_wq_matmul_t(x, store))
+    print(f"  one scale row of the tied table read from the neighbouring "
+          f"group moves the worst row by {r:.3e} of its max (check at "
+          f"{ROW_TOL})", flush=True)
+    if not r > ROW_TOL:
+        fail("the wq_matmul_t check cannot see a neighbouring group's scales")
+
+
 def phase_quant_kernels(torch, wqm, pa, dev):
     """#7 and #8 (the wgmma kernel) at every Llama-3-8B and GPT-2 product
     shape at M 1, 16, 17, 64, 256 and 300 and groups 16, 128 and 512 where
@@ -1338,21 +1404,25 @@ def phase_quant_kernels(torch, wqm, pa, dev):
         w = torch.randn((N, K) if tied else (K, N), device=dev,
                         generator=gen) * 0.02
         main = label in {p[0] for p in LLAMA_PRODUCTS}
+        # the tied table is grouped along V (its N), the others along K
         groups = sorted({g0} | ({g for g in WQ_GROUPS if K % g == 0}
-                                if main else set()))
+                                if main else set())
+                        | ({g for g in WQ_GROUPS if N % g == 0}
+                           if label == GPT2_TIED[0] else set()))
         for g in groups:
             stores = {"wq_matmul_t": quantize_weight(w, group=g)} if tied \
                 else {"wq_matmul": quantize_weight(w, group=g, dim=0),
                       "wq_matmul4": quantize_weight4(w, group=g)}
             for name, store in stores.items():
-                ms_list = WQ_MS if main or label == WQ_MISALIGNED[0] \
-                    else (16, 256)
+                ms_list = WQ_MS if main or label in (
+                    WQ_MISALIGNED[0], GPT2_TIED[0]) else (16, 256)
+                timed = WQ_MS if label == GPT2_TIED[0] else (16, 256)
                 for M in ms_list:
                     x = torch.randn((M, K), device=dev, generator=gen).to(dt)
                     _check_wq(torch, wqm, name, f"{label} g={g} M={M}", x,
                               store)
                     checked += 1
-                    if g != g0 or M not in (16, 256):
+                    if g != g0 or M not in timed:
                         continue
                     fn = getattr(wqm, "cuda_" + name)
                     wd = _dequant(torch, name, store, dt)
@@ -1364,6 +1434,10 @@ def phase_quant_kernels(torch, wqm, pa, dev):
                 _wq_faults(torch, wqm, torch.randn(
                     (16, K), device=dev, generator=gen).to(dt),
                     stores["wq_matmul"])
+            if label == GPT2_TIED[0] and g == g0:
+                _wq_t_fault(torch, wqm, torch.randn(
+                    (16, K), device=dev, generator=gen).to(dt),
+                    stores["wq_matmul_t"])
             del stores
         del w
         torch.cuda.empty_cache()
@@ -1405,6 +1479,7 @@ def phase_quant_kernels(torch, wqm, pa, dev):
           f"row by {r:.3e} of its max (check at {ROW_TOL})", flush=True)
     if not r > ROW_TOL:
         fail("the int8-KV check cannot see a page's swapped scales")
+    _decode_faults(torch, pa, q, kq, vq, bt, lens, dict(sc))
     results = {"paged_attention_int8": _time_decode(
         torch, pa, q, kq, vq, bt, lens, dict(sc))}
     Q = 128
@@ -1584,7 +1659,8 @@ def phase_quant_main(torch, wqm, pa, dev, card, llama_params=None,
     if not np.isfinite(got).all() or not err <= E2E_TOL:
         fail(f"W8 + int8 KV put() logits differ from the plain path by {err}")
     for name in ("wq_matmul", "paged_attention_int8", "ragged_prefill_int8"):
-        results[name] = _hold_and_time(torch, wqm, pa, rec, name)
+        results[name] = _hold_and_time(torch, wqm, pa, rec, name,
+                                       eng.state.max_blocks_per_seq)
         results[name]["launches"] = e2e["launches"][name]
     e2es.append(e2e)
     del eng, rec
@@ -1649,9 +1725,10 @@ def phase_quant_main(torch, wqm, pa, dev, card, llama_params=None,
     return results, e2es
 
 
-def _hold_and_time(torch, wqm, pa, rec, name):
+def _hold_and_time(torch, wqm, pa, rec, name, width=None):
     """Phase 12 for one kernel: hold it to its plain version on its
-    heaviest recorded main-path call, then time it there."""
+    heaviest recorded main-path call, then time it there (the decode also
+    with its table padded to ``width`` columns)."""
     args, kw = rec.pick(name)
     if name.startswith("wq"):
         x, store = args
@@ -1663,6 +1740,8 @@ def _hold_and_time(torch, wqm, pa, rec, name):
         _check(torch, name, "main path", pa.cuda_paged_attention(*args, **kw),
                pa.torch_paged_attention(*args, **kw))
         r = _time_decode(torch, pa, *args, kw)
+        _print_times({name + "_full_width": _decode_full_width(
+            torch, pa, name, *args, kw, width)})
     else:
         _check(torch, name, "main path", pa.cuda_ragged_prefill(*args, **kw),
                pa.torch_ragged_prefill(*args, **kw))
@@ -2689,6 +2768,42 @@ def _ptxas_report(build_log, kernel):
                     spill = line
 
 
+# the kernels this slice redesigned (their ptxas spills must be 0), and the
+# wgmma kernels whose products ptxas must keep asynchronous
+NEW_KERNELS = ("paged_decode_mma_kernel", "decode_combine_kernel", "wq_t_kernel")
+WGMMA_GATE = ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+              "wq_t_kernel")
+
+
+def _spill_gate(build_log, kernels):
+    """Fail if ptxas reports a spill store or load in any instantiation of
+    ``kernels``."""
+    for name, log in build_log.items():
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and "spill stores" in line and any(
+                    k in entry for k in kernels):
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                   r"spill loads", line)
+                if spills is None or any(int(n) for n in spills.groups()):
+                    fail(f"[{name}] {entry}: {line.strip()}")
+
+
+def _serialised_gate(build_log, kernels):
+    """ptxas's performance warnings that it serialised a kernel's wgmma
+    products (C7510-C7520: "wgmma.mma_async instructions are serialized"):
+    printed for every kernel, fatal for ``kernels``."""
+    for name, log in build_log.items():
+        for line in log.splitlines():
+            if "wgmma" in line and "serialized" in line:
+                print(f"  [{name}] ptxas: {line.strip()[:300]}", flush=True)
+                if any(k in line for k in kernels):
+                    fail(f"[{name}] ptxas serialised the wgmmas of a gated "
+                         f"kernel: {line.strip()[:300]}")
+
+
 def _sass_report(so, kernels, gate=()):
     """Counts of ``HGMMA`` (wgmma) and ``WARPGROUP.DEPBAR`` (its waits) in
     the SASS of each instantiation of ``kernels`` in the library ``so``.
@@ -2724,8 +2839,9 @@ def _sass_report(so, kernels, gate=()):
         if any(k in fn for k in gate) and hg and dep >= hg:
             fail(f"{label}: every wgmma waited on ({dep} waits, {hg} "
                  f"products): ptxas serialised the kernel")
-    if not any(any(k in fn for k in gate) for fn in counts):
-        fail(f"no SASS found for {gate} in {so}")
+    for k in kernels:
+        if not any(k in fn for fn in counts):
+            fail(f"no SASS found for {k} in {so}")
 
 
 def main():
@@ -2780,11 +2896,19 @@ def main():
               f"ptxas: {len(regs)} kernels, registers "
               f"{min(regs, default=0)}..{max(regs, default=0)}, spill "
               f"stores up to {max(spills, default=0)} bytes", flush=True)
-    for kernel in ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"):
+    for kernel in ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                   "paged_decode_mma_kernel", "decode_combine_kernel",
+                   "wq_t_kernel"):
         _ptxas_report(builder.build_log, kernel)
-    _sass_report(builder._so_path("flash_attention"),
-                 ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
-                 gate=("flash_dq_kernel", "flash_dkv_kernel"))
+    _spill_gate(builder.build_log, NEW_KERNELS)
+    _serialised_gate(builder.build_log, WGMMA_GATE)
+    for so, kernels in (("flash_attention", ("attn_fwd_kernel",
+                                             "flash_dq_kernel",
+                                             "flash_dkv_kernel")),
+                        ("evoformer", ("attn_fwd_kernel",)),
+                        ("wq_matmul", ("wq_wgmma_kernel", "wq_t_kernel"))):
+        _sass_report(builder._so_path(so), kernels,
+                     gate=tuple(k for k in kernels if k in WGMMA_GATE))
 
     results = {}
     if 2 in phases:

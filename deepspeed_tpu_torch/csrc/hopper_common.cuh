@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the warp-specialised kernels
-// (wq_matmul.cu, and the attention forwards of flash_attention.cu and
-// evoformer.cu through attn_fwd_hopper.cuh, the flash backward through
-// attn_bwd_hopper.cuh): mbarriers, TMA tensor copies
-// (2-D to 5-D) and the host-side tensor-map encoding, register hand-over
+// (wq_matmul.cu, paged_attention.cu's 16-bit decode, and the attention
+// forwards of flash_attention.cu and evoformer.cu through
+// attn_fwd_hopper.cuh, the flash backward through attn_bwd_hopper.cuh):
+// mbarriers, TMA tensor copies (2-D to 5-D) and 1-D bulk copies, the
+// host-side tensor-map encoding, register hand-over
 // between warpgroups (setmaxnreg), and the asynchronous warpgroup products
 // (wgmma) with both operands in shared memory or A in registers.
 #pragma once
@@ -100,6 +101,22 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, i
       "r"(smem_u32(bar))
       : "memory");
 }
+// One contiguous run of `bytes` (16-byte aligned ends, a multiple of 16)
+// into shared memory, completing on `bar`: no tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the arrival counts against the barrier's expected count)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 // generic-proxy shared-memory writes -> visible to wgmma's async proxy
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -154,6 +171,7 @@ __device__ __forceinline__ void wg_fence_regs(uint32_t (&d)[N]) {
 #define DSK_ACC8(b)                                                                    \
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),      \
       "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define DSK_REGS8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define DSK_REGS16                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define DSK_REGS32                                                                      \
@@ -191,6 +209,12 @@ __device__ __forceinline__ void wg_fence_regs(uint32_t (&d)[N]) {
                ", %16, %17, p, 1, 1, 0, 0;\n}\n"                                       \
                : DSK_ACC16                                                             \
                : "l"(da), "l"(db), "r"(acc))
+#define DSK_WGMMA_SS16(TY)                                                             \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"                         \
+               " wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " DSK_REGS8   \
+               ", %8, %9, p, 1, 1, 0, 0;\n}\n"                                         \
+               : DSK_ACC8(0)                                                           \
+               : "l"(da), "l"(db), "r"(acc))
 // d[64 x 64] += A[64 x 16] (registers: mma.sync's A fragment of each warp's
 // 16 rows) * B[16 x 64], B MN-major in shared memory (transpose bit)
 #define DSK_WGMMA_RS64(TY)                                                             \
@@ -215,6 +239,10 @@ template <typename T> struct Wgmma;
                                                 uint64_t db, int acc = 1) {             \
       DSK_WGMMA_SS32(TY);                                                               \
     }                                                                                   \
+    static __device__ __forceinline__ void ss16(float (&d)[8], uint64_t da,             \
+                                                uint64_t db, int acc = 1) {             \
+      DSK_WGMMA_SS16(TY);                                                               \
+    }                                                                                   \
     static __device__ __forceinline__ void rs64(float (&d)[32], const uint32_t (&a)[4], \
                                                 uint64_t db) {                          \
       DSK_WGMMA_RS64(TY);                                                               \
@@ -226,6 +254,7 @@ DSK_WGMMA_STRUCT(__half, "f16")
 #undef DSK_WGMMA_RS64
 #undef DSK_WGMMA_SS64
 #undef DSK_WGMMA_SS32
+#undef DSK_WGMMA_SS16
 #undef DSK_WGMMA_SS128
 #undef DSK_ACC64
 #undef DSK_ACC32
@@ -233,6 +262,7 @@ DSK_WGMMA_STRUCT(__half, "f16")
 #undef DSK_REGS64
 #undef DSK_REGS32
 #undef DSK_REGS16
+#undef DSK_REGS8
 #undef DSK_ACC8
 
 // ------------------------------------------------------- host: tensor maps

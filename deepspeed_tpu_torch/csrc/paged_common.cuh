@@ -48,6 +48,13 @@ template <> struct Bits<int8_t> {
   static __device__ __forceinline__ float to_f(U u) { return (float)u; }
 };
 
+// Byte j of a word of int8 codes offset by 128 (w ^ 0x80808080), as an
+// exact fp32: one byte permute puts it in the mantissa of 2^23, and 2^23 +
+// 128 comes off (no quarter-rate int-to-float conversion)
+__device__ __forceinline__ float biased_code(uint32_t b, int j) {
+  return __fsub_rn(__int_as_float(__byte_perm(b, 0x4B000000u, 0x7540 | j)), 8388736.f);
+}
+
 // widest word that divides a VEC-element row slice
 template <int BYTES> struct Word { using W = unsigned short; };
 template <> struct Word<1> { using W = unsigned char; };

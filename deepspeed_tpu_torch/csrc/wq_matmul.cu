@@ -41,11 +41,12 @@
 // split writing fp32 partials that wq_reduce_kernel sums in a fixed order
 // and casts once, so y does not depend on the run.
 //
-// Mode 1 (16-bit x): wq_mma_kernel, mma.sync m16n8k16 over 64 x 128 tiles
-// with cp.async double buffering; fp32 x (any mode): wq_simt_kernel, a
-// CUDA-core version used where exact fp32 is the point (tests, parity).
-// Code rows whose length or base is not 16-byte aligned are loaded element
-// by element (the wgmma kernel's producer then stages x by cp.async).
+// Mode 1 (16-bit x): wq_t_kernel, the swapped product y^T = W x^T on the
+// same warp-specialised TMA + wgmma shape, persistent over its tiles (see
+// below).  fp32 x (any mode): wq_simt_kernel, a CUDA-core version used where
+// exact fp32 is the point (tests, parity).  Code rows whose length or base
+// is not 16-byte aligned are loaded element by element (the wgmma kernels'
+// producers then stage x by cp.async).
 #include "hopper_common.cuh"
 
 #include <algorithm>
@@ -57,186 +58,6 @@ enum { kW8 = 0, kW8T = 1, kW4 = 2 };
 // the low / high 4-bit code of a sign-extended byte, sign-extended
 __device__ __forceinline__ int nibble_lo(int b) { return (int)((unsigned)b << 28) >> 28; }
 __device__ __forceinline__ int nibble_hi(int b) { return b >> 4; }
-
-// ------------------------------------------------- mode 1: mma.sync tiles
-constexpr int WQ_BM = 64;        // output rows a block
-constexpr int WQ_BN = 128;       // output columns a block
-constexpr int WQ_KT = 128;       // contraction depth a step
-constexpr int WQ_THREADS = 256;  // 8 warps
-constexpr int WQ_LDX = WQ_KT + 8;  // x tile row (elements)
-constexpr int WQ_LDT = WQ_KT + 8;  // [n][k] dequantized tile row
-constexpr int WQ_SROWS = 8;        // scale rows a tile holds at most (g >= 16)
-
-template <typename T>
-struct WqSmem {
-  static constexpr size_t x_elems = (size_t)WQ_BM * WQ_LDX;
-  static constexpr size_t code_bytes = (size_t)WQ_KT * WQ_BN;
-  static constexpr size_t scale_floats = (size_t)WQ_SROWS * WQ_KT;
-  static constexpr size_t w_elems = (size_t)WQ_BN * WQ_LDT;
-  static constexpr size_t bytes = 2 * x_elems * sizeof(T) + 2 * code_bytes +
-                                  2 * scale_floats * sizeof(float) + w_elems * sizeof(T);
-};
-
-// Stage one K step (k0 .. k0+kc) of x, the codes [V, H] and their scale
-// rows into one shared-memory buffer set, and commit one cp.async group.
-// Rows of x past M and code rows past N are not loaded: they only ever feed
-// output rows / columns that are not stored.
-template <typename T>
-__device__ __forceinline__ void wq_stage(const T* __restrict__ x, const int8_t* __restrict__ codes,
-                                         const float* __restrict__ scales, T* xs, int8_t* cs,
-                                         float* ss, int M, int N, int K, int g, int m0, int n0,
-                                         int k0, int kc, bool aligned) {
-  const int tid = threadIdx.x;
-  constexpr int XCH = 16 / (int)sizeof(T);
-  const int xch = kc / XCH;
-  const int mrows = min(WQ_BM, M - m0);
-  for (int c = tid; c < mrows * xch; c += WQ_THREADS) {
-    const int r = c / xch, cc = c % xch;
-    cp_async16(xs + r * WQ_LDX + cc * XCH, x + (size_t)(m0 + r) * K + k0 + cc * XCH);
-  }
-  // codes: rows n0.. (live: < N), columns k0..k0+kc -> cs[n][KT]
-  const int nrows = min(WQ_BN, N - n0);
-  if (aligned) {
-    const int ch = kc / 16;
-    for (int c = tid; c < nrows * ch; c += WQ_THREADS) {
-      const int r = c / ch, cc = c % ch;
-      cp_async16(cs + r * WQ_KT + cc * 16, codes + (size_t)(n0 + r) * K + k0 + cc * 16);
-    }
-  } else {
-    for (int c = tid; c < nrows * kc; c += WQ_THREADS) {
-      const int r = c / kc, cc = c % kc;
-      cs[r * WQ_KT + cc] = codes[(size_t)(n0 + r) * K + k0 + cc];
-    }
-  }
-  // scales [V/g, H]: rows n0/g .. (live), columns k0..k0+kc -> ss[j][KT];
-  // a group of g >= BN columns covers the whole tile with one row
-  const int srows = g >= WQ_BN ? 1 : min(WQ_BN / g, (N - n0 + g - 1) / g);
-  if (aligned) {
-    const int ch = kc / 4;
-    for (int c = tid; c < srows * ch; c += WQ_THREADS) {
-      const int r = c / ch, cc = c % ch;
-      cp_async16(ss + r * WQ_KT + cc * 4, scales + (size_t)(n0 / g + r) * K + k0 + cc * 4);
-    }
-  } else {
-    for (int c = tid; c < srows * kc; c += WQ_THREADS) {
-      const int r = c / kc, cc = c % kc;
-      ss[r * WQ_KT + cc] = scales[(size_t)(n0 / g + r) * K + k0 + cc];
-    }
-  }
-  cp_async_commit();
-}
-
-// Dequantize the staged step into the 16-bit tile wd [n][k]: code * scale
-// in fp32, rounded once to T.  Tile-local n / g picks the staged scale row:
-// the tile starts on a group boundary, and for g above its width every
-// local index maps to row 0.
-template <typename T>
-__device__ __forceinline__ void wq_dequant(const int8_t* cs, const float* ss, T* wd, int g,
-                                           int kc) {
-  const int per_row = kc / 4;
-  for (int i = threadIdx.x; i < WQ_BN * per_row; i += WQ_THREADS) {
-    const int n = i / per_row, k = (i % per_row) * 4;
-    const char4 c = *reinterpret_cast<const char4*>(cs + n * WQ_KT + k);
-    const float4 s = *reinterpret_cast<const float4*>(ss + (n / g) * WQ_KT + k);
-    const float v[4] = {(float)c.x * s.x, (float)c.y * s.y, (float)c.z * s.z, (float)c.w * s.w};
-    store4<T>(wd + n * WQ_LDT + k, v);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(WQ_THREADS) wq_mma_kernel(
-    const T* __restrict__ x, const int8_t* __restrict__ codes, const float* __restrict__ scales,
-    T* __restrict__ y, float* __restrict__ part, int M, int N, int K, int g, int per,
-    int aligned) {
-  using L = WqSmem<T>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);                                  // [2][BM][LDX]
-  int8_t* cs = reinterpret_cast<int8_t*>(xs + 2 * L::x_elems);         // [2][code_bytes]
-  float* ss = reinterpret_cast<float*>(cs + 2 * L::code_bytes);        // [2][scale_floats]
-  T* wd = reinterpret_cast<T*>(ss + 2 * L::scale_floats);              // [w_elems]
-
-  const int n0 = blockIdx.x * WQ_BN, m0 = blockIdx.y * WQ_BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int mrows = min(WQ_BM, M - m0);
-  const int mtiles = (mrows + 15) / 16;
-  // this block's split of the K steps (part == nullptr: all of them)
-  const int s0 = blockIdx.z * per;
-  const int s1 = min(s0 + per, (K + WQ_KT - 1) / WQ_KT);
-
-  float acc[4][2][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
-
-  wq_stage<T>(x, codes, scales, xs, cs, ss, M, N, K, g, m0, n0, s0 * WQ_KT,
-              min(WQ_KT, K - s0 * WQ_KT), aligned != 0);
-  for (int step = s0; step < s1; ++step) {
-    const int b = (step - s0) & 1;
-    const int k0 = step * WQ_KT, kc = min(WQ_KT, K - k0);
-    if (step + 1 < s1) {
-      const int k1 = k0 + WQ_KT;
-      wq_stage<T>(x, codes, scales, xs + (b ^ 1) * L::x_elems, cs + (b ^ 1) * L::code_bytes,
-                  ss + (b ^ 1) * L::scale_floats, M, N, K, g, m0, n0, k1, min(WQ_KT, K - k1),
-                  aligned != 0);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    wq_dequant<T>(cs + b * L::code_bytes, ss + b * L::scale_floats, wd, g, kc);
-    __syncthreads();
-    const T* xb = xs + b * L::x_elems;
-    for (int ks = 0; ks < kc / 16; ++ks) {
-      uint32_t bf[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const T* wr = wd + (warp * 16 + nt * 8 + grp) * WQ_LDT + ks * 16 + 2 * tig;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(wr);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(wr + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt < mtiles) {
-          const T* xr = xb + (mt * 16 + grp) * WQ_LDX + ks * 16 + 2 * tig;
-          const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(xr),
-                                 *reinterpret_cast<const uint32_t*>(xr + 8 * WQ_LDX),
-                                 *reinterpret_cast<const uint32_t*>(xr + 8),
-                                 *reinterpret_cast<const uint32_t*>(xr + 8 * WQ_LDX + 8)};
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) Mma<T>::run(acc[mt][nt], a, bf[nt][0], bf[nt][1]);
-        }
-      }
-    }
-    __syncthreads();  // x buffer b is refilled by the next step's copy
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    if (mt >= mtiles) continue;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = n0 + warp * 16 + nt * 8 + 2 * tig;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + mt * 16 + grp + 8 * h;
-        if (row >= M) continue;
-        if (part != nullptr) {  // split-K: fp32 partial of split blockIdx.z
-          float* pr = part + ((size_t)blockIdx.z * M + row) * N;
-          if (col < N) pr[col] = acc[mt][nt][2 * h];
-          if (col + 1 < N) pr[col + 1] = acc[mt][nt][2 * h + 1];
-          continue;
-        }
-        T* yr = y + (size_t)row * N;
-        if (col < N) yr[col] = Bits<T>::from_f(acc[mt][nt][2 * h]);
-        if (col + 1 < N) yr[col + 1] = Bits<T>::from_f(acc[mt][nt][2 * h + 1]);
-      }
-    }
-  }
-}
 
 // --------------------------------------------- modes 0 and 2: wgmma ring
 constexpr int WG_BN = 128;        // output columns a block (one wgmma n128)
@@ -466,6 +287,316 @@ __global__ void __launch_bounds__(WG_THREADS, 1) wq_wgmma_kernel(
   }
 }
 
+// ------------------------------------- mode 1: the swapped wgmma product
+// y^T [V, M] = W [V, H] . x^T: the dequantized code tile is wgmma's A
+// operand (m64 over vocabulary rows, K-major as the codes are stored) and
+// x's K-major tile its B operand (n = M padded to 16 / 32 / 64 / 128), so no
+// tensor-core row is padding at decode.  A block is persistent: it walks
+// work items (128-row tile of V, 128-row block of x, split of K) t =
+// blockIdx.x, t + gridDim.x, ..., and its ring of stages runs across item
+// boundaries, so one item's epilogue overlaps the next item's loads.  What
+// bounds it is the code bytes and, close behind, their dequantization (3-4
+// instructions a weight), so the dequantization has every warp but the
+// producer:
+//   - warp 0 (producer): one thread keeps the TMA copies of each 64-deep
+//     stage in flight (x tile in wgmma's 128-byte swizzle, code tile [128
+//     v][64 k] bytes, its scale rows [128/g or 1][64] fp32);
+//   - warps 1-7 (dequantizers) and each consumer warpgroup for its own 64
+//     rows share the A tile [128 v][64 k]: code * scale in fp32 (each code
+//     exact in fp32 by one byte permute), rounded once to T, written in
+//     the 128-byte swizzle 8 k (one 16-byte chunk) at a time from 8-byte
+//     code reads and scale reads (once a stage for a group of 128 rows or
+//     more), no transpose; the dequantizers take the first 32 rows of each
+//     consumer's 64, the consumer the other 32 (at decode the consumers'
+//     products take little time);
+//   - warpgroups 2 and 3 (consumers): rows 0-63 and 64-127 of the tile,
+//     wgmma m64nNPk16; the epilogue stages y^T through shared memory so
+//     that y's rows are stored 16 bytes a thread.
+// Every consumer issues every wgmma on every path (the warpgroup index
+// comes through __shfl_sync, the mbarrier spin sits inside its asm): ptxas
+// keeps them asynchronous.
+constexpr int WT_BN = 128;       // rows of V (output columns) a tile
+constexpr int WT_BK = 64;        // contraction depth a stage
+constexpr int WT_MAX_NP = 128;   // rows of x a block (wgmma n)
+constexpr int WT_MAX_STAGES = 8;
+constexpr int WT_SROWS = WT_BN / 16;  // scale rows a stage holds at most (g >= 16)
+constexpr int WT_A_BYTES = WT_BN * 128;
+constexpr int WT_C_BYTES = WT_BN * WT_BK;
+constexpr int WT_S_BYTES = WT_SROWS * WT_BK * 4;
+constexpr int WT_YPITCH = WT_BN + 8;  // epilogue row (elements), off the banks' period
+constexpr int WT_BAR_BYTES = 3 * WT_MAX_STAGES * 8;
+
+// the x rows a block takes (wgmma n): M rounded up to 16, 32, 64 or 128
+__host__ __device__ inline int wt_np(int M) {
+  return M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : WT_MAX_NP;
+}
+__host__ __device__ inline int wt_stage_bytes(int np) {
+  return np * 128 + WT_A_BYTES + WT_C_BYTES + WT_S_BYTES;
+}
+// shared memory: mbarriers, 1024 bytes of alignment slack, the ring, the
+// epilogue tile [np][WT_YPITCH] of 16-bit y
+__host__ __device__ inline size_t wt_smem(int np, int stages) {
+  return WT_BAR_BYTES + 1024 + (size_t)stages * wt_stage_bytes(np) + (size_t)np * WT_YPITCH * 2;
+}
+
+// The 8 scales of row v's group for k 8c..8c+7 of the staged scale rows
+// (a group of at least the tile's 128 rows: the one staged row)
+__device__ __forceinline__ void wt_scales(const float* ss, int v, int c, int g, int gshift,
+                                          float (&sc)[8]) {
+  const float* sr = ss + (g >= WT_BN ? 0 : v >> gshift) * WT_BK + 8 * c;
+  const float4 s0 = *reinterpret_cast<const float4*>(sr);
+  const float4 s1 = *reinterpret_cast<const float4*>(sr + 4);
+  sc[0] = s0.x, sc[1] = s0.y, sc[2] = s0.z, sc[3] = s0.w;
+  sc[4] = s1.x, sc[5] = s1.y, sc[6] = s1.z, sc[7] = s1.w;
+}
+
+// One 16-byte chunk of the A tile: row v, k 8c..8c+7 of the staged codes
+// [128][64] times its scales, dequantized into the 128-byte swizzle.
+template <typename T>
+__device__ __forceinline__ void wt_chunk(const int8_t* cs, const float (&sc)[8], unsigned char* at,
+                                         int v, int c) {
+  const uint2 cb = *reinterpret_cast<const uint2*>(cs + v * WT_BK + 8 * c);
+  const uint32_t bx = cb.x ^ 0x80808080u, by = cb.y ^ 0x80808080u;
+  float f[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[j] = __fmul_rn(biased_code(bx, j), sc[j]);
+    f[4 + j] = __fmul_rn(biased_code(by, j), sc[4 + j]);
+  }
+  *reinterpret_cast<uint4*>(at + v * 128 + ((c ^ (v & 7)) << 4)) =
+      make_uint4(Mma<T>::pack(f[0], f[1]), Mma<T>::pack(f[2], f[3]), Mma<T>::pack(f[4], f[5]),
+                 Mma<T>::pack(f[6], f[7]));
+}
+
+// Chunks i = t, t + step, ... below n, 8 a row: local row i / 8 of the
+// 32-row blocks base, base + 64, ..., column i % 8.  A warp covers 4 whole
+// rows (its code reads and swizzled stores conflict-free), and a thread's
+// column stays t % 8 (step % 8 == 0), so with a group of at least the
+// tile's rows its scales are read once a stage.
+template <typename T, int U>
+__device__ __forceinline__ void wt_chunks(const int8_t* cs, const float* ss, unsigned char* at,
+                                          int t, int step, int n, int base, int g, int gshift) {
+  const int c = t % 8;
+  float sc[8];
+  if (g >= WT_BN) wt_scales(ss, 0, c, g, gshift, sc);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int i = t + u * step;
+    if (i < n) {
+      const int lr = i / 8, v = base + (lr / 32) * 64 + lr % 32;
+      if (g < WT_BN) wt_scales(ss, v, c, g, gshift, sc);
+      wt_chunk<T>(cs, sc, at, v, c);
+    }
+  }
+}
+
+template <int NP> struct WgmmaN;
+template <> struct WgmmaN<16> {
+  template <typename T> static __device__ __forceinline__ void run(float (&d)[8], uint64_t a, uint64_t b) { Wgmma<T>::ss16(d, a, b); }
+};
+template <> struct WgmmaN<32> {
+  template <typename T> static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b) { Wgmma<T>::ss32(d, a, b); }
+};
+template <> struct WgmmaN<64> {
+  template <typename T> static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b) { Wgmma<T>::ss64(d, a, b); }
+};
+template <> struct WgmmaN<128> {
+  template <typename T> static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b) { Wgmma<T>::ss128(d, a, b); }
+};
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(512, 1) wq_t_kernel(
+    const T* __restrict__ x, const int8_t* __restrict__ codes, const float* __restrict__ scales,
+    T* __restrict__ y, float* __restrict__ part, int M, int N, int K, int g, int per, int splits,
+    int nst, int aligned, const __grid_constant__ CUtensorMap tmx,
+    const __grid_constant__ CUtensorMap tmc, const __grid_constant__ CUtensorMap tms) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(smem_raw);  // copies landed
+  uint64_t* a_full = raw_full + WT_MAX_STAGES;                  // dequantizers' rows done
+  uint64_t* empty = raw_full + 2 * WT_MAX_STAGES;               // consumers done
+  unsigned char* ring = smem_raw + WT_BAR_BYTES;
+  ring += (1024 - (smem_u32(ring) & 1023)) & 1023;
+  constexpr int X_BYTES = NP * 128;
+  constexpr int STAGE = X_BYTES + WT_A_BYTES + WT_C_BYTES + WT_S_BYTES;
+  T* ys = reinterpret_cast<T*>(ring + (size_t)nst * STAGE);  // epilogue [NP][WT_YPITCH]
+
+  const int tiles = (N + WT_BN - 1) / WT_BN, rblocks = (M + NP - 1) / NP;
+  const int items = tiles * rblocks * splits;
+  const int nsteps = (K + WT_BK - 1) / WT_BK;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  const int gshift = __ffs(g) - 1;  // g is a power of two
+  // item -> (tile n0, x rows m0, steps [k0s, k1s))
+  auto item_at = [&](int t, int& n0, int& m0, int& k0s, int& k1s) {
+    n0 = (t % tiles) * WT_BN;
+    m0 = ((t / tiles) % rblocks) * NP;
+    k0s = (t / (tiles * rblocks)) * per;
+    k1s = min(k0s + per, nsteps);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nst; ++s) {
+      mbar_init(&raw_full[s], aligned ? 1 : 32);
+      mbar_init(&a_full[s], 224);
+      mbar_init(&empty[s], 256);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg < 2) {
+    setmaxnreg_dec<WG_REG_DQ>();
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp == 0) {
+      // ---- producer
+      const int srows = g >= WT_BN ? 1 : WT_BN >> gshift;
+      int it = 0;
+      for (int t = blockIdx.x; t < items; t += gridDim.x) {
+        int n0, m0, k0s, k1s;
+        item_at(t, n0, m0, k0s, k1s);
+        for (int step = k0s; step < k1s; ++step, ++it) {
+          const int s = it % nst;
+          if (it >= nst) mbar_wait(&empty[s], (it / nst - 1) & 1);
+          unsigned char* st = ring + (size_t)s * STAGE;
+          const int k0 = step * WT_BK;
+          if (aligned) {
+            if (lane == 0) {
+              mbar_expect_tx(&raw_full[s], X_BYTES + WT_C_BYTES + srows * WT_BK * 4);
+              tma_load_2d(st, &tmx, k0, m0, &raw_full[s]);
+              tma_load_2d(st + X_BYTES + WT_A_BYTES, &tmc, k0, n0, &raw_full[s]);
+              tma_load_2d(st + X_BYTES + WT_A_BYTES + WT_C_BYTES, &tms, k0, n0 >> gshift,
+                          &raw_full[s]);
+            }
+            continue;
+          }
+          // code or scale rows not 16-byte aligned: x by 16-byte cp.async
+          // (rows past M and k past K zeroed), codes and scales element
+          // by element (past N or K: zero)
+          const int kc = min(WT_BK, K - k0);
+          for (int c = lane; c < NP * 8; c += 32) {
+            const int r = c / 8, cc = c % 8;
+            unsigned char* dst = st + r * 128 + ((cc ^ (r & 7)) << 4);
+            if (m0 + r < M && cc * 8 < kc)
+              cp_async16(dst, x + (size_t)(m0 + r) * K + k0 + cc * 8);
+            else
+              *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+          }
+          int8_t* cs = reinterpret_cast<int8_t*>(st + X_BYTES + WT_A_BYTES);
+          float* ss = reinterpret_cast<float*>(st + X_BYTES + WT_A_BYTES + WT_C_BYTES);
+          for (int c = lane; c < WT_BN * WT_BK; c += 32) {
+            const int r = c / WT_BK, k = c % WT_BK;
+            cs[c] = n0 + r < N && k < kc ? codes[(size_t)(n0 + r) * K + k0 + k] : 0;
+          }
+          const int sr0 = n0 >> gshift, nsr = (N + g - 1) >> gshift;
+          for (int c = lane; c < srows * WT_BK; c += 32) {
+            const int r = c / WT_BK, k = c % WT_BK;
+            ss[c] = sr0 + r < nsr && k < kc ? scales[(size_t)(sr0 + r) * K + k0 + k] : 0.f;
+          }
+          cp_async_wait<0>();
+          fence_proxy_async();  // x, written here, is read by wgmma
+          mbar_arrive(&raw_full[s]);
+        }
+      }
+    } else {
+      // ---- dequantizers: rows 0-31 and 64-95 of the tile
+      const int t = threadIdx.x - 32;
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        int n0, m0, k0s, k1s;
+        item_at(item, n0, m0, k0s, k1s);
+        for (int step = k0s; step < k1s; ++step, ++it) {
+          const int s = it % nst;
+          mbar_wait(&raw_full[s], (it / nst) & 1);
+          unsigned char* st = ring + (size_t)s * STAGE;
+          unsigned char* at = st + X_BYTES;
+          const int8_t* cs = reinterpret_cast<const int8_t*>(at + WT_A_BYTES);
+          const float* ss = reinterpret_cast<const float*>(at + WT_A_BYTES + WT_C_BYTES);
+          wt_chunks<T, (WT_BN * 4 + 223) / 224>(cs, ss, at, t, 224, WT_BN * 4, 0, g, gshift);
+          fence_proxy_async();
+          mbar_arrive(&a_full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns rows 64 cw .. 64 cw + 63 of a tile,
+  // and dequantizes the last 32 of them itself
+  setmaxnreg_inc<WG_REG_MMA>();
+  const int cw = wg - 2;
+  const int ct = threadIdx.x - 256;  // 0..255 over both consumer warpgroups
+  const int wt = threadIdx.x % 128;  // 0..127 in this warpgroup
+  const int w = wt / 32, lane = threadIdx.x % 32;
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    int n0, m0, k0s, k1s;
+    item_at(item, n0, m0, k0s, k1s);
+    float acc[NP / 2];
+#pragma unroll
+    for (int j = 0; j < NP / 2; ++j) acc[j] = 0.f;
+    for (int step = k0s; step < k1s; ++step, ++it) {
+      const int s = it % nst;
+      const unsigned char* st = ring + (size_t)s * STAGE;
+      unsigned char* at = const_cast<unsigned char*>(st) + X_BYTES;
+      mbar_wait(&raw_full[s], (it / nst) & 1);
+      wt_chunks<T, 2>(reinterpret_cast<const int8_t*>(at + WT_A_BYTES),
+                      reinterpret_cast<const float*>(at + WT_A_BYTES + WT_C_BYTES), at, wt, 128,
+                      256, 64 * cw + 32, g, gshift);
+      fence_proxy_async();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");  // this warpgroup's rows
+      mbar_wait(&a_full[s], (it / nst) & 1);                         // the dequantizers' rows
+      wg_fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WT_BK / 16; ++kk)
+        WgmmaN<NP>::template run<T>(acc, wg_desc(at + cw * 64 * 128 + kk * 32),
+                                    wg_desc(st + kk * 32));
+      wg_commit();
+      wg_wait<0>();
+      wg_fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+
+    // acc[4j + 2h + e] = y^T (v = 64 cw + 16 w + lane/4 + 8h, m = 8j +
+    // 2 (lane%4) + e)
+    const int split = item / (tiles * rblocks);
+    if (part != nullptr) {  // split-K: fp32 partial of this split
+#pragma unroll
+      for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = n0 + 64 * cw + 16 * w + lane / 4 + 8 * h;
+            const int m = m0 + 8 * j + 2 * (lane % 4) + e;
+            if (v < N && m < M) part[((size_t)split * M + m) * N + v] = acc[4 * j + 2 * h + e];
+          }
+      continue;
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the last item's stores have read ys
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          ys[(8 * j + 2 * (lane % 4) + e) * WT_YPITCH + 64 * cw + 16 * w + lane / 4 + 8 * h] =
+              Bits<T>::from_f(acc[4 * j + 2 * h + e]);
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    const bool vec = (N & 7) == 0;
+    for (int c = ct; c < NP * (WT_BN / 8); c += 256) {
+      const int r = c / (WT_BN / 8), v = 8 * (c % (WT_BN / 8));
+      if (m0 + r >= M || n0 + v >= N) continue;
+      const T* src = ys + r * WT_YPITCH + v;
+      T* dst = y + (size_t)(m0 + r) * N + n0 + v;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && n0 + v + e < N; ++e) dst[e] = src[e];
+      }
+    }
+  }
+}
+
 // fp32 x: CUDA-core tiles of 32 rows x 64 columns, 32 deep; every thread
 // owns 2 rows x 4 columns (columns strided by 16 for conflict-free reads).
 constexpr int WQS_BM = 32, WQS_BN = 64, WQS_KC = 32;
@@ -557,21 +688,51 @@ cudaError_t launch_reduce(float* part, void* y, int M, int N, int splits, cudaSt
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_mma_t(const void* x, const int8_t* codes, const float* scales, void* y,
-                         float* part, int M, int N, int K, int g, int splits, int aligned,
-                         cudaStream_t stream) {
-  cudaError_t err = allow_dynamic_smem<wq_mma_kernel<T>>();
+template <typename T, int NP>
+cudaError_t launch_t_np(const void* x, const int8_t* codes, const float* scales, void* y,
+                        float* part, int M, int N, int K, int g, int splits, int stages,
+                        int aligned, int sms, cudaStream_t stream) {
+  const int per = split_per(K, WT_BK, splits, part);
+  if (per == 0 || stages < 1 || stages > WT_MAX_STAGES) return cudaErrorInvalidValue;
+  // aligned rows: the producer's tensor maps (x [M, K] in the 128-byte
+  // swizzle; codes [N, K] bytes; scales [N/g, K] fp32)
+  CUtensorMap tmx{}, tmc{}, tms{};
+  if (aligned) {
+    const CUtensorMapDataType xt = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    if (!tensor_map(&tmx, xt, 2, x, M, K, NP, WT_BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map(&tmc, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, N, K, WT_BN, WT_BK,
+                    CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !tensor_map(&tms, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales, N / g, K,
+                    g >= WT_BN ? 1 : WT_BN / g, WT_BK, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_dynamic_smem<wq_t_kernel<T, NP>>();
   if (err != cudaSuccess) return err;
-  const int per = split_per(K, WQ_KT, splits, part);
-  if (per == 0) return cudaErrorInvalidValue;
-  const dim3 grid((N + WQ_BN - 1) / WQ_BN, (M + WQ_BM - 1) / WQ_BM, splits);
-  wq_mma_kernel<T><<<grid, WQ_THREADS, WqSmem<T>::bytes, stream>>>(
-      static_cast<const T*>(x), codes, scales, static_cast<T*>(y), part, M, N, K, g, per,
-      aligned);
+  const int items = (N + WT_BN - 1) / WT_BN * ((M + NP - 1) / NP) * splits;
+  wq_t_kernel<T, NP><<<std::min(items, sms), 512, wt_smem(NP, stages), stream>>>(
+      static_cast<const T*>(x), codes, scales, static_cast<T*>(y), part, M, N, K, g, per, splits,
+      stages, aligned, tmx, tmc, tms);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return launch_reduce<T>(part, y, M, N, splits, stream);
+}
+
+template <typename T>
+cudaError_t launch_t(const void* x, const int8_t* codes, const float* scales, void* y,
+                     float* part, int M, int N, int K, int g, int splits, int stages, int aligned,
+                     cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  switch (wt_np(M)) {
+    case 16: return launch_t_np<T, 16>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, sms, stream);
+    case 32: return launch_t_np<T, 32>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, sms, stream);
+    case 64: return launch_t_np<T, 64>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, sms, stream);
+    default: return launch_t_np<T, 128>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, sms, stream);
+  }
 }
 
 // shared memory of the wgmma kernel: `stages` stages for x tiles of xrows
@@ -620,7 +781,7 @@ cudaError_t launch_16bit(int mode, const void* x, const int8_t* codes, const flo
                          int stages, int aligned, cudaStream_t st) {
   switch (mode) {
     case kW8: return launch_wgmma<T, kW8>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, st);
-    case kW8T: return launch_mma_t<T>(x, codes, scales, y, part, M, N, K, g, splits, aligned, st);
+    case kW8T: return launch_t<T>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, st);
     case kW4: return launch_wgmma<T, kW4>(x, codes, scales, y, part, M, N, K, g, splits, stages, aligned, st);
     default: return cudaErrorInvalidValue;
   }
@@ -643,9 +804,9 @@ cudaError_t launch_simt(const void* x, const int8_t* codes, const float* scales,
 // aligned: code and scale rows are 16-byte aligned (TMA / cp.async);
 // else element-wise loads.  splits > 1 (16-bit x only): K steps split over that
 // many blocks a tile, partials in part [splits, M, N] fp32; every split
-// must own a step (64-deep for modes 0 / 2, 128-deep for mode 1).  stages:
-// the wgmma kernel's ring depth (modes 0 / 2, 16-bit x; 1..8, within the
-// card's shared memory: see wgmma_smem).  dtype: 0 fp32, 1 fp16, 2 bf16.
+// must own a 64-deep step.  stages: the wgmma kernels' ring depth (16-bit
+// x; 1..8, within the card's shared memory: see wgmma_smem for modes 0 / 2,
+// wt_smem for mode 1).  dtype: 0 fp32, 1 fp16, 2 bf16.
 extern "C" int ds_wq_matmul(const void* x, const void* codes, const void* scales, void* y,
                             void* part, int M, int N, int K, int g, int mode, int aligned,
                             int splits, int stages, int dtype, void* stream) {

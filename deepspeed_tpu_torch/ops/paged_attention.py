@@ -10,7 +10,9 @@ from the device of the tensors:
   CPU path, the tests' oracle against JAX, and the kernels' reference.
 - hand-written CUDA for Hopper, ``cuda_paged_attention`` /
   ``cuda_ragged_prefill`` (csrc/paged_attention.cu, csrc/ragged_prefill.cu,
-  built by ops/builder.py at first use and bound with ctypes).  Each wrapper
+  built by ops/builder.py at first use and bound with ctypes; 16-bit decode
+  runs the warp-specialised bulk-copy + mma.sync kernel that ``decode_plan``
+  tiles, fp32 decode the CUDA-core one).  Each wrapper
   checks device, dtype, shape and contiguity, allocates its outputs with
   ``torch.empty``, launches on the current stream, raises on a non-zero
   ``cudaError_t``, and counts its launches in ``<wrapper>.launches``.
@@ -43,6 +45,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (32, 64, 128, 256)
 _SMEM_OPTIN = 232448       # H100 opt-in shared memory per block (bytes)
 _MAX_ROWS = 64             # query-head rows per prefill block (csrc)
+# the 16-bit decode kernel (csrc/paged_attention.cu DecLayout): consumer
+# warps, ring cap, the bytes before the ring; an SM's shared memory, of which
+# each resident block reserves 1 KB
+_DEC_WARPS, _DEC_MAX_STAGES, _DEC_HEAD = 4, 8, 512
+_DEC_MAX_CHUNKS = 16       # chunks a slot is cut into at most
+_SM_SMEM, _SM_RESERVED = 233472, 1024
 
 
 def _gather_pages(pages, block_table):
@@ -159,7 +167,7 @@ def _lib(name: str):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == "paged_attention":
             fn = lib.ds_paged_attention
-            fn.argtypes = [P] * 11 + [I] * 7 + [F, I, I, I, P]
+            fn.argtypes = [P] * 12 + [I] * 9 + [F, I, I, I, P]
         else:
             fn = lib.ds_ragged_prefill
             fn.argtypes = [P] * 11 + [I] * 8 + [F, I, I, I, P]
@@ -218,10 +226,6 @@ def _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv, g, hd,
                f"hd={hd}"
     if hd not in _HEAD_DIMS:
         return f"head_dim {hd} not in {_HEAD_DIMS}"
-    smem = (4 * bs * hd + 16 * bs + 2 * bs * (hd + 8) * q.element_size()
-            if quant else 4 * bs * hd * q.element_size())
-    if smem > _SMEM_OPTIN:
-        return f"block size {bs} x head_dim {hd} overflows shared memory"
     if block_table.dim() != 2 or block_table.shape[0] != S:
         return "block_table must be [S, MB]"
     if kv_lens.shape != (S,):
@@ -250,9 +254,21 @@ def _decode_problem(q, k_pages, v_pages, block_table, kv_lens, *, scale=None,
         return "q must be [S, nkv, g, hd]"
     S, nkv, g, hd = q.shape
     if g > 8:
-        return f"query group {g} > 8 (one warp per query head, 8 warps)"
-    return _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv,
-                           g, hd, alibi_slopes, window, k_scale, v_scale)
+        return f"query group {g} > 8 (the n8 tile of the query group)"
+    problem = _common_problem(q, k_pages, v_pages, block_table, kv_lens, S,
+                              nkv, g, hd, alibi_slopes, window, k_scale,
+                              v_scale)
+    if problem is not None:
+        return problem
+    bs, esize = k_pages.shape[2], k_pages.element_size()
+    if q.dtype == torch.float32:
+        smem = 4 * bs * hd * esize + (16 * bs if esize == 1 else 0)
+        fits = smem <= _SMEM_OPTIN
+    else:
+        fits = _decode_stages(S, g, hd, bs, esize, _SMEM_OPTIN) > 0
+    if not fits:
+        return f"block size {bs} x head_dim {hd} overflows shared memory"
+    return None
 
 
 def _prefill_problem(q, k_pages, v_pages, block_table, kv_lens, q_starts,
@@ -265,9 +281,17 @@ def _prefill_problem(q, k_pages, v_pages, block_table, kv_lens, q_starts,
         return f"query group {g} > {_MAX_ROWS}"
     if q_starts.shape != (S,) or q_counts.shape != (S,):
         return "q_starts and q_counts must be [S]"
-    return _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv,
-                           g, hd, alibi_slopes, window, k_scale, v_scale,
-                           ints=(q_starts, q_counts))
+    problem = _common_problem(q, k_pages, v_pages, block_table, kv_lens, S,
+                              nkv, g, hd, alibi_slopes, window, k_scale,
+                              v_scale, ints=(q_starts, q_counts))
+    if problem is not None:
+        return problem
+    bs, esize = k_pages.shape[2], q.element_size()
+    smem = (4 * bs * hd + 16 * bs + 2 * bs * (hd + 8) * esize
+            if k_pages.dtype == torch.int8 else 4 * bs * hd * esize)
+    if smem > _SMEM_OPTIN:
+        return f"block size {bs} x head_dim {hd} overflows shared memory"
+    return None
 
 
 def supported(*args, **kwargs) -> bool:
@@ -281,23 +305,90 @@ def ragged_prefill_supported(*args, **kwargs) -> bool:
 
 
 def num_kv_splits_for(S: int, nkv: int, MB: int, device) -> int:
-    """Splits per (slot, kv head): enough that a full-width slot's split
-    holds about two pages (a block walks its pages one after another, so
-    the longest slot's split sets the kernel's time), and at least ~4
-    blocks per SM.  Computed from shapes only — the live lengths stay on
-    the device, so choosing never syncs the host; splits a short slot does
-    not need exit at once."""
+    """fp32 decode: splits per (slot, kv head), enough that a full-width
+    slot's split holds about two pages (a block walks its pages one after
+    another, so the longest slot's split sets the kernel's time), and at
+    least ~4 blocks per SM.  Computed from shapes only — the live lengths
+    stay on the device, so choosing never syncs the host; splits a short
+    slot does not need exit at once."""
     target = 4 * _sm_count(device.index or 0)
     return max(1, min(max(-(-target // max(1, S * nkv)), -(-MB // 2)), MB,
                       64))
 
 
+def decode_smem(S: int, g: int, hd: int, bs: int, esize: int,
+                stages: int) -> int:
+    """Shared memory of one 16-bit decode block (csrc DecLayout): the ring
+    of (page, head) slabs of K and V (pages of ``esize`` bytes an element,
+    rows rounded up to 16), the slot's q rows and, for int8 pages, the K
+    and V scale rows a stage; each consumer warp's merge state and weights;
+    the slots' chunk prefix and lengths."""
+    bsp = -(-bs // 16) * 16
+    slab = bsp * hd * esize
+    stage = 2 * slab + g * hd * 2 + (8 * bsp if esize == 1 else 0)
+    stage = -(-stage // 128) * 128
+    return (_DEC_HEAD + stages * stage + _DEC_WARPS * g * (hd + 2) * 4
+            + (_DEC_WARPS + 1) * g * 4 + (2 * S + 1) * 4)
+
+
+def _decode_stages(S, g, hd, bs, esize, budget) -> int:
+    """The deepest ring (at most 8 stages) within ``budget`` bytes, 0 if not
+    even one stage fits."""
+    best = 0
+    for stages in range(1, _DEC_MAX_STAGES + 1):
+        if decode_smem(S, g, hd, bs, esize, stages) <= budget:
+            best = stages
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(S: int, nkv: int, g: int, hd: int, bs: int, esize: int,
+                sms: int) -> dict:
+    """The 16-bit decode launch, from shapes alone (choosing never syncs the
+    host): a persistent grid of ``blocks``, two an SM where a ring of at
+    least two stages lets them share it (else one, with the deepest ring
+    that fits; head dim 256 always one, for its registers), ``stages`` and
+    ``smem``, and ``chunk``, the fewest pages a work item holds (256 keys).
+    On the device each slot's live pages are cut into chunks of at least
+    ``chunk`` pages, at most 16 of them, and the blocks take (chunk, kv
+    head) items one at a time.  Cached: every decode call of a serving
+    step asks for the same plan (callers must not mutate the dict)."""
+    for per_sm in (1,) if hd == 256 else (2, 1):
+        budget = min(_SMEM_OPTIN, _SM_SMEM // per_sm - _SM_RESERVED)
+        stages = _decode_stages(S, g, hd, bs, esize, budget)
+        if stages >= (2 if per_sm == 2 else 1):
+            break
+    if stages == 0:
+        raise ValueError(f"decode_plan: block size {bs} x head_dim {hd} "
+                         f"overflows shared memory")
+    return {"blocks": per_sm * sms, "stages": stages, "per_sm": per_sm,
+            "chunk": -(-256 // bs),
+            "smem": decode_smem(S, g, hd, bs, esize, stages)}
+
+
+# The 16-bit decode's two int32 counters, by (device, stream): the work
+# items handed out and the blocks done.  Zero between launches (the last
+# block out resets them), so one buffer serves every call on its stream
+_COUNTERS = {}
+
+
+def _counters(device):
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
 def cuda_paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
                          scale: Optional[float] = None, alibi_slopes=None,
                          window=None, k_scale=None, v_scale=None):
-    """Paged decode on the card (csrc/paged_attention.cu).  A one-column
-    table runs the one-pass kernel; a wider one splits each slot's pages
-    ``num_kv_splits_for`` ways and merges the splits in a second kernel."""
+    """Paged decode on the card (csrc/paged_attention.cu).  16-bit q: the
+    tensor-core kernel tiled by ``decode_plan`` (a persistent grid takes
+    (chunk, kv head) items from a device counter), then a small kernel that
+    merges the chunks of each long slot in chunk order.
+    fp32 q: the CUDA-core kernel; a one-column table runs it in one pass, a
+    wider one splits each slot's pages ``num_kv_splits_for`` ways and
+    merges the splits in a second kernel."""
     problem = _decode_problem(q, k_pages, v_pages, block_table, kv_lens,
                               alibi_slopes=alibi_slopes, window=window,
                               k_scale=k_scale, v_scale=v_scale)
@@ -307,22 +398,30 @@ def cuda_paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
     bs, MB = k_pages.shape[2], block_table.shape[1]
     if scale is None:
         scale = hd ** -0.5
-    ns = num_kv_splits_for(S, nkv, MB, q.device)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if ns > 1:
-        part_acc = torch.empty((S, nkv, ns, g, hd), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((S, nkv, ns, g, 2), dtype=torch.float32,
-                              device=q.device)
+    part_acc = part_ml = counters = None
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        ns, stages, chunk = num_kv_splits_for(S, nkv, MB, q.device), 0, 0
+        if ns > 1:
+            part_acc = torch.empty((S, nkv, ns, g, hd), **f32)
+            part_ml = torch.empty((S, nkv, ns, g, 2), **f32)
+    else:
+        plan = decode_plan(S, nkv, g, hd, bs, k_pages.element_size(),
+                           _sm_count(q.device.index or 0))
+        ns, stages, chunk = plan["blocks"], plan["stages"], plan["chunk"]
+        part_acc = torch.empty((nkv, S, _DEC_MAX_CHUNKS, g, hd), **f32)
+        part_ml = torch.empty((nkv, S, _DEC_MAX_CHUNKS, g, 2), **f32)
+        counters = _counters(q.device)
     slopes = None if alibi_slopes is None else _slopes(alibi_slopes, q.device)
     lib = _lib("paged_attention")
     quant = k_scale is not None
     rc = lib.ds_paged_attention(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(block_table), _ptr(kv_lens), _ptr(slopes), _ptr(out),
-        _ptr(part_acc), _ptr(part_ml), S, nkv, g, hd, bs, MB, ns,
-        float(scale), int(window or 0), _DTYPE_CODE[q.dtype], int(quant),
+        _ptr(part_acc), _ptr(part_ml), _ptr(counters), S, nkv, g, hd, bs, MB,
+        ns, stages, chunk, float(scale), int(window or 0), _DTYPE_CODE[q.dtype],
+        int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _check_rc(lib, rc, "paged_attention")
     if quant:

@@ -19,8 +19,9 @@ the device of the tensors:
 - hand-written CUDA for Hopper, ``cuda_wq_matmul`` / ``cuda_wq_matmul_t`` /
   ``cuda_wq_matmul4`` (csrc/wq_matmul.cu, built by ops/builder.py at first
   use, bound with ctypes; 16-bit x runs #7 / #8 on a warp-specialised
-  wgmma kernel, #6 on mma.sync tiles; ``wq_plan`` picks split-K and the
-  ring depth from shapes alone).  Each checks device, dtype, shape and
+  wgmma kernel, #6 on a persistent one computing the swapped product
+  y^T = W x^T; ``wq_plan`` picks split-K and the ring depth from shapes
+  alone).  Each checks device, dtype, shape and
   contiguity, allocates its output with ``torch.empty``, launches on the
   current stream, raises on a non-zero ``cudaError_t`` and counts its
   launches in ``<wrapper>.launches`` (the counterpart of JAX's
@@ -176,10 +177,10 @@ def _supported(mode):
     return supported
 
 
-# the kernels' tiles (csrc/wq_matmul.cu): mode 1's mma.sync tile and K step;
-# modes 0 / 2's wgmma block (128 columns over up to 256 rows), K stage and
-# the bytes of a stage besides its x tile (B tile, codes, scale rows)
-_T_BM, _T_BN, _T_KT = 64, 128, 128
+# the kernels' tiles (csrc/wq_matmul.cu): modes 0 / 2's wgmma block (128
+# columns over up to 256 rows), K stage and the bytes of a stage besides its
+# x tile (B tile, codes, scale rows); mode 1's (128 rows of V; its stage
+# besides the x tile: A tile, codes, scale rows; the epilogue's y rows)
 _WG_BM, _WG_BN, _WG_BK = 256, 128, 64
 _WG_FIXED = _WG_BN * 128 + _WG_BK * _WG_BN + (_WG_BK // 16) * _WG_BN * 4
 _WG_MAX_STAGES = 8
@@ -187,6 +188,17 @@ SMEM_PER_BLOCK = 232448           # the H100's 227 KB a block (opt-in)
 # besides the stages: the wgmma kernel's mbarriers and its 1024-byte
 # alignment slack
 _WG_EXTRA = 3 * _WG_MAX_STAGES * 8 + 1024
+# mode 1: a stage's dequantized A tile, codes and scale rows (besides its x
+# tile), and the epilogue's row pitch
+_WT_BN = 128
+_WT_FIXED = _WT_BN * 128 + _WG_BK * _WT_BN + (_WT_BN // 16) * _WG_BK * 4
+_WT_YPITCH = _WT_BN + 8
+
+
+def wt_rows(M: int) -> int:
+    """Rows of x a mode-1 block takes (its wgmma n): M rounded up to 16,
+    32, 64 or 128 (csrc wt_np)."""
+    return next(n for n in (16, 32, 64, 128) if M <= n or n == 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,15 +209,20 @@ def _sm_count(index: int) -> int:
 def wq_plan(M: int, N: int, K: int, mode: int, dtype, sms: int) -> dict:
     """The launch of one product, from shapes alone (choosing never syncs
     the host): ``splits`` (split-K: blocks a tile, each owning ``per``
-    consecutive ``kt``-deep K steps) and, for the wgmma kernel (modes 0 / 2
-    with 16-bit x), its ring depth ``stages`` and dynamic shared memory
-    ``smem``.  The splits fill the card's ``sms`` SMs: one wgmma block an
-    SM (its ring takes most of the shared memory), two mode-1 blocks."""
+    consecutive ``kt``-deep K steps) and, for the wgmma kernels (16-bit x),
+    their ring depth ``stages`` and dynamic shared memory ``smem``.  The
+    splits fill the card's ``sms`` SMs, one block an SM (its ring takes
+    most of the shared memory); mode 1's blocks are persistent, so its
+    tiles may outnumber the SMs."""
     if dtype == torch.float32:
         return {"splits": 1, "per": 0, "kt": 0, "stages": 0, "smem": 0}
     if mode == _W8T:
-        tiles, kt, blocks = -(-N // _T_BN) * -(-M // _T_BM), _T_KT, 2 * sms
-        stages = smem = 0
+        np_ = wt_rows(M)
+        fixed = _WG_EXTRA + np_ * _WT_YPITCH * 2
+        stage = np_ * 128 + _WT_FIXED
+        stages = min(_WG_MAX_STAGES, (SMEM_PER_BLOCK - fixed) // stage)
+        smem = stages * stage + fixed
+        tiles, kt, blocks = -(-N // _WT_BN) * -(-M // np_), _WG_BK, sms
     else:
         xrows = min(_WG_BM, -(-M // 64) * 64)
         stage = xrows * 128 + _WG_FIXED

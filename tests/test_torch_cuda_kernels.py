@@ -115,6 +115,111 @@ def test_int8_kv_kernels_match_plain(cuda, dtype, tol, variant, g, hd):
             pa.cuda_ragged_prefill.int8_launches - before[1]) == (2, 1)
 
 
+# ---- the 16-bit decode kernel at every shape it takes
+
+DECODE_PAGES = {"bf16": (torch.bfloat16, False), "fp16": (torch.float16, False),
+                "int8": (torch.bfloat16, True), "int8_fp16": (torch.float16, True)}
+
+
+def _decode_case(dev, pages, g, hd, bs, S=7, nkv=2, MB=12, seed=0):
+    """Pages behind a shuffled table [S, MB]; kv lengths from empty to the
+    whole table, the longest slot long enough that the kernel splits it
+    over several blocks (each walks at least a ring of pages)."""
+    dtype, int8 = DECODE_PAGES[pages]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    NB = S * MB + 3
+    k = torch.randn((NB, nkv, bs, hd), device=dev, generator=gen)
+    v = torch.randn((NB, nkv, bs, hd), device=dev, generator=gen)
+    q = torch.randn((S, nkv, g, hd), device=dev, generator=gen).to(dtype)
+    scales = {}
+    if int8:
+        k, v, ks, vs = _int8_pages(k, v)
+        scales = {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    bt = torch.from_numpy(rng.permutation(NB)[:S * MB].reshape(S, MB)
+                          .astype(np.int32)).to(dev)
+    lens = torch.tensor([0, 1, 17, bs, bs + 1, 5 * bs - 3, MB * bs],
+                        dtype=torch.int32, device=dev)[:S]
+    return q, k, v, bt, lens, scales
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("pages", sorted(DECODE_PAGES))
+@pytest.mark.parametrize("bs", [16, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_decode_kernel_every_shape(cuda, pages, bs, hd, g):
+    """The 16-bit decode kernel (bf16 / fp16 pages, int8 pages under bf16
+    and fp16 q) against the plain version per output row at 2e-2 of the
+    row's largest value, at every query group, head dim and page size:
+    plain, a window of two pages and a bit (pages wholly before it are
+    skipped), alibi; a one-page table and the full table, whose longest
+    slot is split over blocks and merged by the last of them; the empty
+    slot's rows are exactly zero.  Every call is one int8 or 16-bit
+    launch."""
+    q, k, v, bt, lens, scales = _decode_case(cuda, pages, g, hd, bs)
+    nkv = k.shape[1]
+    variants = {"plain": {}, "window": {"window": 2 * bs + 5},
+                "alibi": {"alibi_slopes": np.geomspace(0.5, 1 / 64, nkv * g)
+                          .astype(np.float32)}}
+    counter = "int8_launches" if scales else "launches"
+    for name, kw in variants.items():
+        for table, kv in ((bt[:, :1].contiguous(), lens.clamp(max=bs)),
+                          (bt, lens)):
+            before = getattr(pa.cuda_paged_attention, counter)
+            got = pa.cuda_paged_attention(q, k, v, table, kv, **kw, **scales)
+            want = pa.torch_paged_attention(q, k, v, table, kv, **kw,
+                                            **scales)
+            assert getattr(pa.cuda_paged_attention, counter) == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], torch.zeros_like(got[0])), name
+            _assert_rows(name, got[1:], want[1:], 2e-2)
+
+
+DECODE_PLAN_CASES = {
+    # (S, nkv, g, hd, bs, pages): Llama-3-8B's decode at 16 slots, bf16
+    # and int8; one stage of a 256-token page; head dim 256 at a full
+    # group; 300 slots (the slots' prefix in shared memory); the smallest
+    # pages, eight stages
+    "llama_bf16": (16, 8, 4, 128, 64, "bf16"),
+    "llama_int8": (16, 8, 4, 128, 64, "int8"),
+    "bs256_one_stage": (5, 2, 4, 128, 256, "bf16"),
+    "hd256_g8": (5, 2, 8, 256, 128, "fp16"),
+    "slots300": (300, 2, 2, 64, 16, "int8_fp16"),
+    "hd32_bs16": (9, 4, 1, 32, 16, "bf16"),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", sorted(DECODE_PLAN_CASES))
+def test_decode_plan_is_what_the_kernel_takes(cuda, case):
+    """``decode_plan`` mirrors csrc/paged_attention.cu ``DecLayout``: its
+    shared memory fits the card's opt-in limit, the kernel runs on the
+    plan's blocks and ring (a launch the C side refuses raises), agrees
+    with the plain version per row, and two runs are bitwise equal (the
+    split slots' merge runs in block order, no float atomics)."""
+    S, nkv, g, hd, bs, pages = DECODE_PLAN_CASES[case]
+    props = torch.cuda.get_device_properties(cuda)
+    esize = 1 if DECODE_PAGES[pages][1] else 2
+    plan = pa.decode_plan(S, nkv, g, hd, bs, esize,
+                          props.multi_processor_count)
+    assert plan["smem"] <= props.shared_memory_per_block_optin
+    assert plan["smem"] == pa.decode_smem(S, g, hd, bs, esize,
+                                          plan["stages"])
+    q, k, v, bt, lens, scales = _decode_case(cuda, pages, g, hd, bs, S=S,
+                                             nkv=nkv, MB=6)
+    lens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 6 * bs + 1, S).astype(np.int32)).to(cuda)
+    runs = [pa.cuda_paged_attention(q, k, v, bt, lens, **scales)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    _assert_rows(case, runs[0], pa.torch_paged_attention(q, k, v, bt, lens,
+                                                         **scales), 2e-2)
+
+
 # ---- quantized-weight matmuls (csrc/wq_matmul.cu)
 
 wq = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
@@ -165,6 +270,60 @@ def test_wq_kernels_match_plain(cuda, dtype, tol, mode, g):
             row = d / want.float().abs().amax(-1).clamp_min(1e-6)
             assert torch.isfinite(got).all()
             assert row.max().item() <= tol, (M, N, row.max().item())
+
+
+def _misaligned(t):
+    """The same values at a base 1 element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("g", [16, 128, 256, 512])
+@pytest.mark.parametrize("M", [1, 16, 17, 256, 300])
+def test_wq_matmul_t_every_shape(cuda, dtype, g, M):
+    """#6 (16-bit x: the swapped wgmma kernel; fp32: the CUDA-core one)
+    against the plain version per output row, 2e-2 of the row's largest
+    value in 16-bit and 1e-4 in fp32 with TF32 off: rows of x 1 to 300
+    (one to three row blocks), groups of 16 (a ragged last tile of V), 128,
+    and 256 / 512 (wider than the 128-row tile), GPT-2's H 768, an H with a
+    partial last 64-deep stage (784), and code and scale rows read from a
+    base that is not 16-byte aligned (the element-wise route)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    N = 27 * g if g == 16 else 5 * g if g == 128 else 3 * g
+    for K, misaligned in ((768, False), (784, False), (768, True)):
+        x, store = _wq_case(cuda, "w8t", g, M, N, K, dtype)
+        if misaligned:
+            store = {n: _misaligned(t) for n, t in store.items()}
+        before = wq.cuda_wq_matmul_t.launches
+        got = wq.cuda_wq_matmul_t(x, store)
+        want = wq.torch_wq_matmul_t(x, store)
+        assert wq.cuda_wq_matmul_t.launches == before + 1
+        assert got.shape == (M, N) and got.dtype == dtype
+        torch.cuda.synchronize()
+        _assert_rows(f"K={K} misaligned={misaligned}", got, want, tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("M", [1, 16, 17, 64, 128, 256, 300])
+def test_wq_t_plan_is_what_the_kernel_takes(cuda, M):
+    """Mode 1's ``wq_plan`` mirrors csrc/wq_matmul.cu ``wt_smem`` at GPT-2's
+    tied table [50304, 768]: its shared memory fits the card's opt-in
+    limit, the kernel runs on the plan's ring depth (a launch the C side
+    refuses raises) and agrees with the plain version per row."""
+    props = torch.cuda.get_device_properties(cuda)
+    plan = wq.wq_plan(M, 50304, 768, 1, torch.bfloat16,
+                      props.multi_processor_count)
+    assert plan["smem"] <= props.shared_memory_per_block_optin
+    assert plan["splits"] == 1
+    x, store = _wq_case(cuda, "w8t", 128, M, 50304, 768, torch.bfloat16)
+    _assert_rows(f"M={M}", wq.cuda_wq_matmul_t(x, store),
+                 wq.torch_wq_matmul_t(x, store), 2e-2)
 
 
 @pytest.mark.requires_cuda

@@ -13,9 +13,14 @@ quantized product's launch plan, on the CPU:
 - a GPT with head dim 80 (Phi-2's) trained 2 steps by both engines from the
   same weights: loss and grad norm at 1e-5, and its config accepted by the
   CUDA rule that ``initialize`` applies, a head dim of 264 refused;
-- ``wq_plan``, the wgmma product's split-K and ring plan: every split owns
-  at least one K step, the splits cover K exactly, and the shared memory
-  stays within the H100's 227 KB a block;
+- ``wq_plan``, the wgmma products' split-K and ring plan (modes 0 / 2 and
+  mode 1's swapped product): every split owns at least one K step, the
+  splits cover K exactly, and the shared memory stays within the H100's
+  227 KB a block;
+- ``decode_plan``, the 16-bit paged decode's grid, ring and chunk size,
+  and the device's cut of each slot's live pages into work items
+  (mirrored here): every live page is in one item, a slot has at most 16
+  of them (the partial buffers' capacity), and the shared memory fits;
 - ``flash_fwd_plan`` / ``evo_fwd_plan``, the 16-bit forwards' tiles, Q
   slots and ring, and ``flash_bwd_plan``, the 16-bit flash backward's
   (dq and dk/dv): every head dim (and the evoformer's bias layouts and
@@ -347,7 +352,19 @@ def test_wq_plan_covers_k_and_fits(K, N, M, mode):
     assert splits * per >= steps                # the splits cover K ...
     assert (splits - 1) * per < steps           # ... each owning a step
     if mode == 1:
-        assert plan["kt"] == 128 and plan["stages"] == 0
+        # the swapped wgmma kernel: x rows padded to a wgmma n, 64-deep
+        # stages of x, the dequantized A tile, codes and scale rows, and
+        # the epilogue's y rows; persistent blocks, so tiles may outnumber
+        # the SMs, and split-K only where they do not
+        np_ = twq.wt_rows(M)
+        assert np_ in (16, 32, 64, 128) and (np_ >= M or np_ == 128)
+        assert plan["kt"] == 64
+        assert 3 <= plan["stages"] <= 8
+        assert plan["smem"] <= twq.SMEM_PER_BLOCK
+        assert plan["smem"] >= plan["stages"] * (
+            np_ * 128 + 128 * 128 + 64 * 128 + 8 * 64 * 4) + np_ * 136 * 2
+        tiles = -(-N // 128) * -(-M // np_)
+        assert splits == 1 or tiles * splits <= SMS
         return
     assert plan["kt"] == 64
     assert 3 <= plan["stages"] <= 8
@@ -361,6 +378,70 @@ def test_wq_plan_covers_k_and_fits(K, N, M, mode):
 
 def test_wq_plan_fp32_is_one_split():
     assert twq.wq_plan(16, 4096, 4096, 0, torch.float32, SMS)["splits"] == 1
+
+
+# ------------------------------------------ the 16-bit paged decode's plan
+
+tpa = importlib.import_module("deepspeed_tpu_torch.ops.paged_attention")
+
+
+def _decode_chunks(lens, bs, MB, window, cmin):
+    """csrc/paged_attention.cu's work items for one kv head, in Python: each
+    slot's live pages (pages wholly before the window are not) cut into
+    chunks of max(cmin, ceil(n / 16)) pages, the last one fewer.  Returns
+    per slot its list of chunks, each a list of (slot, logical page)."""
+    slots = []
+    for s, n in enumerate(lens):
+        pages = min(-(-n // bs), MB)
+        first = (max(n - window, 0) if window else 0) // bs
+        live = max(pages - first, 0)
+        cp = max(cmin, -(-live // 16))
+        slots.append([[(s, first + p) for p in range(c, min(c + cp, live))]
+                      for c in range(0, live, cp)])
+    return slots
+
+
+DECODE_SHAPES = [  # (S, nkv, g, hd, bs, page bytes)
+    (16, 8, 4, 128, 64, 2), (16, 8, 4, 128, 64, 1), (1, 8, 4, 128, 64, 2),
+    (5, 2, 8, 256, 128, 2), (5, 2, 1, 32, 16, 1), (300, 2, 2, 64, 16, 1),
+    (7, 2, 4, 128, 256, 2), (4, 1, 8, 256, 16, 2), (64, 32, 1, 64, 32, 2)]
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_decode_plan_covers_pages_and_fits(shape, window):
+    """The work items cover every live page of every slot exactly once, in
+    slot and page order; a slot is cut into at most 16 chunks (the partial
+    buffers' capacity), each of at least the plan's ``chunk`` pages (256
+    keys) but its last; the plan's ring fits the card's shared memory (two
+    blocks an SM where two stages do, the deepest ring up to 8 otherwise,
+    head dim 256 one an SM) and its grid is those blocks on every SM."""
+    S, nkv, g, hd, bs, esize = shape
+    plan = tpa.decode_plan(S, nkv, g, hd, bs, esize, SMS)
+    assert 1 <= plan["stages"] <= 8 and plan["per_sm"] in (1, 2)
+    assert plan["smem"] == tpa.decode_smem(S, g, hd, bs, esize,
+                                           plan["stages"])
+    assert plan["smem"] <= SMEM
+    assert plan["per_sm"] * (plan["smem"] + 1024) <= 233472
+    assert plan["per_sm"] == 1 or plan["stages"] >= 2
+    assert plan["per_sm"] == 1 or hd < 256
+    assert plan["blocks"] == plan["per_sm"] * SMS
+    assert plan["chunk"] * bs >= 256 and (plan["chunk"] - 1) * bs < 256
+    MB = 2048 // bs
+    rng = np.random.default_rng(S + hd + bs)
+    for lens in (rng.integers(0, MB * bs + 1, S), np.zeros(S, int),
+                 np.full(S, MB * bs), np.arange(S) % 3):
+        slots = _decode_chunks(lens, bs, MB, window, plan["chunk"])
+        seen = [p for chunks in slots for c in chunks for p in c]
+        want = []
+        for s, n in enumerate(lens):
+            lo = max(n - window, 0) if window else 0
+            want += [(s, p) for p in range(lo // bs, -(-n // bs))]
+        assert seen == want                       # each live page once
+        for chunks in slots:
+            assert len(chunks) <= tpa._DEC_MAX_CHUNKS
+            assert all(len(c) >= plan["chunk"] for c in chunks[:-1])
+            assert all(c for c in chunks)
 
 
 # ------------------------------------- the 16-bit attention forward's plan
