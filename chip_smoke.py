@@ -7,12 +7,14 @@
    versions, and the build of every CUDA kernel of the serving and training
    paths from the sources in this checkout (one nvcc per source, started
    together); ptxas's registers and spills of the 16-bit flash kernels, the
-   16-bit decode and #6's kernel (a spill in either of the last two
-   fails), and the HGMMA / WARPGROUP.DEPBAR counts of the SASS of every
-   wgmma kernel (the attention forward in both of its builds, the flash
-   backward, wq_wgmma_kernel in each mode, #6's kernel); a forward, flash
-   backward or #6 kernel with a wait after every product, or named in a
-   ptxas warning that it serialised the products, fails.
+   16-bit decode, #6's kernel and the evoformer's 16-bit dk/dv and dbias2
+   (a spill in any but the flash forward and dq fails), and the HGMMA /
+   WARPGROUP.DEPBAR counts of the SASS of every wgmma kernel (the attention
+   forward in both of its builds, the attention backward (flash dq, the
+   dk/dv in both of its builds), the evoformer's dbias2, wq_wgmma_kernel
+   in each mode, #6's kernel); a forward, attention backward, dbias2 or #6
+   kernel with a wait after every product, or named in a ptxas warning
+   that it serialised the products, fails.
 2. Each kernel against its plain PyTorch version on the card at Llama-3-8B
    attention shapes (bf16, nkv=8, g=4, hd=128, 64-token pages, 16 slots,
    KV lengths 0..2048, shuffled block tables) in every variant: plain,
@@ -135,8 +137,9 @@
    beside their bound (live pairs only), the plain versions and SDPA with
    the expanded boolean mask.
 18. The evoformer kernels, forward (#13) and backward (#14 dq, #15 dk/dv,
-   #16 dbias2, #17 dbias1), against their plain versions at small shapes
-   (biases none / one / both, D 8-128, S 13 / 64 / 383, fully masked rows;
+   #16 dbias2 with its second pass, #17 dbias1), against their plain
+   versions at small shapes (biases none / one / both, an fp32 bias2, a
+   bias2 [1, 1, H, 1, S] shared by every query, D 8-128, S 13 / 64 / 383, fully masked rows;
    D 160 and 256 and fp32 on the CUDA-core variants; the backward kernels
    fed the plain o and lse), then AlphaFold2's MSA row
    attention with pair bias (N_clust 512, N_res 384, 8 heads x 32),
@@ -148,9 +151,14 @@
    the MSA rows), mapped to the inputs through the padding and the biases'
    broadcast.  The MSA call timed beside its bound, the plain versions and
    SDPA with the additive mask (requiring grad in the backward); the
-   triangle call's kernels timed too.  A bias2 read through the
-   neighbouring head must show in the forward and in every backward
-   kernel, and a dbias2 summed over N - 1 rows must show.
+   triangle call's kernels timed too, dbias2 with its second pass and the
+   second pass alone (held bitwise to its plain version, beside
+   ``part.sum(0)``).  A bias2 read through the neighbouring head must show
+   in the forward and in every backward kernel, and a dbias2 summed over
+   N - 1 rows must show; so must, in the plain backward on the kernels' o
+   and lse, a query tile dropped from #15's walk, one chunk left out of
+   #16's second pass and one skipped ring stage of each (each fault's
+   size printed).  Two backward runs at the MSA call are bitwise equal.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
@@ -222,7 +230,8 @@ WQ = ("wq_matmul_t", "wq_matmul", "wq_matmul4")
 INT8 = ("paged_attention_int8", "ragged_prefill_int8")
 LORA = ("lora_matmul",)
 SPARSE = ("sparse_fwd", "sparse_dq", "sparse_dkv")
-EVO_BWD = ("evoformer_dq", "evoformer_dkv", "evoformer_db2", "evoformer_db1")
+EVO_BWD = ("evoformer_dq", "evoformer_dkv", "evoformer_db2",
+           "evoformer_db2_sum", "evoformer_db1")
 EVO = ("evoformer_fwd",) + EVO_BWD
 ERRS = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH + WQ
                      + INT8 + LORA + SPARSE + EVO, 0.0)
@@ -2530,51 +2539,79 @@ def _time_evo(torch, evo, q, k, v, b1, b2):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _evo_bwd_bounds(q, b1, b2):
+def _evo_bwd_bounds(q, b1, b2, chunks):
     """Bytes (q, k, v, do and lse, delta read once, each output written
     once, the biases as stored) and operations (2·D flops per (query, key)
     pair and product: dq 3 products, dk/dv 4, dbias2 2) of the backward
-    kernels; dbias1's kernel adds the per-head column sums (written by
-    dk/dv) over the heads."""
+    kernels; dbias2's second pass reads the ``chunks`` fp32 partials and
+    writes dbias2 (``chunks`` - 1 adds an element); dbias1's kernel adds the
+    per-head column sums (written by dk/dv) over the heads."""
     B, N, S, H, D = q.shape
     nq = q.numel() * q.element_size()
     rows = B * N * H * S * 4
     bias = sum(b.numel() * b.element_size() for b in (b1, b2)
                if b is not None)
     pairs = B * N * H * S * S
+    db2 = B * H * S * S
     return {"evoformer_dq": _bound(5 * nq + 2 * rows + bias, 6 * D * pairs),
             "evoformer_dkv": _bound(6 * nq + 3 * rows + bias,
                                     8 * D * pairs),
-            "evoformer_db2": _bound(4 * nq + 2 * rows + bias
-                                    + B * H * S * S * 4, 4 * D * pairs),
+            "evoformer_db2": _bound(4 * nq + 2 * rows + bias + db2 * 4,
+                                    4 * D * pairs),
+            "evoformer_db2_sum": _bound((chunks + 1) * db2 * 4,
+                                        (chunks - 1) * db2),
             "evoformer_db1": _bound(rows + B * N * S * 4, B * N * H * S)}
 
 
 def _time_evo_bwd(torch, evo, q, k, v, b1, b2, do, full=True):
-    """The four backward kernels' device times on the call's own inputs
-    (the forward kernel's o and lse, delta computed once), beside their
-    bounds; with ``full`` also the plain backward and one SDPA backward
-    (q/k/v permuted to [B·N, H, S, D], the materialised mask bias1 + bias2
-    requiring grad; the forward taken once, its backward timed, as rows
-    4-5 and 11-12)."""
+    """The backward kernels' device times on the call's own inputs (the
+    forward kernel's o and lse, delta computed once), beside their bounds:
+    dbias2 with its second pass (one call of the wrapper), and the second
+    pass alone on a seeded partial of the call's shape [chunks, B, H, S,
+    S], held to its plain version (the chunks added in order) and timed
+    beside ``part.sum(0)``; with ``full`` also the plain backward and one
+    SDPA backward (q/k/v permuted to [B·N, H, S, D], the materialised mask
+    bias1 + bias2 requiring grad; the forward taken once, its backward
+    timed, as rows 4-5 and 11-12)."""
     import torch.nn.functional as F
     B, N, S, H, D = q.shape
     o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
     b1v, b2v = evo._bias_views(q, b1, b2)
     args = (q, k, v, b1v, b2v, lse, evo._delta(o, do), do)
     part = evo._bwd_kernel("dkv", *args, part=True)[2]
+    chunks = evo._bwd_plan(q, b2v)["db2"]["chunks"]
+    partial = torch.randn((chunks, B, H, S, S), device=q.device,
+                          generator=torch.Generator(
+                              device=q.device).manual_seed(S + chunks))
     ms = {"evoformer_dq": cuda_ms(lambda: evo._bwd_kernel("dq", *args)),
           "evoformer_dkv": cuda_ms(lambda: evo._bwd_kernel(
               "dkv", *args, part=True)),
           "evoformer_db2": cuda_ms(lambda: evo._bwd_kernel("db2", *args)),
+          "evoformer_db2_sum": cuda_ms(
+              lambda: evo.cuda_evoformer_db2_sum(partial)),
           "evoformer_db1": cuda_ms(lambda: evo._bwd_kernel(
               "db1", *args, part=part))}
-    bounds = _evo_bwd_bounds(q, b1, b2)
+    got = evo.cuda_evoformer_db2_sum(partial)
+    want = evo.torch_evoformer_db2_sum(partial)
     shape = (f"q[{B},{N},{S},{H},{D}] {q.dtype}, bias1 {list(b1.shape)} "
              f"{b1.dtype}, bias2 {list(b2.shape)} {b2.dtype}")
+    _check_rows(torch, "evoformer_db2_sum", f"{chunks} chunks, " + shape,
+                got, want, F32_TOL)
+    same = torch.equal(got, want)
+    print(f"  the second pass equals its plain version bitwise: {same}",
+          flush=True)
+    if not same:
+        fail(f"evoformer_db2_sum [{chunks} chunks, {shape}]: the chunks are "
+             f"not added in the plain version's order")
+    sum_plain = cuda_ms(lambda: evo.torch_evoformer_db2_sum(partial), reps=5)
+    sum_lib = cuda_ms(lambda: partial.sum(0))
+    bounds = _evo_bwd_bounds(q, b1, b2, chunks)
     print("  backward kernels on " + shape + ": " + ", ".join(
         f"{n} {ms[n]:.4f} ms (bound {bounds[n][0]:.4f} {bounds[n][1]})"
-        for n in EVO_BWD) + f"; sum {sum(ms.values()):.4f} ms", flush=True)
+        for n in EVO_BWD) + f"; sum {sum(ms.values()) - ms['evoformer_db2_sum']:.4f} ms"
+        f" (evoformer_db2 includes its second pass, {chunks} chunks; "
+        f"second pass alone: plain {sum_plain:.4f}, part.sum(0) "
+        f"{sum_lib:.4f} ms)", flush=True)
     plain_ms = lib_ms = None
     if full:
         plain_ms = cuda_ms(lambda: evo.torch_evoformer_bwd(
@@ -2598,15 +2635,20 @@ def _time_evo_bwd(torch, evo, q, k, v, b1, b2, do, full=True):
         del out, mask
         print(f"  plain backward {plain_ms:.3f} ms; SDPA backward with the "
               f"materialised mask ({what}) {lib_ms:.4f} ms", flush=True)
-    return {n: dict(shape=shape, ms=ms[n], plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=bounds[n][0],
-                    bound_by=bounds[n][1]) for n in EVO_BWD}
+    res = {n: dict(shape=shape, ms=ms[n], plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bounds[n][0],
+                   bound_by=bounds[n][1]) for n in EVO_BWD}
+    res["evoformer_db2_sum"].update(
+        shape=f"part[{chunks},{B},{H},{S},{S}] float32", plain_ms=sum_plain,
+        library_ms=sum_lib)
+    return res
 
 
 def _evo_counts(evo):
     f = evo.cuda_evoformer_bwd
     return dict(zip(EVO, (evo.cuda_evoformer_fwd.launches, f.dq_launches,
-                          f.dkv_launches, f.db2_launches, f.db1_launches)))
+                          f.dkv_launches, f.db2_launches, f.db2_sum_launches,
+                          f.db1_launches)))
 
 
 def _evo_faults(torch, evo, q, k, v, b1, b2, do, raw):
@@ -2637,6 +2679,71 @@ def _evo_faults(torch, evo, q, k, v, b1, b2, do, raw):
         fail("the dbias2 check cannot see a dropped MSA row")
 
 
+def _evo_walk_faults(torch, evo, q, k, v, b1, b2, do, raw):
+    """The row checks must see, in the plain backward on the kernels' o and
+    lse: one query tile of #15's walk dropped (its rows' p = 0 in every
+    unit), one chunk left out of #16's second pass, and one skipped ring
+    stage of each kernel (#15: one query tile of one (row, head, 128-key)
+    unit, held over that row; #16: one MSA row of one (chunk, head, 128
+    queries, 64 keys) unit).  Each fault's size is printed."""
+    B, N, S, H, D = q.shape
+    o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+    plan = evo._bwd_plan(q, b2)
+    bm, rows = plan["dkv"]["bm"], plan["db2"]["rows"]
+
+    def check(what, name, got, want):
+        r = _rows_off(got, want)[0]
+        print(f"  {what} moves the worst row by {r:.3e} of its max (check "
+              f"at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the {name} check cannot see {what}")
+
+    lost = lse.clone()
+    lost[..., bm:2 * bm] = evo.NEG_INF
+    dropped = _evo_bwd_by_rows(torch, evo, q, k, v, b1, b2, o, lost, do)
+    check(f"query tile {bm}..{2 * bm - 1} dropped from #15's walk (dk)",
+          "evoformer_dkv", dropped[1], raw[1])
+    check(f"query tile {bm}..{2 * bm - 1} dropped from #15's walk (dv)",
+          "evoformer_dkv", dropped[2], raw[2])
+    del dropped
+    # the plain partials of the plan's chunks, one slice of rows at a time
+    b1n = torch.broadcast_to(b1, (B, N, 1, 1, S))
+    l5 = lse.view(B, N, H, 1, S)
+    parts = []
+    for lo, hi in rows:
+        c = slice(lo, hi)
+        parts.append(evo.torch_evoformer_db2_part(
+            q[:, c], k[:, c], v[:, c], b1n[:, c], b2, o[:, c],
+            l5[:, c].reshape(-1, H, 1, S), do[:, c], ((0, hi - lo),))[0])
+    mid = len(parts) // 2
+    full = evo.torch_evoformer_db2_sum(torch.stack(parts))
+    check(f"chunk {mid} of {len(parts)} (rows {rows[mid][0]}.."
+          f"{rows[mid][1] - 1}) left out of #16's second pass",
+          "evoformer_db2", evo.torch_evoformer_db2_sum(
+              torch.stack(parts[:mid] + parts[mid + 1:])),
+          full)
+    del parts
+    # #15: query tile 1 of the (row 0, head 1, key tile 1) unit skipped
+    r1 = slice(0, 1)
+    one = (q[:, r1], k[:, r1], v[:, r1], b1n[:, r1], b2, o[:, r1])
+    l1 = l5[:, r1].reshape(-1, H, 1, S)
+    whole = evo.torch_evoformer_bwd(*one, l1, do[:, r1])
+    l1x = l1.clone()
+    l1x[:, 1, :, bm:2 * bm] = evo.NEG_INF
+    skip = evo.torch_evoformer_bwd(*one, l1x, do[:, r1])
+    dk = whole[1].clone()
+    dk[:, :, 128:256, 1] = skip[1][:, :, 128:256, 1]
+    check("one ring stage of #15 skipped (query tile 1 of row 0, head 1, "
+          "keys 128..255)", "evoformer_dkv", dk, whole[1])
+    # #16: row 0 left out of its (chunk 0, head 1, queries 0..127, keys
+    # 64..127) unit
+    ds0 = evo.torch_evoformer_db2_part(*one, l1, do[:, r1], ((0, 1),))[0]
+    stage = full.clone()
+    stage[:, 1, :128, 64:128] -= ds0[:, 1, :128, 64:128]
+    check("one ring stage of #16 skipped (row 0 of the unit chunk 0, head "
+          "1, queries 0..127, keys 64..127)", "evoformer_db2", stage, full)
+
+
 # the AlphaFold2 calls (Jumper et al. 2021: Algorithms 7 and 13, the
 # fine-tuning crop of Supplementary Table 4): (label, [B, N, S, H, D], keys
 # masked on a seeded half of the rows)
@@ -2664,7 +2771,13 @@ def phase_evoformer(torch, evo, dev):
     cases = [(8, 13, (), bf16), (16, 64, ("b1",), bf16),
              (32, 383, ("b2",), bf16), (64, 64, ("b1", "b2"), bf16),
              (128, 383, ("b1", "b2"), bf16), (32, 13, ("b1", "b2"), bf16),
-             (8, 383, ("b1",), bf16),
+             (8, 383, ("b1",), bf16), (16, 383, ("b1", "b2"), bf16),
+             # an fp32 bias2 (dk/dv's 64-query stages)
+             (32, 200, ("b1", "b2", "b2f32"), bf16),
+             (128, 64, ("b2", "b2f32"), bf16),
+             # bias2 [1, 1, H, 1, S], shared by every query (no TMA box)
+             (32, 200, ("b1", "b2", "b2q"), bf16),
+             (128, 64, ("b2", "b2q", "b2f32"), bf16),
              # head dims above 128 and fp32: the CUDA-core variants
              (256, 64, ("b1", "b2"), bf16), (160, 100, ("b1",), bf16),
              (32, 64, ("b1", "b2"), f32), (256, 45, ("b1", "b2"), f32),
@@ -2673,6 +2786,10 @@ def phase_evoformer(torch, evo, dev):
         q, k, v, b1, b2 = _evo_inputs(torch, dev, 1, 4, S, 4, D,
                                       masked_keys=min(S, 5), bias=bias,
                                       dtype=dtype)
+        if "b2f32" in bias:
+            b2 = b2.float()
+        if "b2q" in bias:
+            b2 = b2[..., :1, :]
         if b1 is not None:
             b1[:, 1] = -1e9                     # every key of a row masked
         label = f"D {D} S {S} biases {bias or 'none'} {dtype}".replace(
@@ -2691,7 +2808,7 @@ def phase_evoformer(torch, evo, dev):
             device=dev).manual_seed(28 + i)).to(q.dtype)
         leaves = [t.detach().requires_grad_() for t in (q, k, v, b1, b2)]
         evo.cuda_evoformer_fwd.launches = 0
-        for name in ("dq", "dkv", "db2", "db1"):
+        for name in ("dq", "dkv", "db2", "db2_sum", "db1"):
             setattr(evo.cuda_evoformer_bwd, name + "_launches", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2733,6 +2850,17 @@ def phase_evoformer(torch, evo, dev):
             if not r > ROW_TOL:
                 fail("the evoformer check cannot see a misread bias2")
             _evo_faults(torch, evo, q, k, v, b1, b2, do, raw)
+            _evo_walk_faults(torch, evo, q, k, v, b1, b2, do, raw)
+            o1, lse1 = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+            runs = [evo.cuda_evoformer_bwd(q, k, v, b1, b2, o1, lse1, do)
+                    for _ in range(2)]
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(*runs)]
+            print(f"  two backward runs bitwise equal (dq, dk, dv, dbias1, "
+                  f"dbias2): {same}", flush=True)
+            if not all(same):
+                fail("the evoformer backward is not deterministic")
+            del runs, o1, lse1
         elif i == 1:
             fwd_ms = cuda_ms(lambda: evo.cuda_evoformer_fwd(q, k, v, b1, b2))
             print(f"  [{label}] forward kernel {fwd_ms:.4f} ms", flush=True)
@@ -2768,11 +2896,12 @@ def _ptxas_report(build_log, kernel):
                     spill = line
 
 
-# the kernels this slice redesigned (their ptxas spills must be 0), and the
-# wgmma kernels whose products ptxas must keep asynchronous
-NEW_KERNELS = ("paged_decode_mma_kernel", "decode_combine_kernel", "wq_t_kernel")
+# the redesigned kernels whose ptxas spills must be 0, and the wgmma kernels
+# whose products ptxas must keep asynchronous
+NEW_KERNELS = ("paged_decode_mma_kernel", "decode_combine_kernel", "wq_t_kernel",
+               "evo_dkv_kernel", "evo_db2_kernel", "evo_db2_sum_kernel")
 WGMMA_GATE = ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-              "wq_t_kernel")
+              "evo_dkv_kernel", "evo_db2_kernel", "wq_t_kernel")
 
 
 def _spill_gate(build_log, kernels):
@@ -2897,6 +3026,7 @@ def main():
               f"{min(regs, default=0)}..{max(regs, default=0)}, spill "
               f"stores up to {max(spills, default=0)} bytes", flush=True)
     for kernel in ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                   "evo_dkv_kernel", "evo_db2_kernel", "evo_db2_sum_kernel",
                    "paged_decode_mma_kernel", "decode_combine_kernel",
                    "wq_t_kernel"):
         _ptxas_report(builder.build_log, kernel)
@@ -2906,6 +3036,8 @@ def main():
                                              "flash_dq_kernel",
                                              "flash_dkv_kernel")),
                         ("evoformer", ("attn_fwd_kernel",)),
+                        ("evoformer_bwd", ("evo_dkv_kernel",
+                                           "evo_db2_kernel")),
                         ("wq_matmul", ("wq_wgmma_kernel", "wq_t_kernel"))):
         _sass_report(builder._so_path(so), kernels,
                      gate=tuple(k for k in kernels if k in WGMMA_GATE))
@@ -3049,6 +3181,7 @@ def main():
                 "evoformer_dq": "deepspeed_tpu/ops/evoformer.py:203",
                 "evoformer_dkv": "deepspeed_tpu/ops/evoformer.py:224",
                 "evoformer_db2": "deepspeed_tpu/ops/evoformer.py:252",
+                "evoformer_db2_sum": "deepspeed_tpu/ops/evoformer.py:252",
                 "evoformer_db1": "deepspeed_tpu/ops/evoformer.py:272"}
     # the 16-bit forwards (#3, #13) share one kernel template, built into
     # flash_attention.cu and evoformer.cu; the 16-bit flash backward (#4,
@@ -3061,6 +3194,7 @@ def main():
                "flash_dkv": "attn_bwd_hopper.cuh",
                "evoformer_fwd": "attn_fwd_hopper.cuh",
                **dict.fromkeys(EVO_BWD, "evoformer_bwd.cu"),
+               "evoformer_dkv": "attn_bwd_hopper.cuh",
                "paged_attention_int8": "paged_attention.cu",
                "ragged_prefill_int8": "ragged_prefill.cu"}
     kernels = []

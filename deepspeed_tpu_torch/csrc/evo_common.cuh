@@ -1,7 +1,8 @@
 // Device code shared by the evoformer forward (evoformer.cu) and backward
-// (evoformer_bwd.cu): the argument block, the strided bias loads, the
-// cp.async row staging with a padded head_dim, and the one logit formula
-// both directions use.
+// (evoformer_bwd.cu, attn_bwd_hopper.cuh's evoformer dk/dv): the argument
+// block, the strided bias loads, the cp.async row staging with a padded
+// head_dim (the mma.sync dq), and the one logit formula both directions
+// use.
 #pragma once
 
 #include "flash_common.cuh"
@@ -15,11 +16,12 @@ struct EvoArgs {
   // backward: do [B, N, S, H, D] contiguous in q's dtype; lse and delta =
   // rowsum(o * do) [B*N, H, S] fp32; dq, dk, dv [B, N, S, H, D] contiguous;
   // db1_part [B*N, H, S] (per-head column sums of ds), db1 [B*N, S] and
-  // db2 [B, H, S, S] fp32
+  // db2 [B, H, S, S] fp32; db2_part [chunks, B, H, S, S] fp32 (the 16-bit
+  // dbias2's partial sums over chunks of the N rows)
   const void* dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
-  float *db1_part, *db1, *db2;
+  float *db1_part, *db1, *db2, *db2_part;
   int B, N, S, H, D;
   long long q_sb, q_sn, q_ss, q_sh, k_sb, k_sn, k_ss, k_sh, v_sb, v_sn, v_ss, v_sh;
   long long b1_sb, b1_sn, b1_sk;         // bias1 viewed [B, N, S]
@@ -37,6 +39,17 @@ __device__ __forceinline__ float load_bias(const void* p, long long i, int code)
   if (code == 0) return static_cast<const float*>(p)[i];
   if (code == 1) return __half2float(static_cast<const __half*>(p)[i]);
   return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+// The same in two steps, so that a load issued early is converted only
+// where its value is used: the element's bits, then their value.
+__device__ __forceinline__ uint32_t load_bias_bits(const void* p, long long i, int code) {
+  if (code == 0) return static_cast<const uint32_t*>(p)[i];
+  return static_cast<const unsigned short*>(p)[i];
+}
+__device__ __forceinline__ float bias_of_bits(uint32_t bits, int code) {
+  if (code == 0) return __uint_as_float(bits);
+  if (code == 1) return __half2float(__ushort_as_half((unsigned short)bits));
+  return __uint_as_float(bits << 16);
 }
 
 // The logit of one (query, key) pair from its fp32 q . k product, in the

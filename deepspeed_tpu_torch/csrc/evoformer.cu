@@ -79,7 +79,8 @@ cudaError_t launch_evo_simt(const EvoArgs& a, cudaStream_t st) {
 // boxes of [rows, 64 columns] in the 128-byte swizzle, the columns past D
 // zero-filled; bias2 [B, H, S, S] as a 4-D map in boxes of [128 queries,
 // 128 bytes of keys] where its layout allows (keys contiguous, 16-byte
-// aligned base and strides), else staged element by element.
+// aligned base and strides, queries not broadcast), else staged element by
+// element.
 template <typename T, int HD>
 cudaError_t launch_evo_wgmma(const EvoArgs& a, int stages, int qslots, cudaStream_t st) {
   constexpr int BN = HD <= 64 ? 128 : 64;
@@ -110,8 +111,11 @@ cudaError_t launch_evo_wgmma(const EvoArgs& a, int stages, int qslots, cudaStrea
                                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     const long long d2[4] = {a.S, a.S, a.H, a.B}, s2[4] = {a.b2_sk, a.b2_sq, a.b2_sh, a.b2_sb};
     const int box2[4] = {128 / esz, kFwdRows, 1, 1};
+    // a bias2 broadcast over queries (query stride 0) collapses that dim to
+    // one row, which a box of 128 rows cannot read: element by element
     p.b2_tma = (reinterpret_cast<uintptr_t>(a.b2) % 16 == 0) &&
-               tensor_map_nd(&tmb2, dt, esz, a.b2, 4, d2, s2, box2, sw, &p.cb2);
+               tensor_map_nd(&tmb2, dt, esz, a.b2, 4, d2, s2, box2, sw, &p.cb2) &&
+               (!(p.cb2 & 2) || a.S == 1);
   }
   return launch_attn_fwd<T, HD, BN, true>(p, tmq, tmk, tmv, tmb2, st);
 }

@@ -3,49 +3,63 @@
 // Replaces the TPU kernels of deepspeed_tpu/ops/evoformer.py (launched by
 // _bwd_impl):
 //   _dq_kernel  -> evo_dq_kernel    dq  = scale * sum_k ds k
-//   _dkv_kernel -> evo_dkv_kernel   dk  = scale * sum_q dsT q,  dv = sum_q pT do
-//   _db2_kernel -> evo_db2_kernel   db2[b, h, q, k] = sum_n ds
+//   _dkv_kernel -> evo_dkv_kernel (attn_bwd_hopper.cuh)
+//                                   dk  = scale * sum_q dsT q,  dv = sum_q pT do
+//   _db2_kernel -> evo_db2_kernel, then evo_db2_sum_kernel
+//                                   db2[b, h, q, k] = sum_n ds
 //   _db1_kernel -> evo_dkv_kernel's per-head column sums of ds, then
 //                  evo_db1_kernel   db1[bn, k] = sum_h (sum_q ds)
 // Every kernel recomputes its tile as the reference's _tile_ds does:
-//   s  = (q . k) * scale + bias1 + bias2  (evo_logit, shared with the forward)
+//   s  = (q . k) * scale + bias1 + bias2  (evo_logit_s, shared with the forward)
 //   p  = exp(s - lse), 0 on a row whose lse is -1e30 (it saw no key)
 //   ds = p * (do . v - delta),  delta = rowsum(o * do) (fp32, from the caller)
 // and casts as the reference does: ds to the inputs' dtype before the dq and
 // dk products (scale applied to the fp32 sums), p to do's dtype before dv.
 // The logit is subtracted from lse in natural units and only the difference
-// goes to log2 units inside exp2f: at a -1e9 mask s and lse sit where the
-// fp32 spacing is 64 and must cancel exactly as in the forward.
+// goes to log2 units inside the exponential: at a -1e9 mask s and lse sit
+// where the fp32 spacing is 64 and must cancel exactly as in the forward.
 //
 // What bounds it on the H100: bytes at AlphaFold2's widths, with
 // operations close behind (D = 32: dq 3, dk/dv 4 and dbias2 2 products of
 // 2*D flops per (query, key) pair against q, k, v and do read once, bias2
-// once per (head, query, key)); in practice the scalar work per logit
-// (bias loads, exp) and the mma.sync inner loop set the pace, as in the
-// forward.  What the design does about it:
+// once per (head, query, key)); in practice the scalar work per logit (the
+// biases, the exponential, ~8 fp32 operations) sets the pace.  What the
+// design does about it:
 //   - dq: the forward's grid (batch * MSA row, 64-query tile, head), 4 warps
-//     x 16 query rows, q and do fragments in registers, 64-key tiles of K
-//     and V double-buffered through shared memory with 16-byte cp.async.
-//   - dk/dv: one block per (batch * MSA row, 64-key tile, head), each warp
-//     owning 16 keys in fp32 registers; the block walks the query tiles
-//     (Q, dO, lse, delta double-buffered) and takes the products transposed
-//     (sT = K QT, dpT = V dOT) so that keys are the accumulator rows.  When
-//     bias1 needs a gradient it also sums ds over its queries per key and
-//     head (db1_part); evo_db1_kernel then adds the heads in order, so the
-//     reference's fifth pass (#17) costs no recompute.
-//   - dbias2: one block per (batch, head, 64-query tile, 64-key tile); it
-//     walks the N MSA rows in ascending order (each row's Q, dO, K, V, lse,
-//     delta double-buffered, bias1 prefetched in registers) and keeps the
-//     64 x 64 sum in fp32 registers; the bias2 tile, the same for every
-//     row, is read once into registers.
+//     x 16 query rows on mma.sync, q and do fragments in registers, 64-key
+//     tiles of K and V double-buffered through shared memory with 16-byte
+//     cp.async.
+//   - dk/dv (16-bit, D up to 128): evo_dkv_kernel, the flash backward's
+//     warp-specialised TMA + wgmma dk/dv design (attn_bwd_hopper.cuh): 128 keys of one (batch * row, head) a unit, the
+//     query tiles streamed with their bias2 tile, lse and delta rows, bias1's
+//     per-head column sums of ds written beside dk and dv.
+//   - dbias2 (16-bit, D up to 128): evo_db2_kernel, warp-specialised and
+//     persistent on TMA + wgmma.  A unit is (batch, chunk of MSA rows, head,
+//     128 queries, 64 keys): the producer warpgroup streams each row's Q,
+//     dO, K and V tiles (TMA) with its lse, delta and bias1 rows through a
+//     ring; the two consumer warpgroups (64 queries each) recompute s and
+//     dp on wgmma and add ds into an fp32 accumulator in registers, walking
+//     the chunk's rows in ascending order; the unit's bias2 values, the same
+//     for every row, are read once into registers (a unit ahead).  Q, dO,
+//     K and V rows are 64 bytes (the 64-byte swizzle) at head dims up to
+//     32, so the ring holds 8 stages.  The chunks partition
+//     the N rows in ascending order, as many as fill the SMs about eight
+//     times over, so that the rows' serial walk is split; each unit writes
+//     its fp32 partial [chunks, B, H, S, S], and evo_db2_sum_kernel adds the
+//     chunks in ascending order into db2.  The tile pairs of one (head,
+//     chunk) are neighbouring units, so a row's Q, dO, K and V come from L2
+//     after the first read.
 //   - no atomics: every sum runs in a fixed order, so a run is
 //     deterministic.  q, k, v and both biases are read through their
-//     strides, head_dim is padded to HDP in {16, 32, 64, 128} with zeros in
-//     shared memory, and keys / rows past S are neither used nor written.
+//     strides, head_dim is padded to HDP in {16, 32, 64, 128} (mma.sync,
+//     zeros in shared memory) or to 64 columns a TMA box (zero fill), and
+//     keys / rows past S are neither used nor written.
 //   - fp32 inputs, and 16-bit inputs with D above 128 (the dk/dv
 //     accumulators of 256 columns would need 256 fp32 registers a thread),
 //     take the CUDA-core variants evo_*_simt below.
-#include "evo_common.cuh"
+// ops/evoformer.py evo_bwd_plan gives dk/dv's and dbias2's tiles, ring
+// depths, slots and chunks by BwdLayout::evo_dkv's and Db2Layout's formulas.
+#include "attn_bwd_hopper.cuh"
 
 namespace dsk {
 
@@ -163,306 +177,268 @@ __global__ void __launch_bounds__(kEvoWarps * 32) evo_dq_kernel(EvoArgs p) {
   }
 }
 
-// The block stages `rows` fp32 values of a [.., S] row (lse or delta) from
-// position t0 with 4-byte cp.async; positions at or past S get `fill`.
-__device__ __forceinline__ void load_row_f32(float* dst, const float* __restrict__ src, int t0,
-                                             int rows, int S, float fill) {
-  for (int t = threadIdx.x; t < rows; t += blockDim.x) {
-    if (t0 + t < S)
-      cp_async4(dst + t, src + t0 + t);
-    else
-      dst[t] = fill;
-  }
-}
-
-// ------------------------------------------------------------ dk/dv (#15)
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kEvoWarps * 32) evo_dkv_kernel(EvoArgs p) {
-  constexpr int KSTEPS = HDP / 16, DTILES = HDP / 8, LD = HDP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks_ = reinterpret_cast<T*>(smem);  // [kEvoTile*LD] this block's keys
-  T* vs_ = ks_ + kEvoTile * LD;         // [kEvoTile*LD]
-  T* qbuf = vs_ + kEvoTile * LD;        // [2][kEvoTile*LD]
-  T* dbuf = qbuf + 2 * kEvoTile * LD;   // [2][kEvoTile*LD]
-  float* lbuf = reinterpret_cast<float*>(dbuf + 2 * kEvoTile * LD);  // [2][kEvoTile] lse
-  float* ebuf = lbuf + 2 * kEvoTile;                                  // [2][kEvoTile] delta
-
-  const int bn = blockIdx.x, kt = blockIdx.y, h = blockIdx.z;
-  const int b = bn / p.N, n = bn % p.N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int D = p.D;
-  const long long tok = (long long)p.H * D;
-  const int k0 = kt * kEvoTile, wk0 = k0 + warp * 16;  // the block's, this warp's first key
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + ((long long)bn * p.S * p.H + h) * D;
-  const long long b1o = b * p.b1_sb + n * p.b1_sn;
-  const long long b2o = b * p.b2_sb + h * p.b2_sh;
-  const long long r0 = ((long long)bn * p.H + h) * p.S;  // this (row, head)'s lse / delta
-  zero_pad_cols<LD>(smem, 6 * kEvoTile, D, HDP);
-
-  auto load_item = [&](int it, int sel) {
-    const int q0 = it * kEvoTile;
-    load_rows_d<T, LD>(qbuf + sel * kEvoTile * LD, qb, p.q_ss, q0, kEvoTile, p.S, D);
-    load_rows_d<T, LD>(dbuf + sel * kEvoTile * LD, dob, tok, q0, kEvoTile, p.S, D);
-    load_row_f32(lbuf + sel * kEvoTile, p.lse + r0, q0, kEvoTile, p.S, kNegInf);
-    load_row_f32(ebuf + sel * kEvoTile, p.delta + r0, q0, kEvoTile, p.S, 0.f);
-  };
-
-  int kpos[2];
-  bool kin[2];
-  float b1v[2];  // bias1 of this thread's two keys (absent: unused)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    kpos[i] = wk0 + grp + 8 * i;
-    kin[i] = kpos[i] < p.S;
-    b1v[i] = (kin[i] && p.b1_code >= 0) ? bias1_at(p, b1o, kpos[i]) : 0.f;
-  }
-  float dk[DTILES][4], dv[DTILES][4], colsum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[d][j] = dv[d][j] = 0.f;
-
-  const int nqt = (p.S + kEvoTile - 1) / kEvoTile;
-  load_rows_d<T, LD>(ks_, kb, p.k_ss, k0, kEvoTile, p.S, D);
-  load_rows_d<T, LD>(vs_, vb, p.v_ss, k0, kEvoTile, p.S, D);
-  load_item(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < nqt; ++it) {
-    const int bsel = it & 1;
-    if (it + 1 < nqt) {
-      load_item(it + 1, bsel ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = it * kEvoTile;
-    const T* qs = qbuf + bsel * kEvoTile * LD;
-    const T* dos = dbuf + bsel * kEvoTile * LD;
-    const float* ls = lbuf + bsel * kEvoTile;
-    const float* es = ebuf + bsel * kEvoTile;
-    const T* krows = ks_ + warp * 16 * LD;
-    const T* vrows = vs_ + warp * 16 * LD;
-    for (int t0 = 0; t0 < kEvoTile; t0 += 16) {
-      if (q0 + t0 >= p.S) break;
-      float st[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t ka[4], va[4], qf[4], df[4];
-        load_a_frag<T>(ka, krows, LD, ks, lane);
-        load_a_frag<T>(va, vrows, LD, ks, lane);
-        load_b_rows_t<T>(qf, qs, LD, t0, ks, lane);
-        load_b_rows_t<T>(df, dos, LD, t0, ks, lane);
-        Mma<T>::run(st[0], ka, qf[0], qf[1]);  // sT = k qT
-        Mma<T>::run(st[1], ka, qf[2], qf[3]);
-        Mma<T>::run(dp[0], va, df[0], df[1]);  // dpT = v doT
-        Mma<T>::run(dp[1], va, df[2], df[3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = j >> 1;
-          const int qi = t0 + nt * 8 + 2 * tig + (j & 1);
-          const float lse = ls[qi];  // -1e30 for a dead row and a row past S
-          float pr = 0.f, ds = 0.f;
-          if (kin[i] && lse > 0.5f * kNegInf) {
-            const float s = evo_logit_v(
-                p, st[nt][j], b1v[i],
-                p.b2_code >= 0 ? bias2_at(p, b2o, q0 + qi, kpos[i]) : 0.f);
-            pr = exp2f((s - lse) * kLog2e);
-            ds = pr * (dp[nt][j] - es[qi]);
-          }
-          st[nt][j] = pr;  // pT
-          dp[nt][j] = ds;  // dsT
-          colsum[i] += ds;
-        }
-      const uint32_t pa[4] = {Mma<T>::pack(st[0][0], st[0][1]), Mma<T>::pack(st[0][2], st[0][3]),
-                              Mma<T>::pack(st[1][0], st[1][1]), Mma<T>::pack(st[1][2], st[1][3])};
-      const uint32_t dsa[4] = {Mma<T>::pack(dp[0][0], dp[0][1]), Mma<T>::pack(dp[0][2], dp[0][3]),
-                               Mma<T>::pack(dp[1][0], dp[1][1]), Mma<T>::pack(dp[1][2], dp[1][3])};
-      mma_rows<T, HDP, LD>(dv, pa, dos, t0, lane);  // dv += pT do
-      mma_rows<T, HDP, LD>(dk, dsa, qs, t0, lane);  // dk += dsT q
-    }
-    __syncthreads();
-  }
-
-  T* dkb = static_cast<T*>(p.dk) + ((long long)bn * p.S * p.H + h) * D;
-  T* dvb = static_cast<T*>(p.dv) + ((long long)bn * p.S * p.H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!kin[i]) continue;
-    const long long off = kpos[i] * tok;
-#pragma unroll
-    for (int d = 0; d < DTILES; ++d)
-      if (d * 8 < D) {
-        *reinterpret_cast<uint32_t*>(dkb + off + d * 8 + 2 * tig) =
-            Mma<T>::pack(dk[d][2 * i] * p.scale, dk[d][2 * i + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvb + off + d * 8 + 2 * tig) =
-            Mma<T>::pack(dv[d][2 * i], dv[d][2 * i + 1]);
-      }
-  }
-  if (p.db1_part != nullptr) {
-    // the four lanes of a key hold its column sum over disjoint queries
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      colsum[i] += __shfl_xor_sync(0xffffffffu, colsum[i], 1);
-      colsum[i] += __shfl_xor_sync(0xffffffffu, colsum[i], 2);
-      if (tig == 0 && kin[i]) p.db1_part[r0 + kpos[i]] = colsum[i];
-    }
-  }
-}
-
 // ------------------------------------------------------------ dbias2 (#16)
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kEvoWarps * 32) evo_db2_kernel(EvoArgs p) {
-  constexpr int KSTEPS = HDP / 16, LD = HDP + 8, TILE = kEvoTile * LD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* qbuf = reinterpret_cast<T*>(smem);  // [2][TILE] this row's queries
-  T* dbuf = qbuf + 2 * TILE;             // [2][TILE] their do rows
-  T* kbuf = dbuf + 2 * TILE;             // [2][TILE] this row's keys
-  T* vbuf = kbuf + 2 * TILE;             // [2][TILE]
-  float* lbuf = reinterpret_cast<float*>(vbuf + 2 * TILE);  // [2][kEvoTile] lse
-  float* ebuf = lbuf + 2 * kEvoTile;                         // [2][kEvoTile] delta
-  float* b1buf = ebuf + 2 * kEvoTile;                        // [2][kEvoTile] bias1 of the keys
+constexpr int kDb2Rows = 128, kDb2Keys = 64;  // queries, keys a unit
 
-  const int nkt = (p.S + kEvoTile - 1) / kEvoTile;
-  const int b = blockIdx.x / nkt, kt = blockIdx.x % nkt, qt = blockIdx.y, h = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int D = p.D;
-  const long long tok = (long long)p.H * D;
-  const int q0 = qt * kEvoTile, k0 = kt * kEvoTile;
-  const long long b2o = b * p.b2_sb + h * p.b2_sh;
-  zero_pad_cols<LD>(smem, 8 * kEvoTile, D, HDP);
+// A tile row of head dim HD: 64 bytes (32 columns, the 64-byte swizzle) up
+// to 32, else HD/64 boxes of 128 bytes (the 128-byte swizzle); the short
+// rows keep the narrow heads' stages small, so the ring is deep.
+template <int HD>
+__host__ __device__ constexpr int db2_row_bytes() {
+  return HD <= 32 ? 64 : (HD + 63) / 64 * 128;
+}
 
-  auto stage = [&](int n, int sel) {
-    const long long bn = (long long)b * p.N + n;
-    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh;
-    const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh;
-    const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh;
-    const T* dob = static_cast<const T*>(p.dout) + (bn * p.S * p.H + h) * D;
-    load_rows_d<T, LD>(qbuf + sel * TILE, qb, p.q_ss, q0, kEvoTile, p.S, D);
-    load_rows_d<T, LD>(dbuf + sel * TILE, dob, tok, q0, kEvoTile, p.S, D);
-    load_rows_d<T, LD>(kbuf + sel * TILE, kb, p.k_ss, k0, kEvoTile, p.S, D);
-    load_rows_d<T, LD>(vbuf + sel * TILE, vb, p.v_ss, k0, kEvoTile, p.S, D);
-    const long long r = (bn * p.H + h) * p.S;
-    load_row_f32(lbuf + sel * kEvoTile, p.lse + r, q0, kEvoTile, p.S, kNegInf);
-    load_row_f32(ebuf + sel * kEvoTile, p.delta + r, q0, kEvoTile, p.S, 0.f);
-  };
-  // bias1 of key k0 + threadIdx.x in row n (threads below kEvoTile)
-  auto b1_of = [&](int n) {
-    const int kpos = k0 + (int)threadIdx.x;
-    return (threadIdx.x < kEvoTile && kpos < p.S && p.b1_code >= 0)
-               ? bias1_at(p, b * p.b1_sb + n * p.b1_sn, kpos)
-               : 0.f;
-  };
-
-  int qpos[2];
-  bool qin[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qpos[i] = q0 + warp * 16 + grp + 8 * i;
-    qin[i] = qpos[i] < p.S;
+// Shared memory: the mbarriers, slack to align the rest to 1024 bytes, then
+// the ring's stages: Q and dO [128 queries][row], K and V [64 keys][row]
+// (a row of 128-byte boxes: [boxes][rows][128 B]), then the lse and delta
+// rows (128 fp32 each) and the keys' bias1 (64 fp32), a stage rounded up to
+// 1024 bytes.
+struct Db2Layout {
+  int q_tile, k_tile, stage_bytes;
+  __host__ __device__ explicit Db2Layout(int row_bytes) {
+    q_tile = kDb2Rows * row_bytes;
+    k_tile = kDb2Keys * row_bytes;
+    stage_bytes = (2 * q_tile + 2 * k_tile + (2 * kDb2Rows + kDb2Keys) * 4 + 1023) / 1024 * 1024;
   }
-  // the bias2 tile is the same for every MSA row: read it once
-  float b2v[4][2][4], acc[4][2][4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = j >> 1;
-        const int kpos = k0 + t * 16 + nt * 8 + 2 * tig + (j & 1);
-        b2v[t][nt][j] =
-            (qin[i] && kpos < p.S && p.b2_code >= 0) ? bias2_at(p, b2o, qpos[i], kpos) : 0.f;
-        acc[t][nt][j] = 0.f;
-      }
+  size_t smem(int stages) const {
+    return (size_t)kBwdBarBytes + 1024 + (size_t)stages * stage_bytes;
+  }
+};
 
-  stage(0, 0);
-  cp_async_commit();
-  if (threadIdx.x < kEvoTile) b1buf[threadIdx.x] = b1_of(0);
-  for (int n = 0; n < p.N; ++n) {
-    const int bsel = n & 1;
-    float b1_next = 0.f;
-    if (n + 1 < p.N) {
-      stage(n + 1, bsel ^ 1);
-      cp_async_commit();
-      b1_next = b1_of(n + 1);  // in flight while this row computes
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// unit u -> (batch, chunk, head, query tile, key tile): the tile pairs of
+// one (head, chunk) neighbours, then the heads, the chunks, the batches
+__device__ __forceinline__ void db2_unit(const BwdArgs& p, int u, int& b, int& chunk, int& h,
+                                         int& qt, int& kt) {
+  const int nkt = (p.T + kDb2Keys - 1) / kDb2Keys, tiles = nkt * ((p.T + kDb2Rows - 1) / kDb2Rows);
+  const int t = u % tiles;
+  int r = u / tiles;
+  h = r % p.N;
+  r /= p.N;
+  chunk = r % p.chunks;
+  b = r / p.chunks;
+  qt = t / nkt;
+  kt = t % nkt;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    evo_db2_kernel(const __grid_constant__ BwdArgs p, const __grid_constant__ CUtensorMap tmq,
+                   const __grid_constant__ CUtensorMap tmdo,
+                   const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv) {
+  // RB-byte rows: NAT boxes of RB bytes (RB/2 columns) a row
+  constexpr int RB = HD <= 32 ? 64 : 128, NAT = db2_row_bytes<HD>() / RB, NS = kDb2Keys / 2;
+  static_assert(HD % 16 == 0, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* full = bars + 4;
+  uint64_t* empty = full + kBwdMaxStages;
+  unsigned char* ring = smem_raw + kBwdBarBytes;
+  ring += (1024 - (smem_u32(ring) & 1023)) & 1023;
+  const Db2Layout lay(db2_row_bytes<HD>());
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  // a stage is full once its TMA bytes have landed and the 128 producer
+  // threads have written its lse, delta and bias1 rows
+  if (threadIdx.x == 0) init_bwd_barriers(bars, p.stages, 1, 128);
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    // Thread 0 issues the TMA copies; every thread stages one query's lse
+    // and delta and (below 64) one key's bias1 a stage, loaded a stage
+    // ahead and converted only when stored, so their latency runs under the
+    // wait for a free stage.
+    setmaxnreg_dec<kEvoRegProducer>();
+    const int pt = threadIdx.x;
+    int u = blockIdx.x, b = 0, chunk = 0, h = 0, qt = 0, kt = 0, n = 0, n1 = 0;
+    float lraw = 0.f, draw = 0.f;
+    uint32_t braw = 0u;
+    auto begin_unit = [&]() {
+      if (u >= p.units) return;
+      db2_unit(p, u, b, chunk, h, qt, kt);
+      n = chunk * p.chunk_rows;
+      n1 = min(p.rows, n + p.chunk_rows);
+    };
+    auto fetch = [&]() {
+      const long long rows = (((long long)b * p.rows + n) * p.N + h) * p.T;
+      const int q = qt * kDb2Rows + pt, kpos = kt * kDb2Keys + pt;
+      lraw = q < p.T ? p.lse[rows + q] : kNegInf;
+      draw = q < p.T ? p.delta[rows + q] : 0.f;
+      braw = pt < kDb2Keys && kpos < p.T && p.b1_code >= 0
+                 ? load_bias_bits(p.b1, b * p.b1_sb + n * p.b1_sn + kpos * p.b1_sk, p.b1_code)
+                 : 0u;
+    };
+    begin_unit();
+    if (u < p.units) fetch();
+    for (int it = 0; u < p.units; ++it) {
+      const int s = it % p.stages;
+      if (it >= p.stages) mbar_wait(&empty[s], (it / p.stages - 1) & 1);
+      unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+      if (pt == 0) {
+        const int q0 = qt * kDb2Rows, k0 = kt * kDb2Keys;
+        mbar_expect_tx_only(&full[s], 2 * lay.q_tile + 2 * lay.k_tile);  // all 128 arrive
+#pragma unroll
+        for (int cb = 0; cb < NAT; ++cb) {
+          const int col = cb * RB / 2;
+          tma_load_5d(st + cb * kDb2Rows * RB, &tmq, col, tma_c(p.cq, 1, h), q0,
+                      tma_c(p.cq, 3, n), tma_c(p.cq, 4, b), &full[s]);
+          tma_load_5d(st + lay.q_tile + cb * kDb2Rows * RB, &tmdo, col, tma_c(p.cdo, 1, h), q0,
+                      tma_c(p.cdo, 3, n), tma_c(p.cdo, 4, b), &full[s]);
+          tma_load_5d(st + 2 * lay.q_tile + cb * kDb2Keys * RB, &tmk, col, tma_c(p.ck, 1, h), k0,
+                      tma_c(p.ck, 3, n), tma_c(p.ck, 4, b), &full[s]);
+          tma_load_5d(st + 2 * lay.q_tile + lay.k_tile + cb * kDb2Keys * RB, &tmv, col,
+                      tma_c(p.cv, 1, h), k0, tma_c(p.cv, 3, n), tma_c(p.cv, 4, b), &full[s]);
+        }
+      }
+      // lse in natural units (+inf: a row that saw no key, or past T),
+      // delta (0 past T), the keys' bias1 (0 if absent or past T)
+      float* stats = reinterpret_cast<float*>(st + 2 * lay.q_tile + 2 * lay.k_tile);
+      stats[pt] = lraw > 0.5f * kNegInf ? lraw : __int_as_float(0x7f800000);
+      stats[kDb2Rows + pt] = draw;
+      if (pt < kDb2Keys)
+        stats[2 * kDb2Rows + pt] = p.b1_code >= 0 ? bias_of_bits(braw, p.b1_code) : 0.f;
+      mbar_arrive(&full[s]);
+      if (++n == n1) {
+        u += gridDim.x;
+        begin_unit();
+      }
+      if (u < p.units) fetch();
     }
-    __syncthreads();
-    const T* qs = qbuf + bsel * TILE;
-    const T* dos = dbuf + bsel * TILE;
-    const T* ks_ = kbuf + bsel * TILE;
-    const T* vs_ = vbuf + bsel * TILE;
-    const float* b1s = b1buf + bsel * kEvoTile;
-    float lse[2], delta[2];
-    bool live[2];
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kEvoRegConsumer>();
+  const int c = wg - 1;
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int rl = 64 * c + 16 * w + grp;  // this thread's rows rl, rl + 8 of a tile
+  float sc[NS], dp[NS], acc[NS], b2v[NS];
+  uint32_t b2n[NS];  // the next unit's bias2 bits, loaded a unit ahead
+  // this thread's bias2 bits of unit u (0 past T: such a logit is never kept)
+  auto fetch_b2 = [&](int u) {
+    int b, chunk, h, qt, kt;
+    db2_unit(p, u, b, chunk, h, qt, kt);
+    const long long o2 = b * p.b2_sb + h * p.b2_sh;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = warp * 16 + grp + 8 * i;
-      lse[i] = lbuf[bsel * kEvoTile + r];
-      delta[i] = ebuf[bsel * kEvoTile + r];
-      live[i] = lse[i] > 0.5f * kNegInf;
+    for (int j = 0; j < NS / 4; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = qt * kDb2Rows + rl + 8 * hh, kpos = kt * kDb2Keys + 8 * j + 2 * tq + e;
+          b2n[4 * j + 2 * hh + e] =
+              q < p.T && kpos < p.T
+                  ? load_bias_bits(p.b2, o2 + q * p.b2_sq + kpos * p.b2_sk, p.b2_code)
+                  : 0u;
+        }
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) sc[j] = dp[j] = 0.f;
+  int it = 0;
+  if (blockIdx.x < p.units) fetch_b2(blockIdx.x);
+  if (c == 1) turn_pass(c);  // the first consumer warpgroup takes the first turn
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    int b, chunk, h, qt, kt;
+    db2_unit(p, u, b, chunk, h, qt, kt);
+    const int k0 = kt * kDb2Keys, rw = qt * kDb2Rows + rl;
+    const int n1 = min(p.rows, (chunk + 1) * p.chunk_rows);
+    // the unit's bias2, the same for every row, and the next unit's loads
+#pragma unroll
+    for (int x = 0; x < NS; ++x) {
+      b2v[x] = bias_of_bits(b2n[x], p.b2_code);
+      acc[x] = 0.f;
     }
-    uint32_t qa[KSTEPS][4], da[KSTEPS][4];
+    if (u + gridDim.x < p.units) fetch_b2(u + gridDim.x);
+    for (int n = chunk * p.chunk_rows; n < n1; ++n, ++it) {
+      const int s = it % p.stages;
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      const unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+      const unsigned char* qs = st + c * 64 * RB;
+      const unsigned char* ks = st + 2 * lay.q_tile;
+      // s = q kT, dp = do vT (queries the accumulator rows)
+      wg_fence_regs(sc);
+      wg_fence_regs(dp);
+      turn_wait(c);
+      wg_fence();
+      kmajor_product<T, HD, kDb2Keys, RB>(sc, qs, kDb2Rows, ks);
+      kmajor_product<T, HD, kDb2Keys, RB>(dp, qs + lay.q_tile, kDb2Rows, ks + lay.k_tile);
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      wg_fence_regs(sc);
+      wg_fence_regs(dp);
+      const float* stats = reinterpret_cast<const float*>(ks + 2 * lay.k_tile);
+      float lse[2], delta[2];
+      float2 b1[NS / 4];
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      load_a_frag<T>(qa[ks], qs + warp * 16 * LD, LD, ks, lane);
-      load_a_frag<T>(da[ks], dos + warp * 16 * LD, LD, ks, lane);
-    }
+      for (int hh = 0; hh < 2; ++hh) {
+        lse[hh] = stats[rl + 8 * hh];
+        delta[hh] = stats[kDb2Rows + rl + 8 * hh];
+      }
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (k0 + t * 16 < p.S) {
-        float sc[2][4], dp[2][4];
+      for (int j = 0; j < NS / 4; ++j)
+        b1[j] = *reinterpret_cast<const float2*>(stats + 2 * kDb2Rows + 8 * j + 2 * tq);
+      warp_arrive(&empty[s], lane);  // the stage is read: the producer may refill it
+      // acc += exp(s - lse) (dp - delta), s the reference's logit
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+      for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
-        mma_rows_t<T, HDP, LD>(sc, qa, ks_, t * 16, lane);  // q kT
-        mma_rows_t<T, HDP, LD>(dp, da, vs_, t * 16, lane);  // do vT
+        for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int i = j >> 1;
-            const int kl = t * 16 + nt * 8 + 2 * tig + (j & 1);
-            if (live[i] && k0 + kl < p.S) {
-              const float s = evo_logit_v(p, sc[nt][j], b1s[kl], b2v[t][nt][j]);
-              acc[t][nt][j] += exp2f((s - lse[i]) * kLog2e) * (dp[nt][j] - delta[i]);
-            }
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * hh + e;
+            const float sl = evo_logit_s(sc[x], p.scale, true, e ? b1[j].y : b1[j].x, true, b2v[x]);
+            acc[x] = fmaf(ex2((sl - lse[hh]) * kLog2e), dp[x] - delta[hh], acc[x]);
           }
-      }
     }
-    if (n + 1 < p.N && threadIdx.x < kEvoTile) b1buf[(bsel ^ 1) * kEvoTile + threadIdx.x] = b1_next;
-    __syncthreads();  // buffer bsel is refilled by the next iteration's copy
-  }
-
-  float* out = p.db2 + ((long long)b * p.H + h) * p.S * p.S;
+    // ---- epilogue: this unit's partial sum, a thread's two keys of a row
+    // as one 8-byte store where S is even
+    float* out = p.part + ((((long long)chunk * p.B + b) * p.N + h) * p.T) * p.T;
 #pragma unroll
-  for (int t = 0; t < 4; ++t)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = j >> 1;
-        const int kpos = k0 + t * 16 + nt * 8 + 2 * tig + (j & 1);
-        if (qin[i] && kpos < p.S) out[(long long)qpos[i] * p.S + kpos] = acc[t][nt][j];
+      for (int hh = 0; hh < 2; ++hh) {
+        const int q = rw + 8 * hh, kpos = k0 + 8 * j + 2 * tq;
+        float* o = out + (long long)q * p.T + kpos;
+        const float2 v = make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+        if (q >= p.T || kpos >= p.T) continue;
+        if (p.T % 2 == 0) {
+          *reinterpret_cast<float2*>(o) = v;
+        } else {
+          o[0] = v.x;
+          if (kpos + 1 < p.T) o[1] = v.y;
+        }
       }
+  }
+}
+
+// db2 = the chunks' partial sums [chunks, total] added in ascending order
+__global__ void evo_db2_sum_kernel(const float* __restrict__ part, float* __restrict__ db2,
+                                   long long total, int chunks) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (total % 4 == 0) {
+    const long long n4 = total / 4;
+    const float4* src = reinterpret_cast<const float4*>(part);
+    for (long long i = i0; i < n4; i += stride) {
+      float4 s = src[i];
+      for (int c = 1; c < chunks; ++c) {
+        const float4 v = src[c * n4 + i];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      reinterpret_cast<float4*>(db2)[i] = s;
+    }
+  } else {
+    for (long long i = i0; i < total; i += stride) {
+      float s = part[i];
+      for (int c = 1; c < chunks; ++c) s += part[c * total + i];
+      db2[i] = s;
+    }
+  }
 }
 
 // ---------------------------------------------------- dbias1 (#17), reduce
@@ -608,34 +584,110 @@ cudaError_t launch_bwd_simt(int which, const EvoArgs& a, cudaStream_t st) {
 }
 
 template <typename T, int HDP>
-cudaError_t launch_bwd_t(int which, const EvoArgs& a, cudaStream_t st) {
+cudaError_t launch_dq(const EvoArgs& a, cudaStream_t st) {
   constexpr size_t TILE = (size_t)kEvoTile * (HDP + 8) * sizeof(T);
   const int nt = (a.S + kEvoTile - 1) / kEvoTile;
-  cudaError_t err = cudaSuccess;
-  if (which == 0) {
-    err = allow_dynamic_smem<evo_dq_kernel<T, HDP>>();
-    if (err != cudaSuccess) return err;
-    evo_dq_kernel<T, HDP><<<dim3(a.B * a.N, nt, a.H), kEvoWarps * 32, 4 * TILE, st>>>(a);
-  } else if (which == 1) {
-    err = allow_dynamic_smem<evo_dkv_kernel<T, HDP>>();
-    if (err != cudaSuccess) return err;
-    evo_dkv_kernel<T, HDP><<<dim3(a.B * a.N, nt, a.H), kEvoWarps * 32,
-                             6 * TILE + 4 * kEvoTile * sizeof(float), st>>>(a);
-  } else {
-    err = allow_dynamic_smem<evo_db2_kernel<T, HDP>>();
-    if (err != cudaSuccess) return err;
-    evo_db2_kernel<T, HDP><<<dim3(a.B * nt, nt, a.H), kEvoWarps * 32,
-                             8 * TILE + 6 * kEvoTile * sizeof(float), st>>>(a);
-  }
+  const cudaError_t err = allow_dynamic_smem<evo_dq_kernel<T, HDP>>();
+  if (err != cudaSuccess) return err;
+  evo_dq_kernel<T, HDP><<<dim3(a.B * a.N, nt, a.H), kEvoWarps * 32, 4 * TILE, st>>>(a);
   return cudaGetLastError();
 }
 
+// The plan of a 16-bit dk/dv or dbias2 launch (ops/evoformer.py
+// evo_bwd_plan): ring depth, slots, chunks of MSA rows.
+struct EvoPlan {
+  int stages, slots, chunks;
+};
+
+// dk/dv (which 1) on evo_dkv_kernel and dbias2 (which 2) on
+// evo_db2_kernel: q, k, v [B, N, S, H, D] as 5-D tensor maps (D, head,
+// token, row, batch) through their strides and do the same contiguous, in
+// boxes of [rows, 64 columns] in the 128-byte swizzle (the columns past D
+// zero-filled); dk/dv's bias2 [B, H, S, S] as a 4-D map in boxes of [BM
+// queries, 128 bytes of keys] where its layout allows (keys contiguous,
+// 16-byte aligned base and strides, queries not broadcast), else staged
+// element by element.
+template <typename T, int HD>
+cudaError_t launch_bwd_wgmma(int which, const EvoArgs& a, const EvoPlan& plan, cudaStream_t st) {
+  const int b2_esz = a.b2_code < 0 ? 0 : (a.b2_code == 0 ? 4 : 2);
+  constexpr int BM = HD <= 64 ? 64 : 32;  // dk/dv's queries a stage
+  BwdArgs p{};
+  p.lse = a.lse; p.delta = a.delta; p.dout = a.dout;
+  p.dk = a.dk; p.dv = a.dv;
+  p.T = a.S; p.N = a.H; p.Nkv = a.H; p.hd = a.D; p.rows = a.N;
+  p.B = which == 1 ? a.B * a.N : a.B;
+  p.stages = plan.stages; p.slots = plan.slots;
+  p.scale = a.scale;
+  p.b1 = a.b1; p.b1_sb = a.b1_sb; p.b1_sn = a.b1_sn; p.b1_sk = a.b1_sk; p.b1_code = a.b1_code;
+  p.b2 = a.b2; p.b2_sb = a.b2_sb; p.b2_sh = a.b2_sh; p.b2_sq = a.b2_sq; p.b2_sk = a.b2_sk;
+  p.b2_code = a.b2_code;
+  p.db1_part = a.db1_part;
+  p.part = a.db2_part;
+  const long long dims[5] = {a.D, a.H, a.S, a.N, a.B};
+  const long long sq[5] = {1, a.q_sh, a.q_ss, a.q_sn, a.q_sb},
+                  sk[5] = {1, a.k_sh, a.k_ss, a.k_sn, a.k_sb},
+                  sv[5] = {1, a.v_sh, a.v_ss, a.v_sn, a.v_sb},
+                  sdo[5] = {1, a.D, (long long)a.H * a.D, (long long)a.S * a.H * a.D,
+                            (long long)a.N * a.S * a.H * a.D};
+  // dbias2 at head dims up to 32 reads rows of 64 bytes (the 64-byte swizzle)
+  const bool narrow = which == 2 && HD <= 32;
+  const int q_rows = which == 1 ? BM : kDb2Rows, k_rows = which == 1 ? 128 : kDb2Keys;
+  const int cols = narrow ? 32 : 64;
+  const int box_q[5] = {cols, 1, q_rows, 1, 1}, box_k[5] = {cols, 1, k_rows, 1, 1};
+  CUtensorMap tmq{}, tmdo{}, tmk{}, tmv{}, tmb2{};
+  const auto sw = narrow ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_nd(&tmq, tma_dtype<T>(), 2, a.q, 5, dims, sq, box_q, sw, &p.cq) ||
+      !tensor_map_nd(&tmdo, tma_dtype<T>(), 2, a.dout, 5, dims, sdo, box_q, sw, &p.cdo) ||
+      !tensor_map_nd(&tmk, tma_dtype<T>(), 2, a.k, 5, dims, sk, box_k, sw, &p.ck) ||
+      !tensor_map_nd(&tmv, tma_dtype<T>(), 2, a.v, 5, dims, sv, box_k, sw, &p.cv))
+    return cudaErrorInvalidValue;
+  if (which == 2) {
+    // the rows split as evo_bwd_plan splits them: chunk_rows = ceil(N /
+    // chunks), and no chunk empty
+    if (plan.chunks < 1 || a.db2_part == nullptr) return cudaErrorInvalidValue;
+    p.chunks = plan.chunks;
+    p.chunk_rows = (a.N + plan.chunks - 1) / plan.chunks;
+    if ((a.N + p.chunk_rows - 1) / p.chunk_rows != plan.chunks) return cudaErrorInvalidValue;
+    const long long units = (long long)a.B * plan.chunks * a.H *
+                            ((a.S + kDb2Rows - 1) / kDb2Rows) * ((a.S + kDb2Keys - 1) / kDb2Keys);
+    p.slots = 1;
+    const size_t smem = Db2Layout(db2_row_bytes<HD>()).smem(p.stages);
+    int grid = 0;
+    cudaError_t err = bwd_grid(p, smem, units, grid);
+    if (err != cudaSuccess) return err;
+    p.units = (int)units;
+    err = allow_dynamic_smem<evo_db2_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    evo_db2_kernel<T, HD><<<grid, kBwdThreads, smem, st>>>(p, tmq, tmdo, tmk, tmv);
+    return cudaGetLastError();
+  }
+  if (a.b2_code >= 0) {
+    const CUtensorMapDataType dt = a.b2_code == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : a.b2_code == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const long long d2[4] = {a.S, a.S, a.H, a.B}, s2[4] = {a.b2_sk, a.b2_sq, a.b2_sh, a.b2_sb};
+    const int box2[4] = {128 / b2_esz, BM, 1, 1};
+    // a bias2 broadcast over queries (query stride 0) collapses that dim to
+    // one row, which a box of BM rows cannot read: element by element
+    p.b2_tma = (reinterpret_cast<uintptr_t>(a.b2) % 16 == 0) &&
+               tensor_map_nd(&tmb2, dt, b2_esz, a.b2, 4, d2, s2, box2, sw, &p.cb2) &&
+               (!(p.cb2 & 2) || a.S == 1);
+  }
+  return launch_evo_dkv<T, HD, BM>(p, tmk, tmv, tmq, tmdo, tmb2, st);
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd_hd(int which, const EvoArgs& a, const EvoPlan& plan, cudaStream_t st) {
+  if (which == 0) return launch_dq<T, HD>(a, st);
+  return launch_bwd_wgmma<T, HD>(which, a, plan, st);
+}
+
 template <typename T>
-cudaError_t launch_bwd_d(int which, const EvoArgs& a, cudaStream_t st) {
-  if (a.D <= 16) return launch_bwd_t<T, 16>(which, a, st);
-  if (a.D <= 32) return launch_bwd_t<T, 32>(which, a, st);
-  if (a.D <= 64) return launch_bwd_t<T, 64>(which, a, st);
-  if (a.D <= 128) return launch_bwd_t<T, 128>(which, a, st);
+cudaError_t launch_bwd_d(int which, const EvoArgs& a, const EvoPlan& plan, cudaStream_t st) {
+  if (a.D <= 16) return launch_bwd_hd<T, 16>(which, a, plan, st);
+  if (a.D <= 32) return launch_bwd_hd<T, 32>(which, a, plan, st);
+  if (a.D <= 64) return launch_bwd_hd<T, 64>(which, a, plan, st);
+  if (a.D <= 128) return launch_bwd_hd<T, 128>(which, a, plan, st);
   return launch_bwd_simt<T, 256>(which, a, st);
 }
 
@@ -651,20 +703,26 @@ inline cudaError_t launch_bwd_f32(int which, const EvoArgs& a, cudaStream_t st) 
 // non-null it also writes bias1's per-head column sums), 2 dbias2 (#16), 3
 // dbias1 (#17: db1 [B*N, S] from db1_part [B*N, H, S]).  q, k, v, biases,
 // strides, codes, scale and dtype as ds_evoformer_fwd; do [B, N, S, H, D]
-// contiguous in q's dtype; lse, delta [B*N, H, S] fp32; dq, dk, dv [B, N, S,
-// H, D] contiguous; db2 [B, H, S, S] fp32.
+// contiguous in q's dtype; lse, delta [B*N, H, S] fp32; dq, dk, dv [B, N,
+// S, H, D] contiguous; db2 [B, H, S, S] fp32.  16-bit inputs with D up to
+// 128 take dk/dv and dbias2 on the tensor-core kernels, tiled by `stages`,
+// `slots` and `chunks` (ops/evoformer.py evo_bwd_plan); their dbias2
+// writes its partial sums to db2_part [chunks, B, H, S, S] fp32, and
+// ds_evoformer_db2_sum then makes db2.  fp32 and D above 128 (the
+// CUDA-core variants) ignore the plan and write db2 directly.
 extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const void* v,
                                 const void* b1, const void* b2, const void* dout,
                                 const void* lse, const void* delta, void* dq, void* dk, void* dv,
-                                void* db1_part, void* db1, void* db2, int B, int N, int S, int H,
-                                int D, const long long* qkv_strides,
+                                void* db1_part, void* db1, void* db2, void* db2_part, int B,
+                                int N, int S, int H, int D, const long long* qkv_strides,
                                 const long long* bias_strides, int b1_code, int b2_code,
-                                float scale, int dtype, void* stream) {
+                                float scale, int stages, int slots, int chunks, int dtype,
+                                void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
   const long long ntiles = (S + dsk::kEvoSimtWarps - 1) / dsk::kEvoSimtWarps;
   if (B < 1 || N < 1 || S < 1 || H < 1 || H > 65535 || D < 8 || D > 256 || D % 8 != 0 ||
       ntiles > 65535 || (long long)B * N > 2147483647LL || (long long)B * S > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  auto st = static_cast<cudaStream_t>(stream);
   if (which == 3) {
     if (db1_part == nullptr || db1 == nullptr) return (int)cudaErrorInvalidValue;
     const long long total = (long long)B * N * S;
@@ -675,7 +733,7 @@ extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const v
   }
   if (which < 0 || which > 2 || dout == nullptr || lse == nullptr || delta == nullptr ||
       (which == 0 && dq == nullptr) || (which == 1 && (dk == nullptr || dv == nullptr)) ||
-      (which == 2 && db2 == nullptr))
+      (which == 2 && db2 == nullptr && db2_part == nullptr))
     return (int)cudaErrorInvalidValue;
   dsk::EvoArgs a{};
   a.q = q; a.k = k; a.v = v; a.b1 = b1; a.b2 = b2;
@@ -685,6 +743,7 @@ extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const v
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.db1_part = static_cast<float*>(db1_part);
   a.db2 = static_cast<float*>(db2);
+  a.db2_part = static_cast<float*>(db2_part);
   a.B = B; a.N = N; a.S = S; a.H = H; a.D = D;
   const long long* s = qkv_strides;
   a.q_sb = s[0]; a.q_sn = s[1]; a.q_ss = s[2]; a.q_sh = s[3];
@@ -696,8 +755,27 @@ extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const v
   a.b1_code = b1 != nullptr ? b1_code : -1;
   a.b2_code = b2 != nullptr ? b2_code : -1;
   a.scale = scale;
-  if (dtype == 0) return (int)dsk::launch_bwd_f32(which, a, st);
-  if (dtype == 1) return (int)dsk::launch_bwd_d<__half>(which, a, st);
-  if (dtype == 2) return (int)dsk::launch_bwd_d<__nv_bfloat16>(which, a, st);
+  if (which == 2 && a.b2_code < 0) return (int)cudaErrorInvalidValue;  // dbias2 needs bias2
+  const dsk::EvoPlan plan{stages, slots, chunks};
+  if (dtype == 0) {
+    if (which == 2 && db2 == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)dsk::launch_bwd_f32(which, a, st);
+  }
+  if (D > 128 && which == 2 && db2 == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return (int)dsk::launch_bwd_d<__half>(which, a, plan, st);
+  if (dtype == 2) return (int)dsk::launch_bwd_d<__nv_bfloat16>(which, a, plan, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// dbias2's second pass: db2 (`total` fp32) = the `chunks` partials of
+// part [chunks, total] added in ascending order.
+extern "C" int ds_evoformer_db2_sum(const void* part, void* db2, long long total, int chunks,
+                                    void* stream) {
+  if (total < 1 || chunks < 1 || part == nullptr || db2 == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long n = total % 4 == 0 ? total / 4 : total;
+  const int blocks = (int)((n + 255) / 256 < 1056 ? (n + 255) / 256 : 1056);
+  dsk::evo_db2_sum_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(db2), total, chunks);
+  return (int)cudaGetLastError();
 }

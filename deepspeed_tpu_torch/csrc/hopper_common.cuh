@@ -146,6 +146,14 @@ __device__ __forceinline__ uint64_t wg_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
+// The same for RB-byte rows in the RB-byte swizzle (RB 128: wg_desc; RB 64:
+// 8 rows of 64 bytes form a 512-byte atom, the layout code 2), K-major.
+template <int RB>
+__device__ __forceinline__ uint64_t wg_desc_rb(const void* p) {
+  static_assert(RB == 64 || RB == 128, "swizzle width");
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(8 * RB >> 4) << 32) | ((uint64_t)(RB == 128 ? 1 : 2) << 62);
+}
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() {

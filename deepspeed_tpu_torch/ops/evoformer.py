@@ -21,9 +21,16 @@ Implementations, chosen by the device of the tensors:
   head dims: a CUDA-core kernel);
   and ``cuda_evoformer_bwd`` (csrc/evoformer_bwd.cu), the reference's four
   backward kernels: dq, dk/dv, dbias2 and dbias1 (the last as per-head
-  column sums inside dk/dv, added over heads in order).  q, k, v and both
-  biases are read through their strides.  ``torch_evoformer_bwd`` is the
-  backward kernels' formula without tiles, their reference.
+  column sums inside dk/dv, added over heads in order).  16-bit with head
+  dim up to 128: dk/dv on the warp-specialised TMA + wgmma dk/dv of
+  csrc/attn_bwd_hopper.cuh (its evoformer variant) and dbias2 on a TMA +
+  wgmma kernel whose units split the N rows into chunks (fp32 partial sums,
+  added in ascending order by a second pass), both tiled by
+  ``evo_bwd_plan``; dq stays on mma.sync; fp32 and wider head dims take
+  CUDA-core kernels.  q, k, v and both biases are read through their
+  strides.  ``torch_evoformer_bwd`` is the backward kernels' formula
+  without tiles, their reference, and ``torch_evoformer_db2_sum`` the
+  second pass's.
 
 ``evoformer_attention`` routes as the reference does: an S that no block
 tiles is padded (padded keys masked through bias1 = -1e9, padded query rows
@@ -41,7 +48,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.ops.flash_attention import _check_rc, _ptr, fwd_plan
+from deepspeed_tpu_torch.ops.flash_attention import (
+    SMEM_LIMIT, _BWD_MAX_STAGES, _check_rc, _ptr, fwd_plan)
 
 NEG_INF = -1e30     # finite "minus infinity" of the kernels
 
@@ -84,6 +92,17 @@ def torch_evoformer_fwd(q, k, v, bias1=None, bias2=None):
     return o, lse
 
 
+def _probs_ds(q, k, bias1, bias2, lse, dp, delta):
+    """p = exp(s − lse) (0 on a row whose lse is −1e30) and ds = p·(dp −
+    delta), fp32 [B, N, H, S, S], from the logits recomputed in the
+    forward's order."""
+    b, n, s, h, _ = q.shape
+    lse = lse.reshape(b, n, h, s, 1)
+    p = torch.where(lse > NEG_INF / 2,
+                    torch.exp(_logits(q, k, bias1, bias2) - lse), 0.0)
+    return p, p * (dp - delta.reshape(b, n, h, s, 1))
+
+
 def torch_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do):
     """The backward kernels' formula without tiles (the reference's
     _bwd_impl :291) → (dq, dk, dv, db1 fp32 [B, N, 1, 1, S] | None, db2
@@ -95,11 +114,8 @@ def torch_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do):
     reference casts; dbias2 = Σ_n ds, dbias1 = Σ_{h,q} ds."""
     b, n, s, h, d = q.shape
     scale = d ** -0.5
-    lse = lse.reshape(b, n, h, s, 1)
-    p = torch.where(lse > NEG_INF / 2,
-                    torch.exp(_logits(q, k, bias1, bias2) - lse), 0.0)
     dp = torch.einsum("bnqhd,bnkhd->bnhqk", do.float(), v.float())
-    ds = p * (dp - _delta(o, do).reshape(b, n, h, s, 1))
+    p, ds = _probs_ds(q, k, bias1, bias2, lse, dp, _delta(o, do))
     dq = scale * torch.einsum("bnhqk,bnkhd->bnqhd", ds.to(k.dtype).float(),
                               k.float())
     dk = scale * torch.einsum("bnhqk,bnqhd->bnkhd", ds.to(q.dtype).float(),
@@ -109,6 +125,34 @@ def torch_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do):
     db1 = None if bias1 is None else ds.sum((2, 3)).reshape(b, n, 1, 1, s)
     db2 = None if bias2 is None else ds.sum(1).reshape(b, 1, h, s, s)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), db1, db2
+
+
+def torch_evoformer_db2_part(q, k, v, bias1, bias2, o, lse, do, rows):
+    """The 16-bit dbias2 kernel's partial sums without tiles → fp32
+    [len(rows), B, H, S, S]: for each chunk (lo, hi) of the MSA rows (as
+    ``evo_bwd_plan`` splits them), ds summed over rows lo..hi−1 one row
+    after another, as each unit walks its chunk.  q, k, v, bias1, o, do and
+    lse ([B·N, H, 1, S]) may hold only the rows that ``rows`` covers,
+    counted from the first."""
+    b, n, s, h, _ = q.shape
+    dp = torch.einsum("bnqhd,bnkhd->bnhqk", do.float(), v.float())
+    ds = _probs_ds(q, k, bias1, bias2, lse, dp, _delta(o, do))[1]
+    parts = []
+    for lo, hi in rows:
+        acc = torch.zeros_like(ds[:, 0])
+        for r in range(lo, hi):
+            acc = acc + ds[:, r]
+        parts.append(acc)
+    return torch.stack(parts)
+
+
+def torch_evoformer_db2_sum(part):
+    """The second pass's formula: db2 [B, H, S, S] = the chunks of part
+    [chunks, B, H, S, S] fp32 added in ascending order."""
+    out = part[0].clone()
+    for c in range(1, part.shape[0]):
+        out = out + part[c]
+    return out
 
 
 def _block_sizes(s: int, prefer: int = 512):
@@ -148,6 +192,77 @@ def evo_fwd_plan(d: int, bias2_bytes: int = 2) -> dict:
     return fwd_plan(hd_k, bn, 128 * bn * bias2_bytes + 4 * bn)
 
 
+_DB2_WAVES = 8       # dbias2's units: about this many to a multiprocessor
+H100_SMS = 132       # the H100's streaming multiprocessors
+
+
+def _ceil1024(x: int) -> int:
+    return -(-x // 1024) * 1024
+
+
+def evo_bwd_plan(d: int, bias2_bytes: int = 2, b: int = 1, n: int = 1,
+                 s: int = 1, h: int = 1, sms: int = H100_SMS) -> dict:
+    """The 16-bit backward's tiles for head dim ``d`` (8..128) at the
+    forward's compiled widths hd_k (16, 32, 64, 128; TMA boxes of 64
+    columns, the pad zero-filled), with bias2 of ``bias2_bytes`` an
+    element (0: none) and [B, N, S, H] = ``b, n, s, h``.
+
+    dk/dv (csrc/attn_bwd_hopper.cuh ``BwdLayout::evo_dkv``, the same
+    formula): 128 ``keys`` a unit, its K, V and bias1 slice in a slot;
+    ``bm`` queries a ring stage (64 up to hd_k 64, 32 at 128, where dk + dv
+    take 128 registers a thread) with the [bm, 128] bias2 tile and the lse
+    and delta rows.  Two
+    slots (the next unit's K and V land during this one) where two stages
+    still fit beside them, else one; then as many stages as fit, at most
+    ``_BWD_MAX_STAGES``.
+
+    dbias2 (csrc/evoformer_bwd.cu ``Db2Layout``): units of 128 ``queries``
+    x 64 ``keys`` x a chunk of MSA rows, a stage one row's Q, dO, K, V
+    (``row_bytes`` a row: 64 up to hd_k 32, in the 64-byte swizzle, so the
+    narrow heads' ring is deep) and its lse, delta and bias1 rows
+    (``units`` in all; dk/dv's ``units`` are
+    its (batch * row, head, key tile) units).  ``chunks`` partition [0, N) in
+    ascending order, ``chunk_rows`` each (the last shorter; ``rows`` their
+    bounds), as many as give the units ``_DB2_WAVES`` times ``sms``; each
+    unit writes an fp32 partial, [chunks, B, H, S, S] (``part_bytes``),
+    which the second pass adds in chunk order."""
+    hd_k = next(w for w in (16, 32, 64, 128) if d <= w)
+    hdp = -(-hd_k // 64) * 64
+    fixed = (4 + 2 * _BWD_MAX_STAGES) * 8 + 1024  # mbarriers, alignment slack
+    bm = 64 if hd_k <= 64 else 32
+    slot = _ceil1024(2 * 128 * hdp * 2 + 128 * 4)
+    stage = _ceil1024(2 * bm * hdp * 2 + bm * 128 * bias2_bytes + 2 * bm * 4)
+    fits = {slots: min(_BWD_MAX_STAGES,
+                       (SMEM_LIMIT - fixed - slots * slot) // stage)
+            for slots in (2, 1)}
+    slots = 2 if fits[2] >= 2 else 1
+    stages = fits[slots]
+    row2 = 64 if hd_k <= 32 else hdp * 2     # dbias2's tile row, bytes
+    stage2 = _ceil1024(2 * 128 * row2 + 2 * 64 * row2 + (2 * 128 + 64) * 4)
+    stages2 = min(_BWD_MAX_STAGES, (SMEM_LIMIT - fixed) // stage2)
+    if min(stages, stages2) < 2:
+        raise ValueError(f"no backward plan fits {SMEM_LIMIT} bytes at head "
+                         f"dim {hd_k}, bias2 of {bias2_bytes} bytes")
+    tiles = b * h * -(-s // 128) * -(-s // 64)
+    want = max(1, min(n, -(-_DB2_WAVES * sms // tiles)))
+    rows = -(-n // want)
+    chunks = -(-n // rows)
+    return dict(
+        hd_k=hd_k, hdp=hdp,
+        dkv=dict(keys=128, bm=bm, slots=slots, stages=stages,
+                 slot_bytes=slot, stage_bytes=stage,
+                 smem=fixed + slots * slot + stages * stage,
+                 units=b * n * h * -(-s // 128)),
+        db2=dict(queries=128, keys=64, row_bytes=row2, stages=stages2,
+                 stage_bytes=stage2,
+                 smem=fixed + stages2 * stage2, units=tiles * chunks,
+                 chunks=chunks,
+                 chunk_rows=rows,
+                 rows=tuple((i * rows, min(n, (i + 1) * rows))
+                            for i in range(chunks)),
+                 part_bytes=chunks * b * h * s * s * 4))
+
+
 def _bias_views(q, bias1, bias2):
     """bias1 as a [B, N, 1, 1, S] view and bias2 as a [B, 1, H, S, S] view
     (stride 0 where broadcast; nothing is materialised)."""
@@ -184,6 +299,12 @@ def shape_problem(q, k, v, bias1=None, bias2=None) -> Optional[str]:
                    f"stride and the base 16-byte aligned (TMA's rule: " \
                    f"strides {tuple(x.stride())}, base offset " \
                    f"{x.data_ptr() % 16} bytes)"
+        # a token stride of 0 collapses the map's token dim to one row,
+        # which the tensor-core kernels' boxes of many rows cannot read
+        if x.stride(2) == 0 and s > 1 and q.dtype != torch.float32 \
+                and d <= 128:
+            return f"{name}: a token stride of 0 (broadcast over tokens) " \
+                   f"cannot be read by TMA; pass it contiguous"
     for name, x in (("bias1", bias1), ("bias2", bias2)):
         if x is not None and x.dtype not in _BIAS_CODE:
             return f"{name} must be float32/float16/bfloat16"
@@ -232,9 +353,13 @@ def _lib(name="evoformer"):
                                              + [I, I, F_, I, I, I, P])
             lib.ds_evoformer_fwd.restype = I
         else:
-            lib.ds_evoformer_bwd.argtypes = ([I] + [P] * 14 + [I] * 5
-                                             + [P, P] + [I, I, F_, I, P])
+            lib.ds_evoformer_bwd.argtypes = ([I] + [P] * 15 + [I] * 5
+                                             + [P, P] + [I, I, F_] + [I] * 4
+                                             + [P])
             lib.ds_evoformer_bwd.restype = I
+            lib.ds_evoformer_db2_sum.argtypes = [P, P, ctypes.c_longlong, I,
+                                                 P]
+            lib.ds_evoformer_db2_sum.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
         lib._ds_declared = True
@@ -323,14 +448,51 @@ def _bwd_problem(q, k, v, bias1, bias2, o, lse, do) -> Optional[str]:
 _BWD_KERNEL = {"dq": 0, "dkv": 1, "db2": 2, "db1": 3}
 
 
+def tensor_core_bwd(q) -> bool:
+    """The backward's route rule: 16-bit q with head dim up to 128 takes
+    dk/dv and dbias2 on the TMA + wgmma kernels (tiled by ``evo_bwd_plan``;
+    dbias2 through its partial sums and the second pass); fp32 and wider
+    head dims take the CUDA-core variants, which write dbias2 directly."""
+    return q.dtype != torch.float32 and q.shape[-1] <= 128
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_plan(q, b2):
+    b, n, s, h, d = q.shape
+    return evo_bwd_plan(d, 0 if b2 is None else b2.element_size(), b, n, s,
+                        h, _sms(q.device.index))
+
+
+def _launch_bwd(which, q, k, v, b1, b2, lse, delta, do, out, plan=(0, 0, 0)):
+    b, n, s, h, d = q.shape
+    lib = _lib("evoformer_bwd")
+    rc = lib.ds_evoformer_bwd(
+        _BWD_KERNEL[which], _ptr(q), _ptr(k), _ptr(v), _ptr(b1), _ptr(b2),
+        _ptr(do), _ptr(lse), _ptr(delta),
+        *(_ptr(out.get(x)) for x in ("dq", "dk", "dv", "part", "db1", "db2",
+                                     "db2_part")),
+        b, n, s, h, d, *_strides(q, k, v, b1, b2), *_codes(b1, b2),
+        float(d ** -0.5), *plan, _DTYPE_CODE[q.dtype], _stream(q))
+    _check_rc(lib, rc, f"evoformer_{which}")
+
+
 def _bwd_kernel(which, q, k, v, b1, b2, lse, delta, do, part=None):
     """Launch one backward kernel on checked inputs (b1 / b2 the broadcast
     views) and return its output: dq; (dk, dv, part) — ``part=True``
     also writes bias1's per-head column sums of ds, fp32 [B·N, H, S];
-    db2 fp32 [B, H, S, S]; or, from ``part``, db1 fp32 [B·N, S]."""
+    db2 fp32 [B, H, S, S] (on the tensor cores: the chunks' partial sums,
+    then the second pass, one call); or, from ``part``, db1 fp32
+    [B·N, S]."""
     b, n, s, h, d = q.shape
     empty = functools.partial(torch.empty, device=q.device)
-    out = dict.fromkeys(("dq", "dk", "dv", "part", "db1", "db2"))
+    out = {}
+    tc = tensor_core_bwd(q) and which in ("dkv", "db2")
+    plan = _bwd_plan(q, b2) if tc else None
+    knobs = (0, 0, 0)
     if which == "dq":
         out["dq"] = empty(q.shape, dtype=q.dtype)
     elif which == "dkv":
@@ -338,34 +500,56 @@ def _bwd_kernel(which, q, k, v, b1, b2, lse, delta, do, part=None):
         out["dv"] = empty(q.shape, dtype=q.dtype)
         if part:
             out["part"] = empty((b * n, h, s), dtype=torch.float32)
+        if tc:
+            knobs = (plan["dkv"]["stages"], plan["dkv"]["slots"], 0)
     elif which == "db2":
         out["db2"] = empty((b, h, s, s), dtype=torch.float32)
+        if tc:
+            knobs = (plan["db2"]["stages"], 1, plan["db2"]["chunks"])
+            out["db2_part"] = empty((knobs[2], b, h, s, s),
+                                    dtype=torch.float32)
     else:
         out["part"] = part
         out["db1"] = empty((b * n, s), dtype=torch.float32)
-    lib = _lib("evoformer_bwd")
-    rc = lib.ds_evoformer_bwd(
-        _BWD_KERNEL[which], _ptr(q), _ptr(k), _ptr(v), _ptr(b1), _ptr(b2),
-        _ptr(do), _ptr(lse), _ptr(delta),
-        *(_ptr(out[x]) for x in ("dq", "dk", "dv", "part", "db1", "db2")),
-        b, n, s, h, d, *_strides(q, k, v, b1, b2), *_codes(b1, b2),
-        float(d ** -0.5), _DTYPE_CODE[q.dtype], _stream(q))
-    _check_rc(lib, rc, f"evoformer_{which}")
+    _launch_bwd(which, q, k, v, b1, b2, lse, delta, do, out, knobs)
     counter = f"{which}_launches"
     setattr(cuda_evoformer_bwd, counter,
             getattr(cuda_evoformer_bwd, counter) + 1)
+    if which == "db2" and tc:
+        cuda_evoformer_db2_sum(out["db2_part"], out["db2"])
     if which == "dkv":
-        return out["dk"], out["dv"], out["part"]
+        return out["dk"], out["dv"], out.get("part")
     return out[which]
+
+
+def cuda_evoformer_db2_sum(part, db2=None):
+    """dbias2's second pass on the card (``evo_db2_sum_kernel``): db2 fp32
+    [B, H, S, S] (written into ``db2`` when given) = the chunks of the
+    contiguous fp32 partial [chunks, B, H, S, S] added in ascending order."""
+    if part.device.type != "cuda" or part.dtype != torch.float32 \
+            or part.dim() != 5 or not part.is_contiguous():
+        raise ValueError(f"cuda_evoformer_db2_sum: part must be a contiguous "
+                         f"float32 [chunks, B, H, S, S] CUDA tensor, got "
+                         f"{part.dtype} {tuple(part.shape)} on {part.device}")
+    if db2 is None:
+        db2 = torch.empty(part.shape[1:], dtype=torch.float32,
+                          device=part.device)
+    lib = _lib("evoformer_bwd")
+    rc = lib.ds_evoformer_db2_sum(
+        _ptr(part), _ptr(db2), part[0].numel(), part.shape[0], _stream(part))
+    _check_rc(lib, rc, "evoformer_db2_sum")
+    cuda_evoformer_bwd.db2_sum_launches += 1
+    return db2
 
 
 def cuda_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do, db1=None,
                        db2=None):
     """Backward on the card → (dq, dk, dv, db1 fp32 [B, N, 1, 1, S] | None,
     db2 fp32 [B, 1, H, S, S] | None), through dq (#14), dk/dv (#15),
-    dbias2 (#16) and dbias1 (#17); ``db1`` / ``db2`` (default: whether
-    the bias is given) say whether the bias gradients are wanted, and the
-    reference's unused bias cotangents cost nothing here either."""
+    dbias2 (#16, with its second pass on the tensor-core route) and dbias1
+    (#17); ``db1`` / ``db2`` (default: whether the bias is given) say
+    whether the bias gradients are wanted, and the reference's unused bias
+    cotangents cost nothing here either."""
     problem = _bwd_problem(q, k, v, bias1, bias2, o, lse, do)
     if problem is not None:
         raise ValueError(f"cuda_evoformer_bwd: {problem}")
@@ -385,6 +569,7 @@ def cuda_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do, db1=None,
 cuda_evoformer_bwd.dq_launches = 0
 cuda_evoformer_bwd.dkv_launches = 0
 cuda_evoformer_bwd.db2_launches = 0
+cuda_evoformer_bwd.db2_sum_launches = 0
 cuda_evoformer_bwd.db1_launches = 0
 
 

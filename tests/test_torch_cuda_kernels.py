@@ -845,6 +845,8 @@ EVO_CASES = {
     "none_d64": (64, 13, "none"),
     "both_d128_s100": (128, 100, "both"),
     "broadcast_d32_s383": (32, 383, "broadcast"),
+    # bias2 [B, 1, H, 1, S], shared by every query (read element by element)
+    "b2q_d32_s200": (32, 200, "b2q"),
     # AlphaFold2's MSA row call's S and D (both biases)
     "both_d32_s384": (32, 384, "both"),
     # head dims above 128: the CUDA-core variants
@@ -854,15 +856,26 @@ EVO_CASES = {
 
 
 def _evo_case(dev, dtype, D, S, bias, B=1, N=3, H=4):
+    """q, k, v [B, N, S, H, D], bias1 [B, N, 1, 1, S] fp32 (row 1 with a
+    masked tail, row 2 all masked, where N has them) and bias2 [B, 1, H,
+    S, S] in ``dtype``; ``bias``: "both", "b1", "b2", "none", "bothf32"
+    (bias2 in fp32), "broadcast" (bias1 [B, 1, 1, 1, S], bias2 expanded
+    over a doubled batch), or "b2q" / "b2qf32" (both biases, bias2 [B, 1,
+    H, 1, S] shared by every query, in ``dtype`` / fp32)."""
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand(*shape, dt=dtype):
         return torch.randn(shape, device=dev, generator=gen).to(dt)
     q, k, v = (rand(B, N, S, H, D) for _ in range(3))
     b1 = rand(B, N, 1, 1, S, dt=torch.float32)
-    b1[:, 1, ..., -3:] = -1e9                   # a masked tail on one row
-    b1[:, 2] = -1e9                             # every key masked
-    b2 = rand(B, 1, H, S, S)
+    if N > 1:
+        b1[:, 1, ..., -3:] = -1e9               # a masked tail on one row
+    if N > 2:
+        b1[:, 2] = -1e9                         # every key masked
+    b2 = rand(B, 1, H, S, S, dt=torch.float32 if bias.endswith("f32")
+              else dtype)
+    if bias.startswith("b2q"):
+        b2 = b2[..., :1, :]
     if bias == "broadcast":
         b1, b2 = b1[:, :1], b2.expand(2, 1, H, S, S)
         q, k, v = (torch.cat([x, x]) for x in (q, k, v))
@@ -968,32 +981,97 @@ def test_bwd_plan_is_what_the_kernel_takes(cuda, dtype, case):
 
 def _evo_bwd_counts():
     f = evo.cuda_evoformer_bwd
-    return [f.dq_launches, f.dkv_launches, f.db2_launches, f.db1_launches]
+    return [f.dq_launches, f.dkv_launches, f.db2_launches,
+            f.db2_sum_launches, f.db1_launches]
+
+
+# the backward's cases: the forward's at N 3, and the tensor-core routes'
+# widths, lengths, row counts and bias layouts (D, S, bias, N)
+EVO_BWD_CASES = {name: c + (3,) for name, c in EVO_CASES.items()}
+EVO_BWD_CASES.update({
+    "both_d16_s383_n5": (16, 383, "both", 5),
+    "b2_d32_s13_n1": (32, 13, "b2", 1),
+    "b1_d64_s383_n5": (64, 383, "b1", 5),
+    "none_d128_s64_n1": (128, 64, "none", 1),
+    "broadcast_d16_s64_n5": (16, 64, "broadcast", 5),
+    "bothf32_d32_s200_n3": (32, 200, "bothf32", 3),
+    "bothf32_d128_s13_n5": (128, 13, "bothf32", 5),
+    "both_d64_s384_n1": (64, 384, "both", 1),
+    "b2q_d128_s64_n5": (128, 64, "b2q", 5),
+    "b2qf32_d16_s383_n3": (16, 383, "b2qf32", 3),
+})
 
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float16, 4e-3),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("case", sorted(EVO_CASES))
+@pytest.mark.parametrize("case", sorted(EVO_BWD_CASES))
 def test_evoformer_bwd_kernels_match_plain(cuda, dtype, tol, case):
     """dq (#14), dk/dv (#15), dbias2 (#16) and dbias1 (#17) against the
     plain backward on the same o and lse, per row; each kernel launches
-    once, the bias kernels only with their bias."""
-    q, k, v, b1, b2 = _evo_case(cuda, dtype, *EVO_CASES[case])
+    once, the bias kernels only with their bias, dbias2's second pass once
+    on the tensor-core route (16-bit, D up to 128); two runs are bitwise
+    equal."""
+    D, S, bias, N = EVO_BWD_CASES[case]
+    q, k, v, b1, b2 = _evo_case(cuda, dtype, D, S, bias, N=N)
     o, lse = evo.torch_evoformer_fwd(q, k, v, b1, b2)
     gen = torch.Generator(device=cuda).manual_seed(1)
     do = torch.randn(q.shape, device=cuda, generator=gen).to(dtype)
     before = _evo_bwd_counts()
     got = evo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
     want = evo.torch_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
+    tc = evo.tensor_core_bwd(q)
     assert [a - b for a, b in zip(_evo_bwd_counts(), before)] == \
-        [1, 1, int(b2 is not None), int(b1 is not None)]
+        [1, 1, int(b2 is not None), int(b2 is not None and tc),
+         int(b1 is not None)]
     for name, g, w in zip(("dq", "dk", "dv", "db1", "db2"), got, want):
         assert (g is None) == (w is None), name
         if w is not None:
             assert g.shape == w.shape and g.dtype == w.dtype, name
             _assert_rows(name, g, w, tol)
+    again = evo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+EVO_BWD_PLAN_CASES = [(d, b2) for d in (16, 32, 64, 128)
+                      for b2 in (None, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d,b2_dtype", EVO_BWD_PLAN_CASES)
+def test_evo_bwd_plan_is_what_the_kernel_takes(cuda, d, b2_dtype):
+    """``evo_bwd_plan`` mirrors csrc/attn_bwd_hopper.cuh
+    ``BwdLayout::evo_dkv`` and csrc/evoformer_bwd.cu ``Db2Layout``: at
+    every compiled width of the 16-bit dk/dv and dbias2 and every bias2
+    width, both kernels' shared memory fits the card's opt-in limit, and
+    the backward run on the plan's ring depths, slots and chunks (a launch
+    the C side refuses raises; N 37 splits unevenly) agrees per row with
+    the plain backward and gives the same bits twice; the second pass on a
+    partial of the plan's shape equals its plain version bitwise."""
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    q, k, v, b1, b2 = _evo_case(cuda, torch.bfloat16, d, 200, "both", N=37,
+                                H=2)
+    b2 = None if b2_dtype is None else b2.to(b2_dtype)
+    plan = evo.evo_bwd_plan(d, 0 if b2 is None else b2.element_size(), 1,
+                            37, 200, 2, evo._sms(q.device.index))
+    assert plan["dkv"]["smem"] <= optin and plan["db2"]["smem"] <= optin
+    o, lse = evo.torch_evoformer_fwd(q, k, v, b1, b2)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    do = torch.randn(q.shape, device=cuda, generator=gen).to(q.dtype)
+    runs = [evo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(g is None or torch.equal(g, a) for g, a in zip(*runs))
+    want = evo.torch_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
+    for name, g, w in zip(("dq", "dk", "dv", "db1", "db2"), runs[0], want):
+        if w is not None:
+            _assert_rows(name, g, w, 2e-2)
+    part = torch.randn((plan["db2"]["chunks"], 1, 2, 200, 200), device=cuda,
+                       generator=gen)
+    assert torch.equal(evo.cuda_evoformer_db2_sum(part),
+                       evo.torch_evoformer_db2_sum(part))
 
 
 @pytest.mark.requires_cuda
@@ -1029,7 +1107,8 @@ def test_evoformer_op_on_card(cuda):
     out = ops.evoformer_attention(*leaves[:4], leaves[4].expand(
         2, *b2.shape[1:]))
     (out.float() * w).sum().backward()
-    assert [a - b for a, b in zip(_evo_bwd_counts(), before)] == [1, 1, 1, 1]
+    assert [a - b for a, b in zip(_evo_bwd_counts(), before)] == \
+        [1, 1, 1, 1, 1]
     cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v, b1, b2[:1])]
     prob = evo._padded(*cpu[:4], cpu[4].expand(2, *b2.shape[1:]))
     flat = [t.detach() for t in prob]

@@ -3,11 +3,13 @@ and the forward kernel's plain version (``torch_evoformer_fwd``, with its
 logsumexp) held to the JAX package's einsum ground truth
 (``_evoformer_xla``) and to its Pallas kernel in interpret mode, through
 the reference's padding route for S that no block tiles; CPU gradients
-(dq, dk, dv, dbias1, dbias2) held to ``jax.grad`` of the einsum path; and
-the backward kernels' plain version (``torch_evoformer_bwd``) held to the
+(dq, dk, dv, dbias1, dbias2) held to ``jax.grad`` of the einsum path; the
+backward kernels' plain version (``torch_evoformer_bwd``) held to the
 reference's backward kernels in interpret mode on the same o and lse, the
 bias gradients reduced to the callers' broadcast shapes (``_bias_grads``)
-and the autograd Function's glue.  Tolerances are stated per test.  The
+and the autograd Function's glue; and dbias2 summed as the 16-bit kernel
+sums it (the MSA rows in the chunks of ``evo_bwd_plan``, each chunk one
+row after another, the chunks added in order) held to both references.  Tolerances are stated per test.  The
 CUDA kernels are held to the plain versions on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
 
@@ -384,6 +386,50 @@ def test_autograd_function_glue(monkeypatch):
     assert seen == [(True, True, True), (True, False, False)]
 
 
+@pytest.mark.parametrize("D,S", [(16, 13), (32, 64)])
+def test_db2_chunked_sum_matches_jax(D, S):
+    """dbias2 in the 16-bit kernel's fixed order: the per-row ds of the
+    plain backward summed one row after another within each chunk of MSA
+    rows that ``evo_bwd_plan`` makes (the H100's 132 SMs: one row a chunk
+    here; one SM: chunks of 2, 2 and 1 rows), then the chunks' partials
+    added in ascending order (``torch_evoformer_db2_part``,
+    ``torch_evoformer_db2_sum``), on the op's problem (S 13 padded to 16 as
+    the reference pads it) and the plain forward's o and lse.  Held in fp32
+    at 1e-5 (summation order only) to the reference's kernel path,
+    _bwd_impl in interpret mode on the same problem, o and lse, and, on the
+    S x S block, to jax.vjp of _evoformer_xla; B 1, N 5, H 2, seeded with
+    numpy."""
+    rng = np.random.default_rng(12)
+    b, n, h = 1, 5, 2
+    q, k, v, do = (rng.standard_normal((b, n, S, h, D)).astype(np.float32)
+                   for _ in range(4))
+    b1 = rng.standard_normal((b, n, 1, 1, S)).astype(np.float32)
+    b2 = rng.standard_normal((b, 1, h, S, S)).astype(np.float32)
+    args = (q, k, v, b1, b2)
+    want_xla = np.asarray(jax.vjp(jevo._evoformer_xla, *_jnp(args))[1](
+        jnp.asarray(do))[4])
+    ts = _torch(args)
+    prob = tevo._padded(*ts) if not tevo._tiles(*ts[:3]) else ts
+    sp = prob[0].shape[2]
+    o, lse = tevo.torch_evoformer_fwd(*prob)
+    dop = torch.nn.functional.pad(torch.from_numpy(do),
+                                  (0, 0, 0, 0, 0, sp - S))
+    want_kernel = jevo._bwd_impl(
+        *[jnp.asarray(x.numpy()) for x in prob], jnp.asarray(o.numpy()),
+        jnp.asarray(lse.numpy()), jnp.asarray(dop.numpy()), True)[4]
+    splits = []
+    for sms in (tevo.H100_SMS, 1):
+        rows = tevo.evo_bwd_plan(D, 4, b, n, sp, h, sms)["db2"]["rows"]
+        splits.append(rows)
+        part = tevo.torch_evoformer_db2_part(*prob, o, lse, dop, rows)
+        assert part.shape == (len(rows), b, h, sp, sp)
+        got = tevo.torch_evoformer_db2_sum(part).reshape(b, 1, h, sp, sp)
+        _assert_rows(got.numpy(), want_kernel, 1e-5, f"kernel path {rows}")
+        _assert_rows(got[..., :S, :S].numpy(), want_xla, 1e-5, f"xla {rows}")
+    assert splits == [tuple((r, r + 1) for r in range(n)),
+                      ((0, 2), (2, 4), (4, 5))]
+
+
 def test_backward_wrapper_refuses_cpu_tensors():
     q, k, v, b1, b2 = _torch(_inputs(D=16))
     o, lse = tevo.torch_evoformer_fwd(q, k, v, b1, b2)
@@ -391,4 +437,7 @@ def test_backward_wrapper_refuses_cpu_tensors():
         tevo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, torch.ones_like(o))
     f = tevo.cuda_evoformer_bwd
     assert (f.dq_launches, f.dkv_launches, f.db2_launches,
-            f.db1_launches) == (0, 0, 0, 0)
+            f.db2_sum_launches, f.db1_launches) == (0, 0, 0, 0, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tevo.cuda_evoformer_db2_sum(torch.zeros((2, 1, 2, 4, 4)))
+    assert f.db2_sum_launches == 0

@@ -22,11 +22,13 @@ quantized product's launch plan, on the CPU:
   (mirrored here): every live page is in one item, a slot has at most 16
   of them (the partial buffers' capacity), and the shared memory fits;
 - ``flash_fwd_plan`` / ``evo_fwd_plan``, the 16-bit forwards' tiles, Q
-  slots and ring, and ``flash_bwd_plan``, the 16-bit flash backward's
-  (dq and dk/dv): every head dim (and the evoformer's bias layouts and
-  any S) gets one that fits the 227 KB, and the rules refuse a q / k / v
-  that TMA cannot read (a stride or base not 16-byte aligned), naming
-  the rule.
+  slots and ring, ``flash_bwd_plan``, the 16-bit flash backward's (dq and
+  dk/dv), and ``evo_bwd_plan``, the evoformer's 16-bit dk/dv and dbias2
+  (tiles, ring, slots, and the chunks of MSA rows that split dbias2's
+  walk): every head dim (and the evoformer's bias layouts and any S) gets
+  one that fits the 227 KB, the evoformer's chunks partition the rows in
+  ascending order, and the rules refuse a q / k / v that TMA cannot read
+  (a stride or base not 16-byte aligned), naming the rule.
 
 The kernels themselves are held to these plain paths on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
@@ -282,6 +284,25 @@ def test_evoformer_shape_rules_refuse(D):
         q.double(), q.double(), q.double())
     assert "broadcast" in tevo.shape_problem(
         *(torch.zeros((1, 2, 13, 2, 16)),) * 3, torch.zeros(1, 2, 1, 1, 7))
+
+
+@pytest.mark.parametrize("dtype,D,refused", [
+    (torch.bfloat16, 32, True), (torch.float16, 128, True),
+    (torch.float32, 32, False), (torch.bfloat16, 256, False)])
+def test_evoformer_shape_rules_token_broadcast(dtype, D, refused):
+    """q, k or v broadcast over tokens (token stride 0) is refused where
+    the tensor-core kernels read it by TMA (16-bit, D up to 128) and taken
+    by the CUDA-core kernels, which read through strides."""
+    x = torch.zeros((1, 2, 13, 2, D), dtype=dtype)
+    for i in range(3):
+        qkv = [x, x, x]
+        qkv[i] = x[:, :, :1].expand(x.shape)
+        problem = tevo.shape_problem(*qkv)
+        assert (problem is not None and "token stride of 0" in problem
+                and "qkv"[i] in problem) if refused else problem is None
+    # at S 1 the one token is the whole dim: taken
+    one = x[:, :, :1].as_strided((1, 2, 1, 2, D), (4 * D, 2 * D, 0, D, 1))
+    assert tevo.shape_problem(one, one, one) is None
 
 
 # --------------------------------------------------- GPT at head dim 80
@@ -544,3 +565,77 @@ def test_tma_rule_refuses_misaligned_strides_and_bases():
     assert "TMA's rule" in problem and "base offset 2 bytes" in problem
     q = torch.zeros((1, 2, 13, 2, 33), dtype=torch.bfloat16)[..., :32]
     assert "TMA's rule" in tevo.shape_problem(q, q, q)
+
+
+# ------------------------------------------ the evoformer's 16-bit backward
+
+@pytest.mark.parametrize("bias2_bytes", [0, 2, 4])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 64, 72, 128])
+def test_evo_bwd_plan_fits(d, bias2_bytes):
+    """dk/dv and dbias2 at every compiled width (the forward's: 16, 32,
+    64, 128) and bias2 width: the slot holds K, V and the bias1 slice, a
+    dk/dv stage Q, dO, the [bm, 128] bias2 tile and the lse / delta rows
+    (bm 64 up to width 64, 32 at 128), a dbias2 stage
+    one row's Q, dO (128 queries), K, V (64 keys; rows of 64 bytes up to
+    width 32) and its lse, delta and bias1 rows; 1-2 slots (two where two stages fit beside them), a ring of
+    2-8 stages, 1024-byte aligned, in the card's shared memory."""
+    plan = tevo.evo_bwd_plan(d, bias2_bytes, 1, 512, 384, 8)
+    assert plan["hd_k"] == tevo.evo_fwd_plan(d)["hd_k"] >= d
+    hdp = plan["hdp"]
+    assert hdp == (64 if plan["hd_k"] <= 64 else 128)
+    dkv, db2 = plan["dkv"], plan["db2"]
+    assert dkv["keys"] == 128
+    assert dkv["bm"] == (64 if plan["hd_k"] <= 64 else 32)
+    assert dkv["slot_bytes"] >= 2 * 128 * hdp * 2 + 128 * 4
+    assert dkv["stage_bytes"] >= 2 * dkv["bm"] * hdp * 2 \
+        + dkv["bm"] * 128 * bias2_bytes + 2 * dkv["bm"] * 4
+    assert (db2["queries"], db2["keys"]) == (128, 64)
+    assert db2["row_bytes"] == (64 if plan["hd_k"] <= 32 else hdp * 2)
+    assert db2["row_bytes"] >= 2 * plan["hd_k"]
+    assert db2["stage_bytes"] >= 2 * 128 * db2["row_bytes"] \
+        + 2 * 64 * db2["row_bytes"] + (2 * 128 + 64) * 4
+    for k, slots in ((dkv, dkv["slots"]), (db2, 0)):
+        assert 2 <= k["stages"] <= 8 and k["stage_bytes"] % 1024 == 0
+        assert k["smem"] >= slots * k.get("slot_bytes", 0) \
+            + k["stages"] * k["stage_bytes"]
+        assert k["smem"] <= SMEM
+    assert dkv["slot_bytes"] % 1024 == 0 and dkv["slots"] in (1, 2)
+    # two slots only where two stages still fit beside them
+    two = (SMEM - dkv["smem"] + dkv["slots"] * dkv["slot_bytes"]
+           + dkv["stages"] * dkv["stage_bytes"] - 2 * dkv["slot_bytes"]) \
+        // dkv["stage_bytes"]
+    assert dkv["slots"] == (2 if two >= 2 else 1)
+
+
+@pytest.mark.parametrize("b,n,s,h", [(1, 512, 384, 8), (1, 384, 384, 4),
+                                     (1, 1, 384, 8), (2, 37, 64, 2),
+                                     (1, 5, 13, 2), (1, 1000, 16, 1),
+                                     (2, 3, 1, 1), (1, 77, 1000, 3)])
+def test_evo_bwd_plan_tiles_and_chunks(b, n, s, h):
+    """The tiles cover S (dk/dv: 128-key units; dbias2: 128 x 64 query x
+    key tiles), and dbias2's chunks partition [0, N) in ascending order,
+    ``chunk_rows`` each but the last, as many as give about eight units an
+    SM (never more than N); the partial buffer is [chunks, B, H, S, S]
+    fp32.  N = 1, an N that no chunk divides, and the MSA call's N 512 /
+    S 384 (8 chunks of 64 rows, 37.7 MB)."""
+    plan = tevo.evo_bwd_plan(32, 2, b, n, s, h)
+    dkv, db2 = plan["dkv"], plan["db2"]
+    keys = -(-s // 128)
+    assert (keys - 1) * 128 < s <= keys * 128
+    assert dkv["units"] == b * n * h * keys
+    tiles = -(-s // 128) * -(-s // 64)
+    assert db2["units"] == b * h * tiles * db2["chunks"]
+    rows, c = db2["rows"], db2["chunk_rows"]
+    assert len(rows) == db2["chunks"] and 1 <= db2["chunks"] <= n
+    assert rows[0][0] == 0 and rows[-1][1] == n
+    assert all(a[1] == b_[0] for a, b_ in zip(rows, rows[1:]))
+    assert all(hi - lo == c for lo, hi in rows[:-1])
+    assert 1 <= rows[-1][1] - rows[-1][0] <= c
+    assert c == -(-n // db2["chunks"])
+    assert db2["part_bytes"] == db2["chunks"] * b * h * s * s * 4
+    want = min(n, -(-8 * tevo.H100_SMS // (b * h * tiles)))  # ~8 units an SM
+    assert c == -(-n // want)
+    if (b, n, s, h) == (1, 512, 384, 8):
+        assert (db2["chunks"], c, db2["part_bytes"]) == (8, 64, 37748736)
+    if n == 1:
+        assert rows == ((0, 1),)
