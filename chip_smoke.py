@@ -7,14 +7,16 @@
    versions, and the build of every CUDA kernel of the serving and training
    paths from the sources in this checkout (one nvcc per source, started
    together); ptxas's registers and spills of the 16-bit flash kernels, the
-   16-bit decode, #6's kernel and the evoformer's 16-bit dk/dv and dbias2
-   (a spill in any but the flash forward and dq fails), and the HGMMA /
-   WARPGROUP.DEPBAR counts of the SASS of every wgmma kernel (the attention
-   forward in both of its builds, the attention backward (flash dq, the
-   dk/dv in both of its builds), the evoformer's dbias2, wq_wgmma_kernel
-   in each mode, #6's kernel); a forward, attention backward, dbias2 or #6
-   kernel with a wait after every product, or named in a ptxas warning
-   that it serialised the products, fails.
+   16-bit decode, #6's kernel, the evoformer's 16-bit dk/dv and dbias2, the
+   16-bit prefill (#2 / #2i) with its combine kernel and #9's tensor-core
+   shrink and expand (a spill in any but the flash forward and dq fails),
+   and the HGMMA / WARPGROUP.DEPBAR counts of the SASS of every wgmma
+   kernel (the attention forward in both of its builds, the attention
+   backward (flash dq, the dk/dv in both of its builds), the evoformer's
+   dbias2, wq_wgmma_kernel in each mode, #6's kernel, the prefill, #9's
+   shrink and expand); a forward, attention backward, dbias2, #6, prefill
+   or #9 kernel with a wait after every product, or named in a ptxas
+   warning that it serialised the products, fails.
 2. Each kernel against its plain PyTorch version on the card at Llama-3-8B
    attention shapes (bf16, nkv=8, g=4, hd=128, 64-token pages, 16 slots,
    KV lengths 0..2048, shuffled block tables) in every variant: plain,
@@ -22,8 +24,13 @@
    decode.  Each output row (one query head of one token) may differ from
    the plain version by ROW_TOL of its largest value; the check is shown
    to catch one lost page of the longest slot and one ring stage (page)
-   of it skipped; two decode runs are bitwise equal.  The plain case is
-   timed as in phase 5.
+   of it skipped; two decode runs are bitwise equal.  For the prefill, two
+   runs are bitwise equal and the check is shown to catch a skipped ring
+   stage, a page left out of a unit's walk, the second consumer
+   warpgroup's rows dropped and a chunk of a split walk left out of its
+   merge (each fault's size printed).  The plain case is timed as in
+   phase 5, the prefill also with a window of one key and with every row
+   dead.
 3. Small-config parity: the test model (2 layers, hidden 128, GQA g=2) in
    fp32 with TF32 off — greedy ``generate`` on the card equals the same on
    the CPU token for token, through chunking, bursts and preemption.
@@ -35,7 +42,8 @@
 5. Each kernel against its plain version on the heaviest of those calls,
    with CUDA-event median device times of the kernel, the plain version
    and one PyTorch SDPA call over the gathered dense K/V, beside the least
-   time the card could take (``bound_ms``).
+   time the card could take (``bound_ms``); the prefill call's slots, and
+   its time with a window of one key and with every row dead.
 
 6. The three flash-attention kernels (forward, dq, dk/dv) against their
    plain versions in bf16, per output row at ROW_TOL (lse: absolute), at
@@ -81,7 +89,8 @@
    swizzle slip of the B tile, one tied-table scale row read from the
    neighbouring group, one page read with another page's scales and one
    skipped ring stage of the int8 decode; two int8 decode runs are
-   bitwise equal.
+   bitwise equal; the int8 prefill's determinism and four fault checks as
+   in phase 2.
 10. Small-config quantized parity: W8 weights with int8 KV, and W4, in fp32
    with TF32 off — greedy ``generate`` on the card equals the CPU's.
 11. The quantized main path at full width, each engine built from a bf16
@@ -97,15 +106,19 @@
 12. (with 11) Each new kernel held to its plain version and timed on its
    heaviest main-path call: kernel, plain, ``torch.matmul`` with the bf16
    weight (#6-#8) or SDPA over dequantized K/V (int8 variants), and bound;
-   the int8 decode also on its table padded to the engine's full width.
+   the int8 decode also on its table padded to the engine's full width;
+   the int8 prefill probed as in phase 5.
 
 13. The batched-gather LoRA kernel (#9) against its plain version in bf16
    at Llama-3-8B's q (4096 -> 4096) and v (4096 -> 1024) projections, ranks
    8, 16 and 64, 9 slots, M 1, 16, 37, 256 and 1024, ids random, all
    identity and one tenant: per row at ROW_TOL, identity rows exactly 0;
-   the check is shown to see one row read through its neighbour's slot.
-   Timed at M 16 and 256 beside its bound (no single PyTorch call computes
-   a per-row gathered two-stage product, so no library time).
+   the check is shown to see one row read through its neighbour's slot, a
+   slot's 65th row left out of its tile and one H chunk left out of the
+   sum.  Timed at M 16 and 256 beside its bound (no single PyTorch call
+   computes a per-row gathered two-stage product, so no library time), and
+   the same pair as two plain launches (the main path's expand is a
+   programmatic dependent launch of the shrink).
 14. Small-config adapter parity, fp32 with TF32 off: 8 registered tenants
    served in one generate, the same with ``slots`` 3 (eviction churn), and
    quant 8 + int8 KV + adapters — greedy tokens on the card equal the
@@ -117,7 +130,9 @@
    consistent; ``put()`` logits through an adapter and the kernel against
    the plain version swapped into the registry (E2E_TOL).  A short second
    run with 3 slots must evict.  The kernel is held to its plain version
-   and timed on the main path's heaviest first-layer call.
+   and timed on the main path's heaviest first-layer call and on its
+   largest decode-step call (M <= 16); the run's decode-step calls are
+   counted.
 
 16. The block-sparse kernels (#10-#12: forward, dq, dk/dv) against their
    plain versions in bf16 (one fp16 case), per output row at ROW_TOL (lse
@@ -397,6 +412,22 @@ def _time_prefill(torch, pa, q, k, v, bt, kvl, starts, counts, kw):
         bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _prefill_probe(torch, pa, args, kw, label):
+    """Where a prefill call's time goes: the call timed again with a window
+    of one key (every walk one stage: the schedule, Q, stores and dead
+    rows) and with every row dead (the schedule and the dead rows alone).
+    (No profiler here: these phases run before the serving phases, whose
+    tok/s a profiled session in the same process could perturb.)"""
+    q, k, v, bt, kvl, starts, counts = args
+    dead = torch.zeros_like(counts)
+    one = dict(kw, window=1)
+    print(f"  {label}: window 1: "
+          f"{cuda_ms(lambda: pa.cuda_ragged_prefill(*args, **one)):.4f} ms; "
+          f"every row dead: "
+          f"{cuda_ms(lambda: pa.cuda_ragged_prefill(q, k, v, bt, kvl, starts, dead, **kw)):.4f} ms",
+          flush=True)
+
+
 def _decode_faults(torch, pa, q, k, v, bt, lens, kw):
     """Two runs of the decode give the same bits (the slots split over
     blocks merge in block order), and the row check must see one ring
@@ -435,6 +466,72 @@ def _decode_full_width(torch, pa, name, q, k, v, bt, lens, kw, width):
            pa.cuda_paged_attention(q, k, v, full, lens, **kw),
            pa.torch_paged_attention(q, k, v, full, lens, **kw))
     return _time_decode(torch, pa, q, k, v, full, lens, kw)
+
+
+def _drop_pages(bt, s, p0, p1):
+    """Slot s's block table with its logical pages [p0, p1) taken out (the
+    later pages move down, the last repeats at the tail)."""
+    out = bt.clone()
+    row = [p for i, p in enumerate(bt[s].tolist()) if not p0 <= i < p1]
+    out[s] = bt.new_tensor(row + row[-1:] * (p1 - p0))
+    return out
+
+
+def _prefill_faults(torch, pa, q, k, v, bt, kvl, starts, counts, kw, label):
+    """Two runs of the prefill give the same bits, and the row check must
+    see, in the plain version: one ring stage (64 keys) skipped in a walk,
+    a page left out of a unit's walk, the second consumer warpgroup's rows
+    (rows 64-127 of every 128-row unit) dropped, and one chunk of a split
+    walk (256 keys, the fewest a chunk holds) left out of its merge.  Keys
+    are taken out of the slot with the longest history before its rows
+    (all its rows sit past them), its later keys and rows moved down; each
+    fault's size is printed."""
+    runs = [pa.cuda_ragged_prefill(q, k, v, bt, kvl, starts, counts, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0], runs[1])
+    print(f"  two {label} runs bitwise equal: {same}", flush=True)
+    if not same:
+        fail(f"{label} is not deterministic")
+    want = pa.torch_ragged_prefill(q, k, v, bt, kvl, starts, counts, **kw)
+    g, bs = q.shape[3], k.shape[2]
+    st, cn = starts.cpu().numpy(), counts.cpu().numpy()
+    s = int(np.argmax(np.where(cn > 0, st, -1)))
+
+    def check(what, got, rows):
+        r = _row_err(torch, got[rows], want[rows])
+        print(f"  {label}: {what} moves the worst row by {r:.3e} of its max "
+              f"(check at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the {label} check cannot see {what}")
+
+    def without(p0, p1):
+        lens2, starts2 = kvl.clone(), starts.clone()
+        lens2[s] -= (p1 - p0) * bs
+        starts2[s] -= (p1 - p0) * bs
+        if (p1 + 1) * bs > int(st[s]):
+            fail(f"{label}: slot {s} has too little history for the fault "
+                 f"checks")
+        return pa.torch_ragged_prefill(q, k, v, _drop_pages(bt, s, p0, p1),
+                                       lens2, starts2, counts, **kw)
+
+    stage = max(1, 64 // bs)
+    check(f"a skipped ring stage (pages 1..{stage} of slot {s}, "
+          f"{int(kvl[s])} keys)", without(1, 1 + stage), (s,))
+    short = kvl.clone()
+    short[s] -= bs
+    check(f"a page left out of a unit's walk (the last page of slot {s})",
+          pa.torch_ragged_prefill(q, k, v, bt, short, starts, counts, **kw),
+          (s,))
+    dropped = want.clone()
+    unit = 128 // g
+    for t0 in range(0, q.shape[1], unit):
+        dropped[:, t0 + 64 // g:t0 + unit] = 0
+    check("the second consumer warpgroup's rows dropped", dropped,
+          (slice(None),))
+    n = max(1, 256 // bs)
+    check(f"one chunk of a split walk ({n * bs} keys of slot {s}) left out "
+          f"of the merge", without(1, 1 + n), (s,))
 
 
 def _print_times(results, library="SDPA"):
@@ -497,6 +594,10 @@ def phase_kernels(torch, pa, dev):
                                       **kw),
                pa.torch_ragged_prefill(qp, k, v, bt, lens2, q_starts,
                                        q_counts, **kw))
+    _prefill_faults(torch, pa, qp, k, v, bt, lens2, q_starts, q_counts, {},
+                    "ragged_prefill")
+    _prefill_probe(torch, pa, (qp, k, v, bt, lens2, q_starts, q_counts), {},
+                   "ragged_prefill mixed step")
     results["ragged_prefill"] = _time_prefill(
         torch, pa, qp, k, v, bt, lens2, q_starts, q_counts, {})
     _print_times(results)
@@ -774,6 +875,11 @@ def phase_main_inputs(torch, pa, calls, eng):
            pa.cuda_ragged_prefill(*args, **kw),
            pa.torch_ragged_prefill(*args, **kw))
     results["ragged_prefill"] = _time_prefill(torch, pa, *args, kw)
+    counts = args[6].cpu().numpy()
+    print(f"  main-path prefill call: live rows by slot {counts.tolist()}, "
+          f"q_starts {args[5].cpu().numpy().tolist()}, kv_lens "
+          f"{args[4].cpu().numpy().tolist()}", flush=True)
+    _prefill_probe(torch, pa, args, kw, "ragged_prefill main path")
     _print_times(dict(results, paged_attention_full_width=wide))
     return results
 
@@ -1504,6 +1610,8 @@ def phase_quant_kernels(torch, wqm, pa, dev):
                                       q_counts, **kw, **sc),
                pa.torch_ragged_prefill(qp, kq, vq, bt, lens2, q_starts,
                                        q_counts, **kw, **sc))
+    _prefill_faults(torch, pa, qp, kq, vq, bt, lens2, q_starts, q_counts,
+                    dict(sc), "ragged_prefill_int8")
     results["ragged_prefill_int8"] = _time_prefill(
         torch, pa, qp, kq, vq, bt, lens2, q_starts, q_counts, dict(sc))
     _print_times(results)
@@ -1755,6 +1863,7 @@ def _hold_and_time(torch, wqm, pa, rec, name, width=None):
         _check(torch, name, "main path", pa.cuda_ragged_prefill(*args, **kw),
                pa.torch_ragged_prefill(*args, **kw))
         r = _time_prefill(torch, pa, *args, kw)
+        _prefill_probe(torch, pa, args, kw, f"{name} main path")
     _print_times({name: r})
     return r
 
@@ -1800,13 +1909,18 @@ def _lora_bound(x, a_pages, b_pages, ids, scales):
 
 
 def _time_lora(torch, lm, args, label):
+    """The kernel's time (the expand a programmatic dependent launch of the
+    shrink), the same pair as two plain launches, the plain version's, and
+    the bound."""
     bound_ms, bound_by = _lora_bound(*args)
     x, a, b, ids, _ = args
     return dict(
         shape=f"{label}: x[{x.shape[0]},{x.shape[1]}] {x.dtype}, A "
               f"{tuple(a.shape)}, B {tuple(b.shape)}, "
-              f"{int(ids.unique().numel())} slots used",
+              f"{int(ids.unique().numel())} slots used, route "
+              f"{'wgmma' if lm.call_route(x, a, b) else 'simt'}",
         ms=cuda_ms(lambda: lm.cuda_lora_matmul(*args)),
+        two_launches_ms=cuda_ms(lambda: lm._launch(*args, pdl=False)),
         plain_ms=cuda_ms(lambda: lm.torch_lora_matmul(*args), reps=10),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1822,10 +1936,33 @@ def _check_lora(torch, lm, label, args):
 
 def _print_lora(results):
     for r in results:
-        print(f"  lora_matmul {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        print(f"  lora_matmul {r['shape']}: kernel {r['ms']:.4f} ms (two "
+              f"plain launches {r['two_launches_ms']:.4f}), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.1%} of it",
               flush=True)
+
+
+def _lora_faults(torch, lm, dev, gen):
+    """The row check must see a slot's 65th row (in row order) left out of
+    its tile, shown as the row left at zero, and one 256-wide H chunk left
+    out of the partial sums (x's chunk zeroed), each in the plain version;
+    each fault's size printed."""
+    x, a, b, ids, s = _lora_inputs(torch, dev, 130, 4096, 16, "random", gen)
+    ids[torch.randperm(130, device=dev, generator=gen)[:70]] = 3
+    want = lm.torch_lora_matmul(x, a, b, ids, s)
+    left = want.clone()
+    left[(ids == 3).nonzero()[64, 0]] = 0
+    chunk = x.clone()
+    chunk[:, lm.H_CHUNK:2 * lm.H_CHUNK] = 0
+    for what, got in (("a slot's 65th row left out of its tile", left),
+                      ("one H chunk left out of the sum",
+                       lm.torch_lora_matmul(chunk, a, b, ids, s))):
+        r = _row_err(torch, got, want)
+        print(f"  {what} moves the worst row by {r:.3e} of its max (check "
+              f"at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the lora check cannot see {what}")
 
 
 def phase_lora_kernels(torch, lm, dev):
@@ -1858,6 +1995,7 @@ def phase_lora_kernels(torch, lm, dev):
           f"of its max (check at {ROW_TOL})", flush=True)
     if not row > ROW_TOL:
         fail("the lora check cannot see a row read through another slot")
+    _lora_faults(torch, lm, dev, gen)
     _print_lora(timed)
     return next(t for t in timed if t["shape"].startswith("q r=16 M=256"))
 
@@ -2057,7 +2195,24 @@ def phase_lora_main(torch, lm, dev, card, params, base_e2e=None,
     args, _ = rec.pick("lora_matmul")
     _check_lora(torch, lm, "main path", args)
     result = _time_lora(torch, lm, args, "main path")
-    _print_lora([result])
+    # the decode steps' calls: every row a decode row (M at most the
+    # engine's 16 slots); one is held and timed too
+    ms_ = [c[0][0].shape[0] for c in rec["lora_matmul"]]
+    small = [c for c in rec["lora_matmul"] if c[0][0].shape[0] <= 16]
+    decode_calls = len(small) * cfg.num_layers
+    print(f"  lora_matmul calls of the run: {n_lora}; decode-step calls "
+          f"(M <= 16): {decode_calls} ({len(small)} of the {len(ms_)} "
+          f"first-layer calls recorded, M {min(ms_)}..{max(ms_)})",
+          flush=True)
+    result["decode_calls"] = decode_calls
+    timed = [result]
+    if small:
+        dargs = max(small, key=lambda c: c[0][0].shape[0])[0]
+        _check_lora(torch, lm, "main path, decode step", dargs)
+        result["decode"] = _time_lora(torch, lm, dargs,
+                                      "main path, decode step")
+        timed.append(result["decode"])
+    _print_lora(timed)
     result["launches"] = n_lora
     del eng, rec
     gc.collect()
@@ -2899,9 +3054,13 @@ def _ptxas_report(build_log, kernel):
 # the redesigned kernels whose ptxas spills must be 0, and the wgmma kernels
 # whose products ptxas must keep asynchronous
 NEW_KERNELS = ("paged_decode_mma_kernel", "decode_combine_kernel", "wq_t_kernel",
-               "evo_dkv_kernel", "evo_db2_kernel", "evo_db2_sum_kernel")
+               "evo_dkv_kernel", "evo_db2_kernel", "evo_db2_sum_kernel",
+               "prefill_wgmma_kernel", "prefill_combine_kernel",
+               "lora_shrink_wgmma", "lora_expand_wgmma")
 WGMMA_GATE = ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-              "evo_dkv_kernel", "evo_db2_kernel", "wq_t_kernel")
+              "evo_dkv_kernel", "evo_db2_kernel", "wq_t_kernel",
+              "prefill_wgmma_kernel", "lora_shrink_wgmma",
+              "lora_expand_wgmma")
 
 
 def _spill_gate(build_log, kernels):
@@ -3028,7 +3187,9 @@ def main():
     for kernel in ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                    "evo_dkv_kernel", "evo_db2_kernel", "evo_db2_sum_kernel",
                    "paged_decode_mma_kernel", "decode_combine_kernel",
-                   "wq_t_kernel"):
+                   "wq_t_kernel", "prefill_wgmma_kernel",
+                   "prefill_combine_kernel", "lora_shrink_wgmma",
+                   "lora_expand_wgmma"):
         _ptxas_report(builder.build_log, kernel)
     _spill_gate(builder.build_log, NEW_KERNELS)
     _serialised_gate(builder.build_log, WGMMA_GATE)
@@ -3038,7 +3199,10 @@ def main():
                         ("evoformer", ("attn_fwd_kernel",)),
                         ("evoformer_bwd", ("evo_dkv_kernel",
                                            "evo_db2_kernel")),
-                        ("wq_matmul", ("wq_wgmma_kernel", "wq_t_kernel"))):
+                        ("wq_matmul", ("wq_wgmma_kernel", "wq_t_kernel")),
+                        ("ragged_prefill", ("prefill_wgmma_kernel",)),
+                        ("lora_matmul", ("lora_shrink_wgmma",
+                                         "lora_expand_wgmma"))):
         _sass_report(builder._so_path(so), kernels,
                      gate=tuple(k for k in kernels if k in WGMMA_GATE))
 
@@ -3196,7 +3360,10 @@ def main():
                **dict.fromkeys(EVO_BWD, "evoformer_bwd.cu"),
                "evoformer_dkv": "attn_bwd_hopper.cuh",
                "paged_attention_int8": "paged_attention.cu",
-               "ragged_prefill_int8": "ragged_prefill.cu"}
+               # the 16-bit prefill (#2, #2i) is a header built into
+               # ragged_prefill.cu
+               "ragged_prefill": "prefill_hopper.cuh",
+               "ragged_prefill_int8": "prefill_hopper.cuh"}
     kernels = []
     for name in ("paged_attention", "ragged_prefill") + FLASH + WQ + INT8 \
             + LORA + SPARSE + EVO:

@@ -649,10 +649,4 @@ cudaError_t launch_attn_fwd(FwdArgs p, const CUtensorMap& tmq, const CUtensorMap
   return cudaGetLastError();
 }
 
-template <typename T>
-constexpr CUtensorMapDataType tma_dtype() {
-  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-}
-
 }  // namespace dsk

@@ -147,12 +147,16 @@ __device__ __forceinline__ uint64_t wg_desc(const void* p) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 // The same for RB-byte rows in the RB-byte swizzle (RB 128: wg_desc; RB 64:
-// 8 rows of 64 bytes form a 512-byte atom, the layout code 2), K-major.
+// 8 rows of 64 bytes form a 512-byte atom, the layout code 2; RB 32: 8 rows
+// of 32 bytes, 256 bytes, code 3).  K-major, or MN-major with the operand's
+// whole N (RB / 2 16-bit values) in one row: either way the 8-row groups
+// are 8 * RB bytes apart (SBO) and the leading offset is unused.
 template <int RB>
 __device__ __forceinline__ uint64_t wg_desc_rb(const void* p) {
-  static_assert(RB == 64 || RB == 128, "swizzle width");
+  static_assert(RB == 32 || RB == 64 || RB == 128, "swizzle width");
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(8 * RB >> 4) << 32) | ((uint64_t)(RB == 128 ? 1 : 2) << 62);
+         ((uint64_t)(8 * RB >> 4) << 32) |
+         ((uint64_t)(RB == 128 ? 1 : RB == 64 ? 2 : 3) << 62);
 }
 
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -223,6 +227,26 @@ __device__ __forceinline__ void wg_fence_regs(uint32_t (&d)[N]) {
                ", %8, %9, p, 1, 1, 0, 0;\n}\n"                                         \
                : DSK_ACC8(0)                                                           \
                : "l"(da), "l"(db), "r"(acc))
+// d[64 x N] (+)= A[64 x 16] * B[16 x N]: A K-major, B MN-major (the
+// transpose bit: rows = k, N 16-bit values a row) in shared memory
+#define DSK_WGMMA_SST64(TY)                                                            \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                         \
+               " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSK_REGS32  \
+               ", %32, %33, p, 1, 1, 0, 1;\n}\n"                                       \
+               : DSK_ACC32                                                             \
+               : "l"(da), "l"(db), "r"(acc))
+#define DSK_WGMMA_SST32(TY)                                                            \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"                         \
+               " wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " DSK_REGS16  \
+               ", %16, %17, p, 1, 1, 0, 1;\n}\n"                                       \
+               : DSK_ACC16                                                             \
+               : "l"(da), "l"(db), "r"(acc))
+#define DSK_WGMMA_SST16(TY)                                                            \
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"                         \
+               " wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " DSK_REGS8   \
+               ", %8, %9, p, 1, 1, 0, 1;\n}\n"                                         \
+               : DSK_ACC8(0)                                                           \
+               : "l"(da), "l"(db), "r"(acc))
 // d[64 x 64] += A[64 x 16] (registers: mma.sync's A fragment of each warp's
 // 16 rows) * B[16 x 64], B MN-major in shared memory (transpose bit)
 #define DSK_WGMMA_RS64(TY)                                                             \
@@ -255,11 +279,26 @@ template <typename T> struct Wgmma;
                                                 uint64_t db) {                          \
       DSK_WGMMA_RS64(TY);                                                               \
     }                                                                                   \
+    static __device__ __forceinline__ void sst(float (&d)[32], uint64_t da, uint64_t db, \
+                                               int acc = 1) {                           \
+      DSK_WGMMA_SST64(TY);                                                              \
+    }                                                                                   \
+    static __device__ __forceinline__ void sst(float (&d)[16], uint64_t da, uint64_t db, \
+                                               int acc = 1) {                           \
+      DSK_WGMMA_SST32(TY);                                                              \
+    }                                                                                   \
+    static __device__ __forceinline__ void sst(float (&d)[8], uint64_t da, uint64_t db,  \
+                                               int acc = 1) {                           \
+      DSK_WGMMA_SST16(TY);                                                              \
+    }                                                                                   \
   };
 DSK_WGMMA_STRUCT(__nv_bfloat16, "bf16")
 DSK_WGMMA_STRUCT(__half, "f16")
 #undef DSK_WGMMA_STRUCT
 #undef DSK_WGMMA_RS64
+#undef DSK_WGMMA_SST64
+#undef DSK_WGMMA_SST32
+#undef DSK_WGMMA_SST16
 #undef DSK_WGMMA_SS64
 #undef DSK_WGMMA_SS32
 #undef DSK_WGMMA_SS16
@@ -273,7 +312,46 @@ DSK_WGMMA_STRUCT(__half, "f16")
 #undef DSK_REGS8
 #undef DSK_ACC8
 
+// ------------------------------------------ programmatic dependent launch
+// A grid launched behind another with launch_pdl may start before that one
+// ends: it runs up to griddep_wait(), which returns once the grid before
+// it has finished and its memory is visible (a no-op in a grid launched
+// plainly).  griddep_launch() lets the dependent grid be scheduled before
+// this one ends.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Launch `kernel` on `st`, as a programmatic dependent of the work before
+// it on the stream when `pdl` (cudaLaunchAttributeProgrammaticStreamSerialization)
+template <typename... Params, typename... Args>
+inline cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                              cudaStream_t st, bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 // ------------------------------------------------------- host: tensor maps
+// the tensor-map element type of a 16-bit T
+template <typename T>
+constexpr CUtensorMapDataType tma_dtype() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+
 // cuTensorMapEncodeTiled from libcuda, looked up through the runtime's
 // entry-point query (no link against libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -18,12 +18,17 @@ device of the tensors:
   products — the counterpart of ``xla_lora_matmul``, the CPU path and the
   kernel's reference;
 - hand-written CUDA for Hopper, ``cuda_lora_matmul`` (csrc/lora_matmul.cu,
-  built by ops/builder.py at first use, bound with ctypes): each row reads
-  only its own slot's pages.  The wrapper checks device, dtype, shape and
-  contiguity, allocates its output and fp32 scratch with ``torch.empty``,
-  launches on the current stream, raises on a non-zero ``cudaError_t`` and
-  counts its calls in ``cuda_lora_matmul.launches`` (the counterpart of
-  JAX's ``trace_counts["lora"]``).
+  built by ops/builder.py at first use, bound with ctypes): each slot's
+  pages are read for its own rows only.  ``lora_route`` picks the kernel
+  pair by rule: 16-bit x with r, O and H multiples of 8, at most 1024
+  slots and 16-byte aligned tensors take the tensor-core pair (rows
+  segmented by slot on the device, ``wgmma`` shrink and expand, the
+  expand a programmatic dependent launch); everything else the CUDA-core
+  pair.  The wrapper checks device, dtype, shape and contiguity,
+  allocates its output and fp32 scratch with ``torch.empty``, launches on
+  the current stream, raises on a non-zero ``cudaError_t`` and counts its
+  calls in ``cuda_lora_matmul.launches`` (the counterpart of JAX's
+  ``trace_counts["lora"]``).
 
 The ids are a device tensor and are never read on the host (that would
 sync): an id outside ``[0, S)`` is a precondition broken by the caller,
@@ -41,7 +46,9 @@ import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 RANK_MAX = 256      # csrc/lora_matmul.cu LORA_RMAX
-H_CHUNK = 256       # rows of A one shrink block walks
+H_CHUNK = 256       # rows of A a shrink unit walks (LORA_HC)
+WGMMA_MAX_SLOTS = 1024   # slots the tensor-core pair counts (kLoraMaxSlots)
+SIMT, WGMMA = 0, 1  # the two kernel pairs
 
 
 def torch_lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
@@ -60,14 +67,15 @@ def torch_lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
     return y.to(x.dtype)
 
 
-def _problem(x, a_pages, b_pages, adapter_ids, scales):
-    """Why the kernel cannot take this call (None: it can)."""
+def _problem(x, a_pages, b_pages, adapter_ids, scales, on_card=True):
+    """Why the kernels cannot take this call (None: they can); without
+    ``on_card``, the rules on shapes, dtypes and layouts alone."""
     ts = (x, a_pages, b_pages, adapter_ids, scales)
     if not all(isinstance(t, torch.Tensor) for t in ts):
         return "every argument must be a tensor"
-    if x.device.type != "cuda":
+    if on_card and x.device.type != "cuda":
         return f"x is on {x.device}, not a CUDA device"
-    if any(t.device != x.device for t in ts):
+    if on_card and any(t.device != x.device for t in ts):
         return ("x, the pages, the ids and the scales must lie on one "
                 f"device (x on {x.device}, ids on {adapter_ids.device})")
     if x.dtype not in _DTYPE_CODE:
@@ -96,6 +104,28 @@ def _problem(x, a_pages, b_pages, adapter_ids, scales):
     return None
 
 
+def lora_route(dtype, H: int, r: int, O: int, S: int,
+               aligned: bool = True) -> int:
+    """The kernel pair a supported call takes, from shapes alone: WGMMA
+    for 16-bit x whose H, r and O are multiples of 8 (TMA's 16-byte row
+    strides), at most ``WGMMA_MAX_SLOTS`` slots and 16-byte aligned
+    tensors; SIMT (the CUDA cores) otherwise."""
+    return WGMMA if (dtype in (torch.float16, torch.bfloat16)
+                     and H % 8 == 0 and r % 8 == 0 and O % 8 == 0
+                     and S <= WGMMA_MAX_SLOTS and aligned) else SIMT
+
+
+def lora_scratch_shape(M: int, H: int, r: int):
+    """The fp32 partial sums both pairs write: [ceil(H / H_CHUNK), M, r]."""
+    return (-(-H // H_CHUNK), M, r)
+
+
+def shape_problem(x, a_pages, b_pages, adapter_ids, scales):
+    """Why the kernels cannot take a call with these shapes, dtypes and
+    layouts, wherever its tensors lie (None: they can)."""
+    return _problem(x, a_pages, b_pages, adapter_ids, scales, on_card=False)
+
+
 def lora_supported(x, a_pages, b_pages, adapter_ids, scales) -> bool:
     """Kernel eligibility on CUDA tensors (JAX :87 with CUDA rules)."""
     return _problem(x, a_pages, b_pages, adapter_ids, scales) is None
@@ -106,7 +136,7 @@ def _lib():
     lib = load_op("lora_matmul")
     if not getattr(lib, "_ds_declared", False):
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.ds_lora_matmul.argtypes = [P] * 7 + [I] * 7 + [P]
+        lib.ds_lora_matmul.argtypes = [P] * 7 + [I] * 8 + [P]
         lib.ds_lora_matmul.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
@@ -114,9 +144,17 @@ def _lib():
     return lib
 
 
-def cuda_lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
-    """#9 on the card (csrc/lora_matmul.cu): shrink then expand, two
-    launches counted as one call."""
+def call_route(x, a_pages, b_pages) -> int:
+    """``lora_route`` of a call the kernels take."""
+    S, H, r = a_pages.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, a_pages, b_pages))
+    return lora_route(x.dtype, H, r, b_pages.shape[2], S, aligned)
+
+
+def _launch(x, a_pages, b_pages, adapter_ids, scales, pdl: bool = True):
+    """The two launches of #9 on the current stream, on the pair
+    ``call_route`` picks (the tensor-core expand a programmatic dependent
+    of its shrink when ``pdl``); counts nothing."""
     problem = _problem(x, a_pages, b_pages, adapter_ids, scales)
     if problem is not None:
         raise ValueError(f"cuda_lora_matmul: {problem}")
@@ -126,20 +164,29 @@ def cuda_lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
     y = torch.empty((M, O), dtype=x.dtype, device=x.device)
     if M == 0 or O == 0:
         return y
-    part = torch.empty((-(-H // H_CHUNK), M, r), dtype=torch.float32,
+    part = torch.empty(lora_scratch_shape(M, H, r), dtype=torch.float32,
                        device=x.device)
     lib = _lib()
     P = ctypes.c_void_p
     rc = lib.ds_lora_matmul(
         P(x.data_ptr()), P(a_pages.data_ptr()), P(b_pages.data_ptr()),
         P(adapter_ids.data_ptr()), P(scales.data_ptr()), P(y.data_ptr()),
-        P(part.data_ptr()), M, H, r, O, S, H_CHUNK, _DTYPE_CODE[x.dtype],
+        P(part.data_ptr()), M, H, r, O, S, _DTYPE_CODE[x.dtype],
+        call_route(x, a_pages, b_pages), int(pdl),
         P(torch.cuda.current_stream(x.device).cuda_stream))
     if rc != 0:
         msg = lib.ds_cuda_error_string(rc).decode()
         raise RuntimeError(f"lora_matmul launch failed: cudaError {rc} "
                            f"({msg})")
-    cuda_lora_matmul.launches += 1
+    return y
+
+
+def cuda_lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
+    """#9 on the card (csrc/lora_matmul.cu): shrink then expand, two
+    launches counted as one call."""
+    y = _launch(x, a_pages, b_pages, adapter_ids, scales)
+    if x.shape[0] and b_pages.shape[2]:
+        cuda_lora_matmul.launches += 1
     return y
 
 

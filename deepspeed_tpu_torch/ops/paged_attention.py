@@ -12,7 +12,11 @@ from the device of the tensors:
   ``cuda_ragged_prefill`` (csrc/paged_attention.cu, csrc/ragged_prefill.cu,
   built by ops/builder.py at first use and bound with ctypes; 16-bit decode
   runs the warp-specialised bulk-copy + mma.sync kernel that ``decode_plan``
-  tiles, fp32 decode the CUDA-core one).  Each wrapper
+  tiles, fp32 decode the CUDA-core one; the prefill's route is
+  ``prefill_route``: 16-bit q at head dims 32 / 64 / 128 with pages of a
+  multiple of 16 tokens runs the persistent warp-specialised TMA + wgmma
+  kernel (csrc/prefill_hopper.cuh), everything else the CUDA-core one).
+  Each wrapper
   checks device, dtype, shape and contiguity, allocates its outputs with
   ``torch.empty``, launches on the current stream, raises on a non-zero
   ``cudaError_t``, and counts its launches in ``<wrapper>.launches``.
@@ -44,7 +48,11 @@ import torch
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (32, 64, 128, 256)
 _SMEM_OPTIN = 232448       # H100 opt-in shared memory per block (bytes)
-_MAX_ROWS = 64             # query-head rows per prefill block (csrc)
+_MAX_ROWS = 64             # query-head rows per CUDA-core prefill block
+# the tensor-core prefill (csrc/prefill_hopper.cuh): query-head rows a unit,
+# and the slots and units its schedule holds (kernel's checks, ds_ragged_prefill)
+_PF_ROWS, _PF_MAX_SLOTS, _PF_MAX_UNITS = 128, 1024, 1024
+PREFILL_SIMT, PREFILL_WGMMA = 0, 1
 # the 16-bit decode kernel (csrc/paged_attention.cu DecLayout): consumer
 # warps, ring cap, the bytes before the ring; an SM's shared memory, of which
 # each resident block reserves 1 KB
@@ -170,7 +178,7 @@ def _lib(name: str):
             fn.argtypes = [P] * 12 + [I] * 9 + [F, I, I, I, P]
         else:
             fn = lib.ds_ragged_prefill
-            fn.argtypes = [P] * 11 + [I] * 8 + [F, I, I, I, P]
+            fn.argtypes = [P] * 14 + [I] * 10 + [F, I, I, I, I, P]
         fn.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
@@ -195,18 +203,19 @@ def _sm_count(index: int) -> int:
 
 def _common_problem(q, k_pages, v_pages, block_table, kv_lens, S, nkv, g, hd,
                     alibi_slopes, window, k_scale, v_scale,
-                    ints=()) -> Optional[str]:
-    """Why the kernels cannot take this call (None: they can)."""
+                    ints=(), on_card=True) -> Optional[str]:
+    """Why the kernels cannot take this call (None: they can); without
+    ``on_card``, the rules on shapes, dtypes and layouts alone."""
     quant = k_pages.dtype == torch.int8
     scales = () if k_scale is None or v_scale is None else (k_scale, v_scale)
     if quant and (v_pages.dtype != torch.int8 or not scales):
         return "int8 pages need int8 v pages and k_scale / v_scale"
-    if q.device.type != "cuda":
+    if on_card and q.device.type != "cuda":
         return f"q is on {q.device}, not a CUDA device"
     if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         return "k/v pages must both be [NB, nkv, bs, hd]"
     for t in (k_pages, v_pages, block_table, kv_lens) + tuple(ints) + scales:
-        if t.device != q.device:
+        if on_card and t.device != q.device:
             return f"tensor on {t.device}, q on {q.device}"
     if q.dtype not in _DTYPE_CODE:
         return f"q dtype {q.dtype}: need float32, float16 or bfloat16"
@@ -273,7 +282,7 @@ def _decode_problem(q, k_pages, v_pages, block_table, kv_lens, *, scale=None,
 
 def _prefill_problem(q, k_pages, v_pages, block_table, kv_lens, q_starts,
                      q_counts, *, scale=None, alibi_slopes=None, window=None,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, on_card=True):
     if q.dim() != 5:
         return "q must be [S, Q, nkv, g, hd]"
     S, Q, nkv, g, hd = q.shape
@@ -283,15 +292,25 @@ def _prefill_problem(q, k_pages, v_pages, block_table, kv_lens, q_starts,
         return "q_starts and q_counts must be [S]"
     problem = _common_problem(q, k_pages, v_pages, block_table, kv_lens, S,
                               nkv, g, hd, alibi_slopes, window, k_scale,
-                              v_scale, ints=(q_starts, q_counts))
+                              v_scale, ints=(q_starts, q_counts),
+                              on_card=on_card)
     if problem is not None:
         return problem
+    # the op's page-size limit, kept for both kernels: the CUDA-core
+    # kernel's double-buffered K / V slabs (int8: with two dequantized
+    # 16-bit tiles beside them, the bound the op has always applied)
     bs, esize = k_pages.shape[2], q.element_size()
     smem = (4 * bs * hd + 16 * bs + 2 * bs * (hd + 8) * esize
             if k_pages.dtype == torch.int8 else 4 * bs * hd * esize)
     if smem > _SMEM_OPTIN:
         return f"block size {bs} x head_dim {hd} overflows shared memory"
     return None
+
+
+def prefill_shape_problem(*args, **kwargs) -> Optional[str]:
+    """Why the prefill kernels cannot take a call with these shapes, dtypes
+    and layouts, wherever its tensors lie (None: they can)."""
+    return _prefill_problem(*args, on_card=False, **kwargs)
 
 
 def supported(*args, **kwargs) -> bool:
@@ -366,9 +385,10 @@ def decode_plan(S: int, nkv: int, g: int, hd: int, bs: int, esize: int,
             "smem": decode_smem(S, g, hd, bs, esize, stages)}
 
 
-# The 16-bit decode's two int32 counters, by (device, stream): the work
-# items handed out and the blocks done.  Zero between launches (the last
-# block out resets them), so one buffer serves every call on its stream
+# The two int32 counters of the 16-bit decode and the tensor-core prefill, by
+# (device, stream): the work items handed out and the blocks done.  Zero
+# between launches (the last block out resets them), so one buffer serves
+# every call of either kernel on its stream
 _COUNTERS = {}
 
 
@@ -436,16 +456,42 @@ cuda_paged_attention.int8_launches = 0
 
 
 def prefill_chunk(g: int) -> int:
-    """Query tokens per prefill block: cq·g query-head rows fill (at most)
-    one 64-row tile — 16 tokens × 4 heads for Llama-3-8B."""
+    """Query tokens per CUDA-core prefill block: cq·g query-head rows fill
+    (at most) one 64-row tile — 16 tokens × 4 heads for Llama-3-8B."""
     return max(1, _MAX_ROWS // g)
+
+
+def prefill_route(dtype, S: int, Q: int, g: int, hd: int, bs: int,
+                  aligned: bool = True) -> int:
+    """The kernel a supported prefill call takes, from shapes alone:
+    PREFILL_WGMMA for 16-bit q at head dims 32 / 64 / 128 with pages of a
+    multiple of 16 tokens up to 256, at most 1024 slots and 1024 units of
+    128 / g tokens, and 16-byte aligned int8 scales (``aligned``);
+    PREFILL_SIMT (the CUDA cores) for fp32 q, head dim 256 and other
+    pages."""
+    units = S * -(-Q // max(1, _PF_ROWS // g))
+    return PREFILL_WGMMA if (
+        dtype in (torch.float16, torch.bfloat16) and hd in (32, 64, 128)
+        and bs % 16 == 0 and bs <= 256 and S <= _PF_MAX_SLOTS
+        and units <= _PF_MAX_UNITS and aligned) else PREFILL_SIMT
+
+
+def prefill_scratch(hd: int, sms: int):
+    """The tensor-core prefill's persistent grid (one block an SM) and the
+    shapes of its fp32 partials for split walks: a split unit's chunks
+    hold at least the fair share of the work a block, so all of them fill
+    at most 2 x grid (chunk, kv head) slots of [128 rows, hd] and [128
+    rows, (m, l)]."""
+    return sms, (2 * sms, _PF_ROWS, hd), (2 * sms, _PF_ROWS, 2)
 
 
 def cuda_ragged_prefill(q, k_pages, v_pages, block_table, kv_lens, q_starts,
                         q_counts, *, scale: Optional[float] = None,
                         alibi_slopes=None, window=None, k_scale=None,
                         v_scale=None):
-    """Ragged chunked prefill on the card (csrc/ragged_prefill.cu)."""
+    """Ragged chunked prefill on the card (csrc/ragged_prefill.cu), on the
+    kernel ``prefill_route`` picks; the tensor-core kernel with the fp32
+    partials ``prefill_scratch`` sizes and its combine kernel."""
     problem = _prefill_problem(q, k_pages, v_pages, block_table, kv_lens,
                                q_starts, q_counts,
                                alibi_slopes=alibi_slopes, window=window,
@@ -453,18 +499,31 @@ def cuda_ragged_prefill(q, k_pages, v_pages, block_table, kv_lens, q_starts,
     if problem is not None:
         raise ValueError(f"cuda_ragged_prefill: {problem}")
     S, Q, nkv, g, hd = q.shape
-    bs, MB = k_pages.shape[2], block_table.shape[1]
+    NB, bs, MB = k_pages.shape[0], k_pages.shape[2], block_table.shape[1]
     if scale is None:
         scale = hd ** -0.5
     out = torch.empty_like(q)
     slopes = None if alibi_slopes is None else _slopes(alibi_slopes, q.device)
-    lib = _lib("ragged_prefill")
     quant = k_scale is not None
+    route = prefill_route(q.dtype, S, Q, g, hd, bs, aligned=not quant or all(
+        t.data_ptr() % 16 == 0 for t in (k_scale, v_scale)))
+    part_acc = part_ml = counters = None
+    grid = 0
+    if route == PREFILL_WGMMA:
+        grid, acc_shape, ml_shape = prefill_scratch(
+            hd, _sm_count(q.device.index or 0))
+        part_acc = torch.empty(acc_shape, dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty(ml_shape, dtype=torch.float32, device=q.device)
+        counters = _counters(q.device)
+    lib = _lib("ragged_prefill")
     rc = lib.ds_ragged_prefill(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale), _ptr(v_scale),
         _ptr(block_table), _ptr(kv_lens), _ptr(q_starts), _ptr(q_counts),
-        _ptr(slopes), _ptr(out), S, Q, nkv, g, hd, bs, MB, prefill_chunk(g),
-        float(scale), int(window or 0), _DTYPE_CODE[q.dtype], int(quant),
+        _ptr(slopes), _ptr(out), _ptr(part_acc), _ptr(part_ml),
+        _ptr(counters), S, Q, nkv, g,
+        hd, bs, MB, NB, prefill_chunk(g), grid, float(scale),
+        int(window or 0), _DTYPE_CODE[q.dtype], int(quant), route,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _check_rc(lib, rc, "ragged_prefill")
     if quant:

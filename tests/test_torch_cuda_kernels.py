@@ -220,6 +220,76 @@ def test_decode_plan_is_what_the_kernel_takes(cuda, case):
                                                          **scales), 2e-2)
 
 
+# ---- the 16-bit ragged prefill (csrc/prefill_hopper.cuh) at every shape
+
+
+def _prefill_case(dev, pages, g, hd, bs, nkv=2, seed=0):
+    """A mixed step over shuffled pages: a dead slot, a decode row of a
+    slot long enough that its walk is split (more than 4 stages of 64
+    keys), a slot whose rows span three units of 128 / g tokens (Q is not a
+    multiple of the unit), a short fresh chunk and a chunk continuation."""
+    dtype, int8 = DECODE_PAGES[pages]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tq = 128 // g
+    Q = 3 * tq - 5
+    counts = np.array([0, 1, Q, 7, 2 * tq + 3], np.int32)
+    lens = np.array([5, 40 * 16 + 3, Q + 70, 7, 2 * tq + 3 + 2 * bs + 1],
+                    np.int32)
+    MB = int(-(-lens.max() // bs))
+    S = len(counts)
+    NB = S * MB + 3
+    k = torch.randn((NB, nkv, bs, hd), device=dev, generator=gen)
+    v = torch.randn((NB, nkv, bs, hd), device=dev, generator=gen)
+    q = torch.randn((S, Q, nkv, g, hd), device=dev, generator=gen).to(dtype)
+    scales = {}
+    if int8:
+        kq, vq, ks, vs = _int8_pages(k.float(), v.float())
+        k, v, scales = kq, vq, {"k_scale": ks, "v_scale": vs}
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    bt = torch.from_numpy(rng.permutation(NB)[:S * MB].reshape(S, MB)
+                          .astype(np.int32)).to(dev)
+    ints = [torch.from_numpy(a).to(dev) for a in (lens, lens - counts,
+                                                  counts)]
+    return (q, k, v, bt, *ints), scales
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("pages", sorted(DECODE_PAGES))
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_prefill_kernel_every_shape(cuda, pages, bs, hd, g):
+    """The tensor-core prefill (bf16 / fp16 pages, int8 pages under bf16
+    and fp16 q) against the plain version per output row (2e-2 of the
+    row's largest value; fp16 pages 4e-3): plain, a window that crosses
+    pages, alibi; dead rows (the dead slot's, and past each slot's count)
+    exactly zero; two runs bitwise equal (the split walk merged in chunk
+    order); one launch a call."""
+    args, scales = _prefill_case(cuda, pages, g, hd, bs)
+    q, counts = args[0], args[6]
+    assert pa.prefill_route(q.dtype, *q.shape[:2], g, hd, bs) \
+        == pa.PREFILL_WGMMA
+    nkv = args[1].shape[1]
+    tol = 4e-3 if pages == "fp16" else 2e-2
+    variants = {"plain": {}, "window": {"window": bs + 5},
+                "alibi": {"alibi_slopes": np.geomspace(0.5, 1 / 64, nkv * g)
+                          .astype(np.float32)}}
+    counter = "int8_launches" if scales else "launches"
+    dead = torch.arange(q.shape[1], device=cuda)[None] >= counts[:, None]
+    for name, kw in variants.items():
+        before = getattr(pa.cuda_ragged_prefill, counter)
+        runs = [pa.cuda_ragged_prefill(*args, **kw, **scales)
+                for _ in range(2)]
+        assert getattr(pa.cuda_ragged_prefill, counter) == before + 2
+        want = pa.torch_ragged_prefill(*args, **kw, **scales)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0], runs[1]), name
+        assert not runs[0][dead].any(), name
+        _assert_rows(name, runs[0][~dead], want[~dead], tol)
+
+
 # ---- quantized-weight matmuls (csrc/wq_matmul.cu)
 
 wq = importlib.import_module("deepspeed_tpu_torch.ops.wq_matmul")
@@ -575,6 +645,15 @@ def _lora_case(dev, dtype, M, O, r, S=9, H=4096, ids="random"):
     s[0] = 0
     if ids == "random":
         sel = torch.randint(0, S, (M,), device=dev, generator=gen)
+    elif ids == "slots of 64 and 65":
+        # slot 2's 64 rows and slot 5's 65 in a shuffled order, the rest
+        # random over the other slots
+        sel = torch.randint(0, S, (M,), device=dev, generator=gen)
+        sel = torch.where((sel == 2) | (sel == 5), 1, sel)
+        perm = torch.randperm(M, device=dev, generator=gen)
+        n2, n5 = min(64, M), min(65, max(M - 64, 0))
+        sel[perm[:n2]] = 2
+        sel[perm[n2:n2 + n5]] = 5
     else:
         sel = torch.full((M,), 0 if ids == "identity" else 3, device=dev)
     return x, a, b, sel.to(torch.int32), s
@@ -590,16 +669,27 @@ def _lora_row_err(got, want):
     return (d / w.abs().amax(-1)[~zero]).max().item() if d.numel() else 0.0
 
 
+LORA_MR = [(M, r) for M in (1, 16, 37, 64, 65, 256, 1024)
+           for r in (8, 16, 64, 256, 12) if (M, r) != (1024, 256)]
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float16, 4e-3),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("O", [4096, 1024])
-@pytest.mark.parametrize("r", [8, 16, 64])
-@pytest.mark.parametrize("M", [1, 16, 37, 256, 1024])
-def test_lora_kernel_matches_plain(cuda, dtype, tol, O, r, M):
+@pytest.mark.parametrize("M,r", LORA_MR)
+def test_lora_kernel_matches_plain(cuda, dtype, tol, O, M, r):
+    """Both kernel pairs (16-bit x at r % 8 == 0 on the tensor cores, fp32
+    and r 12 on the CUDA cores) against the plain version per row: ids
+    random, all identity (exactly 0), one tenant, a slot holding exactly
+    64 and one exactly 65 rows; one row's id out of range comes out NaN
+    and every other row right; two runs bitwise equal; one launch a
+    call."""
+    assert lm.lora_route(dtype, 4096, r, O, 9) == (
+        lm.WGMMA if dtype != torch.float32 and r % 8 == 0 else lm.SIMT)
     before = lm.cuda_lora_matmul.launches
-    for ids in ("random", "identity", "one"):
+    for ids in ("random", "identity", "one", "slots of 64 and 65"):
         args = _lora_case(cuda, dtype, M, O, r, ids=ids)
         got = lm.cuda_lora_matmul(*args)
         want = lm.torch_lora_matmul(*args)
@@ -607,7 +697,17 @@ def test_lora_kernel_matches_plain(cuda, dtype, tol, O, r, M):
         assert _lora_row_err(got, want) <= tol
         if ids == "identity":
             assert not got.float().any()
-    assert lm.cuda_lora_matmul.launches - before == 3
+        if ids == "random":
+            assert torch.equal(got, lm.cuda_lora_matmul(*args))
+    x, a, b, sel, s = _lora_case(cuda, dtype, M, O, r)
+    bad = sel.clone()
+    bad[M // 2] = a.shape[0]
+    got = lm.cuda_lora_matmul(x, a, b, bad, s)
+    ok = torch.arange(M, device=cuda) != M // 2
+    assert torch.isnan(got[M // 2].float()).all()
+    assert _lora_row_err(got[ok], lm.torch_lora_matmul(x, a, b, sel, s)[ok]) \
+        <= tol
+    assert lm.cuda_lora_matmul.launches - before == 6
 
 
 @pytest.mark.requires_cuda

@@ -30,6 +30,19 @@ quantized product's launch plan, on the CPU:
   ascending order, and the rules refuse a q / k / v that TMA cannot read
   (a stride or base not 16-byte aligned), naming the rule.
 
+- ``prefill_route``, the route every ragged prefill call takes (query
+  group 1 / 2 / 4 / 8, head dims 32-256, pages of 16-128 tokens, bf16 /
+  fp16 / fp32 and int8 pages): the tensor-core kernel for 16-bit q at
+  head dims 32-128, the CUDA cores otherwise, the refusals unchanged;
+  ``prefill_scratch``, its partials; and the 16-bit prefill's schedule
+  (csrc/prefill_hopper.cuh ``pf_schedule``, mirrored here): the chunks of
+  each unit cover its visible pages once, in order, a walk is split only
+  beyond 1.5 times the fair share, its chunks hold at least half the fair
+  share and at most the fair share (or a 16th of the walk), at most 16 of
+  them, every visible key of
+  every live row lies in its unit's walk, the items come heaviest first,
+  and the split walks' partials fit the 2 x grid slots allocated.
+
 The kernels themselves are held to these plain paths on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py)."""
 
@@ -639,3 +652,182 @@ def test_evo_bwd_plan_tiles_and_chunks(b, n, s, h):
         assert (db2["chunks"], c, db2["part_bytes"]) == (8, 64, 37748736)
     if n == 1:
         assert rows == ((0, 1),)
+
+
+# ------------------------------------------- the ragged prefill's routes
+
+
+def _prefill_call(g, hd, bs, pages, S=2, Q=3, nkv=1, MB=2):
+    """CPU tensors of one prefill call: q of q's dtype, pages of ``pages``
+    ('bf16', 'fp16', 'fp32' or 'int8' beside bf16 q)."""
+    qdt = {"bf16": torch.bfloat16, "fp16": torch.float16,
+           "fp32": torch.float32, "int8": torch.bfloat16}[pages]
+    pdt = torch.int8 if pages == "int8" else qdt
+    NB = S * MB
+    q = torch.zeros((S, Q, nkv, g, hd), dtype=qdt)
+    k = torch.zeros((NB, nkv, bs, hd), dtype=pdt)
+    ints = [torch.zeros(S, dtype=torch.int32) for _ in range(3)]
+    kw = {}
+    if pages == "int8":
+        kw = {"k_scale": torch.ones((NB, nkv, bs)),
+              "v_scale": torch.ones((NB, nkv, bs))}
+    bt = torch.zeros((S, MB), dtype=torch.int32)
+    return (q, k, k.clone(), bt, *ints), kw
+
+
+def _prefill_refused_before(hd, bs, pages, esize):
+    """The shared-memory bound the op has refused beyond (csrc's CUDA-core
+    prefill, and the int8 staging it was sized with)."""
+    if pages == "int8":
+        smem = 4 * bs * hd + 16 * bs + 2 * bs * (hd + 8) * esize
+    else:
+        smem = 4 * bs * hd * esize
+    return smem > SMEM
+
+
+@pytest.mark.parametrize("pages", ["bf16", "fp16", "fp32", "int8"])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_prefill_route(g, hd, bs, pages):
+    """16-bit q (pages of its type or int8) at head dims 32 / 64 / 128 with
+    pages of a multiple of 16 tokens takes the tensor-core kernel; fp32 and
+    head dim 256 the CUDA cores; the calls refused before still are."""
+    args, kw = _prefill_call(g, hd, bs, pages)
+    problem = tpa.prefill_shape_problem(*args, **kw)
+    if _prefill_refused_before(hd, bs, pages, args[0].element_size()):
+        assert "overflows shared memory" in problem
+        return
+    assert problem is None
+    want = tpa.PREFILL_WGMMA if pages != "fp32" and hd <= 128 \
+        else tpa.PREFILL_SIMT
+    assert tpa.prefill_route(args[0].dtype, 2, 3, g, hd, bs) == want
+
+
+def test_prefill_route_rules_and_refusals():
+    """Page sizes that are not multiples of 16 or above 256, more than 1024
+    slots or 1024 units, and misaligned int8 scales go to the CUDA cores;
+    a head dim outside 32 / 64 / 128 / 256, a query group above 64 and
+    fp64 q are refused as before."""
+    bf = torch.bfloat16
+    W, SIMT = tpa.PREFILL_WGMMA, tpa.PREFILL_SIMT
+    assert tpa.prefill_route(bf, 16, 128, 4, 128, 64) == W
+    assert tpa.prefill_route(bf, 16, 128, 4, 128, 48) == W
+    assert tpa.prefill_route(bf, 16, 128, 4, 128, 256) == W
+    assert tpa.prefill_route(bf, 16, 128, 4, 128, 8) == SIMT
+    assert tpa.prefill_route(bf, 16, 128, 4, 128, 272) == SIMT
+    assert tpa.prefill_route(bf, 1024, 128, 1, 128, 64) == W
+    assert tpa.prefill_route(bf, 1025, 1, 1, 128, 64) == SIMT
+    assert tpa.prefill_route(bf, 32, 1024, 4, 128, 64) == W     # 1024 units
+    assert tpa.prefill_route(bf, 33, 1024, 4, 128, 64) == SIMT
+    assert tpa.prefill_route(bf, 16, 128, 4, 128, 64, aligned=False) == SIMT
+    for g, hd, pages, match in ((4, 96, "bf16", "head_dim"),
+                                (65, 64, "bf16", "query group"),
+                                (4, 512, "fp32", "head_dim")):
+        args, kw = _prefill_call(g, hd, 16, pages)
+        assert match in tpa.prefill_shape_problem(*args, **kw)
+    args, kw = _prefill_call(4, 64, 16, "fp32")
+    assert "dtype" in tpa.prefill_shape_problem(args[0].double(), *args[1:])
+    grid, acc, ml = tpa.prefill_scratch(128, SMS)
+    assert (grid, acc, ml) == (SMS, (2 * SMS, 128, 128), (2 * SMS, 128, 2))
+
+
+def _pf_schedule(counts, starts, lens, Q, g, bs, MB, window, nkv, grid):
+    """csrc/prefill_hopper.cuh's schedule, in Python: the units (slot,
+    first token, walk pages [lp0, lp1), stages), the fair share F, each
+    unit's (chunk size, chunks), the items in order and the split units'
+    chunk bases."""
+    tq = 128 // g
+    units = []
+    for s in range(len(counts)):
+        c = min(max(int(counts[s]), 0), Q)
+        for t0 in range(0, c, tq):
+            qf, ql = starts[s] + t0, starts[s] + min(t0 + tq, c) - 1
+            lo = max(qf - window + 1, 0) if window else 0
+            hi = min(ql + 1, lens[s], MB * bs)
+            if hi <= lo:
+                units.append((s, t0, 0, 0, 0))
+                continue
+            lp0, lp1 = lo // bs, -(-hi // bs)
+            st = (-(-(lp1 - lp0) // (64 // bs)) if bs <= 64
+                  else (lp1 - lp0) * -(-bs // 64))
+            units.append((s, t0, lp0, lp1, st))
+    F = max(4, -(-sum(u[4] for u in units) * nkv // grid))
+
+    def chunks(st):
+        if 2 * st <= 3 * F:
+            return st, 1
+        nc = min(16, -(-st // F))
+        cs = -(-st // nc)
+        return cs, -(-st // cs)
+    keys = [chunks(u[4])[0].bit_length() for u in units]
+    order = sorted(range(len(units)), key=lambda u: (-keys[u], u))
+    items = [(u, c, h) for u in order for c in range(chunks(units[u][4])[1])
+             for h in range(nkv)]
+    cbase, run = [], 0
+    for u in units:
+        cbase.append(run)
+        nc = chunks(u[4])[1]
+        run += nc if nc > 1 else 0
+    return units, F, [chunks(u[4]) for u in units], keys, items, cbase, run
+
+
+def _pf_stage_pages(bs, lp0, lp1, i):
+    """The logical pages (and 64-row slice) stage i of a walk reads."""
+    if bs <= 64:
+        lp = lp0 + i * (64 // bs)
+        return [(p, 0) for p in range(lp, min(lp + 64 // bs, lp1))]
+    per = -(-bs // 64)
+    return [(lp0 + i // per, i % per)]
+
+
+PF_CASES = {   # counts, starts, kv_lens, Q, g, bs, MB, window, nkv, grid
+    "main_mixed_step": (
+        [0, 1, 1, 37, 128, 128, 5, 128, 64, 1, 128, 17, 128, 100, 128, 1],
+        [0, 0, 62, 27, 0, 72, 506, 572, 936, 1023, 1172, 1519, 1649, 1900,
+         1919, 2047],
+        [0, 1, 63, 64, 128, 200, 511, 700, 1000, 1024, 1300, 1536, 1777,
+         2000, 2047, 2048], 128, 4, 64, 32, 0, 8, 132),
+    "long_decode_row": ([1, 3, 2], [8191, 10, 5], [8192, 13, 7], 4, 4, 64,
+                        128, 0, 8, 132),
+    "long_decode_small_grid": ([1, 40, 2], [4095, 10, 5], [4096, 50, 7], 64,
+                               8, 16, 256, 0, 2, 8),
+    "window_pages_128": ([70, 1, 0], [1000, 3000, 0], [1070, 3001, 0], 96,
+                         1, 128, 24, 300, 2, 16),
+    "pages_48_g2": ([33, 9], [100, 0], [133, 9], 40, 2, 48, 3, 0, 1, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PF_CASES))
+def test_prefill_schedule_covers_walks(case):
+    counts, starts, lens, Q, g, bs, MB, window, nkv, grid = PF_CASES[case]
+    units, F, ch, keys, items, cbase, slots = _pf_schedule(
+        counts, starts, lens, Q, g, bs, MB, window, nkv, grid)
+    tq = 128 // g
+    for (s, t0, lp0, lp1, st), (cs, nc) in zip(units, ch):
+        assert 1 <= nc <= 16 and (nc == 1 or 2 * cs >= F)
+        assert (nc == 1) == (2 * st <= 3 * F)
+        assert nc == 1 or cs <= max(F, -(-st // 16))
+        spans = [(c * cs, min(st, (c + 1) * cs)) for c in range(nc)]
+        assert spans[0][0] == 0 and spans[-1][1] == st
+        assert all(a < b for a, b in spans) or st == 0
+        pages = [pg for a, b in spans for i in range(a, b)
+                 for pg in _pf_stage_pages(bs, lp0, lp1, i)]
+        per = -(-bs // 64) if bs > 64 else 1
+        assert pages == [(p, k) for p in range(lp0, lp1) for k in range(per)]
+        # every key a live row of the unit sees lies in the walk
+        for t in range(t0, min(t0 + tq, min(counts[s], Q))):
+            qpos = starts[s] + t
+            seen = [k for k in range(min(lens[s], MB * bs)) if k <= qpos
+                    and (not window or k > qpos - window)]
+            assert all(lp0 * bs <= k < lp1 * bs for k in seen)
+    assert [keys[u] for u, _, _ in items] == sorted(
+        (keys[u] for u, _, _ in items), reverse=True)
+    assert len(items) == nkv * sum(nc for _, nc in ch)
+    # the split walks' (chunk, kv head) partials fit what the wrapper
+    # allocates
+    assert slots * nkv <= tpa.prefill_scratch(128, grid)[1][0]
+    assert all(cbase[u] + ch[u][1] <= slots
+               for u in range(len(units)) if ch[u][1] > 1)
+    if case.startswith("long_decode"):
+        assert max(nc for _, nc in ch) > 1     # the long walk is split

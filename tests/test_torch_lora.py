@@ -14,6 +14,14 @@ adapter pool held to the JAX package on the same numpy inputs, on the CPU.
     tables through a permute) after every step.
 (c) ``blocks_per_adapter`` and ``kv_block_bytes()`` equal to the JAX
     engine's for bf16, fp32 and int8-KV engines.
+(d) The CUDA kernels' route and scratch rules at every rank 1-256 and
+    dtype (device-free: ``lora_route``, ``shape_problem``,
+    ``lora_scratch_shape``), and the tensor-core pair's arithmetic written
+    in torch (rows segmented by slot into 64-row tiles in row order, fp32
+    partials over 256-wide H chunks summed in ascending order, u cast to
+    x's dtype, the expand, the scale) against ``xla_lora_matmul``: fp32
+    within 1e-5 of each row's largest value, bf16 within one bf16
+    rounding (2^-7), slot 0 rows exactly 0.
 """
 
 import dataclasses
@@ -338,3 +346,124 @@ def test_block_bytes_and_blocks_per_adapter_equal_jax(tree, dtype, kv_quant,
             == jeng.adapters.blocks_per_adapter)
     assert teng.adapters.scale == jeng.adapters.scale == 8.0 / rank
     assert teng.adapters.tables()["a_q"].dtype == teng.config.torch_dtype
+
+
+# --------------------------------------------------------------------- (d)
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+def test_lora_route_every_rank(dtype):
+    """Every rank 1-256 is taken (the shape rules accept it); 16-bit x with
+    r, H and O multiples of 8 takes the tensor-core pair, everything else
+    the CUDA-core pair; the fp32 partials are [ceil(H / 256), M, r]."""
+    for r in range(1, tlora.RANK_MAX + 1):
+        x = torch.zeros((3, 64), dtype=dtype)
+        a = torch.zeros((4, 64, r), dtype=dtype)
+        b = torch.zeros((4, r, 24), dtype=dtype)
+        args = (x, a, b, torch.zeros(3, dtype=torch.int32), torch.ones(4))
+        assert tlora.shape_problem(*args) is None
+        want = tlora.WGMMA if dtype != torch.float32 and r % 8 == 0 \
+            else tlora.SIMT
+        assert tlora.call_route(x, a, b) == want
+        assert tlora.lora_route(dtype, 64, r, 24, 4) == want
+    assert tlora.lora_scratch_shape(37, 4096, 16) == (16, 37, 16)
+    assert tlora.lora_scratch_shape(1, 600, 8) == (3, 1, 8)
+
+
+def test_lora_route_rules_and_refusals():
+    """O, H not multiples of 8, more than 1024 slots or a misaligned tensor
+    route to the CUDA cores; what the kernels refused before still
+    raises."""
+    bf = torch.bfloat16
+    assert tlora.lora_route(bf, 4096, 16, 4096, 9) == tlora.WGMMA
+    assert tlora.lora_route(bf, 4096, 16, 1020, 9) == tlora.SIMT
+    assert tlora.lora_route(bf, 4092, 16, 4096, 9) == tlora.SIMT
+    assert tlora.lora_route(bf, 4096, 16, 4096, 1024) == tlora.WGMMA
+    assert tlora.lora_route(bf, 4096, 16, 4096, 1025) == tlora.SIMT
+    assert tlora.lora_route(bf, 4096, 16, 4096, 9, aligned=False) \
+        == tlora.SIMT
+    x = torch.zeros((5, 64), dtype=bf)
+    a = torch.zeros((4, 64, 16), dtype=bf)
+    b = torch.zeros((4, 16, 24), dtype=bf)
+    assert tlora.call_route(x.view(-1)[8:].view(4, 78)[:, :64].contiguous(),
+                            a, b) == tlora.WGMMA
+    assert tlora.call_route(x.view(-1)[1:257].view(4, 64), a, b) \
+        == tlora.SIMT   # 2 bytes past an aligned base
+    ids, s = torch.zeros(5, dtype=torch.int32), torch.ones(4)
+    for bad, match in (
+            ((x, torch.zeros((4, 64, 257), dtype=bf),
+              torch.zeros((4, 257, 24), dtype=bf), ids, s), "rank"),
+            ((x.double(), a.double(), b.double(), ids, s), "dtype"),
+            ((x, a, b, ids.long(), s), "int32"),
+            ((x, a, b.transpose(1, 2).contiguous().transpose(1, 2), ids, s),
+             "contiguous"),
+            ((x, a[:, :32], b, ids, s), "do not agree")):
+        assert match in tlora.shape_problem(*bad)
+
+
+def _tiles(ids, S, rows=64):
+    """csrc/lora_matmul.cu's units, in Python: each slot's rows in row
+    order, cut into tiles of 64 rows."""
+    out = []
+    for s in range(S):
+        hit = np.flatnonzero(ids == s)
+        out += [(s, hit[i:i + rows]) for i in range(0, len(hit), rows)]
+    return out
+
+
+def _kernel_order_lora(x, a, b, ids, scales):
+    """The tensor-core pair's arithmetic in torch: per tile, fp32 partials
+    of x . A[slot] over H chunks of ``H_CHUNK``, summed in ascending order,
+    u cast to x's dtype, then u . B[slot] in fp32, scaled, cast once."""
+    M, H = x.shape
+    S, _, r = a.shape
+    y = torch.full((M, b.shape[2]), float("nan"), dtype=x.dtype)
+    for s, rows in _tiles(ids.numpy(), S):
+        rows = torch.from_numpy(rows)
+        u = None
+        for h0 in range(0, H, tlora.H_CHUNK):
+            part = x[rows, h0:h0 + tlora.H_CHUNK].float() \
+                @ a[s, h0:h0 + tlora.H_CHUNK].float()
+            u = part if u is None else u + part
+        yy = (u.to(x.dtype).float() @ b[s].float()) * scales[s]
+        y[rows] = yy.to(x.dtype)
+    return y
+
+
+CHUNKED_IDS = {   # M -> ids over slots 0..4 (slot 0 the identity)
+    "M1": [2],
+    "M37": None,                                   # random over 0..4
+    "M65_slot_of_64": [0] + [2] * 64,
+    "M130_slots_of_65_and_64": [1] * 65 + [0] + [3] * 64,
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CHUNKED_IDS))
+def test_chunked_partials_match_xla(case, dtype):
+    """H 600 (three chunks, the last one short), r 16, O 40, 5 slots: the
+    kernel's order of sums against ``xla_lora_matmul``; the tiles hold
+    every valid row once, at most 64 a tile."""
+    ids = CHUNKED_IDS[case]
+    rng = np.random.default_rng(7)
+    if ids is None:
+        ids = rng.integers(0, 5, 37)
+    ids = np.asarray(ids, np.int32)
+    M = len(ids)
+    x, a, b, _, scales = _op_case(S=5, M=M, H=600, R=16, O=40, seed=3)
+    tiles = _tiles(ids, 5)
+    assert sorted(np.concatenate([t for _, t in tiles]).tolist()) \
+        == list(range(M))
+    assert all(0 < len(t) <= 64 for _, t in tiles)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    want = jlora.xla_lora_matmul(jnp.asarray(x, jdt), jnp.asarray(a, jdt),
+                                 jnp.asarray(b, jdt), jnp.asarray(ids),
+                                 jnp.asarray(scales))
+    want = np.asarray(want.astype(jnp.float32))
+    got = _kernel_order_lora(*(torch.from_numpy(t).to(tdt)
+                               for t in (x, a, b)), torch.from_numpy(ids),
+                             torch.from_numpy(scales))
+    assert got.dtype == tdt
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    assert _row_rel(got.float(), want) <= tol     # slot 0 rows exactly 0
