@@ -8,15 +8,17 @@
    paths from the sources in this checkout (one nvcc per source, started
    together); ptxas's registers and spills of the 16-bit flash kernels, the
    16-bit decode, #6's kernel, the evoformer's 16-bit dk/dv and dbias2, the
-   16-bit prefill (#2 / #2i) with its combine kernel and #9's tensor-core
-   shrink and expand (a spill in any but the flash forward and dq fails),
-   and the HGMMA / WARPGROUP.DEPBAR counts of the SASS of every wgmma
-   kernel (the attention forward in both of its builds, the attention
-   backward (flash dq, the dk/dv in both of its builds), the evoformer's
-   dbias2, wq_wgmma_kernel in each mode, #6's kernel, the prefill, #9's
-   shrink and expand); a forward, attention backward, dbias2, #6, prefill
-   or #9 kernel with a wait after every product, or named in a ptxas
-   warning that it serialised the products, fails.
+   16-bit prefill (#2 / #2i) with its combine kernel, #9's tensor-core
+   shrink and expand, the block-sparse dk/dv (#12) with its merge and the
+   evoformer's dq (#14) (a spill in any but the flash forward and dq
+   fails), and the HGMMA / WARPGROUP.DEPBAR counts of the SASS of every
+   wgmma kernel (the attention forward in both of its builds, the
+   attention backward (flash dq, the dk/dv in both of its builds), the
+   evoformer's dq and dbias2, wq_wgmma_kernel in each mode, #6's kernel,
+   the prefill, #9's shrink and expand, the block-sparse dk/dv); a
+   forward, attention backward, dbias2, #6, prefill, #9 or #12 kernel with
+   a wait after every product, or named in a ptxas warning that it
+   serialised the products, fails.
 2. Each kernel against its plain PyTorch version on the card at Llama-3-8B
    attention shapes (bf16, nkv=8, g=4, hd=128, 64-token pages, 16 slots,
    KV lengths 0..2048, shuffled block tables) in every variant: plain,
@@ -137,7 +139,8 @@
 16. The block-sparse kernels (#10-#12: forward, dq, dk/dv) against their
    plain versions in bf16 (one fp16 case), per output row at ROW_TOL (lse
    absolute): Dense, Fixed, BSLongformer and BigBird layouts, causal and
-   not, GQA 1 and 4, blocks 16-128, head_dim 64 and 128, T 1024-2048; and
+   not, GQA 1 and 4, blocks 16-128 (dk/dv on the wgmma kernel; block 48 on
+   the mma.sync one), head_dim 64 and 128, T 1024-2048; and
    the CUDA-core family at block 8 and 24, head_dim 80 and in fp32
    (F32_TOL).  K/V blocks no table entry reads are poisoned with NaN (at
    block 16 and at block 8) and the outputs must stay equal to the plain
@@ -147,10 +150,16 @@
    published context (B 1, T 8192, 32 / 8 heads x 128, bf16):
    ``ops.sparse_attention`` and its autograd backward with the default
    Fixed pattern (causal) and with BigBird block 64 (non-causal).  Each
-   kernel launches once a call; o, dq, dk, dv held per row to the plain
-   versions run one KV group at a time; the kernels timed on the Fixed call
-   beside their bound (live pairs only), the plain versions and SDPA with
-   the expanded boolean mask.
+   kernel launches once a call (dk/dv's merge of its split walks once,
+   where the plan splits one); o, dq, dk, dv held per row to the plain
+   versions run one KV group at a time; two dk/dv runs bitwise equal; the
+   kernels timed on both calls (the Fixed call's in the JSON line) beside
+   their bound (live pairs only), the plain versions and SDPA with the
+   expanded boolean mask, and the merge on a seeded partial, held bitwise
+   to its plain version.  The dk/dv check is shown to see, in the plain
+   backward of one kv head: a column dropped from a group, a dead
+   sub-tile let through, a chunk left out of a split walk's merge and a
+   skipped ring stage (each fault's size printed).
 18. The evoformer kernels, forward (#13) and backward (#14 dq, #15 dk/dv,
    #16 dbias2 with its second pass, #17 dbias1), against their plain
    versions at small shapes (biases none / one / both, an fp32 bias2, a
@@ -168,12 +177,17 @@
    SDPA with the additive mask (requiring grad in the backward); the
    triangle call's kernels timed too, dbias2 with its second pass and the
    second pass alone (held bitwise to its plain version, beside
-   ``part.sum(0)``).  A bias2 read through the neighbouring head must show
+   ``part.sum(0)``), dq with the delta it makes (and the eager delta it
+   replaced, off the path), and the op's whole backward through autograd.
+   A bias2 read through the neighbouring head must show
    in the forward and in every backward kernel, and a dbias2 summed over
    N - 1 rows must show; so must, in the plain backward on the kernels' o
    and lse, a query tile dropped from #15's walk, one chunk left out of
-   #16's second pass and one skipped ring stage of each (each fault's
-   size printed).  Two backward runs at the MSA call are bitwise equal.
+   #16's second pass and one skipped ring stage of each, and in the plain
+   dq a key tile out of #14's walk, a skipped #14 stage and the
+   neighbouring head's delta rows (each fault's size printed); the delta
+   #14 makes is held to the eager fp32 sum.  Two backward runs at the MSA
+   call are bitwise equal.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
@@ -244,7 +258,7 @@ FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 WQ = ("wq_matmul_t", "wq_matmul", "wq_matmul4")
 INT8 = ("paged_attention_int8", "ragged_prefill_int8")
 LORA = ("lora_matmul",)
-SPARSE = ("sparse_fwd", "sparse_dq", "sparse_dkv")
+SPARSE = ("sparse_fwd", "sparse_dq", "sparse_dkv", "sparse_dkv_merge")
 EVO_BWD = ("evoformer_dq", "evoformer_dkv", "evoformer_db2",
            "evoformer_db2_sum", "evoformer_db1")
 EVO = ("evoformer_fwd",) + EVO_BWD
@@ -2312,6 +2326,9 @@ def phase_sparse_kernels(torch, sp, dev):
          sp.DenseSparsityConfig(block=128), False, torch.bfloat16),
         ("dense b16 causal g1 d64", (2, 1024, 4, 4, 64),
          sp.DenseSparsityConfig(block=16), True, torch.bfloat16),
+        # a block that does not divide 128: dk/dv on sparse_dkv_kernel
+        ("longformer b48 causal g4 d128", (1, 1536, 8, 2, 128),
+         sp.BSLongformerSparsityConfig(block=48), True, torch.bfloat16),
         # the CUDA-core family: block 8, head dim 80, fp32
         ("fixed b8 causal g4 d64", (1, 1024, 8, 2, 64),
          sp.FixedSparsityConfig(block=8), True, torch.bfloat16),
@@ -2460,8 +2477,9 @@ def _time_sparse(torch, sp, q, k, v, do, cfg, causal, label):
              f"{type(cfg).__name__}(block={cfg.block}) causal={causal}, "
              f"{pairs // (B * N)} live pairs a head, sparsity_ratio "
              f"{ratio:.4f}")
-    res = {}
-    for name in SPARSE:
+    res = {"sparse_dkv_merge": _time_sparse_merge(torch, sp, q, k, lay,
+                                                  cfg.block, causal)}
+    for name in SPARSE[:3]:
         res[name] = dict(
             shape=shape, ms=ms[name],
             plain_ms=plain_fwd if name == "sparse_fwd" else plain_bwd,
@@ -2477,6 +2495,133 @@ def _time_sparse(torch, sp, q, k, v, do, cfg, causal, label):
     return res
 
 
+def _time_sparse_merge(torch, sp, q, k, lay, block, causal):
+    """The split walks' second pass on a seeded partial of the call's
+    plan's shape [parts, 2, 128, D]: held bitwise to its plain version
+    (the chunks added in order, rounded once) and timed beside its bound
+    (the partials read once, the merged rows written once); no single
+    PyTorch call sums a varying number of chunks into gathered rows."""
+    B, T, N, D = q.shape
+    group = N // k.shape[2]
+    plan = sp._call_plan(lay, block, causal, group, k)[0]
+    if not plan["parts"]:
+        return {}
+    part = torch.randn((plan["parts"], 2, 128, D), device=q.device,
+                       generator=torch.Generator(device=q.device).manual_seed(
+                           plan["parts"]))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(k)
+    got = sp.cuda_sparse_dkv_merge(part, dk.clone(), dv.clone(), lay, block,
+                                   causal, group)
+    want = sp.torch_sparse_dkv_merge(part, dk, dv, lay, block, causal,
+                                     group)
+    label = f"{len(plan['merges'])} merges of {plan['parts']} parts"
+    for lab, g_, w_ in zip(("dk", "dv"), got, want):
+        _check_rows(torch, "sparse_dkv_merge", f"{label} {lab}", g_, w_,
+                    F32_TOL)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"  the merge equals its plain version bitwise: {same}",
+          flush=True)
+    if not same:
+        fail("sparse_dkv_merge: the chunks are not added in the plain "
+             "version's order")
+    rows = sum(int((plan["cols"][g] >= 0).sum()) * block
+               for g in plan["merges"][:, 0])
+    adds = sum(int(n - 1) * int((plan["cols"][g] >= 0).sum()) * block
+               for g, _, _, n in plan["merges"].tolist())
+    bound = _bound(part.numel() * 4 + 2 * rows * D * q.element_size(),
+                   2 * adds * D)
+    ms = cuda_ms(lambda: sp.cuda_sparse_dkv_merge(part, dk, dv, lay, block,
+                                                  causal, group))
+    plain = cuda_ms(lambda: sp.torch_sparse_dkv_merge(
+        part, dk, dv, lay, block, causal, group), reps=3, warmup=1)
+    print(f"  sparse_dkv_merge [{label}]: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+    return dict(shape=f"part[{plan['parts']},2,128,{D}] float32, {label}",
+                ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+def _sparse_dkv_faults(torch, sp, q, k, v, o, lse, do, lay, block, causal):
+    """The dk/dv row checks must see, in the plain backward on the
+    kernels' o and lse (one kv head, the first whose walk is split): a
+    column dropped from a group, a dead sub-tile of a group's walk let
+    through (at the column with the fewest live row blocks, below the
+    diagonal), one chunk of a split walk left out of its merge and one
+    skipped ring stage (one q head's 64 queries of one stage of that walk).
+    Each fault's size is printed."""
+    B, T, N, D = q.shape
+    Nkv = k.shape[2]
+    g = N // Nkv
+    plan = sp._call_plan(lay, block, causal, g, k)[0]
+    if not plan["parts"]:
+        fail("the sparse fault checks need a split walk")
+    gi, u, _, nch = plan["merges"][0].tolist()
+    b, hk = divmod(u, Nkv)
+    hs = slice(hk * g, (hk + 1) * g)
+    one = (q[b:b + 1, :, hs], k[b:b + 1, :, hk:hk + 1],
+           v[b:b + 1, :, hk:hk + 1], o[b:b + 1, :, hs])
+    l1, do1 = lse[b:b + 1, hs], do[b:b + 1, :, hs]
+    want = sp.torch_sparse_bwd(*one, l1, do1, lay, block, causal)[1:]
+
+    def check(what, got):
+        r = max(_rows_off(x, w)[0] for x, w in zip(got, want))
+        print(f"  {what} moves the worst dk/dv row by {r:.3e} of its max "
+              f"(check at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the sparse_dkv check cannot see {what}")
+
+    cols = plan["cols"][gi]
+    cut = lay.copy()
+    cut[:, cols[1]] = False
+    check(f"column {cols[1]} dropped from group {gi}",
+          sp.torch_sparse_bwd(*one, l1, do1, cut, block, causal)[1:])
+    # a dead sub-tile below the diagonal, at the column read least
+    live = lay & np.tril(np.ones(lay.shape, bool)) if causal else lay
+    st0 = plan["gst"][:, 0]
+    best = None
+    for gj, (first, count) in enumerate(plan["gst"].tolist()):
+        for st in range(first, first + count):
+            for r in range(plan["R"]):
+                rb = int(plan["seg"][st, r]) // block
+                for c, col in enumerate(plan["cols"][gj].tolist()):
+                    if col >= 0 and rb > col and not live[rb, col] and (
+                            best is None or live[:, col].sum() < best[0]):
+                        best = (int(live[:, col].sum()), rb, col)
+    if best is None:
+        fail("no dead sub-tile below the diagonal in any group's walk")
+    extra = lay.copy()
+    extra[best[1], best[2]] = True
+    check(f"dead sub-tile (row block {best[1]}, column {best[2]}) let "
+          f"through", sp.torch_sparse_bwd(*one, l1, do1, extra, block,
+                                          causal)[1:])
+    ns, seg_len = plan["gst"][gi, 1], plan["seg_len"]
+    tasks = sorted(t for t in plan["tasks"].tolist() if t[:2] == [gi, u])
+
+    def without(items):
+        """the plain dk, dv with the walk's ``items`` (q head, stage) left
+        out: those rows dead for this group's columns only"""
+        dead = l1.clone()
+        for i in items:
+            st = int(st0[gi]) + i % ns
+            for start in plan["seg"][st].tolist():
+                dead[0, i // ns, :, start:start + seg_len] = -1e30
+        got = sp.torch_sparse_bwd(*one, dead, do1, lay, block, causal)[1:]
+        out = [w.clone() for w in want]
+        for col in cols.tolist():
+            if col >= 0:
+                keys = slice(col * block, (col + 1) * block)
+                for x, y in zip(out, got):
+                    x[:, keys] = y[:, keys]
+        return out
+
+    mid = tasks[nch // 2]
+    check(f"chunk {nch // 2} of {nch} (items {mid[2]}..{mid[3] - 1}) of "
+          f"group {gi}'s walk left out of its merge",
+          without(range(mid[2], mid[3])))
+    check(f"one ring stage of group {gi}'s walk skipped (item {mid[2]})",
+          without([mid[2]]))
+
+
 def phase_sparse_main(torch, sp, dev):
     """The block-sparse path at full Llama-3-8B attention width and its
     published context (B 1, T 8192, 32 q heads over 8 kv heads, head_dim
@@ -2489,8 +2634,9 @@ def phase_sparse_main(torch, sp, dev):
     versions run one KV group at a time.  An end-to-end comparison would
     fold the bf16 rounding of o into delta = rowsum(o·do), which moves the
     first rows' dq (a near-cancelling sum over one or two keys) by ~0.1 of
-    their largest value in the plain path itself against fp32.  The
-    kernels timed on the Fixed call."""
+    their largest value in the plain path itself against fp32.  Two dk/dv
+    runs bitwise equal; the dk/dv fault checks on the Fixed call; the
+    kernels timed on both calls (the Fixed call's numbers returned)."""
     from deepspeed_tpu_torch import ops
     calls = [("Fixed (defaults), causal", sp.FixedSparsityConfig(), True),
              ("BigBird block 64, non-causal", sp.BigBirdSparsityConfig(
@@ -2501,9 +2647,13 @@ def phase_sparse_main(torch, sp, dev):
     for i, (label, cfg, causal) in enumerate(calls):
         q, k, v, g = _flash_inputs(torch, dev, B, T, N, Nkv, D, seed=17 + i)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        counters = (sp.cuda_sparse_fwd, sp.cuda_sparse_dq, sp.cuda_sparse_dkv)
+        counters = (sp.cuda_sparse_fwd, sp.cuda_sparse_dq, sp.cuda_sparse_dkv,
+                    sp.cuda_sparse_dkv_merge)
         for c in counters:
             c.launches = 0
+        plan = sp._call_plan(cfg.make_layout(T), cfg.block, causal, N // Nkv,
+                             torch.empty((B, T, Nkv, D), device=dev))[0]
+        merges = int(plan["parts"] > 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         o = ops.sparse_attention(qg, kg, vg, cfg, causal=causal)
@@ -2514,9 +2664,9 @@ def phase_sparse_main(torch, sp, dev):
         print(f"  [{label}] forward + backward {wall * 1e3:.1f} ms wall "
               f"(first call includes the table build), launches "
               f"{dict(zip(SPARSE, counts))}", flush=True)
-        if counts != [1, 1, 1]:
+        if counts != [1, 1, 1, merges]:
             fail(f"sparse main path [{label}]: launches {counts}, want "
-                 f"1 each")
+                 f"1 each (the merge {merges})")
         for n, c in zip(SPARSE, counts):
             total[n] += c
         lay = cfg.make_layout(T)
@@ -2542,6 +2692,18 @@ def phase_sparse_main(torch, sp, dev):
                 ("sparse_dq", "sparse_dkv", "sparse_dkv"), ("dq", "dk", "dv"),
                 (qg.grad, kg.grad, vg.grad), refs):
             _check_rows(torch, name, f"{label} {lab}", got, want)
+        dos, lse_c, delta = sp._bwd_inputs("check", q, o_k, lse_k, g)
+        runs = [sp.cuda_sparse_dkv(q, k, v, o_k, lse_c, dos, lay, cfg.block,
+                                   causal, delta=delta) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"  [{label}] two dk/dv runs bitwise equal: {same}", flush=True)
+        if not same:
+            fail(f"sparse_dkv [{label}] is not deterministic")
+        del runs, dos, lse_c, delta
+        if i == 0:
+            _sparse_dkv_faults(torch, sp, q, k, v, o_k, lse_k, g, lay,
+                               cfg.block, causal)
         if i == 0:
             results = _time_sparse(torch, sp, q, k, v, g, cfg, causal,
                                    label)
@@ -2696,9 +2858,10 @@ def _time_evo(torch, evo, q, k, v, b1, b2):
 
 def _evo_bwd_bounds(q, b1, b2, chunks):
     """Bytes (q, k, v, do and lse, delta read once, each output written
-    once, the biases as stored) and operations (2·D flops per (query, key)
-    pair and product: dq 3 products, dk/dv 4, dbias2 2) of the backward
-    kernels; dbias2's second pass reads the ``chunks`` fp32 partials and
+    once, the biases as stored; dq also reads o and writes the delta it
+    makes) and operations (2·D flops per (query, key) pair and product: dq
+    3 products, dk/dv 4, dbias2 2) of the backward kernels; dbias2's second
+    pass reads the ``chunks`` fp32 partials and
     writes dbias2 (``chunks`` - 1 adds an element); dbias1's kernel adds the
     per-head column sums (written by dk/dv) over the heads."""
     B, N, S, H, D = q.shape
@@ -2708,7 +2871,7 @@ def _evo_bwd_bounds(q, b1, b2, chunks):
                if b is not None)
     pairs = B * N * H * S * S
     db2 = B * H * S * S
-    return {"evoformer_dq": _bound(5 * nq + 2 * rows + bias, 6 * D * pairs),
+    return {"evoformer_dq": _bound(6 * nq + 2 * rows + bias, 6 * D * pairs),
             "evoformer_dkv": _bound(6 * nq + 3 * rows + bias,
                                     8 * D * pairs),
             "evoformer_db2": _bound(4 * nq + 2 * rows + bias + db2 * 4,
@@ -2738,7 +2901,9 @@ def _time_evo_bwd(torch, evo, q, k, v, b1, b2, do, full=True):
     partial = torch.randn((chunks, B, H, S, S), device=q.device,
                           generator=torch.Generator(
                               device=q.device).manual_seed(S + chunks))
-    ms = {"evoformer_dq": cuda_ms(lambda: evo._bwd_kernel("dq", *args)),
+    dq_args = (q, k, v, b1v, b2v, lse, None, do)
+    ms = {"evoformer_dq": cuda_ms(lambda: evo._bwd_kernel("dq", *dq_args,
+                                                          o=o)),
           "evoformer_dkv": cuda_ms(lambda: evo._bwd_kernel(
               "dkv", *args, part=True)),
           "evoformer_db2": cuda_ms(lambda: evo._bwd_kernel("db2", *args)),
@@ -2760,13 +2925,20 @@ def _time_evo_bwd(torch, evo, q, k, v, b1, b2, do, full=True):
              f"not added in the plain version's order")
     sum_plain = cuda_ms(lambda: evo.torch_evoformer_db2_sum(partial), reps=5)
     sum_lib = cuda_ms(lambda: partial.sum(0))
+    # delta = rowsum(o * do) made eagerly (fp32), no longer on the path:
+    # what a dq that does not make delta needs beside it
+    delta_ms = cuda_ms(lambda: evo._delta(o, do))
+    kernels_ms = cuda_ms(lambda: evo.cuda_evoformer_bwd(q, k, v, b1, b2, o,
+                                                        lse, do))
     bounds = _evo_bwd_bounds(q, b1, b2, chunks)
     print("  backward kernels on " + shape + ": " + ", ".join(
         f"{n} {ms[n]:.4f} ms (bound {bounds[n][0]:.4f} {bounds[n][1]})"
         for n in EVO_BWD) + f"; sum {sum(ms.values()) - ms['evoformer_db2_sum']:.4f} ms"
-        f" (evoformer_db2 includes its second pass, {chunks} chunks; "
-        f"second pass alone: plain {sum_plain:.4f}, part.sum(0) "
-        f"{sum_lib:.4f} ms)", flush=True)
+        f" (evoformer_dq makes delta; evoformer_db2 includes its second "
+        f"pass, {chunks} chunks; second pass alone: plain {sum_plain:.4f}, "
+        f"part.sum(0) {sum_lib:.4f} ms); cuda_evoformer_bwd whole "
+        f"{kernels_ms:.4f} ms; the eager delta (off the path) "
+        f"{delta_ms:.4f} ms", flush=True)
     plain_ms = lib_ms = None
     if full:
         plain_ms = cuda_ms(lambda: evo.torch_evoformer_bwd(
@@ -2788,8 +2960,16 @@ def _time_evo_bwd(torch, evo, q, k, v, b1, b2, do, full=True):
         lib_ms = cuda_ms(lambda: torch.autograd.grad(
             out, inputs, dout, retain_graph=True), reps=5)
         del out, mask
+        from deepspeed_tpu_torch import ops
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, b1, b2)]
+        out = ops.evoformer_attention(*leaves)
+        op_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), reps=5)
+        del out, leaves
         print(f"  plain backward {plain_ms:.3f} ms; SDPA backward with the "
-              f"materialised mask ({what}) {lib_ms:.4f} ms", flush=True)
+              f"materialised mask ({what}) {lib_ms:.4f} ms; the op's whole "
+              f"backward (autograd, bias gradients reduced) {op_ms:.4f} ms",
+              flush=True)
     res = {n: dict(shape=shape, ms=ms[n], plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bounds[n][0],
                    bound_by=bounds[n][1]) for n in EVO_BWD}
@@ -2899,6 +3079,56 @@ def _evo_walk_faults(torch, evo, q, k, v, b1, b2, do, raw):
           "1, queries 0..127, keys 64..127)", "evoformer_db2", stage, full)
 
 
+def _evo_dq_faults(torch, evo, q, k, v, b1, b2, do):
+    """dq makes delta: against the eager fp32 sum (F32_TOL of the
+    largest); and the dq row check must see, in the plain dq on the
+    kernels' o and lse of the first 32 MSA rows: one 64-key tile (keys
+    64..127) out of every unit's walk, one skipped ring stage (that tile
+    of the unit row 0, head 1, queries 0..127 alone), and the delta rows
+    of the neighbouring head.  Each fault's size is printed."""
+    B, N, S, H, D = q.shape
+    o, lse = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
+    b1v, b2v = evo._bias_views(q, b1, b2)
+    _, delta = evo._bwd_kernel("dq", q, k, v, b1v, b2v, lse, None, do, o=o)
+    _check_rows(torch, "evoformer_dq", "delta made in the producer warps",
+                delta, evo._delta(o, do), F32_TOL)
+    m = slice(0, 32)
+    b1m = torch.broadcast_to(b1, (B, N, 1, 1, S))[:, m]
+    lm = lse.view(B, N, H, 1, S)[:, m].reshape(-1, H, 1, S)
+    args = (q[:, m], k[:, m], v[:, m], b1m, b2, o[:, m], lm, do[:, m])
+    want = evo.torch_evoformer_bwd(*args)[0]
+
+    def plain_dq(kk, vv, delta=None):
+        """the plain dq with k, v replaced (and, if given, delta)"""
+        qq = args[0]
+        dp = torch.einsum("bnqhd,bnkhd->bnhqk", args[7].float(), vv.float())
+        dl = evo._delta(args[5], args[7]) if delta is None else delta
+        ds = evo._probs_ds(qq, kk, b1m, b2, lm, dp, dl)[1]
+        return (D ** -0.5 * torch.einsum("bnhqk,bnkhd->bnqhd",
+                                         ds.to(kk.dtype).float(),
+                                         kk.float())).to(qq.dtype)
+
+    def check(what, got):
+        r = _rows_off(got, want)[0]
+        print(f"  {what} moves the worst dq row by {r:.3e} of its max "
+              f"(check at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the evoformer_dq check cannot see {what}")
+
+    kz, vz = args[1].clone(), args[2].clone()
+    kz[:, :, 64:128] = 0       # a zero key adds nothing to dq = ds k
+    vz[:, :, 64:128] = 0
+    tile = plain_dq(kz, vz)
+    check("key tile 64..127 out of dq's walk", tile)
+    stage = want.clone()
+    stage[:, 0, :128, 1] = tile[:, 0, :128, 1]
+    check("one ring stage of dq skipped (keys 64..127 of row 0, head 1, "
+          "queries 0..127)", stage)
+    dl = evo._delta(args[5], args[7])
+    check("the neighbouring head's delta rows",
+          plain_dq(args[1], args[2], dl.roll(1, dims=1)))
+
+
 # the AlphaFold2 calls (Jumper et al. 2021: Algorithms 7 and 13, the
 # fine-tuning crop of Supplementary Table 4): (label, [B, N, S, H, D], keys
 # masked on a seeded half of the rows)
@@ -2918,7 +3148,8 @@ def phase_evoformer(torch, evo, dev):
     of each kernel a call; o and every gradient held per row; the MSA call
     timed, the triangle call's kernels too.  A bias2 read through the
     neighbouring head must show, forward and backward, and a dbias2 over
-    N - 1 rows."""
+    N - 1 rows; the walk faults of #14-#16 must show and #14's delta
+    agree with the eager sum."""
     from deepspeed_tpu_torch import ops
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3006,6 +3237,7 @@ def phase_evoformer(torch, evo, dev):
                 fail("the evoformer check cannot see a misread bias2")
             _evo_faults(torch, evo, q, k, v, b1, b2, do, raw)
             _evo_walk_faults(torch, evo, q, k, v, b1, b2, do, raw)
+            _evo_dq_faults(torch, evo, q, k, v, b1, b2, do)
             o1, lse1 = evo.cuda_evoformer_fwd(q, k, v, b1, b2)
             runs = [evo.cuda_evoformer_bwd(q, k, v, b1, b2, o1, lse1, do)
                     for _ in range(2)]
@@ -3056,11 +3288,14 @@ def _ptxas_report(build_log, kernel):
 NEW_KERNELS = ("paged_decode_mma_kernel", "decode_combine_kernel", "wq_t_kernel",
                "evo_dkv_kernel", "evo_db2_kernel", "evo_db2_sum_kernel",
                "prefill_wgmma_kernel", "prefill_combine_kernel",
-               "lora_shrink_wgmma", "lora_expand_wgmma")
+               "lora_shrink_wgmma", "lora_expand_wgmma",
+               "sparse_dkv_wgmma_kernel", "sparse_dkv_merge_kernel",
+               "evo_dq_wgmma_kernel")
 WGMMA_GATE = ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
               "evo_dkv_kernel", "evo_db2_kernel", "wq_t_kernel",
               "prefill_wgmma_kernel", "lora_shrink_wgmma",
-              "lora_expand_wgmma")
+              "lora_expand_wgmma", "sparse_dkv_wgmma_kernel",
+              "evo_dq_wgmma_kernel")
 
 
 def _spill_gate(build_log, kernels):
@@ -3189,7 +3424,8 @@ def main():
                    "paged_decode_mma_kernel", "decode_combine_kernel",
                    "wq_t_kernel", "prefill_wgmma_kernel",
                    "prefill_combine_kernel", "lora_shrink_wgmma",
-                   "lora_expand_wgmma"):
+                   "lora_expand_wgmma", "sparse_dkv_wgmma_kernel",
+                   "sparse_dkv_merge_kernel", "evo_dq_wgmma_kernel"):
         _ptxas_report(builder.build_log, kernel)
     _spill_gate(builder.build_log, NEW_KERNELS)
     _serialised_gate(builder.build_log, WGMMA_GATE)
@@ -3197,8 +3433,10 @@ def main():
                                              "flash_dq_kernel",
                                              "flash_dkv_kernel")),
                         ("evoformer", ("attn_fwd_kernel",)),
-                        ("evoformer_bwd", ("evo_dkv_kernel",
+                        ("evoformer_bwd", ("evo_dq_wgmma_kernel",
+                                           "evo_dkv_kernel",
                                            "evo_db2_kernel")),
+                        ("sparse_attention", ("sparse_dkv_wgmma_kernel",)),
                         ("wq_matmul", ("wq_wgmma_kernel", "wq_t_kernel")),
                         ("ragged_prefill", ("prefill_wgmma_kernel",)),
                         ("lora_matmul", ("lora_shrink_wgmma",
@@ -3341,6 +3579,8 @@ def main():
                 "sparse_fwd": "deepspeed_tpu/ops/sparse_attention.py:186",
                 "sparse_dq": "deepspeed_tpu/ops/sparse_attention.py:222",
                 "sparse_dkv": "deepspeed_tpu/ops/sparse_attention.py:252",
+                "sparse_dkv_merge":
+                "deepspeed_tpu/ops/sparse_attention.py:252",
                 "evoformer_fwd": "deepspeed_tpu/ops/evoformer.py:89",
                 "evoformer_dq": "deepspeed_tpu/ops/evoformer.py:203",
                 "evoformer_dkv": "deepspeed_tpu/ops/evoformer.py:224",
@@ -3358,6 +3598,7 @@ def main():
                "flash_dkv": "attn_bwd_hopper.cuh",
                "evoformer_fwd": "attn_fwd_hopper.cuh",
                **dict.fromkeys(EVO_BWD, "evoformer_bwd.cu"),
+               "evoformer_dq": "attn_bwd_hopper.cuh",
                "evoformer_dkv": "attn_bwd_hopper.cuh",
                "paged_attention_int8": "paged_attention.cu",
                # the 16-bit prefill (#2, #2i) is a header built into

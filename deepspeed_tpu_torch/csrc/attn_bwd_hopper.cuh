@@ -1,15 +1,18 @@
 // The attention backward on Hopper (sm_90a), 16-bit q, k, v, do:
 // flash_dq_kernel (#4) and flash_dkv_kernel (#5), built in
-// flash_attention.cu, and evo_dkv_kernel, the evoformer's dk/dv on the same
-// design (#15, with #17's column sums), built in evoformer_bwd.cu.  The flash kernels replace
+// flash_attention.cu, and evo_dq_wgmma_kernel and evo_dkv_kernel, the
+// evoformer's dq (#14) and dk/dv (#15, with #17's column sums) on the same
+// design, built in evoformer_bwd.cu (the block-sparse dk/dv of
+// sparse_attention.cu builds on this header too).  The flash kernels replace
 // the TPU kernels _dq_kernel and _dkv_kernel of
 // deepspeed_tpu/ops/flash_attention.py (both launched by _bwd_impl) and
 // compute what those compute: from the forward's per-row logsumexp, p =
 // exp(q kT * scale [+ slope * kpos] - lse), ds = p (do vT - delta) * scale
 // with delta = rowsum(o * do), dq = ds k, dk = dsT q, dv = pT do; causal or
 // not, a sliding window, alibi, GQA (k / v at head h / group, never
-// expanded; dk, dv summed over the group), any T.  The evoformer variant
-// replaces _dkv_kernel of deepspeed_tpu/ops/evoformer.py (see evoformer below).
+// expanded; dk, dv summed over the group), any T.  The evoformer variants
+// replace _dq_kernel and _dkv_kernel of deepspeed_tpu/ops/evoformer.py (see
+// evoformer below).
 //
 // What bounds them on the H100: operations.  dq does 3 products a visible
 // (query, key) pair (s, dp, ds k: 6*D flops), dk/dv 4 (s, dp, pT do, dsT q:
@@ -89,9 +92,15 @@
 //     a row of dk / dv that is never stored;
 //   - deterministic: no atomics, a fixed walk; dq, dk, dv (and the column
 //     sums) are bitwise equal from run to run.
+//   - evoformer dq (evo_dq_wgmma_kernel): flash dq's unit (128 queries of
+//     one (batch * row, head), the query tiles and heads of a row side by
+//     side), its delta made by three producer warps a slot ahead and
+//     written out for dk/dv and dbias2; 64-key stages carry the keys' bias1
+//     slice and the [128, 64] bias2 tile; pipelined as evo_dkv_kernel (see
+//     its section below).
 // ops/flash_attention.py flash_bwd_plan gives the flash tiles, ring depth
 // and slots by BwdLayout's formula, ops/evoformer.py evo_bwd_plan the
-// evoformer's (BwdLayout::evo_dkv).
+// evoformer's (BwdLayout::evo_dq, BwdLayout::evo_dkv).
 #pragma once
 
 #include "attn_fwd_hopper.cuh"
@@ -106,15 +115,21 @@ constexpr int kBwdMaxStages = 8;
 // forever).
 // The evoformer's producers stage bias1, lse and delta a stage ahead in
 // every thread of their warpgroup.
+// The evoformer dq's producer warpgroup also stages bias1 and (when TMA
+// cannot read it) bias2 in warp 0 while warps 1-3 make delta (64 spilled).
 constexpr int kDqRegProducer = 56, kDqRegConsumer = 224;
 constexpr int kDkvRegProducer = 40, kDkvRegConsumer = 232;
 constexpr int kEvoRegProducer = 64, kEvoRegConsumer = 216;
+constexpr int kEvoDqRegProducer = 80, kEvoDqRegConsumer = 208;
 static_assert(128 * kDqRegProducer + 256 * kDqRegConsumer <= 384 * 168 &&
                   128 * kDkvRegProducer + 256 * kDkvRegConsumer <= 384 * 168 &&
-                  128 * kEvoRegProducer + 256 * kEvoRegConsumer <= 384 * 168,
+                  128 * kEvoRegProducer + 256 * kEvoRegConsumer <= 384 * 168 &&
+                  128 * kEvoDqRegProducer + 256 * kEvoDqRegConsumer <= 384 * 168,
               "setmaxnreg beyond the block's registers");
 constexpr int kBwdBarBytes = (4 + 2 * kBwdMaxStages) * 8;
+constexpr int kEvoDqBarBytes = kBwdBarBytes + 16;  // the evoformer dq's slot_tma pair too
 constexpr int kDqRows = 128;           // queries a dq unit
+constexpr int kEvoDqKeys = 64;         // keys an evoformer dq stage
 
 // queries a dk/dv stage: 128 at head dim 64, 64 above (where dk + dv take
 // 128 registers a thread)
@@ -150,6 +165,19 @@ struct BwdLayout {
     stage_bytes = (2 * ring_tile + (dq ? 0 : 2 * ring_rows * 4) + 1023) / 1024 * 1024;
     slot_delta = dq ? slot_rows * 4 : 0;
   }
+  // the evoformer's dq (evo_dq): a slot is Q, dO and the rows' delta and
+  // lse (128 fp32 each), rounded up to 1024 bytes; a stage K, V ([HDP/64]
+  // [64 keys][128 B] each), the [128 queries, 64 keys] bias2 tile ([b2_esz]
+  // [128 rows][128 B]) and the keys' bias1 slice (64 fp32), rounded up to
+  // 1024 bytes.
+  static __host__ __device__ BwdLayout evo_dq(int hdp, int b2_esz) {
+    BwdLayout l(hdp, kDqRows, kEvoDqKeys, true);
+    l.b2_bytes = kDqRows * kEvoDqKeys * b2_esz;
+    l.slot_bytes = (2 * l.slot_tile + 2 * kDqRows * 4 + 1023) / 1024 * 1024;
+    l.slot_delta = 0;
+    l.stage_bytes = (2 * l.ring_tile + l.b2_bytes + kEvoDqKeys * 4 + 1023) / 1024 * 1024;
+    return l;
+  }
   static __host__ __device__ BwdLayout evo_dkv(int hdp, int bm, int b2_esz) {
     BwdLayout l(hdp, 128, bm, false);
     l.b2_bytes = bm * 128 * b2_esz;
@@ -162,6 +190,7 @@ struct BwdLayout {
            (size_t)stages * stage_bytes;
   }
 };
+
 
 struct BwdArgs {
   const float* lse;     // [B, N, T], natural log
@@ -1123,6 +1152,439 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const int key = k0 + kl + 8 * hh;
         if (tq == 0 && key < p.T) p.db1_part[((long long)b * p.N + h) * p.T + key] = cs;
       }
+    }
+  }
+}
+
+// ------------------------------------------------------- evoformer dq
+// The evoformer's dq (#14) on flash_dq_kernel's design: a unit is (batch *
+// MSA row, head, 128 queries), the query tiles and heads of one row side
+// by side (the row's K and V come from L2 after the first unit).  The slot
+// holds Q, dO and the rows' delta and lse; warps 1-3 of the producer
+// warpgroup make delta from o and do a slot ahead (and write it out [B *
+// N, H, S] for dk/dv and dbias2) and stage lse; the ring streams K and V
+// tiles of kEvoDqKeys keys with the keys' bias1 slice (fp32, -inf past S:
+// the ragged tile's mask; warp 0 loads it a stage ahead)
+// and the [128 queries, keys] bias2 tile (by TMA where its layout allows,
+// element by element by the producer warp otherwise).  The consumers take
+// 64 queries each: s and dp on wgmma from shared memory, the logit in the
+// reference's order (evo_logit_s), p = exp(s - lse) in natural units, ds =
+// p (dp - delta) rounded to 16 bits in registers as the A operand of dq +=
+// ds K (K read MN-major), pipelined as evo_dkv_kernel: the next stage's
+// score products and this stage's dq products are issued together and run
+// under the next stage's exponentials.  The scale goes on the fp32 sum.
+// this thread's ds of one stage in place (queries the rows: this thread's
+// rows rl, rl + 8 within the unit's 128; keys the columns).  b1s: the
+// stage's bias1 slice (fp32, -inf past S); b2s: the staged bias2 tile
+// ([boxes][128 rows][128 B], 128-byte swizzle), CODE -1 absent / 0 fp32 /
+// 1 fp16 / 2 bf16.
+template <int CODE>
+__device__ __forceinline__ void evo_dq_probs(float (&sc)[kEvoDqKeys / 2],
+                                             const float (&dp)[kEvoDqKeys / 2],
+                                             const float* b1s, const unsigned char* b2s,
+                                             const float (&lse)[2], const float (&delta)[2],
+                                             float scale, int rl, int tq) {
+  // this thread's keys 8j + 2tq, + 1 of rows rl, rl + 8 (1024 bytes on: the
+  // swizzle of row r + 8 is that of row r) sit at base + (chunk(j) ^ sw):
+  // 16-bit, chunk 16j and 4tq bytes in; fp32, box j / 4, chunk 32 (j % 4)
+  // + 16 (tq / 2) and 8 (tq % 2) bytes in
+  const int sw = (rl & 7) << 4;
+  const unsigned char* b2r =
+      b2s + rl * 128 + (CODE == 0 ? 8 * (tq & 1) : 4 * tq);
+  const int swq = CODE == 0 ? sw ^ ((tq >> 1) << 4) : sw;
+#pragma unroll
+  for (int j = 0; j < kEvoDqKeys / 8; ++j) {
+    const int key = 8 * j + 2 * tq;
+    const float2 b1 = *reinterpret_cast<const float2*>(b1s + key);
+    const int off = CODE == 0 ? (j / 4) * (kDqRows * 128) + ((32 * (j % 4)) ^ swq)
+                              : (16 * j) ^ swq;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float2 b2 = make_float2(0.f, 0.f);
+      if constexpr (CODE == 0) {
+        b2 = *reinterpret_cast<const float2*>(b2r + 1024 * hh + off);
+      } else if constexpr (CODE > 0) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(b2r + 1024 * hh + off);
+        b2 = CODE == 1 ? __half22float2(*reinterpret_cast<const __half2*>(&w))
+                       : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int x = 4 * j + 2 * hh + e;
+        const float s = evo_logit_s(sc[x], scale, true, e ? b1.y : b1.x, CODE >= 0,
+                                    e ? b2.y : b2.x);
+        sc[x] = ex2((s - lse[hh]) * kLog2e) * (dp[x] - delta[hh]);
+      }
+    }
+  }
+}
+
+// delta = rowsum(o * do) of an evoformer dq unit's 128 rows (o [B * N, S,
+// H, D] contiguous) into delta[128] and delta_out [B * N, H, S]; by warp
+// dw (0..2) of three.  A row's CPR 16-byte chunks sit on CPR neighbouring
+// lanes; each warp issues its rows' o loads from device memory in batches
+// of up to 6 a lane before it waits for the slot's TMA (tma_bar, parity)
+// and takes do from the slot's swizzled tile dos (chunks past D are zero
+// in both); the lanes' sums are added by shuffles in a fixed order.  Rows
+// past S give 0 and are not written out.
+template <typename T, int HD>
+__device__ __forceinline__ void evo_dq_delta(const BwdArgs& p, int b, int h, int q0,
+                                             const unsigned char* dos, float* delta,
+                                             uint64_t* tma_bar, int parity, int dw, int lane) {
+  constexpr int CPR = HD / 8, RPS = 32 / CPR, STEPS = kDqRows / RPS;  // a row's chunks; rows a step
+  constexpr int PER = (STEPS + 2) / 3, BATCH = PER < 6 ? PER : 6;    // a warp's steps
+  const int c = lane % CPR, rr = lane / CPR;
+  const long long rows = ((long long)b * p.N + h) * p.T;
+  const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o));
+  bool waited = false;
+  for (int t0 = 0; t0 < PER; t0 += BATCH) {
+    uint4 ov[BATCH];
+#pragma unroll
+    for (int t = 0; t < BATCH; ++t) {
+      const int step = dw + 3 * (t0 + t), row = q0 + step * RPS + rr;
+      const bool in = t0 + t < PER && step < STEPS && row < p.T && c * 8 < p.hd;
+      ov[t] = in ? o[((((long long)b * p.T + row) * p.N + h) * p.hd) / 8 + c]
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (!waited) {
+      mbar_wait(tma_bar, parity);
+      waited = true;
+    }
+#pragma unroll
+    for (int t = 0; t < BATCH; ++t) {
+      const int step = dw + 3 * (t0 + t), r = step * RPS + rr;
+      if (t0 + t >= PER || step >= STEPS) continue;  // uniform across the warp
+      const uint4 d4 = *reinterpret_cast<const uint4*>(
+          dos + (c / 8) * (kDqRows * 128) + r * 128 + (((c % 8) ^ (r & 7)) << 4));
+      const uint32_t xw[4] = {ov[t].x, ov[t].y, ov[t].z, ov[t].w},
+                     yw[4] = {d4.x, d4.y, d4.z, d4.w};
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = to_f2<T>(xw[e]), y = to_f2<T>(yw[e]);
+        sum = fmaf(x.x, y.x, fmaf(x.y, y.y, sum));
+      }
+#pragma unroll
+      for (int m = 1; m < CPR; m <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+      if (c == 0) {
+        delta[r] = sum;
+        if (q0 + r < p.T) p.delta_out[rows + q0 + r] = sum;
+      }
+    }
+  }
+  if (!waited) mbar_wait(tma_bar, parity);
+}
+
+// evoformer dq unit u -> (batch * row, head, query tile)
+__device__ __forceinline__ void evo_dq_unit(const BwdArgs& p, int u, int& b, int& h, int& qt) {
+  qt = u % p.ntiles;
+  const int r = u / p.ntiles;
+  h = r % p.N;
+  b = r / p.N;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    evo_dq_wgmma_kernel(const __grid_constant__ BwdArgs p, const __grid_constant__ CUtensorMap tmq,
+                        const __grid_constant__ CUtensorMap tmdo,
+                        const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv,
+                        const __grid_constant__ CUtensorMap tmb2) {
+  constexpr int HDP = (HD + 63) / 64 * 64, NAT = HDP / 64, BN = kEvoDqKeys, NS = BN / 2;
+  static_assert(HD % 16 == 0 && HD <= 128, "tile shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* slot_full = bars;
+  uint64_t* slot_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = full + kBwdMaxStages;
+  uint64_t* slot_tma = empty + kBwdMaxStages;  // a slot's Q and dO have landed
+  unsigned char* base = smem_raw + kEvoDqBarBytes;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;
+  const int b2_esz = p.b2_code < 0 ? 0 : (p.b2_code == 0 ? 4 : 2);
+  const BwdLayout lay = BwdLayout::evo_dq(HDP, b2_esz);
+  unsigned char* ring = base + p.slots * lay.slot_bytes;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  // a slot is full once its Q and dO have landed (slot_tma) and the three
+  // delta warps, which wait for them, have written its delta and lse rows
+  // (slot_full); a stage once its TMA bytes have landed and the producer
+  // warp's 32 lanes have written the rest (the bias1 slice, and bias2 when
+  // TMA cannot read it)
+  if (threadIdx.x == 0) {
+    init_bwd_barriers(bars, p.stages, 3, 32);
+    mbar_init(&slot_tma[0], 1);
+    mbar_init(&slot_tma[1], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int nkt = (p.T - 1) / BN + 1;  // key tiles a unit
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kEvoDqRegProducer>();
+    const int pw = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (pw > 0) {
+      // warps 1-3: each unit's delta and lse rows (lse in natural units,
+      // +inf for a row that saw no key or lies past S), a slot ahead of the
+      // consumers; they write the slot only after its TMA, which the
+      // producer issues once the slot is free
+      for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+        int b, h, qt;
+        evo_dq_unit(p, u, b, h, qt);
+        const int slot = i % p.slots, r0 = 32 * (pw - 1) + lane, q0 = qt * kDqRows;
+        const long long rows = ((long long)b * p.N + h) * p.T;
+        float l[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = q0 + r0 + 96 * j;
+          l[j] = r0 + 96 * j < kDqRows && row < p.T ? p.lse[rows + row] : kNegInf;
+        }
+        unsigned char* sl = base + slot * lay.slot_bytes;
+        float* delta = reinterpret_cast<float*>(sl + 2 * lay.slot_tile);
+        evo_dq_delta<T, HD>(p, b, h, q0, sl + lay.slot_tile, delta, &slot_tma[slot],
+                            (i / p.slots) & 1, pw - 1, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (r0 + 96 * j < kDqRows)
+            delta[kDqRows + r0 + 96 * j] =
+                l[j] > 0.5f * kNegInf ? l[j] : __int_as_float(0x7f800000);
+        warp_arrive(&slot_full[slot], lane);
+      }
+      return;
+    }
+    const bool b2t = p.b2_code >= 0 && p.b2_tma;
+    // a stage's bias1 bits, loaded a stage ahead and converted only when
+    // stored, so their latency runs under the wait for a free stage
+    uint32_t b1raw[BN / 32];
+    auto fetch_b1 = [&](int bb, int kt) {
+      const long long o1 = (bb / p.rows) * p.b1_sb + (bb % p.rows) * p.b1_sn;
+#pragma unroll
+      for (int j = 0; j < BN / 32; ++j) {
+        const int kpos = kt * BN + lane + 32 * j;
+        b1raw[j] = p.b1_code >= 0 && kpos < p.T
+                       ? load_bias_bits(p.b1, o1 + kpos * p.b1_sk, p.b1_code)
+                       : 0u;
+      }
+    };
+    int it = 0;
+    if (blockIdx.x < p.units) {
+      int b, h, qt;
+      evo_dq_unit(p, blockIdx.x, b, h, qt);
+      fetch_b1(b, 0);
+    }
+    for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+      int b, h, qt;
+      evo_dq_unit(p, u, b, h, qt);
+      const int q0 = qt * kDqRows, n = b % p.rows, bt = b / p.rows;
+      if (lane == 0) {
+        const int slot = i % p.slots;
+        if (i >= p.slots) mbar_wait(&slot_empty[slot], (i / p.slots - 1) & 1);
+        unsigned char* sl = base + slot * lay.slot_bytes;
+        mbar_expect_tx(&slot_tma[slot], 2 * lay.slot_tile);
+#pragma unroll
+        for (int cb = 0; cb < NAT; ++cb) {
+          tma_load_5d(sl + cb * kDqRows * 128, &tmq, cb * 64, tma_c(p.cq, 1, h), q0,
+                      tma_c(p.cq, 3, n), tma_c(p.cq, 4, bt), &slot_tma[slot]);
+          tma_load_5d(sl + lay.slot_tile + cb * kDqRows * 128, &tmdo, cb * 64,
+                      tma_c(p.cdo, 1, h), q0, tma_c(p.cdo, 3, n), tma_c(p.cdo, 4, bt),
+                      &slot_tma[slot]);
+        }
+      }
+      const long long o2 = bt * p.b2_sb + h * p.b2_sh;
+      for (int kt = 0; kt < nkt; ++kt, ++it) {
+        const int k0 = kt * BN;
+        const int s = it % p.stages;
+        if (it >= p.stages) mbar_wait(&empty[s], (it / p.stages - 1) & 1);
+        unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+        if (lane == 0) {
+          // the other lanes arrive below
+          mbar_expect_tx_only(&full[s], 2 * lay.ring_tile + (b2t ? lay.b2_bytes : 0));
+#pragma unroll
+          for (int cb = 0; cb < NAT; ++cb) {
+            tma_load_5d(st + cb * BN * 128, &tmk, cb * 64, tma_c(p.ck, 1, h), k0,
+                        tma_c(p.ck, 3, n), tma_c(p.ck, 4, bt), &full[s]);
+            tma_load_5d(st + lay.ring_tile + cb * BN * 128, &tmv, cb * 64, tma_c(p.cv, 1, h), k0,
+                        tma_c(p.cv, 3, n), tma_c(p.cv, 4, bt), &full[s]);
+          }
+          if (b2t) {
+            const int per = 128 / b2_esz;  // keys a 128-byte box
+            for (int bx = 0; bx < BN / per; ++bx)
+              tma_load_4d(st + 2 * lay.ring_tile + bx * kDqRows * 128, &tmb2, k0 + bx * per, q0,
+                          tma_c(p.cb2, 2, h), tma_c(p.cb2, 3, bt), &full[s]);
+          }
+        }
+        // the keys' bias1 (0 if absent, -inf past S: the ragged tile's
+        // mask), then the next stage's bits
+        float* b1s = reinterpret_cast<float*>(st + 2 * lay.ring_tile + lay.b2_bytes);
+#pragma unroll
+        for (int j = 0; j < BN / 32; ++j) {
+          const int kk = lane + 32 * j;
+          b1s[kk] = k0 + kk >= p.T ? -INFINITY
+                                   : (p.b1_code >= 0 ? bias_of_bits(b1raw[j], p.b1_code) : 0.f);
+        }
+        if (kt + 1 < nkt) {
+          fetch_b1(b, kt + 1);
+        } else if (u + gridDim.x < p.units) {
+          int nb, nh, nqt;
+          evo_dq_unit(p, u + gridDim.x, nb, nh, nqt);
+          fetch_b1(nb, 0);
+        }
+        if (p.b2_code >= 0 && !p.b2_tma) {
+          // bias2 element by element (0 outside S x S)
+          unsigned char* b2s = st + 2 * lay.ring_tile;
+          for (int e = lane; e < kDqRows * BN; e += 32) {
+            const int r = e / BN, kk = e % BN, qpos = q0 + r, kpos = k0 + kk;
+            const bool in = qpos < p.T && kpos < p.T;
+            const long long off = o2 + qpos * p.b2_sq + kpos * p.b2_sk;
+            const int byte = kk * b2_esz;
+            unsigned char* a = b2s + (byte >> 7) * (kDqRows * 128) + r * 128 +
+                               ((((byte & 127) >> 4) ^ (r & 7)) << 4) + (byte & 15);
+            if (b2_esz == 4)
+              *reinterpret_cast<float*>(a) = in ? static_cast<const float*>(p.b2)[off] : 0.f;
+            else
+              *reinterpret_cast<unsigned short*>(a) =
+                  in ? static_cast<const unsigned short*>(p.b2)[off] : (unsigned short)0;
+          }
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kEvoDqRegConsumer>();
+  const int c = wg - 1;
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int rl = 64 * c + 16 * w + grp;  // this thread's rows rl, rl + 8 of a unit
+  float acc[NAT][32];
+  float sc[NS], dp[NS];
+  uint32_t da[BN / 16][4];
+  auto fence_all = [&]() {
+    wg_fence_regs(sc);
+    wg_fence_regs(dp);
+#pragma unroll
+    for (int a = 0; a < NAT; ++a) wg_fence_regs(acc[a]);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wg_fence_regs(da[kk]);
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) sc[j] = dp[j] = 0.f;
+  int it = 0;
+  if (c == 1) turn_pass(c);  // the first consumer warpgroup takes the first turn
+  for (int i = 0, u = blockIdx.x; u < p.units; ++i, u += gridDim.x) {
+    int b, h, qt;
+    evo_dq_unit(p, u, b, h, qt);
+    const int q0 = qt * kDqRows, slot = i % p.slots;
+#pragma unroll
+    for (int a = 0; a < NAT; ++a)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[a][j] = 0.f;
+    mbar_wait(&slot_tma[slot], (i / p.slots) & 1);
+    mbar_wait(&slot_full[slot], (i / p.slots) & 1);
+    const unsigned char* sl = base + slot * lay.slot_bytes;
+    const float* dls = reinterpret_cast<const float*>(sl + 2 * lay.slot_tile);
+    const float delta[2] = {dls[rl], dls[rl + 8]};
+    // natural units; +inf: a row that saw no key, or past S
+    const float lse[2] = {dls[kDqRows + rl], dls[kDqRows + rl + 8]};
+    const unsigned char* qs = sl + c * 64 * 128;
+    const unsigned char* dos = qs + lay.slot_tile;
+    // s = q kT, dp = do vT of the stage at ks (queries are the accumulator
+    // rows); committed
+    auto issue_ss = [&](const unsigned char* ks) {
+      kmajor_product<T, HD, BN>(sc, qs, kDqRows, ks);
+      kmajor_product<T, HD, BN>(dp, dos, kDqRows, ks + lay.ring_tile);
+      wg_commit();
+    };
+    // dq += ds k of the stage at ks: k read MN-major from the same tile;
+    // committed
+    auto issue_rs = [&](const unsigned char* ks) {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+          Wgmma<T>::rs64(acc[a], da[kk], wg_desc(ks + a * BN * 128 + kk * 16 * 128));
+      wg_commit();
+    };
+    int s = it % p.stages;
+    mbar_wait(&full[s], (it / p.stages) & 1);
+    const unsigned char* cur = ring + (size_t)s * lay.stage_bytes;
+    fence_all();
+    turn_wait(c);
+    wg_fence();
+    issue_ss(cur);
+    wg_wait<0>();
+    turn_pass(c);
+    wg_fence_regs(sc);
+    wg_fence_regs(dp);
+    for (int kt = 0; kt < nkt; ++kt, ++it) {
+      // ds = exp(s - lse) (dp - delta), s the reference's logit; a uniform
+      // branch a bias2 width
+      const unsigned char* b2s = cur + 2 * lay.ring_tile;
+      const float* b1s = reinterpret_cast<const float*>(b2s + lay.b2_bytes);
+      switch (p.b2_code) {
+        case 0: evo_dq_probs<0>(sc, dp, b1s, b2s, lse, delta, p.scale, rl, tq); break;
+        case 1: evo_dq_probs<1>(sc, dp, b1s, b2s, lse, delta, p.scale, rl, tq); break;
+        case 2: evo_dq_probs<2>(sc, dp, b1s, b2s, lse, delta, p.scale, rl, tq); break;
+        default: evo_dq_probs<-1>(sc, dp, b1s, b2s, lse, delta, p.scale, rl, tq); break;
+      }
+      if (kt > 0) {
+        // the previous stage's dq products: da and its tiles free
+        wg_wait<0>();
+        fence_all();
+        warp_arrive(&empty[(it - 1) % p.stages], lane);
+      }
+      pack_a<T, BN>(da, sc);
+      if (kt + 1 < nkt) {
+        const int s2 = (it + 1) % p.stages;
+        mbar_wait(&full[s2], ((it + 1) / p.stages) & 1);
+        const unsigned char* nxt = ring + (size_t)s2 * lay.stage_bytes;
+        fence_all();
+        turn_wait(c);
+        wg_fence();
+        issue_ss(nxt);
+        issue_rs(cur);
+        wg_wait<1>();  // the score products; dq's may still run
+        turn_pass(c);
+        wg_fence_regs(sc);
+        wg_fence_regs(dp);
+        cur = nxt;
+      } else {
+        fence_all();
+        turn_wait(c);
+        wg_fence();
+        issue_rs(cur);
+        turn_pass(c);
+        wg_wait<0>();
+        fence_all();
+        warp_arrive(&empty[it % p.stages], lane);
+      }
+    }
+    warp_arrive(&slot_empty[slot], lane);
+
+    // ---- epilogue: dq takes the scale here, on the fp32 sum; each lane
+    // stores 16 bytes of a row (its quad's words gathered)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + rl + 8 * hh;
+      const long long off = (((long long)b * p.T + row) * p.N + h) * p.hd;
+#pragma unroll
+      for (int a = 0; a < NAT; ++a)
+#pragma unroll
+        for (int g = 0; g < 2; ++g) {
+          const int col = 64 * a + 32 * g;  // this quad's 32 columns
+          if (col >= p.hd) continue;
+          uint32_t wq[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int x = 4 * (4 * g + jj) + 2 * hh;
+            wq[jj] = Mma<T>::pack(acc[a][x] * p.scale, acc[a][x + 1] * p.scale);
+          }
+          const uint4 v = quad_transpose(wq, tq);
+          if (row < p.T && col + 8 * tq < p.hd)
+            *reinterpret_cast<uint4*>(static_cast<T*>(p.dq) + off + col + 8 * tq) = v;
+        }
     }
   }
 }

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/evoformer.py (launched by
 // _bwd_impl):
-//   _dq_kernel  -> evo_dq_kernel    dq  = scale * sum_k ds k
+//   _dq_kernel  -> evo_dq_wgmma_kernel (attn_bwd_hopper.cuh)
+//                                   dq  = scale * sum_k ds k
 //   _dkv_kernel -> evo_dkv_kernel (attn_bwd_hopper.cuh)
 //                                   dk  = scale * sum_q dsT q,  dv = sum_q pT do
 //   _db2_kernel -> evo_db2_kernel, then evo_db2_sum_kernel
@@ -12,7 +13,8 @@
 // Every kernel recomputes its tile as the reference's _tile_ds does:
 //   s  = (q . k) * scale + bias1 + bias2  (evo_logit_s, shared with the forward)
 //   p  = exp(s - lse), 0 on a row whose lse is -1e30 (it saw no key)
-//   ds = p * (do . v - delta),  delta = rowsum(o * do) (fp32, from the caller)
+//   ds = p * (do . v - delta),  delta = rowsum(o * do) (fp32; the 16-bit dq
+//        makes it from o and do and writes it out for the other kernels)
 // and casts as the reference does: ds to the inputs' dtype before the dq and
 // dk products (scale applied to the fp32 sums), p to do's dtype before dv.
 // The logit is subtracted from lse in natural units and only the difference
@@ -25,10 +27,11 @@
 // once per (head, query, key)); in practice the scalar work per logit (the
 // biases, the exponential, ~8 fp32 operations) sets the pace.  What the
 // design does about it:
-//   - dq: the forward's grid (batch * MSA row, 64-query tile, head), 4 warps
-//     x 16 query rows on mma.sync, q and do fragments in registers, 64-key
-//     tiles of K and V double-buffered through shared memory with 16-byte
-//     cp.async.
+//   - dq (16-bit, D up to 128): evo_dq_wgmma_kernel, the flash dq's
+//     warp-specialised TMA + wgmma design (attn_bwd_hopper.cuh): 128 queries
+//     of one (batch * row, head) a unit with Q, dO and their delta (made by
+//     three producer warps from o and do) in a slot, the 64-key tiles
+//     streamed with their bias1 slice and [128, 64] bias2 tile.
 //   - dk/dv (16-bit, D up to 128): evo_dkv_kernel, the flash backward's
 //     warp-specialised TMA + wgmma dk/dv design (attn_bwd_hopper.cuh): 128 keys of one (batch * row, head) a unit, the
 //     query tiles streamed with their bias2 tile, lse and delta rows, bias1's
@@ -51,131 +54,17 @@
 //     after the first read.
 //   - no atomics: every sum runs in a fixed order, so a run is
 //     deterministic.  q, k, v and both biases are read through their
-//     strides, head_dim is padded to HDP in {16, 32, 64, 128} (mma.sync,
-//     zeros in shared memory) or to 64 columns a TMA box (zero fill), and
+//     strides, head_dim is padded to 64 columns a TMA box (zero fill), and
 //     keys / rows past S are neither used nor written.
 //   - fp32 inputs, and 16-bit inputs with D above 128 (the dk/dv
 //     accumulators of 256 columns would need 256 fp32 registers a thread),
-//     take the CUDA-core variants evo_*_simt below.
-// ops/evoformer.py evo_bwd_plan gives dk/dv's and dbias2's tiles, ring
-// depths, slots and chunks by BwdLayout::evo_dkv's and Db2Layout's formulas.
+//     take the CUDA-core variants evo_*_simt below (delta from the caller).
+// ops/evoformer.py evo_bwd_plan gives dq's, dk/dv's and dbias2's tiles, ring
+// depths, slots and chunks by BwdLayout::evo_dq's, BwdLayout::evo_dkv's and
+// Db2Layout's formulas.
 #include "attn_bwd_hopper.cuh"
 
 namespace dsk {
-
-// ---------------------------------------------------------------- dq (#14)
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kEvoWarps * 32) evo_dq_kernel(EvoArgs p) {
-  constexpr int KSTEPS = HDP / 16, DTILES = HDP / 8, LD = HDP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* kbuf = reinterpret_cast<T*>(smem);  // [2][kEvoTile*LD]
-  T* vbuf = kbuf + 2 * kEvoTile * LD;    // [2][kEvoTile*LD]
-
-  const int bn = blockIdx.x, qt = blockIdx.y, h = blockIdx.z;
-  const int b = bn / p.N, n = bn % p.N;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int D = p.D;
-  const long long tok = (long long)p.H * D;  // token stride of do and dq
-
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + n * p.q_sn + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + n * p.k_sn + h * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + n * p.v_sn + h * p.v_sh;
-  const T* dob = static_cast<const T*>(p.dout) + ((long long)bn * p.S * p.H + h) * D;
-  const long long b1o = b * p.b1_sb + n * p.b1_sn;
-  const long long b2o = b * p.b2_sb + h * p.b2_sh;
-  zero_pad_cols<LD>(smem, 4 * kEvoTile, D, HDP);
-
-  int qpos[2];
-  bool exists[2], live[2];
-  float lse[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qpos[i] = qt * kEvoTile + warp * 16 + grp + 8 * i;
-    exists[i] = qpos[i] < p.S;
-    const long long r = ((long long)bn * p.H + h) * p.S + qpos[i];
-    lse[i] = exists[i] ? p.lse[r] : kNegInf;
-    delta[i] = exists[i] ? p.delta[r] : 0.f;
-    live[i] = lse[i] > 0.5f * kNegInf;  // a row that saw no key has p = 0
-  }
-  uint32_t qa[KSTEPS][4], da[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j & 1;
-      const int col = ks * 16 + 2 * tig + 8 * (j >> 1);
-      const bool in = exists[i] && col < D;
-      qa[ks][j] = in ? *reinterpret_cast<const uint32_t*>(qb + qpos[i] * p.q_ss + col) : 0u;
-      da[ks][j] = in ? *reinterpret_cast<const uint32_t*>(dob + qpos[i] * tok + col) : 0u;
-    }
-  float acc[DTILES][4];
-#pragma unroll
-  for (int d = 0; d < DTILES; ++d)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[d][j] = 0.f;
-
-  const int nkt = (p.S + kEvoTile - 1) / kEvoTile;
-  load_rows_d<T, LD>(kbuf, kb, p.k_ss, 0, kEvoTile, p.S, D);
-  load_rows_d<T, LD>(vbuf, vb, p.v_ss, 0, kEvoTile, p.S, D);
-  cp_async_commit();
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int bsel = kt & 1;
-    if (kt + 1 < nkt) {
-      load_rows_d<T, LD>(kbuf + (bsel ^ 1) * kEvoTile * LD, kb, p.k_ss, (kt + 1) * kEvoTile,
-                         kEvoTile, p.S, D);
-      load_rows_d<T, LD>(vbuf + (bsel ^ 1) * kEvoTile * LD, vb, p.v_ss, (kt + 1) * kEvoTile,
-                         kEvoTile, p.S, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // also orders the pad zeroing before the first reads
-    const T* ks_ = kbuf + bsel * kEvoTile * LD;
-    const T* vs_ = vbuf + bsel * kEvoTile * LD;
-    for (int t0 = 0; t0 < kEvoTile; t0 += 16) {
-      const int kv0 = kt * kEvoTile + t0;
-      if (kv0 >= p.S) break;
-      float sc[2][4], dp[2][4];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[nt][j] = dp[nt][j] = 0.f;
-      mma_rows_t<T, HDP, LD>(sc, qa, ks_, t0, lane);  // q kT
-      mma_rows_t<T, HDP, LD>(dp, da, vs_, t0, lane);  // do vT
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int i = j >> 1;
-          const int kpos = kv0 + nt * 8 + 2 * tig + (j & 1);
-          float ds = 0.f;
-          if (live[i] && kpos < p.S) {
-            const float s = evo_logit(p, sc[nt][j], b1o, b2o, qpos[i], kpos);
-            ds = exp2f((s - lse[i]) * kLog2e) * (dp[nt][j] - delta[i]);
-          }
-          sc[nt][j] = ds;
-        }
-      const uint32_t dsa[4] = {Mma<T>::pack(sc[0][0], sc[0][1]), Mma<T>::pack(sc[0][2], sc[0][3]),
-                               Mma<T>::pack(sc[1][0], sc[1][1]), Mma<T>::pack(sc[1][2], sc[1][3])};
-      mma_rows<T, HDP, LD>(acc, dsa, ks_, t0, lane);  // dq += ds k
-    }
-    __syncthreads();  // buffer bsel is refilled by the next iteration's copy
-  }
-
-  T* dqb = static_cast<T*>(p.dq) + ((long long)bn * p.S * p.H + h) * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!exists[i]) continue;
-    T* row = dqb + qpos[i] * tok;
-#pragma unroll
-    for (int d = 0; d < DTILES; ++d)
-      if (d * 8 < D)
-        *reinterpret_cast<uint32_t*>(row + d * 8 + 2 * tig) =
-            Mma<T>::pack(acc[d][2 * i] * p.scale, acc[d][2 * i + 1] * p.scale);
-  }
-}
 
 // ------------------------------------------------------------ dbias2 (#16)
 constexpr int kDb2Rows = 128, kDb2Keys = 64;  // queries, keys a unit
@@ -583,39 +472,30 @@ cudaError_t launch_bwd_simt(int which, const EvoArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int HDP>
-cudaError_t launch_dq(const EvoArgs& a, cudaStream_t st) {
-  constexpr size_t TILE = (size_t)kEvoTile * (HDP + 8) * sizeof(T);
-  const int nt = (a.S + kEvoTile - 1) / kEvoTile;
-  const cudaError_t err = allow_dynamic_smem<evo_dq_kernel<T, HDP>>();
-  if (err != cudaSuccess) return err;
-  evo_dq_kernel<T, HDP><<<dim3(a.B * a.N, nt, a.H), kEvoWarps * 32, 4 * TILE, st>>>(a);
-  return cudaGetLastError();
-}
-
-// The plan of a 16-bit dk/dv or dbias2 launch (ops/evoformer.py
+// The plan of a 16-bit dq, dk/dv or dbias2 launch (ops/evoformer.py
 // evo_bwd_plan): ring depth, slots, chunks of MSA rows.
 struct EvoPlan {
   int stages, slots, chunks;
 };
 
-// dk/dv (which 1) on evo_dkv_kernel and dbias2 (which 2) on
-// evo_db2_kernel: q, k, v [B, N, S, H, D] as 5-D tensor maps (D, head,
-// token, row, batch) through their strides and do the same contiguous, in
-// boxes of [rows, 64 columns] in the 128-byte swizzle (the columns past D
-// zero-filled); dk/dv's bias2 [B, H, S, S] as a 4-D map in boxes of [BM
-// queries, 128 bytes of keys] where its layout allows (keys contiguous,
-// 16-byte aligned base and strides, queries not broadcast), else staged
-// element by element.
+// dq (which 0) on evo_dq_wgmma_kernel, dk/dv (which 1) on evo_dkv_kernel
+// and dbias2 (which 2) on evo_db2_kernel: q, k, v [B, N, S, H, D] as 5-D
+// tensor maps (D, head, token, row, batch) through their strides and do
+// the same contiguous, in boxes of [rows, 64 columns] in the 128-byte
+// swizzle (the columns past D zero-filled); dq's and dk/dv's bias2 [B, H,
+// S, S] as a 4-D map in boxes of [a stage's queries, 128 bytes of keys]
+// where its layout allows (keys contiguous, 16-byte aligned base and
+// strides, queries not broadcast), else staged element by element.
 template <typename T, int HD>
 cudaError_t launch_bwd_wgmma(int which, const EvoArgs& a, const EvoPlan& plan, cudaStream_t st) {
   const int b2_esz = a.b2_code < 0 ? 0 : (a.b2_code == 0 ? 4 : 2);
   constexpr int BM = HD <= 64 ? 64 : 32;  // dk/dv's queries a stage
   BwdArgs p{};
   p.lse = a.lse; p.delta = a.delta; p.dout = a.dout;
-  p.dk = a.dk; p.dv = a.dv;
+  p.o = a.o; p.delta_out = a.delta_out;
+  p.dq = a.dq; p.dk = a.dk; p.dv = a.dv;
   p.T = a.S; p.N = a.H; p.Nkv = a.H; p.hd = a.D; p.rows = a.N;
-  p.B = which == 1 ? a.B * a.N : a.B;
+  p.B = which == 2 ? a.B : a.B * a.N;
   p.stages = plan.stages; p.slots = plan.slots;
   p.scale = a.scale;
   p.b1 = a.b1; p.b1_sb = a.b1_sb; p.b1_sn = a.b1_sn; p.b1_sk = a.b1_sk; p.b1_code = a.b1_code;
@@ -631,7 +511,8 @@ cudaError_t launch_bwd_wgmma(int which, const EvoArgs& a, const EvoPlan& plan, c
                             (long long)a.N * a.S * a.H * a.D};
   // dbias2 at head dims up to 32 reads rows of 64 bytes (the 64-byte swizzle)
   const bool narrow = which == 2 && HD <= 32;
-  const int q_rows = which == 1 ? BM : kDb2Rows, k_rows = which == 1 ? 128 : kDb2Keys;
+  const int q_rows = which == 0 ? kDqRows : (which == 1 ? BM : kDb2Rows);
+  const int k_rows = which == 0 ? kEvoDqKeys : (which == 1 ? 128 : kDb2Keys);
   const int cols = narrow ? 32 : 64;
   const int box_q[5] = {cols, 1, q_rows, 1, 1}, box_k[5] = {cols, 1, k_rows, 1, 1};
   CUtensorMap tmq{}, tmdo{}, tmk{}, tmv{}, tmb2{};
@@ -666,28 +547,36 @@ cudaError_t launch_bwd_wgmma(int which, const EvoArgs& a, const EvoPlan& plan, c
                                    : a.b2_code == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
     const long long d2[4] = {a.S, a.S, a.H, a.B}, s2[4] = {a.b2_sk, a.b2_sq, a.b2_sh, a.b2_sb};
-    const int box2[4] = {128 / b2_esz, BM, 1, 1};
+    const int box2[4] = {128 / b2_esz, q_rows, 1, 1};
     // a bias2 broadcast over queries (query stride 0) collapses that dim to
-    // one row, which a box of BM rows cannot read: element by element
+    // one row, which a box of many rows cannot read: element by element
     p.b2_tma = (reinterpret_cast<uintptr_t>(a.b2) % 16 == 0) &&
                tensor_map_nd(&tmb2, dt, b2_esz, a.b2, 4, d2, s2, box2, sw, &p.cb2) &&
                (!(p.cb2 & 2) || a.S == 1);
   }
-  return launch_evo_dkv<T, HD, BM>(p, tmk, tmv, tmq, tmdo, tmb2, st);
-}
-
-template <typename T, int HD>
-cudaError_t launch_bwd_hd(int which, const EvoArgs& a, const EvoPlan& plan, cudaStream_t st) {
-  if (which == 0) return launch_dq<T, HD>(a, st);
-  return launch_bwd_wgmma<T, HD>(which, a, plan, st);
+  if (which == 1) return launch_evo_dkv<T, HD, BM>(p, tmk, tmv, tmq, tmdo, tmb2, st);
+  // dq makes delta from o (contiguous [B, N, S, H, D]) and writes it to
+  // delta_out
+  const size_t smem = BwdLayout::evo_dq((HD + 63) / 64 * 64, b2_esz).smem(p.stages, p.slots) +
+                      (kEvoDqBarBytes - kBwdBarBytes);
+  p.ntiles = (a.S + kDqRows - 1) / kDqRows;
+  const long long units = (long long)a.B * a.N * a.H * p.ntiles;
+  int grid = 0;
+  cudaError_t err = bwd_grid(p, smem, units, grid);
+  if (err != cudaSuccess) return err;
+  p.units = (int)units;
+  err = allow_dynamic_smem<evo_dq_wgmma_kernel<T, HD>>();
+  if (err != cudaSuccess) return err;
+  evo_dq_wgmma_kernel<T, HD><<<grid, kBwdThreads, smem, st>>>(p, tmq, tmdo, tmk, tmv, tmb2);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bwd_d(int which, const EvoArgs& a, const EvoPlan& plan, cudaStream_t st) {
-  if (a.D <= 16) return launch_bwd_hd<T, 16>(which, a, plan, st);
-  if (a.D <= 32) return launch_bwd_hd<T, 32>(which, a, plan, st);
-  if (a.D <= 64) return launch_bwd_hd<T, 64>(which, a, plan, st);
-  if (a.D <= 128) return launch_bwd_hd<T, 128>(which, a, plan, st);
+  if (a.D <= 16) return launch_bwd_wgmma<T, 16>(which, a, plan, st);
+  if (a.D <= 32) return launch_bwd_wgmma<T, 32>(which, a, plan, st);
+  if (a.D <= 64) return launch_bwd_wgmma<T, 64>(which, a, plan, st);
+  if (a.D <= 128) return launch_bwd_wgmma<T, 128>(which, a, plan, st);
   return launch_bwd_simt<T, 256>(which, a, st);
 }
 
@@ -705,14 +594,17 @@ inline cudaError_t launch_bwd_f32(int which, const EvoArgs& a, cudaStream_t st) 
 // strides, codes, scale and dtype as ds_evoformer_fwd; do [B, N, S, H, D]
 // contiguous in q's dtype; lse, delta [B*N, H, S] fp32; dq, dk, dv [B, N,
 // S, H, D] contiguous; db2 [B, H, S, S] fp32.  16-bit inputs with D up to
-// 128 take dk/dv and dbias2 on the tensor-core kernels, tiled by `stages`,
-// `slots` and `chunks` (ops/evoformer.py evo_bwd_plan); their dbias2
-// writes its partial sums to db2_part [chunks, B, H, S, S] fp32, and
-// ds_evoformer_db2_sum then makes db2.  fp32 and D above 128 (the
-// CUDA-core variants) ignore the plan and write db2 directly.
+// 128 take dq, dk/dv and dbias2 on the tensor-core kernels, tiled by
+// `stages`, `slots` and `chunks` (ops/evoformer.py evo_bwd_plan); their dq
+// is given no delta but o [B, N, S, H, D] (contiguous) and makes delta from
+// o and do, writing it to delta_out [B*N, H, S] fp32; their
+// dbias2 writes its partial sums to db2_part [chunks, B, H, S, S] fp32,
+// and ds_evoformer_db2_sum then makes db2.  fp32 and D above 128 (the
+// CUDA-core variants) need delta, ignore the plan and write db2 directly.
 extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const void* v,
                                 const void* b1, const void* b2, const void* dout,
-                                const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                                const void* lse, const void* delta, const void* o,
+                                void* delta_out, void* dq, void* dk, void* dv,
                                 void* db1_part, void* db1, void* db2, void* db2_part, int B,
                                 int N, int S, int H, int D, const long long* qkv_strides,
                                 const long long* bias_strides, int b1_code, int b2_code,
@@ -731,7 +623,12 @@ extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const v
                                                 static_cast<float*>(db1), (long long)B * N, H, S);
     return (int)cudaGetLastError();
   }
-  if (which < 0 || which > 2 || dout == nullptr || lse == nullptr || delta == nullptr ||
+  // the tensor-core dq (16-bit, D up to 128) makes delta itself; every
+  // other kernel reads it
+  const bool make_delta = which == 0 && dtype != 0 && D <= 128;
+  if (which < 0 || which > 2 || dout == nullptr || lse == nullptr ||
+      (make_delta ? (delta != nullptr || o == nullptr || delta_out == nullptr)
+                  : delta == nullptr) ||
       (which == 0 && dq == nullptr) || (which == 1 && (dk == nullptr || dv == nullptr)) ||
       (which == 2 && db2 == nullptr && db2_part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -740,6 +637,8 @@ extern "C" int ds_evoformer_bwd(int which, const void* q, const void* k, const v
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
+  a.o = const_cast<void*>(o);
+  a.delta_out = static_cast<float*>(delta_out);
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.db1_part = static_cast<float*>(db1_part);
   a.db2 = static_cast<float*>(db2);

@@ -3,14 +3,16 @@
 // Replaces the TPU kernels of deepspeed_tpu/ops/sparse_attention.py:
 //   _sp_fwd_kernel (launched by _make_block_sparse_fn's fwd_impl) -> sparse_fwd_kernel
 //   _sp_dq_kernel  (bwd_impl)                                     -> sparse_dq_kernel
-//   _sp_dkv_kernel (bwd_impl)                                     -> sparse_dkv_kernel
+//   _sp_dkv_kernel (bwd_impl)                                     -> sparse_dkv_wgmma_kernel
+//                                    (+ sparse_dkv_merge_kernel), sparse_dkv_kernel
 // Same function: softmax(q kT * scale) v where query block i sees only the
 // key blocks of its row of a static [nb, nb] block layout (and, when causal,
 // only keys at or before its own position), GQA by kv head = q head / group
 // with K/V never expanded.  The layout arrives as the reference's index
 // tables (_layout_tables): for each row block the active column blocks and
 // their count (forward, dq), for each column block the active row blocks
-// and their count (dk/dv).  A block walks exactly `count` entries: the
+// and their count (dk/dv; the wgmma dk/dv walks its host plan's column
+// groups instead, see below).  A block walks exactly `count` entries: the
 // reference pads each table row with its last index and guards the padding
 // off, so walking the padded width would add those blocks twice.  The
 // forward saves the per-row logsumexp; the backward recomputes the
@@ -22,9 +24,12 @@
 // 4*D flops forward, 6*D in dq, 8*D in dk/dv; the bytes are q, k, v, o once
 // (the key blocks a row reads come from L2), far below the flops at the
 // card's ~295 flop/byte line.  What the design does about it:
-//   - every product on the tensor cores (mma.sync m16n8k16, fp32
-//     accumulate) with the fragment helpers of flash_common.cuh; 16-bit
-//     inputs only.  wgmma and TMA are later work.
+//   - forward, dq and the mma.sync dk/dv: every product on the tensor
+//     cores (mma.sync m16n8k16, fp32 accumulate) with the fragment helpers
+//     of flash_common.cuh; 16-bit inputs only.
+//   - dk/dv at a block that divides 128 (dkv_route): sparse_dkv_wgmma_kernel,
+//     TMA + wgmma on the flash backward's warp-specialised design over
+//     128-key units of gathered columns; see its section below.
 //   - forward and dq: one block per (batch, row block, group of q heads
 //     that share a kv head); a warp owns 16 query rows of one head, so a
 //     block of bs/16 x hpb warps stages each active K/V block once for hpb
@@ -33,7 +38,8 @@
 //     width in order and carried (m, l, acc) in VMEM; here the walk is a
 //     loop inside the block over the row's live entries, state in
 //     registers.
-//   - dk/dv: one block per (batch, kv head, key block), a warp owning 16
+//   - dk/dv at blocks 48, 80, 96, 112 (sparse_dkv_kernel): one block per
+//     (batch, kv head, key block), a warp owning 16
 //     keys; the group's q heads are spread over hpb sets of warps that walk
 //     the transposed table in step (head outer, as the reference fuses its
 //     grid), their partial sums added in a fixed order at the end: no
@@ -41,14 +47,14 @@
 //     read them (a global block is read by every row, a local one by a
 //     few), so these blocks differ widely in work; spreading the heads cuts
 //     the heaviest block's serial steps by hpb, balancing the columns
-//     themselves (split heavy columns, a persistent scheduler) is later
-//     work.
+//     themselves is what the wgmma kernel's plan does (heavy walks split
+//     into chunks, tasks assigned heaviest first).
 //   - the causal diagonal block is masked inside the tile by absolute
 //     position; a 16 x 16 sub-tile wholly below the diagonal skips the
 //     per-entry test, one wholly above it is skipped.
 //   - q, k, v are read through (batch, token, head) strides: the model's
 //     [B, T, N, D] layout needs no transposes.
-#include "flash_common.cuh"
+#include "attn_bwd_hopper.cuh"
 
 namespace dsk {
 
@@ -493,6 +499,355 @@ __global__ void __launch_bounds__(kSpMaxWarps * 32) sparse_dkv_kernel(SparseArgs
   }
 }
 
+// -------------------------------------------------- dk/dv, TMA + wgmma
+// sparse_dkv_wgmma_kernel: the 16-bit dk/dv at head_dim 64 / 128 with a
+// block that divides 128 (dkv_route), on the flash backward's
+// warp-specialised dk/dv design (attn_bwd_hopper.cuh flash_dkv_kernel).
+// A unit is one group of G = 128 / bs column blocks of one (batch, kv
+// head), gathered into 128 keys: the host's plan (ops/sparse_attention.py
+// sparse_dkv_plan) puts columns whose row lists overlap in one group, and
+// lists the union of their row blocks as stages of 64 queries (R segments
+// of min(bs, 64) queries, one q head) with each segment's live-column
+// bits.  The producer warp puts the group's K / V rows into a slot (one
+// TMA box of bs keys a column) and streams each stage's Q / dO segments
+// (one box each) with their lse (log2 units), delta, query positions and
+// live bits through the ring; the two consumer warpgroups (64 keys each)
+// compute sT = K QT and dpT = V dOT on wgmma (both K-major), zero p and ds
+// of a dead sub-tile (and, causal, of a key after its query), and add pT
+// dO and dsT Q with p / ds packed in registers (dO, Q read MN-major).  The
+// walk runs over every q head of the GQA group (head outer), summed in
+// registers.  A walk longer than a fair share of the launch is split into
+// chunks (tasks), each writing fp32 partials that sparse_dkv_merge_kernel
+// adds in chunk order; every block runs the task list the host assigned
+// it, heaviest first.  No atomics: deterministic.
+constexpr int kSpKeys = 128, kSpRows = 64;  // keys a unit, queries a stage
+
+// Shared memory (ops/sparse_attention.py sparse_dkv_tiles, the same
+// formula): the mbarriers, slack to align the rest to 1024 bytes, `slots`
+// slots of K and V ([HD/64][128 keys][128 B] each), then the ring's stages
+// of Q and dO ([HD/64][64 queries][128 B] each) and four rows of 64 words
+// (lse in log2 units, delta, query position, live-column bits), a stage
+// rounded up to 1024 bytes.
+struct SpDkvLayout {
+  int slot_tile, ring_tile, slot_bytes, stage_bytes;
+  __host__ __device__ explicit SpDkvLayout(int hd) {
+    slot_tile = kSpKeys * hd * 2;
+    ring_tile = kSpRows * hd * 2;
+    slot_bytes = 2 * slot_tile;
+    stage_bytes = (2 * ring_tile + 4 * kSpRows * 4 + 1023) / 1024 * 1024;
+  }
+  size_t smem(int stages, int slots) const {
+    return (size_t)kBwdBarBytes + 1024 + (size_t)slots * slot_bytes +
+           (size_t)stages * stage_bytes;
+  }
+};
+
+// The plan's tables on the device (sparse_dkv_plan): cols [groups, G]
+// (-1: a pad column), gst [groups, 2] (first stage, stages), seg / live
+// [stages, R] (a segment's first query, its live-column bits), tasks
+// [tasks, 5] (group, batch * Nkv + kv head, first item, end item, part
+// slot or -1), blk [grid + 1] (each block's run of tasks).
+struct SpDkvArgs {
+  const float *lse, *delta;  // [B, N, T]
+  void *dk, *dv;             // [B, T, Nkv, hd] contiguous
+  float* part;               // [parts][2][128][hd] fp32: dk, dv of a chunk
+  const int *cols, *gst, *seg, *live, *tasks, *blk;
+  int T, N, Nkv, bs, G, R, lbs, lseg, causal, stages, slots;
+  int cq, ck, cv, cdo;
+  float scale;
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    sparse_dkv_wgmma_kernel(const __grid_constant__ SpDkvArgs p,
+                            const __grid_constant__ CUtensorMap tmk,
+                            const __grid_constant__ CUtensorMap tmv,
+                            const __grid_constant__ CUtensorMap tmq,
+                            const __grid_constant__ CUtensorMap tmdo) {
+  constexpr int NAT = HD / 64, KR = kSpKeys, BM = kSpRows, NS = BM / 2;
+  static_assert(HD == 64 || HD == 128, "head dims");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* slot_full = bars;
+  uint64_t* slot_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = full + kBwdMaxStages;
+  unsigned char* base = smem_raw + kBwdBarBytes;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;
+  const SpDkvLayout lay(HD);
+  unsigned char* ring = base + p.slots * lay.slot_bytes;
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  // a stage is full once its TMA bytes have landed and the producer warp's
+  // 32 lanes have written its rows of words
+  if (threadIdx.x == 0) init_bwd_barriers(bars, p.stages, 1, 32);
+  __syncthreads();
+  const int group = p.N / p.Nkv, seg = 1 << p.lseg;
+  // this block's tasks (lane 0's copy: the bounds steer every wgmma)
+  const int t0 = __shfl_sync(0xffffffffu, p.blk[blockIdx.x], 0);
+  const int t1 = __shfl_sync(0xffffffffu, p.blk[blockIdx.x + 1], 0);
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kDkvRegProducer>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int it = 0;
+    for (int i = 0, t = t0; t < t1; ++i, ++t) {
+      const int* tk = p.tasks + 5 * t;
+      const int g = tk[0], bh = tk[1], i0 = tk[2], i1 = tk[3];
+      const int b = bh / p.Nkv, hk = bh - b * p.Nkv;
+      const int st0 = p.gst[2 * g], ns = p.gst[2 * g + 1];
+      if (lane == 0) {
+        const int slot = i % p.slots;
+        if (i >= p.slots) mbar_wait(&slot_empty[slot], (i / p.slots - 1) & 1);
+        unsigned char* sl = base + slot * lay.slot_bytes;
+        mbar_expect_tx(&slot_full[slot], lay.slot_bytes);
+        for (int c = 0; c < p.G; ++c) {
+          // a pad column reads column 0 (finite rows; never stored)
+          const int k0 = max(p.cols[g * p.G + c], 0) * p.bs;
+#pragma unroll
+          for (int cb = 0; cb < NAT; ++cb) {
+            tma_load_4d(sl + cb * KR * 128 + c * p.bs * 128, &tmk, cb * 64, tma_c(p.ck, 1, hk),
+                        k0, tma_c(p.ck, 3, b), &slot_full[slot]);
+            tma_load_4d(sl + lay.slot_tile + cb * KR * 128 + c * p.bs * 128, &tmv, cb * 64,
+                        tma_c(p.cv, 1, hk), k0, tma_c(p.cv, 3, b), &slot_full[slot]);
+          }
+        }
+      }
+      // item i -> (q head hk * group + i / ns, stage st0 + i % ns)
+      int h = 0, sti = 0;
+      if (i1 > i0) {
+        h = hk * group + i0 / ns;
+        sti = i0 % ns;
+      }
+      for (int item = i0; item < i1; ++item, ++it) {
+        const int s = it % p.stages;
+        if (it >= p.stages) mbar_wait(&empty[s], (it / p.stages - 1) & 1);
+        unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+        const int* sg = p.seg + (st0 + sti) * p.R;
+        const int* lv = p.live + (st0 + sti) * p.R;
+        if (lane == 0) {
+          mbar_expect_tx_only(&full[s], 2 * lay.ring_tile);  // the lanes arrive below
+          for (int r = 0; r < p.R; ++r) {
+            const int q0 = sg[r];
+#pragma unroll
+            for (int cb = 0; cb < NAT; ++cb) {
+              tma_load_4d(st + cb * BM * 128 + r * seg * 128, &tmq, cb * 64, tma_c(p.cq, 1, h),
+                          q0, tma_c(p.cq, 3, b), &full[s]);
+              tma_load_4d(st + lay.ring_tile + cb * BM * 128 + r * seg * 128, &tmdo, cb * 64,
+                          tma_c(p.cdo, 1, h), q0, tma_c(p.cdo, 3, b), &full[s]);
+            }
+          }
+        }
+        // each row's lse (log2 units; +inf: a row that sees no key), delta,
+        // position and live-column bits
+        float* stats = reinterpret_cast<float*>(st + 2 * lay.ring_tile);
+        int* words = reinterpret_cast<int*>(stats + 2 * BM);
+        const long long rows = ((long long)b * p.N + h) * p.T;
+        float l[2], d[2];
+        int pos[2], bits[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = lane + 32 * j, r = row >> p.lseg;
+          pos[j] = sg[r] + (row & (seg - 1));
+          bits[j] = lv[r];
+          l[j] = __ldg(p.lse + rows + pos[j]);
+          d[j] = __ldg(p.delta + rows + pos[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = lane + 32 * j;
+          stats[row] = dead_or_log2(l[j]);
+          stats[BM + row] = d[j];
+          words[row] = pos[j];
+          words[BM + row] = bits[j];
+        }
+        mbar_arrive(&full[s]);
+        if (++sti == ns) {
+          sti = 0;
+          ++h;
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kDkvRegConsumer>();
+  const int c = wg - 1;
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tq = lane & 3;
+  const float scale2 = p.scale * kLog2e;
+  const int kl = 64 * c + 16 * w + grp;  // this thread's keys kl, kl + 8 of the unit
+  const int cidx = kl >> p.lbs, koff = kl & (p.bs - 1);  // their column and offset in it
+  float dk[NAT][32], dv[NAT][32];
+  float st[NS], dpt[NS];
+  uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+  auto fence_all = [&]() {
+    wg_fence_regs(st);
+    wg_fence_regs(dpt);
+#pragma unroll
+    for (int j = 0; j < NAT; ++j) {
+      wg_fence_regs(dk[j]);
+      wg_fence_regs(dv[j]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk) {
+      wg_fence_regs(pa[kk]);
+      wg_fence_regs(dsa[kk]);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) st[j] = dpt[j] = 0.f;
+  int it = 0;
+  if (c == 1) turn_pass(c);  // the first consumer warpgroup takes the first turn
+  for (int i = 0, t = t0; t < t1; ++i, ++t) {
+    const int* tk = p.tasks + 5 * t;
+    const int g = tk[0], bh = tk[1], pslot = tk[4];
+    const int n = __shfl_sync(0xffffffffu, tk[3] - tk[2], 0);  // steers the wgmmas
+    const int b = bh / p.Nkv, hk = bh - b * p.Nkv;
+    const int col = p.cols[g * p.G + cidx];
+    const int kpos = col * p.bs + koff;  // this thread's first key (col < 0: a pad)
+    const int slot = i % p.slots;
+#pragma unroll
+    for (int j = 0; j < NAT; ++j)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dk[j][x] = dv[j][x] = 0.f;
+    mbar_wait(&slot_full[slot], (i / p.slots) & 1);
+    const unsigned char* ks = base + slot * lay.slot_bytes + c * 64 * 128;
+    const unsigned char* vs = ks + lay.slot_tile;
+    for (int item = 0; item < n; ++item, ++it) {
+      const int s = it % p.stages;
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      const unsigned char* qs = ring + (size_t)s * lay.stage_bytes;
+      const unsigned char* dos = qs + lay.ring_tile;
+      const float* ls = reinterpret_cast<const float*>(qs + 2 * lay.ring_tile);
+      const int* words = reinterpret_cast<const int*>(ls + 2 * BM);
+      // sT = k qT, dpT = v doT (keys are the accumulator rows)
+      fence_all();
+      turn_wait(c);
+      wg_fence();
+      kmajor_product<T, HD, BM>(st, ks, KR, qs);
+      kmajor_product<T, HD, BM>(dpt, vs, KR, dos);
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      wg_fence_regs(st);
+      wg_fence_regs(dpt);
+      // pT = 2^(sT scale2 - lse2), dsT = pT (dpT - delta) scale; 0 on a
+      // dead sub-tile and (causal) on a key after its query
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int qi = 8 * j + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + qi);
+        const float2 d2 = *reinterpret_cast<const float2*>(ls + BM + qi);
+        const int2 q2 = *reinterpret_cast<const int2*>(words + qi);
+        const bool on = (words[BM + qi] >> cidx) & 1;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * j + 2 * hh + e;
+            const float pr = ex2(fmaf(st[x], scale2, -(e ? l2.y : l2.x)));
+            const float ds = pr * fmaf(dpt[x], p.scale, -(e ? d2.y : d2.x) * p.scale);
+            // selected, not multiplied: a dead column's rows may hold anything
+            const bool vis = on && (!p.causal || kpos + 8 * hh <= (e ? q2.y : q2.x));
+            st[x] = vis ? pr : 0.f;
+            dpt[x] = vis ? ds : 0.f;
+          }
+        if (j % 2 == 1) {
+          const int kk = j / 2;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = Mma<T>::pack(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            dsa[kk][r] = Mma<T>::pack(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          }
+        }
+      }
+      // dv += pT do, dk += dsT q: do and q read MN-major from the same tiles
+      fence_all();
+      turn_wait(c);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < NAT; ++a) {
+          Wgmma<T>::rs64(dv[a], pa[kk], wg_desc(dos + a * BM * 128 + kk * 16 * 128));
+          Wgmma<T>::rs64(dk[a], dsa[kk], wg_desc(qs + a * BM * 128 + kk * 16 * 128));
+        }
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_all();
+      warp_arrive(&empty[s], lane);
+    }
+    warp_arrive(&slot_empty[slot], lane);
+
+    // ---- epilogue: the task's dk, dv rows, or its fp32 partial
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (pslot < 0) {
+        if (col < 0) continue;
+        const long long off = (((long long)b * p.T + kpos + 8 * hh) * p.Nkv + hk) * HD;
+        T* dko = static_cast<T*>(p.dk) + off;
+        T* dvo = static_cast<T*>(p.dv) + off;
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int cc = 64 * a + 8 * jj + 2 * tq, x = 4 * jj + 2 * hh;
+            *reinterpret_cast<uint32_t*>(dko + cc) = Mma<T>::pack(dk[a][x], dk[a][x + 1]);
+            *reinterpret_cast<uint32_t*>(dvo + cc) = Mma<T>::pack(dv[a][x], dv[a][x + 1]);
+          }
+      } else {
+        float* pk = p.part + ((size_t)pslot * 2 * KR + kl + 8 * hh) * HD;
+        float* pv = pk + (size_t)KR * HD;
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int cc = 64 * a + 8 * jj + 2 * tq, x = 4 * jj + 2 * hh;
+            *reinterpret_cast<float2*>(pk + cc) = make_float2(dk[a][x], dk[a][x + 1]);
+            *reinterpret_cast<float2*>(pv + cc) = make_float2(dv[a][x], dv[a][x + 1]);
+          }
+      }
+    }
+  }
+}
+
+// The split walks' second pass: for each merge [group, batch * Nkv + kv
+// head, first part, chunks], dk and dv of the group's 128 keys = the
+// chunks' fp32 partials added in chunk order, rounded once; one block a
+// merge, four values a thread a step.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    sparse_dkv_merge_kernel(const float* __restrict__ part, const int* __restrict__ merges,
+                            const int* __restrict__ cols, void* dk, void* dv, int Tlen, int Nkv,
+                            int hd, int bs, int G) {
+  const int* m = merges + 4 * blockIdx.x;
+  const int g = m[0], bh = m[1], p0 = m[2], n = m[3];
+  const int b = bh / Nkv, hk = bh - b * Nkv;
+  const int per = kSpKeys * hd;  // one tensor of a part
+  for (int e = 4 * threadIdx.x; e < 2 * per; e += 4 * blockDim.x) {
+    const int which = e >= per, r = e - which * per, row = r / hd, cc = r - row * hd;
+    const int col = cols[g * G + row / bs];
+    if (col < 0) continue;
+    const float* src = part + (size_t)p0 * 2 * per + e;
+    float4 s = *reinterpret_cast<const float4*>(src);
+    for (int k = 1; k < n; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(src + (size_t)k * 2 * per);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    T* out = static_cast<T*>(which ? dv : dk) +
+             (((long long)b * Tlen + col * bs + row % bs) * Nkv + hk) * hd + cc;
+    const float vals[4] = {s.x, s.y, s.z, s.w};
+    store4<T>(out, vals);
+  }
+}
+
 // ------------------------------------------------- CUDA-core family (simt)
 // fp32 inputs, and the 16-bit calls the tensor-core kernels above do not
 // take (a block that is not a multiple of 16 or above 128, a head_dim
@@ -681,14 +1036,28 @@ cudaError_t launch_simt(int which, const SparseArgs& a, cudaStream_t st) {
   return launch_simt_t<T, 256>(which, a, st);
 }
 
+// The dk/dv kernel a call takes (ops/sparse_attention.py sparse_dkv_route,
+// the same rule): 2 sparse_dkv_wgmma_kernel (16-bit, head_dim 64 / 128, a
+// block that divides 128), 1 sparse_dkv_kernel (the other 16-bit blocks
+// that are a multiple of 16 up to 128), 0 the CUDA-core family.
+inline int dkv_route(int dtype, int hd, int bs) {
+  if (dtype == 0 || (hd != 64 && hd != 128) || bs % 16 != 0 || bs > 128) return 0;
+  return kSpKeys % bs == 0 ? 2 : 1;
+}
+
+inline bool sparse_shape_ok(const SparseArgs& a) {
+  return !(a.B < 1 || a.T < 1 || a.N < 1 || a.Nkv < 1 || a.N % a.Nkv != 0 || a.B > 65535 ||
+           a.N > 65535 || a.bs < 8 || a.bs % 8 != 0 || a.T % a.bs != 0 || a.hd < 8 ||
+           a.hd > 256 || a.hd % 8 != 0);
+}
+
 // The tensor-core kernels take 16-bit inputs, head_dim 64 or 128 and a
 // block that is a multiple of 16 up to 128; every other call the C
 // interface takes (fp32, any block that is a multiple of 8, head_dim a
-// multiple of 8 up to 256) runs on the CUDA-core family.
+// multiple of 8 up to 256) runs on the CUDA-core family.  dk/dv on the
+// wgmma route has its own entry (ds_sparse_dkv_wgmma) and is refused here.
 inline cudaError_t launch_sparse(int which, int dtype, const SparseArgs& a, void* stream) {
-  if (a.B < 1 || a.T < 1 || a.N < 1 || a.Nkv < 1 || a.N % a.Nkv != 0 || a.B > 65535 ||
-      a.N > 65535 || a.bs < 8 || a.bs % 8 != 0 || a.T % a.bs != 0 || a.tab_w < 1 ||
-      a.hd < 8 || a.hd > 256 || a.hd % 8 != 0)
+  if (!sparse_shape_ok(a) || a.tab_w < 1 || (which == kDkv && dkv_route(dtype, a.hd, a.bs) == 2))
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const bool mma = a.bs % 16 == 0 && a.bs <= 128 && (a.hd == 64 || a.hd == 128);
@@ -704,6 +1073,39 @@ inline cudaError_t launch_sparse(int which, int dtype, const SparseArgs& a, void
     return launch_sparse_t<__nv_bfloat16, 128>(which, a, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// dk/dv on sparse_dkv_wgmma_kernel: q, do [B, T, N, hd] and k, v [B, T,
+// Nkv, hd] as 4-D tensor maps (hd, head, token, batch) in the 128-byte
+// swizzle, q and do in boxes of one segment (min(bs, 64) rows), k and v of
+// one column block (bs rows); do contiguous.
+template <typename T, int HD>
+cudaError_t launch_dkv_wgmma_t(const SparseArgs& a, SpDkvArgs p, int grid, cudaStream_t st) {
+  const long long dq[4] = {a.hd, a.N, a.T, a.B}, dkv[4] = {a.hd, a.Nkv, a.T, a.B};
+  const long long sq[4] = {1, a.q_sh, a.q_st, a.q_sb}, sk[4] = {1, a.k_sh, a.k_st, a.k_sb},
+                  sv[4] = {1, a.v_sh, a.v_st, a.v_sb},
+                  sdo[4] = {1, a.hd, (long long)a.N * a.hd, (long long)a.T * a.N * a.hd};
+  const int box_q[4] = {64, 1, 1 << p.lseg, 1}, box_kv[4] = {64, 1, a.bs, 1};
+  CUtensorMap tmq{}, tmdo{}, tmk{}, tmv{};
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_nd(&tmq, tma_dtype<T>(), 2, a.q, 4, dq, sq, box_q, sw, &p.cq) ||
+      !tensor_map_nd(&tmdo, tma_dtype<T>(), 2, a.dout, 4, dq, sdo, box_q, sw, &p.cdo) ||
+      !tensor_map_nd(&tmk, tma_dtype<T>(), 2, a.k, 4, dkv, sk, box_kv, sw, &p.ck) ||
+      !tensor_map_nd(&tmv, tma_dtype<T>(), 2, a.v, 4, dkv, sv, box_kv, sw, &p.cv))
+    return cudaErrorInvalidValue;
+  const size_t smem = SpDkvLayout(HD).smem(p.stages, p.slots);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (p.stages < 1 || p.stages > kBwdMaxStages || p.slots < 1 || p.slots > 2 || grid < 1 ||
+      smem > (size_t)optin)
+    return cudaErrorInvalidValue;
+  err = allow_dynamic_smem<sparse_dkv_wgmma_kernel<T, HD>>();
+  if (err != cudaSuccess) return err;
+  sparse_dkv_wgmma_kernel<T, HD><<<grid, kBwdThreads, smem, st>>>(p, tmk, tmv, tmq, tmdo);
+  return cudaGetLastError();
 }
 
 }  // namespace dsk
@@ -750,4 +1152,78 @@ extern "C" int ds_sparse_bwd(int which, const void* q, const void* k, const void
   a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
   a.scale = scale; a.causal = causal;
   return (int)dsk::launch_sparse(which, dtype, a, stream);
+}
+
+// The call's dk/dv kernel (ops/sparse_attention.py sparse_dkv_route): 2
+// wgmma (ds_sparse_dkv_wgmma), 1 mma.sync, 0 CUDA cores (both
+// ds_sparse_bwd).  dtype: 0 fp32, 1 fp16, 2 bf16.
+extern "C" int ds_sparse_dkv_route(int dtype, int hd, int bs) { return dsk::dkv_route(dtype, hd, bs); }
+
+// dk, dv on sparse_dkv_wgmma_kernel, the call's plan from
+// ops/sparse_attention.py sparse_dkv_plan: its tables (cols [groups, G],
+// gst [groups, 2], seg / live [stages, R], tasks [tasks, 5], blk [grid +
+// 1], int32 on the device), ring depth and slots; part [parts, 2, 128, hd]
+// fp32 the split walks' partials (null if none).  q, k, v, do, lse, delta,
+// strides and dtype as ds_sparse_bwd; the call must take the wgmma route.
+extern "C" int ds_sparse_dkv_wgmma(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   const void* cols, const void* gst, const void* seg,
+                                   const void* live, const void* tasks, const void* blk,
+                                   int grid, int G, int R, int stages, int slots, void* part,
+                                   void* dk, void* dv, int B, int T, int N, int Nkv, int hd,
+                                   int bs, long long q_sb, long long q_st, long long q_sh,
+                                   long long k_sb, long long k_st, long long k_sh,
+                                   long long v_sb, long long v_st, long long v_sh, float scale,
+                                   int causal, int dtype, void* stream) {
+  dsk::SparseArgs a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs; a.hd = hd;
+  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
+  const int seg_len = bs < dsk::kSpRows ? bs : dsk::kSpRows;
+  if (!dsk::sparse_shape_ok(a) || dsk::dkv_route(dtype, hd, bs) != 2 ||
+      G != dsk::kSpKeys / bs || R != dsk::kSpRows / seg_len || lse == nullptr ||
+      delta == nullptr || dout == nullptr || tasks == nullptr || blk == nullptr)
+    return (int)cudaErrorInvalidValue;
+  dsk::SpDkvArgs p{};
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dk = dk; p.dv = dv; p.part = static_cast<float*>(part);
+  p.cols = static_cast<const int*>(cols); p.gst = static_cast<const int*>(gst);
+  p.seg = static_cast<const int*>(seg); p.live = static_cast<const int*>(live);
+  p.tasks = static_cast<const int*>(tasks); p.blk = static_cast<const int*>(blk);
+  p.T = T; p.N = N; p.Nkv = Nkv; p.bs = bs; p.G = G; p.R = R;
+  p.lbs = __builtin_ctz(bs);
+  p.lseg = __builtin_ctz(seg_len);
+  p.causal = causal; p.stages = stages; p.slots = slots; p.scale = scale;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)(hd == 64 ? dsk::launch_dkv_wgmma_t<__half, 64>(a, p, grid, st)
+                          : dsk::launch_dkv_wgmma_t<__half, 128>(a, p, grid, st));
+  return (int)(hd == 64 ? dsk::launch_dkv_wgmma_t<__nv_bfloat16, 64>(a, p, grid, st)
+                        : dsk::launch_dkv_wgmma_t<__nv_bfloat16, 128>(a, p, grid, st));
+}
+
+// The split walks' second pass (sparse_dkv_merge_kernel): `nmerge` merges
+// [group, batch * Nkv + kv head, first part, chunks] of part [parts, 2,
+// 128, hd] fp32 into dk, dv [B, T, Nkv, hd] (16-bit, contiguous) at the
+// group's keys (cols [groups, 128 / bs]).
+extern "C" int ds_sparse_dkv_merge(const void* part, const void* merges, const void* cols,
+                                   int nmerge, void* dk, void* dv, int T, int Nkv, int hd,
+                                   int bs, int dtype, void* stream) {
+  if (nmerge < 1 || part == nullptr || merges == nullptr || cols == nullptr ||
+      (hd != 64 && hd != 128) || bs < 16 || dsk::kSpKeys % bs != 0 || (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const int G = dsk::kSpKeys / bs;
+  const float* pt = static_cast<const float*>(part);
+  const int* m = static_cast<const int*>(merges);
+  const int* c = static_cast<const int*>(cols);
+  if (dtype == 1)
+    dsk::sparse_dkv_merge_kernel<__half><<<nmerge, 256, 0, st>>>(pt, m, c, dk, dv, T, Nkv, hd,
+                                                                 bs, G);
+  else
+    dsk::sparse_dkv_merge_kernel<__nv_bfloat16><<<nmerge, 256, 0, st>>>(pt, m, c, dk, dv, T,
+                                                                        Nkv, hd, bs, G);
+  return (int)cudaGetLastError();
 }

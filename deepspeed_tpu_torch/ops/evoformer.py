@@ -22,13 +22,14 @@ Implementations, chosen by the device of the tensors:
   and ``cuda_evoformer_bwd`` (csrc/evoformer_bwd.cu), the reference's four
   backward kernels: dq, dk/dv, dbias2 and dbias1 (the last as per-head
   column sums inside dk/dv, added over heads in order).  16-bit with head
-  dim up to 128: dk/dv on the warp-specialised TMA + wgmma dk/dv of
-  csrc/attn_bwd_hopper.cuh (its evoformer variant) and dbias2 on a TMA +
-  wgmma kernel whose units split the N rows into chunks (fp32 partial sums,
-  added in ascending order by a second pass), both tiled by
-  ``evo_bwd_plan``; dq stays on mma.sync; fp32 and wider head dims take
-  CUDA-core kernels.  q, k, v and both biases are read through their
-  strides.  ``torch_evoformer_bwd`` is the backward kernels' formula
+  dim up to 128: dq and dk/dv on the warp-specialised TMA + wgmma kernels
+  of csrc/attn_bwd_hopper.cuh (their evoformer variants; dq makes delta =
+  rowsum(o·do) in its producer warps and hands it on) and dbias2 on a TMA
+  + wgmma kernel whose units split the N rows into chunks (fp32 partial
+  sums, added in ascending order by a second pass), all tiled by
+  ``evo_bwd_plan``; fp32 and wider head dims take CUDA-core kernels.  q,
+  k, v and both biases are read through their strides.
+  ``torch_evoformer_bwd`` is the backward kernels' formula
   without tiles, their reference, and ``torch_evoformer_db2_sum`` the
   second pass's.
 
@@ -193,6 +194,10 @@ def evo_fwd_plan(d: int, bias2_bytes: int = 2) -> dict:
 
 
 _DB2_WAVES = 8       # dbias2's units: about this many to a multiprocessor
+# registers a thread of dq's producer and consumer warpgroups after
+# setmaxnreg (csrc/attn_bwd_hopper.cuh kEvoDqRegProducer,
+# kEvoDqRegConsumer; a 384-thread block holds 384 x 168)
+_EVO_DQ_REGS = (80, 208)
 H100_SMS = 132       # the H100's streaming multiprocessors
 
 
@@ -206,6 +211,15 @@ def evo_bwd_plan(d: int, bias2_bytes: int = 2, b: int = 1, n: int = 1,
     forward's compiled widths hd_k (16, 32, 64, 128; TMA boxes of 64
     columns, the pad zero-filled), with bias2 of ``bias2_bytes`` an
     element (0: none) and [B, N, S, H] = ``b, n, s, h``.
+
+    dq (csrc/attn_bwd_hopper.cuh ``BwdLayout::evo_dq``, the same formula):
+    128 ``queries`` a unit, its Q, dO, delta and lse rows in a slot; 64
+    ``keys`` a ring stage with the [128, 64] bias2 tile and the keys'
+    bias1 slice; two more mbarriers (16 bytes) than dk/dv.  Two slots
+    where two stages fit beside them, else one; as many stages as fit, at
+    most ``_BWD_MAX_STAGES``.  ``regs``: the warpgroups'
+    registers a thread after setmaxnreg, and the consumers' ``live``
+    accumulator registers (dq [64, hdp], s and dp [64, 64], ds packed).
 
     dk/dv (csrc/attn_bwd_hopper.cuh ``BwdLayout::evo_dkv``, the same
     formula): 128 ``keys`` a unit, its K, V and bias1 slice in a slot;
@@ -229,6 +243,13 @@ def evo_bwd_plan(d: int, bias2_bytes: int = 2, b: int = 1, n: int = 1,
     hd_k = next(w for w in (16, 32, 64, 128) if d <= w)
     hdp = -(-hd_k // 64) * 64
     fixed = (4 + 2 * _BWD_MAX_STAGES) * 8 + 1024  # mbarriers, alignment slack
+    # dq (BwdLayout::evo_dq): 128 queries a unit, 64 keys a stage
+    slot_q = _ceil1024(2 * 128 * hdp * 2 + 2 * 128 * 4)
+    stage_q = _ceil1024(2 * 64 * hdp * 2 + 128 * 64 * bias2_bytes + 64 * 4)
+    fits_q = {slots: min(_BWD_MAX_STAGES,
+                         (SMEM_LIMIT - fixed - 16 - slots * slot_q) // stage_q)
+              for slots in (2, 1)}
+    slots_q = 2 if fits_q[2] >= 2 else 1
     bm = 64 if hd_k <= 64 else 32
     slot = _ceil1024(2 * 128 * hdp * 2 + 128 * 4)
     stage = _ceil1024(2 * bm * hdp * 2 + bm * 128 * bias2_bytes + 2 * bm * 4)
@@ -240,7 +261,7 @@ def evo_bwd_plan(d: int, bias2_bytes: int = 2, b: int = 1, n: int = 1,
     row2 = 64 if hd_k <= 32 else hdp * 2     # dbias2's tile row, bytes
     stage2 = _ceil1024(2 * 128 * row2 + 2 * 64 * row2 + (2 * 128 + 64) * 4)
     stages2 = min(_BWD_MAX_STAGES, (SMEM_LIMIT - fixed) // stage2)
-    if min(stages, stages2) < 2:
+    if min(stages, stages2, fits_q[slots_q]) < 2:
         raise ValueError(f"no backward plan fits {SMEM_LIMIT} bytes at head "
                          f"dim {hd_k}, bias2 of {bias2_bytes} bytes")
     tiles = b * h * -(-s // 128) * -(-s // 64)
@@ -249,6 +270,13 @@ def evo_bwd_plan(d: int, bias2_bytes: int = 2, b: int = 1, n: int = 1,
     chunks = -(-n // rows)
     return dict(
         hd_k=hd_k, hdp=hdp,
+        dq=dict(queries=128, keys=64, slots=slots_q, stages=fits_q[slots_q],
+                slot_bytes=slot_q, stage_bytes=stage_q,
+                smem=fixed + 16 + slots_q * slot_q + fits_q[slots_q] * stage_q,
+                units=b * n * h * -(-s // 128),
+                regs=dict(producer=_EVO_DQ_REGS[0],
+                          consumer=_EVO_DQ_REGS[1],
+                          live=hdp // 2 + 64 + 16)),
         dkv=dict(keys=128, bm=bm, slots=slots, stages=stages,
                  slot_bytes=slot, stage_bytes=stage,
                  smem=fixed + slots * slot + stages * stage,
@@ -353,7 +381,7 @@ def _lib(name="evoformer"):
                                              + [I, I, F_, I, I, I, P])
             lib.ds_evoformer_fwd.restype = I
         else:
-            lib.ds_evoformer_bwd.argtypes = ([I] + [P] * 15 + [I] * 5
+            lib.ds_evoformer_bwd.argtypes = ([I] + [P] * 17 + [I] * 5
                                              + [P, P] + [I, I, F_] + [I] * 4
                                              + [P])
             lib.ds_evoformer_bwd.restype = I
@@ -450,9 +478,10 @@ _BWD_KERNEL = {"dq": 0, "dkv": 1, "db2": 2, "db1": 3}
 
 def tensor_core_bwd(q) -> bool:
     """The backward's route rule: 16-bit q with head dim up to 128 takes
-    dk/dv and dbias2 on the TMA + wgmma kernels (tiled by ``evo_bwd_plan``;
-    dbias2 through its partial sums and the second pass); fp32 and wider
-    head dims take the CUDA-core variants, which write dbias2 directly."""
+    dq, dk/dv and dbias2 on the TMA + wgmma kernels (tiled by
+    ``evo_bwd_plan``; dq making delta, dbias2 through its partial sums and
+    the second pass); fp32 and wider head dims take the CUDA-core
+    variants, which read the eager delta and write dbias2 directly."""
     return q.dtype != torch.float32 and q.shape[-1] <= 128
 
 
@@ -467,12 +496,13 @@ def _bwd_plan(q, b2):
                         h, _sms(q.device.index))
 
 
-def _launch_bwd(which, q, k, v, b1, b2, lse, delta, do, out, plan=(0, 0, 0)):
+def _launch_bwd(which, q, k, v, b1, b2, lse, delta, do, out, plan=(0, 0, 0),
+                o=None):
     b, n, s, h, d = q.shape
     lib = _lib("evoformer_bwd")
     rc = lib.ds_evoformer_bwd(
         _BWD_KERNEL[which], _ptr(q), _ptr(k), _ptr(v), _ptr(b1), _ptr(b2),
-        _ptr(do), _ptr(lse), _ptr(delta),
+        _ptr(do), _ptr(lse), _ptr(delta), _ptr(o), _ptr(out.get("delta")),
         *(_ptr(out.get(x)) for x in ("dq", "dk", "dv", "part", "db1", "db2",
                                      "db2_part")),
         b, n, s, h, d, *_strides(q, k, v, b1, b2), *_codes(b1, b2),
@@ -480,21 +510,29 @@ def _launch_bwd(which, q, k, v, b1, b2, lse, delta, do, out, plan=(0, 0, 0)):
     _check_rc(lib, rc, f"evoformer_{which}")
 
 
-def _bwd_kernel(which, q, k, v, b1, b2, lse, delta, do, part=None):
+def _bwd_kernel(which, q, k, v, b1, b2, lse, delta, do, part=None, o=None):
     """Launch one backward kernel on checked inputs (b1 / b2 the broadcast
-    views) and return its output: dq; (dk, dv, part) — ``part=True``
-    also writes bias1's per-head column sums of ds, fp32 [B·N, H, S];
-    db2 fp32 [B, H, S, S] (on the tensor cores: the chunks' partial sums,
-    then the second pass, one call); or, from ``part``, db1 fp32
-    [B·N, S]."""
+    views) and return its output: dq (on the tensor cores, given ``o`` and
+    no ``delta``: (dq, delta), delta = rowsum(o·do) fp32 [B·N, H, S] made
+    by the kernel); (dk, dv, part) — ``part=True`` also writes bias1's
+    per-head column sums of ds, fp32 [B·N, H, S]; db2 fp32 [B, H, S, S]
+    (on the tensor cores: the chunks' partial sums, then the second pass,
+    one call); or, from ``part``, db1 fp32 [B·N, S]."""
     b, n, s, h, d = q.shape
     empty = functools.partial(torch.empty, device=q.device)
     out = {}
-    tc = tensor_core_bwd(q) and which in ("dkv", "db2")
+    tc = tensor_core_bwd(q) and which in ("dq", "dkv", "db2")
     plan = _bwd_plan(q, b2) if tc else None
     knobs = (0, 0, 0)
     if which == "dq":
         out["dq"] = empty(q.shape, dtype=q.dtype)
+        if tc:
+            if delta is not None or o is None:
+                raise ValueError("the tensor-core dq makes delta from o: "
+                                 "pass o and no delta")
+            knobs = (plan["dq"]["stages"], plan["dq"]["slots"], 0)
+            out["delta"] = empty((b * n, h, s), dtype=torch.float32)
+            o = o.contiguous()
     elif which == "dkv":
         out["dk"] = empty(q.shape, dtype=q.dtype)
         out["dv"] = empty(q.shape, dtype=q.dtype)
@@ -511,7 +549,7 @@ def _bwd_kernel(which, q, k, v, b1, b2, lse, delta, do, part=None):
     else:
         out["part"] = part
         out["db1"] = empty((b * n, s), dtype=torch.float32)
-    _launch_bwd(which, q, k, v, b1, b2, lse, delta, do, out, knobs)
+    _launch_bwd(which, q, k, v, b1, b2, lse, delta, do, out, knobs, o)
     counter = f"{which}_launches"
     setattr(cuda_evoformer_bwd, counter,
             getattr(cuda_evoformer_bwd, counter) + 1)
@@ -519,6 +557,8 @@ def _bwd_kernel(which, q, k, v, b1, b2, lse, delta, do, part=None):
         cuda_evoformer_db2_sum(out["db2_part"], out["db2"])
     if which == "dkv":
         return out["dk"], out["dv"], out.get("part")
+    if "delta" in out:
+        return out["dq"], out["delta"]
     return out[which]
 
 
@@ -549,7 +589,9 @@ def cuda_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do, db1=None,
     dbias2 (#16, with its second pass on the tensor-core route) and dbias1
     (#17); ``db1`` / ``db2`` (default: whether the bias is given) say
     whether the bias gradients are wanted, and the reference's unused bias
-    cotangents cost nothing here either."""
+    cotangents cost nothing here either.  On the tensor-core route dq makes
+    delta = rowsum(o·do) itself and hands it to the others; fp32 and wider
+    head dims take ``_delta``'s eager sum."""
     problem = _bwd_problem(q, k, v, bias1, bias2, o, lse, do)
     if problem is not None:
         raise ValueError(f"cuda_evoformer_bwd: {problem}")
@@ -557,8 +599,12 @@ def cuda_evoformer_bwd(q, k, v, bias1, bias2, o, lse, do, db1=None,
     want1 = bias1 is not None and (db1 is None or bool(db1))
     want2 = bias2 is not None and (db2 is None or bool(db2))
     b1, b2 = _bias_views(q, bias1, bias2)
-    args = (q, k, v, b1, b2, lse, _delta(o, do), do)
-    dq = _bwd_kernel("dq", *args)
+    if tensor_core_bwd(q):
+        dq, delta = _bwd_kernel("dq", q, k, v, b1, b2, lse, None, do, o=o)
+        args = (q, k, v, b1, b2, lse, delta, do)
+    else:
+        args = (q, k, v, b1, b2, lse, _delta(o, do), do)
+        dq = _bwd_kernel("dq", *args)
     dk, dv, part = _bwd_kernel("dkv", *args, part=want1)
     g2 = _bwd_kernel("db2", *args).view(b, 1, h, s, s) if want2 else None
     g1 = (_bwd_kernel("db1", *args, part=part).view(b, n, 1, 1, s)

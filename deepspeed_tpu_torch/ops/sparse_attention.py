@@ -20,9 +20,12 @@ Implementations, chosen by the device of the tensors:
   first use, bound with ctypes): tensor-core kernels for 16-bit inputs at
   head_dim 64 / 128 with a block that is a multiple of 16, a CUDA-core
   family for every other call (fp32, block 8, other head dims).  Each
-  block walks only its row's (or
-  column's) live entries of the layout's index tables, which are built on
-  the host once per (layout, causal, device) and kept on the device, so a
+  block walks only its row's (or column's) live entries of the layout's
+  index tables; dk/dv at a block that divides 128 (``sparse_dkv_route``)
+  runs on TMA + wgmma over ``sparse_dkv_plan``'s groups of 128 gathered
+  keys, its heavy walks split into chunks merged in order
+  (``cuda_sparse_dkv_merge``).  Tables and plans are built on the host
+  once per (layout, causal, ..., device) and kept on the device, so a
   call costs no upload and no host sync.  Each wrapper checks its inputs,
   allocates its outputs with ``torch.empty``, launches on the current
   stream, raises on a non-zero ``cudaError_t`` and counts its launches in
@@ -40,12 +43,16 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import heapq
 from typing import Optional
 
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.flash_attention import (_bwd_inputs, _check_rc,
+from deepspeed_tpu_torch.ops.evoformer import H100_SMS, _sms
+from deepspeed_tpu_torch.ops.flash_attention import (SMEM_LIMIT,
+                                                     _BWD_MAX_STAGES,
+                                                     _bwd_inputs, _check_rc,
                                                      _ptr, masked_bwd,
                                                      masked_fwd)
 from deepspeed_tpu_torch.ops.flash_attention import _problem as _flash_problem
@@ -304,6 +311,171 @@ def _device_tables(layout_key: bytes, nb: int, causal: bool,
                  for a in _layout_tables(layout, causal))
 
 
+# ------------------------------------------- the tensor-core dk/dv's plan
+
+DKV_KEYS = 128        # keys a tensor-core dk/dv unit (a group of columns)
+DKV_QUERIES = 64      # queries a ring stage (of one q head)
+_DKV_CHUNK = 0.5      # a split walk's chunks: about half a fair share
+_DKV_ROUTES = ("simt", "mma", "wgmma")
+
+
+def sparse_dkv_route(dtype, hd: int, block: int) -> str:
+    """The dk/dv kernel a CUDA call takes (csrc/sparse_attention.cu
+    ``dkv_route``, the same rule): ``"wgmma"`` for 16-bit inputs at
+    head_dim 64 / 128 with a block that divides 128 (16, 32, 64, 128:
+    ``sparse_dkv_wgmma_kernel``); ``"mma"`` for the other 16-bit blocks
+    that are a multiple of 16 up to 128 (48, 80, 96, 112: a 128-key unit
+    holds no whole number of them, so they keep ``sparse_dkv_kernel``);
+    ``"simt"`` for everything else (fp32, blocks not a multiple of 16,
+    other head dims: the CUDA-core family)."""
+    if dtype == torch.float32 or hd not in (64, 128) or block % 16 \
+            or block > 128:
+        return "simt"
+    return "wgmma" if DKV_KEYS % block == 0 else "mma"
+
+
+def sparse_dkv_tiles(hd: int) -> dict:
+    """Shared memory of ``sparse_dkv_wgmma_kernel`` (csrc/sparse_attention.cu
+    ``SpDkvLayout``, the same formula) at head_dim ``hd`` (64 or 128):
+    slots of the unit's gathered K and V ([128 keys, hd] each) and a ring
+    of stages of the gathered Q and dO ([64 queries, hd] each) with four
+    rows of 64 words (lse in log2 units, delta, each query's position and
+    its segment's live-column bits), a stage rounded up to 1024 bytes.  Two
+    slots where a ring of 3 still fits beside them, else one; then as many
+    stages as fit, at most ``_BWD_MAX_STAGES``."""
+    slot = 2 * DKV_KEYS * hd * 2
+    stage = -(-(2 * DKV_QUERIES * hd * 2 + 4 * DKV_QUERIES * 4) // 1024) \
+        * 1024
+    fixed = (4 + 2 * _BWD_MAX_STAGES) * 8 + 1024  # mbarriers, alignment slack
+    fits = {slots: min(_BWD_MAX_STAGES,
+                       (SMEM_LIMIT - fixed - slots * slot) // stage)
+            for slots in (2, 1)}
+    slots = 2 if fits[2] >= 3 else 1
+    return dict(slots=slots, stages=fits[slots], slot_bytes=slot,
+                stage_bytes=stage,
+                smem=fixed + slots * slot + fits[slots] * stage)
+
+
+def _dkv_column_groups(lay: np.ndarray, block: int) -> np.ndarray:
+    """The columns in groups of 128 / block ([groups, G], -1 pads the
+    last): ordered by the last row block that reads them, then the first
+    (dead columns last), so that columns whose row lists overlap sit
+    together - Fixed's global columns, whose lists nest, in one run, each
+    window's local columns in another."""
+    nb = lay.shape[0]
+    G = DKV_KEYS // block
+    cnt = lay.sum(0)
+    first = np.where(cnt > 0, lay.argmax(0), nb)
+    last = np.where(cnt > 0, nb - 1 - lay[::-1].argmax(0), nb)
+    order = np.lexsort((np.arange(nb), first, last, cnt == 0))
+    pad = -len(order) % G
+    return np.concatenate([order, -np.ones(pad, np.int64)]).reshape(
+        -1, G).astype(np.int32)
+
+
+def sparse_dkv_plan(layout: np.ndarray, causal: bool, block: int,
+                    group: int, bh: int, hd: int = 128,
+                    sms: int = H100_SMS) -> dict:
+    """The work of one ``sparse_dkv_wgmma_kernel`` launch, a plain function
+    of the layout: ``group`` q heads a kv head, ``bh`` = batch x kv heads,
+    ``sms`` blocks at most.
+
+    Units: the layout's columns (causal: its lower triangle) in ``groups``
+    of G = 128 / block (``_dkv_column_groups``).  A group's walk is the
+    union of its columns' row blocks, as segments of min(block, 64)
+    queries (a 128-row block is two), packed R = 64 / min(block, 64) to a
+    ``stage``: ``seg`` [stages, R] each segment's first query and ``live``
+    [stages, R] the bits of the group's columns that its row block reads (a
+    dead sub-tile gets p = ds = 0; a stage's padding repeats the last
+    segment with no bits).  ``gst`` [groups, 2]: a group's first stage and
+    stage count.  A unit (group, batch x kv head) walks ``group`` x count
+    items (q head outer).
+
+    Heavy walks split: the fair share is the items (+1 a unit for its slot
+    and epilogue) over ``sms``; a walk longer than one fair share is cut
+    into chunks of even length, about ``_DKV_CHUNK`` of a share each (so
+    that the heaviest-first assignment below can even the blocks out), each
+    a ``task`` that writes fp32 partial dk / dv into its own ``parts`` slot,
+    and ``merges`` [group, bh, first part, chunks] add them in chunk order
+    (``sparse_dkv_merge_kernel``).  ``tasks`` [n, 5]: group, bh, first
+    item, end item, part slot (-1: the task is its unit's only chunk and
+    writes dk / dv itself).  Tasks go heaviest first to the least-loaded of
+    ``grid`` blocks; ``blk`` [grid + 1] bounds each block's run of
+    ``tasks``."""
+    lay = np.asarray(layout, bool).copy()
+    if causal:
+        lay &= np.tril(np.ones(lay.shape, bool))
+    seg_len = min(block, DKV_QUERIES)
+    R, halves = DKV_QUERIES // seg_len, max(1, block // DKV_QUERIES)
+    cols = _dkv_column_groups(lay, block)
+    G = cols.shape[1]
+    gst, seg, live = [], [], []
+    for row in cols:
+        real = [(c, j) for c, j in enumerate(row) if j >= 0]
+        sub = lay[:, [j for _, j in real]]
+        bits = (sub.astype(np.int64) << np.array([c for c, _ in real],
+                                                 np.int64)).sum(1)
+        segs = [(int(r) * block + half * DKV_QUERIES, int(bits[r]))
+                for r in np.flatnonzero(bits) for half in range(halves)]
+        n = -(-len(segs) // R)
+        segs += [(segs[-1][0], 0)] * (n * R - len(segs)) if segs else []
+        gst.append((len(seg), n))
+        for i in range(n):
+            seg.append([s for s, _ in segs[i * R:(i + 1) * R]])
+            live.append([b for _, b in segs[i * R:(i + 1) * R]])
+    items = [group * n for _, n in gst]
+    fair = bh * sum(n + 1 for n in items) / sms
+    tasks, merges, parts = [], [], 0
+    for g, n in enumerate(items):
+        for u in range(bh):
+            chunks = (-(-n // max(1, int(_DKV_CHUNK * fair))) if n > fair
+                      else 1)
+            bounds = [round(i * n / chunks) for i in range(chunks + 1)]
+            for c in range(chunks):
+                tasks.append((g, u, bounds[c], bounds[c + 1],
+                              parts + c if chunks > 1 else -1))
+            if chunks > 1:
+                merges.append((g, u, parts, chunks))
+                parts += chunks
+    grid = min(sms, len(tasks))
+    heap = [(0, b) for b in range(grid)]
+    runs = [[] for _ in range(grid)]
+    for t in sorted(range(len(tasks)),
+                    key=lambda t: (-(tasks[t][3] - tasks[t][2]), t)):
+        load, b = heapq.heappop(heap)
+        runs[b].append(t)
+        heapq.heappush(heap, (load + tasks[t][3] - tasks[t][2] + 1, b))
+    order = [t for r in runs for t in r]
+    blk = np.cumsum([0] + [len(r) for r in runs])
+    i32 = functools.partial(np.asarray, dtype=np.int32)
+    return dict(sparse_dkv_tiles(hd), G=G, R=R, seg_len=seg_len,
+                cols=cols, gst=i32(gst).reshape(-1, 2),
+                seg=i32(seg).reshape(-1, R), live=i32(live).reshape(-1, R),
+                tasks=i32([tasks[t] for t in order]).reshape(-1, 5),
+                blk=i32(blk), merges=i32(merges).reshape(-1, 4),
+                parts=parts, grid=grid, fair=fair,
+                loads=[sum(tasks[t][3] - tasks[t][2] + 1 for t in r)
+                       for r in runs])
+
+
+_PLAN_TABLES = ("cols", "gst", "seg", "live", "tasks", "blk", "merges")
+
+
+@functools.lru_cache(maxsize=16)
+def _device_dkv_plan(layout_key: bytes, nb: int, causal: bool, block: int,
+                     group: int, bh: int, hd: int, device: torch.device):
+    """``sparse_dkv_plan`` for the card, built once per (layout, causal,
+    block, group, batch x kv heads, head_dim, device): the plan and its
+    tables in one int32 buffer on ``device`` with each table's offset."""
+    layout = np.frombuffer(layout_key, bool).reshape(nb, nb)
+    plan = sparse_dkv_plan(layout, causal, block, group, bh, hd,
+                           _sms(device.index or 0))
+    flat = [plan[k].reshape(-1) for k in _PLAN_TABLES]
+    offs = np.cumsum([0] + [a.size for a in flat])
+    buf = torch.from_numpy(np.concatenate(flat).astype(np.int32)).to(device)
+    return plan, buf, dict(zip(_PLAN_TABLES, offs[:-1].tolist()))
+
+
 def _lib():
     """Build-and-load the kernel library once and declare its C interface."""
     from deepspeed_tpu_torch.ops.builder import load_op
@@ -316,6 +488,13 @@ def _lib():
         lib.ds_sparse_fwd.restype = I
         lib.ds_sparse_bwd.argtypes = [I] + [P] * 8 + [I] + [P] * 3 + tail
         lib.ds_sparse_bwd.restype = I
+        lib.ds_sparse_dkv_wgmma.argtypes = [P] * 12 + [I] * 5 + [P] * 3 + tail
+        lib.ds_sparse_dkv_wgmma.restype = I
+        lib.ds_sparse_dkv_merge.argtypes = [P] * 3 + [I] + [P] * 2 + [I] * 5 \
+            + [P]
+        lib.ds_sparse_dkv_merge.restype = I
+        lib.ds_sparse_dkv_route.argtypes = [I] * 3
+        lib.ds_sparse_dkv_route.restype = I
         lib.ds_cuda_error_string.argtypes = [I]
         lib.ds_cuda_error_string.restype = ctypes.c_char_p
         lib._ds_declared = True
@@ -394,15 +573,134 @@ def cuda_sparse_dq(q, k, v, o, lse, do, layout, block: int,
 cuda_sparse_dq.launches = 0
 
 
+def _call_plan(layout, block, causal, group, dk):
+    """The plan of a dk/dv call whose dk is ``dk`` [B, T, Nkv, hd]: on a
+    CUDA device the cached one with its device tables (plan, buffer,
+    offsets), elsewhere the plan for an H100 (plan, None, None)."""
+    lay = np.ascontiguousarray(layout, bool)
+    bh, hd = dk.shape[0] * dk.shape[2], dk.shape[3]
+    if dk.device.type != "cuda":
+        return sparse_dkv_plan(lay, causal, block, group, bh, hd), None, None
+    return _device_dkv_plan(lay.tobytes(), lay.shape[0], bool(causal),
+                            int(block), group, bh, hd, dk.device)
+
+
+def _launch_dkv_wgmma(q, k, v, o, lse, do, layout, block, causal, scale,
+                      delta, dk, dv):
+    """sparse_dkv_wgmma_kernel on the call's plan, then (if a walk was
+    split) the merge of its chunks."""
+    _, _, tail = _prepare("sparse_dkv", q, k, v, layout, block, causal,
+                          scale, col_major=True)
+    if delta is None:
+        do, lse, delta = _bwd_inputs("sparse_dkv", q, o, lse, do)
+    group = q.shape[2] // k.shape[2]
+    plan, buf, offs = _call_plan(layout, block, causal, group, dk)
+    tab = {x: ctypes.c_void_p(buf.data_ptr() + 4 * o_)
+           for x, o_ in offs.items()}
+    part = (torch.empty((plan["parts"], 2, DKV_KEYS, q.shape[3]),
+                        dtype=torch.float32, device=q.device)
+            if plan["parts"] else None)
+    lib = _lib()
+    rc = lib.ds_sparse_dkv_wgmma(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+        *(tab[x] for x in _PLAN_TABLES[:6]), plan["grid"], plan["G"],
+        plan["R"], plan["stages"], plan["slots"], _ptr(part), _ptr(dk),
+        _ptr(dv), *tail)
+    _check_rc(lib, rc, "sparse_dkv")
+    if part is not None:
+        cuda_sparse_dkv_merge(part, dk, dv, layout, block, causal, group)
+
+
+def _merge_problem(part, dk, dv, plan) -> Optional[str]:
+    if dk.dtype not in (torch.float16, torch.bfloat16) \
+            or dv.dtype != dk.dtype or dv.shape != dk.shape or dk.dim() != 4 \
+            or not dk.is_contiguous() or not dv.is_contiguous():
+        return f"dk, dv must be contiguous 16-bit [B, T, Nkv, hd] of one " \
+               f"shape, got {dk.dtype} {tuple(dk.shape)} / {dv.dtype} " \
+               f"{tuple(dv.shape)}"
+    want = (plan["parts"], 2, DKV_KEYS, dk.shape[3])
+    if part.dtype != torch.float32 or tuple(part.shape) != want \
+            or not part.is_contiguous():
+        return f"part must be a contiguous float32 {list(want)} tensor, " \
+               f"got {part.dtype} {tuple(part.shape)}"
+    return None
+
+
+def cuda_sparse_dkv_merge(part, dk, dv, layout, block: int,
+                          causal: bool = True, group: int = 1):
+    """The split walks' second pass on the card
+    (``sparse_dkv_merge_kernel``): for each of the call's merges (its
+    ``sparse_dkv_plan`` for ``group`` q heads a kv head), the dk and dv rows
+    of the group's keys = the chunks of ``part`` [parts, 2, 128, hd] fp32
+    added in chunk order, rounded once, written into ``dk`` / ``dv`` [B, T,
+    Nkv, hd] in place (the other rows are left as they are)."""
+    plan, buf, offs = _call_plan(layout, block, causal, group, dk)
+    problem = None if buf is not None else "dk must be on a CUDA device"
+    problem = problem or _merge_problem(part, dk, dv, plan)
+    if problem is None and (part.device != dk.device
+                            or dv.device != dk.device):
+        problem = f"part, dk, dv must share {dk.device}"
+    if problem is None and not plan["parts"]:
+        problem = "the call's plan splits no walk"
+    if problem is not None:
+        raise ValueError(f"cuda_sparse_dkv_merge: {problem}")
+    lib = _lib()
+    b, t, nkv, d = dk.shape
+    rc = lib.ds_sparse_dkv_merge(
+        _ptr(part), ctypes.c_void_p(buf.data_ptr() + 4 * offs["merges"]),
+        ctypes.c_void_p(buf.data_ptr() + 4 * offs["cols"]),
+        len(plan["merges"]), _ptr(dk), _ptr(dv), t, nkv, d, block,
+        _DTYPE_CODE[dk.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(dk.device).cuda_stream))
+    _check_rc(lib, rc, "sparse_dkv_merge")
+    cuda_sparse_dkv_merge.launches += 1
+    return dk, dv
+
+
+cuda_sparse_dkv_merge.launches = 0
+
+
+def torch_sparse_dkv_merge(part, dk, dv, layout, block: int,
+                           causal: bool = True, group: int = 1):
+    """The second pass's formula → (dk, dv) copies with each merge's rows
+    = its chunks of ``part`` added in chunk order (fp32), rounded once."""
+    plan = _call_plan(layout, block, causal, group, dk)[0]
+    problem = _merge_problem(part, dk, dv, plan)
+    if problem is not None:
+        raise ValueError(f"torch_sparse_dkv_merge: {problem}")
+    dk, dv = dk.clone(), dv.clone()
+    nkv = dk.shape[2]
+    for g, u, p0, n in plan["merges"].tolist():
+        acc = part[p0]
+        for c in range(1, n):
+            acc = acc + part[p0 + c]
+        b, hk = divmod(u, nkv)
+        for ci, col in enumerate(plan["cols"][g].tolist()):
+            if col >= 0:
+                rows = slice(ci * block, (ci + 1) * block)
+                keys = slice(col * block, (col + 1) * block)
+                dk[b, keys, hk] = acc[0, rows].to(dk.dtype)
+                dv[b, keys, hk] = acc[1, rows].to(dv.dtype)
+    return dk, dv
+
+
 def cuda_sparse_dkv(q, k, v, o, lse, do, layout, block: int,
                     causal: bool = True, scale: Optional[float] = None,
                     delta=None):
-    """dk, dv on the card over the transposed table, summed over the GQA
-    group without atomics."""
+    """dk, dv on the card, summed over the GQA group without atomics:
+    ``sparse_dkv_route`` picks the kernel.  On the wgmma route a call
+    launches ``sparse_dkv_wgmma_kernel`` once on ``sparse_dkv_plan``'s
+    column groups and tasks, and, when a walk was split,
+    ``cuda_sparse_dkv_merge`` once (its own counter); the other routes walk
+    the transposed table."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd(2, "sparse_dkv", q, k, v, o, lse, do, layout, block, causal,
-                scale, delta, None, dk, dv)
+    if sparse_dkv_route(q.dtype, q.shape[-1], block) == "wgmma":
+        _launch_dkv_wgmma(q, k, v, o, lse, do, layout, block, causal, scale,
+                          delta, dk, dv)
+    else:
+        _launch_bwd(2, "sparse_dkv", q, k, v, o, lse, do, layout, block,
+                    causal, scale, delta, None, dk, dv)
     cuda_sparse_dkv.launches += 1
     return dk, dv
 

@@ -854,6 +854,66 @@ def test_sparse_kernels_match_plain(cuda, dtype, tol, case):
         _assert_rows(name, got, want, tol)
 
 
+# the tensor-core dk/dv's route cases: (case, route)
+SPARSE_DKV_ROUTES = [("fixed_b16_gqa", "wgmma"), ("fixed_b32_d128", "wgmma"),
+                     ("longformer_b64", "wgmma"),
+                     ("bigbird_b128_noncausal", "wgmma"),
+                     ("even_columns_b16", "wgmma"),
+                     ("dense_b48_noncausal", "mma")]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case,route", SPARSE_DKV_ROUTES)
+def test_sparse_dkv_wgmma_matches_plain(cuda, dtype, case, route):
+    """dk/dv on its route (the C rule equals ``sparse_dkv_route``): the
+    wgmma kernel on the plan's column groups (its split walks merged by one
+    more launch) and, at block 48, the mma.sync kernel, against the plain
+    backward per row; two runs give the same bits."""
+    cfg, N, Nkv, D, causal = SPARSE_CASES[case]
+    assert sp.sparse_dkv_route(dtype, D, cfg.block) == route
+    code = sp._DTYPE_CODE[dtype]
+    assert sp._lib().ds_sparse_dkv_route(code, D, cfg.block) == \
+        sp._DKV_ROUTES.index(route)
+    q, k, v, do = _sparse_case(cuda, dtype, N, Nkv, D, T=384)
+    lay = cfg.make_layout(384)
+    o, lse = sp.torch_sparse_fwd(q, k, v, lay, cfg.block, causal)
+    plan = sp._call_plan(lay, cfg.block, causal, N // Nkv, k)[0]
+    before = (sp.cuda_sparse_dkv.launches, sp.cuda_sparse_dkv_merge.launches)
+    runs = [sp.cuda_sparse_dkv(q, k, v, o, lse, do, lay, cfg.block, causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    merged = int(route == "wgmma" and plan["parts"] > 0)
+    assert (sp.cuda_sparse_dkv.launches - before[0],
+            sp.cuda_sparse_dkv_merge.launches - before[1]) == (2, 2 * merged)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    want = sp.torch_sparse_bwd(q, k, v, o, lse, do, lay, cfg.block, causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 4e-3
+    for name, got, w in zip(("dk", "dv"), runs[0], want[1:]):
+        _assert_rows(name, got, w, tol)
+
+
+@pytest.mark.requires_cuda
+def test_sparse_dkv_merge_matches_plain(cuda):
+    """The second pass on a seeded partial of a plan's shape equals its
+    plain version (chunks added in order, rounded once) bitwise, and
+    leaves the rows of unsplit walks as they were."""
+    cfg = sp.FixedSparsityConfig()
+    lay = cfg.make_layout(384)
+    k = torch.zeros((2, 384, 2, 64), dtype=torch.bfloat16, device=cuda)
+    plan = sp._call_plan(lay, 16, True, 2, k)[0]
+    assert plan["parts"] > 0
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    part = torch.randn((plan["parts"], 2, 128, 64), device=cuda,
+                       generator=gen)
+    dk = torch.randn(k.shape, device=cuda, generator=gen).to(k.dtype)
+    dv = torch.randn(k.shape, device=cuda, generator=gen).to(k.dtype)
+    want = sp.torch_sparse_dkv_merge(part, dk, dv, lay, 16, True, 2)
+    got = sp.cuda_sparse_dkv_merge(part, dk.clone(), dv.clone(), lay, 16,
+                                   True, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.requires_cuda
 def test_sparse_dead_blocks_never_read(cuda):
     """K/V blocks no table entry reads are poisoned with NaN: the kernels'
@@ -1133,6 +1193,35 @@ def test_evoformer_bwd_kernels_match_plain(cuda, dtype, tol, case):
     again = evo.cuda_evoformer_bwd(q, k, v, b1, b2, o, lse, do)
     torch.cuda.synchronize()
     assert all(g is None or torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["both_d32_s384", "b1_d8", "none_d64",
+                                  "both_d128_s100", "b2q_d32_s200",
+                                  "broadcast_d32_s383", "bothf32_d32_s200_n3",
+                                  "b2q_d128_s64_n5"])
+def test_evo_dq_makes_delta(cuda, dtype, case):
+    """The tensor-core dq (#14) given no delta makes delta = rowsum(o·do)
+    in its producer warps: dq against the plain backward per row, the
+    delta against the eager fp32 sum (1e-4 of each row's value, 10% of the
+    largest as the floor), two runs bitwise equal."""
+    D, S, bias, N = EVO_BWD_CASES[case]
+    q, k, v, b1, b2 = _evo_case(cuda, dtype, D, S, bias, N=N)
+    o, lse = evo.torch_evoformer_fwd(q, k, v, b1, b2)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    do = torch.randn(q.shape, device=cuda, generator=gen).to(dtype)
+    b1v, b2v = evo._bias_views(q, b1, b2)
+    runs = [evo._bwd_kernel("dq", q, k, v, b1v, b2v, lse, None, do, o=o)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dq, delta = runs[0]
+    want = evo.torch_evoformer_bwd(q, k, v, b1, b2, o, lse, do)[0]
+    _assert_rows("dq", dq, want, 2e-2 if dtype == torch.bfloat16 else 4e-3)
+    eager = evo._delta(o, do)
+    assert delta.shape == eager.shape and delta.dtype == torch.float32
+    _assert_rows("delta", delta.unsqueeze(-1), eager.unsqueeze(-1), 1e-4)
 
 
 EVO_BWD_PLAN_CASES = [(d, b2) for d in (16, 32, 64, 128)

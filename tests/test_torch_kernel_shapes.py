@@ -620,6 +620,37 @@ def test_evo_bwd_plan_fits(d, bias2_bytes):
     assert dkv["slots"] == (2 if two >= 2 else 1)
 
 
+@pytest.mark.parametrize("bias2_bytes", [0, 2, 4])
+@pytest.mark.parametrize("d", [8, 16, 24, 32, 40, 64, 72, 128])
+def test_evo_bwd_plan_dq_fits(d, bias2_bytes):
+    """dq at every compiled width and bias2 width: a slot holds Q, dO
+    (128 queries) and their delta and lse rows, a stage K, V (64 keys),
+    the [128, 64] bias2 tile and the keys' bias1 slice; 1-2 slots (two where two
+    stages fit beside them), a ring of 2-8 stages, 1024-byte aligned, in
+    the card's shared memory; the producer and consumer warpgroups'
+    registers within the 384-thread block's 384 x 168, the consumers'
+    accumulators (dq [64, hdp], s and dp [64, 64], ds packed) within
+    theirs with room for addresses."""
+    plan = tevo.evo_bwd_plan(d, bias2_bytes, 1, 512, 384, 8)
+    dq, hdp = plan["dq"], plan["hdp"]
+    assert (dq["queries"], dq["keys"]) == (128, 64)
+    assert dq["slot_bytes"] % 1024 == 0 and dq["stage_bytes"] % 1024 == 0
+    assert dq["slot_bytes"] >= 2 * 128 * hdp * 2 + 2 * 128 * 4
+    assert dq["stage_bytes"] >= 2 * 64 * hdp * 2 + 128 * 64 * bias2_bytes \
+        + 64 * 4
+    assert 2 <= dq["stages"] <= 8 and dq["slots"] in (1, 2)
+    fixed = dq["smem"] - dq["slots"] * dq["slot_bytes"] \
+        - dq["stages"] * dq["stage_bytes"]
+    assert 0 < fixed <= 2048 and dq["smem"] <= SMEM
+    two = (SMEM - fixed - 2 * dq["slot_bytes"]) // dq["stage_bytes"]
+    assert dq["slots"] == (2 if two >= 2 else 1)
+    assert dq["units"] == 512 * 8 * 3
+    regs = dq["regs"]
+    assert 128 * regs["producer"] + 256 * regs["consumer"] <= 384 * 168
+    assert regs["live"] == hdp // 2 + 64 + 16
+    assert regs["live"] + 48 <= regs["consumer"]
+
+
 @pytest.mark.parametrize("b,n,s,h", [(1, 512, 384, 8), (1, 384, 384, 4),
                                      (1, 1, 384, 8), (2, 37, 64, 2),
                                      (1, 5, 13, 2), (1, 1000, 16, 1),
