@@ -9,16 +9,17 @@
    together); ptxas's registers and spills of the 16-bit flash kernels, the
    16-bit decode, #6's kernel, the evoformer's 16-bit dk/dv and dbias2, the
    16-bit prefill (#2 / #2i) with its combine kernel, #9's tensor-core
-   shrink and expand, the block-sparse dk/dv (#12) with its merge and the
-   evoformer's dq (#14) (a spill in any but the flash forward and dq
-   fails), and the HGMMA / WARPGROUP.DEPBAR counts of the SASS of every
-   wgmma kernel (the attention forward in both of its builds, the
-   attention backward (flash dq, the dk/dv in both of its builds), the
-   evoformer's dq and dbias2, wq_wgmma_kernel in each mode, #6's kernel,
-   the prefill, #9's shrink and expand, the block-sparse dk/dv); a
-   forward, attention backward, dbias2, #6, prefill, #9 or #12 kernel with
-   a wait after every product, or named in a ptxas warning that it
-   serialised the products, fails.
+   shrink and expand, the block-sparse forward (#10), dq (#11) with their
+   merge and dk/dv (#12) with its merge and the evoformer's dq (#14) (a
+   spill in any but the flash forward and dq fails), and the HGMMA /
+   WARPGROUP.DEPBAR counts of the SASS of every wgmma kernel (the attention
+   forward in both of its builds, the attention backward (flash dq, the
+   dk/dv in both of its builds), the evoformer's dq and dbias2,
+   wq_wgmma_kernel in each mode, #6's kernel, the prefill, #9's shrink and
+   expand, the block-sparse forward, dq and dk/dv); a forward, attention
+   backward, dbias2, #6, prefill, #9 or #10-#12 kernel with a wait after
+   every product, or named in a ptxas warning that it serialised the
+   products, fails.
 2. Each kernel against its plain PyTorch version on the card at Llama-3-8B
    attention shapes (bf16, nkv=8, g=4, hd=128, 64-token pages, 16 slots,
    KV lengths 0..2048, shuffled block tables) in every variant: plain,
@@ -138,28 +139,38 @@
 
 16. The block-sparse kernels (#10-#12: forward, dq, dk/dv) against their
    plain versions in bf16 (one fp16 case), per output row at ROW_TOL (lse
-   absolute): Dense, Fixed, BSLongformer and BigBird layouts, causal and
-   not, GQA 1 and 4, blocks 16-128 (dk/dv on the wgmma kernel; block 48 on
-   the mma.sync one), head_dim 64 and 128, T 1024-2048; and
-   the CUDA-core family at block 8 and 24, head_dim 80 and in fp32
-   (F32_TOL).  K/V blocks no table entry reads are poisoned with NaN (at
-   block 16 and at block 8) and the outputs must stay equal to the plain
-   ones on clean inputs; one dropped table entry must move a row beyond
-   ROW_TOL.
+   absolute; the delta dq makes against the eager fp32 sum at F32_TOL of
+   its largest): Dense, Fixed, BSLongformer and BigBird layouts, causal and
+   not, GQA 1, 4, 8 and 16, blocks 16-128 (all three on the wgmma kernels;
+   block 48 on the mma.sync ones), head_dim 64 and 128, T 1024-2048 and
+   1040 (a pad segment); and the CUDA-core family at block 8 and 24,
+   head_dim 80 and in fp32 (F32_TOL).  K/V blocks no table entry reads are
+   poisoned with NaN (at block 16 and at block 8) and the outputs must
+   stay equal to the plain ones on clean inputs; one dropped table entry
+   must move a row beyond ROW_TOL.
 17. The block-sparse path at full Llama-3-8B attention width and its
    published context (B 1, T 8192, 32 / 8 heads x 128, bf16):
    ``ops.sparse_attention`` and its autograd backward with the default
-   Fixed pattern (causal) and with BigBird block 64 (non-causal).  Each
-   kernel launches once a call (dk/dv's merge of its split walks once,
-   where the plan splits one); o, dq, dk, dv held per row to the plain
-   versions run one KV group at a time; two dk/dv runs bitwise equal; the
-   kernels timed on both calls (the Fixed call's in the JSON line) beside
-   their bound (live pairs only), the plain versions and SDPA with the
-   expanded boolean mask, and the merge on a seeded partial, held bitwise
-   to its plain version.  The dk/dv check is shown to see, in the plain
-   backward of one kv head: a column dropped from a group, a dead
-   sub-tile let through, a chunk left out of a split walk's merge and a
-   skipped ring stage (each fault's size printed).
+   Fixed pattern (causal), with BigBird block 64 (non-causal) and with
+   BSLongformer's defaults (non-causal: global row block 0 reads every
+   column).  Each kernel launches once a call (each merge of split walks
+   once, where its plan splits one: the forward's at BSLongformer, dq's at
+   BigBird and BSLongformer, dk/dv's at all three); o, dq,
+   dk, dv held per row to the plain versions run one KV group at a time,
+   the delta dq makes to the eager sum; o, lse, dq, delta, dk, dv of two
+   runs bitwise equal; the kernels timed on both calls (the Fixed call's
+   in the JSON line, a merge from the first call that runs it) beside their
+   bound (live pairs only), the plain versions and SDPA with the expanded
+   boolean mask, dq with the delta it makes, and the merges on seeded
+   partials (the dk/dv and dq merges held bitwise to their plain
+   versions).  The forward's and dq's checks are shown to see, in the
+   plain version of one unit's task of their plans: a key block dropped
+   from a stage, a dead sub-tile let through, a skipped ring stage, (dq)
+   the neighbouring head's delta and, where a plan splits, a chunk left
+   out of a split walk's merge; the
+   dk/dv check, in the plain backward of one kv head: a column dropped
+   from a group, a dead sub-tile let through, a chunk left out of a split
+   walk's merge and a skipped ring stage (each fault's size printed).
 18. The evoformer kernels, forward (#13) and backward (#14 dq, #15 dk/dv,
    #16 dbias2 with its second pass, #17 dbias1), against their plain
    versions at small shapes (biases none / one / both, an fp32 bias2, a
@@ -258,7 +269,8 @@ FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 WQ = ("wq_matmul_t", "wq_matmul", "wq_matmul4")
 INT8 = ("paged_attention_int8", "ragged_prefill_int8")
 LORA = ("lora_matmul",)
-SPARSE = ("sparse_fwd", "sparse_dq", "sparse_dkv", "sparse_dkv_merge")
+SPARSE = ("sparse_fwd", "sparse_dq", "sparse_dkv", "sparse_dkv_merge",
+          "sparse_fwd_combine", "sparse_dq_merge")
 EVO_BWD = ("evoformer_dq", "evoformer_dkv", "evoformer_db2",
            "evoformer_db2_sum", "evoformer_db1")
 EVO = ("evoformer_fwd",) + EVO_BWD
@@ -2291,10 +2303,18 @@ def _check_sparse(torch, sp, label, q, k, v, do, cfg, causal):
           flush=True)
     if not lerr <= tol:
         fail(f"sparse_fwd {label}: lse differs by {lerr}")
+    B, T, N, _ = q.shape
+    delta = torch.full((B, N, T), float("nan"), device=q.device)
     dq = sp.cuda_sparse_dq(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
-                           causal)
+                           causal, delta_out=delta)
+    want = sp._bwd_inputs("check", q, o_ref, lse_ref, do)[2]
+    derr = ((delta - want).abs().max() / want.abs().max()).item()
+    print(f"  sparse_dq[{label} delta] max|kernel-eager| = {derr:.3e} of "
+          f"the largest", flush=True)
+    if not derr <= F32_TOL:
+        fail(f"sparse_dq {label}: the delta it made differs by {derr}")
     dk, dv = sp.cuda_sparse_dkv(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
-                                causal)
+                                causal, delta=delta)
     dq_ref, dk_ref, dv_ref = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do,
                                                  lay, cfg.block, causal)
     _check_rows(torch, "sparse_dq", label + " dq", dq, dq_ref, tol)
@@ -2326,6 +2346,14 @@ def phase_sparse_kernels(torch, sp, dev):
          sp.DenseSparsityConfig(block=128), False, torch.bfloat16),
         ("dense b16 causal g1 d64", (2, 1024, 4, 4, 64),
          sp.DenseSparsityConfig(block=16), True, torch.bfloat16),
+        # the forward / dq's units: 8 q heads of 16 rows, 16 heads of 8
+        # rows, and T 1040 (65 row blocks: a pad segment in the last unit)
+        ("fixed b32 causal g8 d128", (1, 1024, 16, 2, 128),
+         sp.FixedSparsityConfig(block=32), True, torch.bfloat16),
+        ("bigbird b16 non-causal g16 d64", (1, 1024, 16, 1, 64),
+         sp.BigBirdSparsityConfig(block=16), False, torch.bfloat16),
+        ("longformer b16 causal g1 d128 T1040", (2, 1040, 2, 2, 128),
+         sp.BSLongformerSparsityConfig(), True, torch.bfloat16),
         # a block that does not divide 128: dk/dv on sparse_dkv_kernel
         ("longformer b48 causal g4 d128", (1, 1536, 8, 2, 128),
          sp.BSLongformerSparsityConfig(block=48), True, torch.bfloat16),
@@ -2425,12 +2453,13 @@ def _by_group(fn, q, k, v, o=None, lse=None, do=None):
 def _sparse_bounds(q, k, pairs):
     """Bytes (each input once, each output once) and operations (2*D flops
     per live (query, key) pair and product: forward 2 products, dq 3, dk/dv
-    4) of the three kernels, live pairs counted from this layout."""
+    4) of the three kernels, live pairs counted from this layout; dq with
+    its delta: q, do, o, k, v and lse read, dq and delta written."""
     B, T, N, D = q.shape
     e = q.element_size()
     nq, nk, rows = q.numel() * e, k.numel() * e, B * N * T * 4
     return {"sparse_fwd": _bound(nq + 2 * nk + nq + rows, 4 * D * pairs),
-            "sparse_dq": _bound(2 * nq + 2 * nk + 2 * rows + nq,
+            "sparse_dq": _bound(3 * nq + 2 * nk + 2 * rows + nq,
                                 6 * D * pairs),
             "sparse_dkv": _bound(2 * nq + 2 * nk + 2 * rows + 2 * nk,
                                  8 * D * pairs)}
@@ -2449,10 +2478,13 @@ def _time_sparse(torch, sp, q, k, v, do, cfg, causal, label):
     bounds = _sparse_bounds(q, k, pairs)
     o, lse = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
     dos, lse_c, delta = sp._bwd_inputs("time", q, o, lse, do)
+    made = torch.empty_like(delta)
     ms = {"sparse_fwd": cuda_ms(lambda: sp.cuda_sparse_fwd(
               q, k, v, lay, cfg.block, causal)),
+          # dq with the delta it makes for dk/dv (the main path's call)
           "sparse_dq": cuda_ms(lambda: sp.cuda_sparse_dq(
-              q, k, v, o, lse_c, dos, lay, cfg.block, causal, delta=delta)),
+              q, k, v, o, lse_c, dos, lay, cfg.block, causal,
+              delta_out=made)),
           "sparse_dkv": cuda_ms(lambda: sp.cuda_sparse_dkv(
               q, k, v, o, lse_c, dos, lay, cfg.block, causal, delta=delta))}
     plain_fwd = cuda_ms(lambda: _by_group(
@@ -2479,6 +2511,7 @@ def _time_sparse(torch, sp, q, k, v, do, cfg, causal, label):
              f"{ratio:.4f}")
     res = {"sparse_dkv_merge": _time_sparse_merge(torch, sp, q, k, lay,
                                                   cfg.block, causal)}
+    res.update(_time_sparse_q_merges(torch, sp, q, k, lay, cfg.block, causal))
     for name in SPARSE[:3]:
         res[name] = dict(
             shape=shape, ms=ms[name],
@@ -2539,6 +2572,171 @@ def _time_sparse_merge(torch, sp, q, k, lay, block, causal):
     return dict(shape=f"part[{plan['parts']},2,128,{D}] float32, {label}",
                 ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound[0],
                 bound_by=bound[1])
+
+
+def _time_sparse_q_merges(torch, sp, q, k, lay, block, causal):
+    """The forward's and dq's second passes on seeded partials of the
+    shapes of the call's forward and dq plans, where the plan splits a
+    walk (ml: m in log2 units, some -inf, l in (0, 64]): the forward
+    combine held per row to its plain version, the dq merge bitwise (the
+    chunks added in order, rounded once); each timed beside its bound (the
+    partials read once, the merged rows written once); no single PyTorch
+    call merges a varying number of chunks into gathered rows.  The
+    combine's o is 16-bit, so it is held at ROW_TOL (a rounding tie may
+    flip one ulp), its lse at F32_TOL."""
+    B, T, N, D = q.shape
+    nkv = k.shape[2]
+    group = N // nkv
+    e = q.element_size()
+    out = {}
+    for name, dq in (("sparse_fwd_combine", False), ("sparse_dq_merge", True)):
+        plan = sp._call_q_plan(lay, block, causal, q, nkv, dq=dq)[0]
+        if not plan["parts"]:
+            continue
+        gen = torch.Generator(device=q.device).manual_seed(plan["parts"])
+        part = torch.randn((plan["parts"], 128, D), device=q.device,
+                           generator=gen)
+        label = f"{len(plan['merges'])} merges of {plan['parts']} parts"
+        rows = sum(len(r[5]) for r in sp._merged_rows(plan, nkv, group))
+        chunks = int(plan["merges"][:, 3].mean())
+        base = torch.zeros_like(q)
+        if not dq:
+            ml = torch.stack([
+                torch.randn((plan["parts"], 128), device=q.device,
+                            generator=gen) * 8,
+                64 * torch.rand((plan["parts"], 128), device=q.device,
+                                generator=gen) + 1e-3], 1)
+            ml[:, 0, ::17] = float("-inf")
+            ml[:, 1, ::17] = 0.0
+            lse = torch.zeros((B, N, 1, T), device=q.device)
+            args = (part, ml, base, lse, lay, block, causal, group)
+            got = sp.cuda_sparse_fwd_combine(part, ml, base.clone(),
+                                             lse.clone(), *args[4:])
+            want = sp.torch_sparse_fwd_combine(*args)
+            _check_rows(torch, name, f"{label} o", got[0], want[0])
+            lerr = (got[1] - want[1]).abs().max().item()
+            print(f"  {name}[{label} lse] max|kernel-plain| = {lerr:.3e}",
+                  flush=True)
+            if not lerr <= F32_TOL:
+                fail(f"{name}: lse differs by {lerr}")
+            bound = _bound(part.numel() * 4 + ml.numel() * 4
+                           + rows * (D * e + 4), 3 * rows * D * chunks)
+            kernel, plain = sp.cuda_sparse_fwd_combine, \
+                sp.torch_sparse_fwd_combine
+        else:
+            args = (part, base, lay, block, causal, group)
+            got = sp.cuda_sparse_dq_merge(part, base.clone(), *args[2:])
+            want = sp.torch_sparse_dq_merge(*args)
+            _check_rows(torch, name, f"{label} dq", got, want, F32_TOL)
+            same = torch.equal(got, want)
+            print(f"  the dq merge equals its plain version bitwise: {same}",
+                  flush=True)
+            if not same:
+                fail(f"{name}: the chunks are not added in the plain "
+                     f"version's order")
+            bound = _bound(part.numel() * 4 + rows * D * e,
+                           rows * D * (chunks - 1))
+            kernel, plain = sp.cuda_sparse_dq_merge, sp.torch_sparse_dq_merge
+        ms = cuda_ms(lambda: kernel(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), reps=3, warmup=1)
+        print(f"  {name} [{label}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+        out[name] = dict(
+            shape=f"part[{plan['parts']},128,{D}] float32, {label}", ms=ms,
+            plain_ms=plain_ms, library_ms=None, bound_ms=bound[0],
+            bound_by=bound[1])
+    return out
+
+
+def _sparse_q_faults(torch, sp, kind, q, k, v, o, lse, do, lay, block,
+                     causal):
+    """The forward's (``kind`` "fwd") or dq's row checks must see, in the
+    plain version of one unit's task of its own plan
+    (``torch_sparse_q_task`` on the kernels' o and lse): where the plan
+    splits a walk, one chunk left out of its merge; else, at the unit with
+    the longest walk of the first kv head, a key block dropped from a
+    stage, a dead sub-tile let through (a live bit set where the plan has
+    none: a real block a segment does not read, else a stage's padding),
+    a skipped ring stage and (dq) the neighbouring head's delta.  Each
+    fault's size is printed."""
+    import copy
+    plan = sp._call_q_plan(lay, block, causal, q, k.shape[2],
+                           dq=kind == "dq")[0]
+    ust = plan["ust"]
+
+    def part(pl, task, delta=None):
+        """the task's fp32 partial: fwd (acc, ml), dq its rows"""
+        return sp.torch_sparse_q_task(kind, q, k, v, pl, task, o=o, lse=lse,
+                                      do=do, delta=delta)
+
+    def merge(parts):
+        """the rows of a walk's chunks: o = acc / l (weights 2^(m - max m)),
+        or dq summed"""
+        if kind == "dq":
+            return sum(parts)
+        top = torch.stack([m[0] for _, m in parts]).amax(0)
+        w = [torch.where(m[0] == float("-inf"), 0.0, torch.exp2(m[0] - top))
+             for _, m in parts]
+        tot = sum(m[1] * wc for (_, m), wc in zip(parts, w))
+        acc = sum(a * wc[:, None] for (a, _), wc in zip(parts, w))
+        return acc / torch.where(tot == 0, 1.0, tot)[:, None]
+
+    def check(what, got, want):
+        r = _rows_off(got, want)[0]
+        print(f"  {what} moves the worst {'o' if kind == 'fwd' else kind} row "
+              f"by {r:.3e} of its max (check at {ROW_TOL})", flush=True)
+        if not r > ROW_TOL:
+            fail(f"the sparse {kind} check cannot see {what}")
+
+    if plan["parts"]:
+        g, u, _, n = plan["merges"][0].tolist()
+        tasks = sorted(t for t in plan["tasks"].tolist() if t[:2] == [g, u])
+        parts = [part(plan, t) for t in tasks]
+        check(f"chunk {n // 2} of {n} of pattern {g}'s split walk left out "
+              f"of its merge", merge(parts[:n // 2] + parts[n // 2 + 1:]),
+              merge(parts))
+        return
+    g, u = int(np.argmax(ust[:, 1])), 0
+    first, count = (int(x) for x in ust[g])
+
+    def walk(pl, delta=None):
+        return merge([part(pl, (g, u, 0, count), delta)])
+
+    want = walk(plan)
+    mid = first + count // 2
+    bits = int(np.bitwise_or.reduce(plan["live"][mid])) & ((1 << plan["C"]) - 1)
+    c = (bits & -bits).bit_length() - 1     # the stage's first live block
+    cut = copy.deepcopy(plan)
+    cut["live"][mid] &= ~(1 << c)
+    check(f"key block {plan['kst'][mid, c]} dropped from stage {mid}",
+          walk(cut), want)
+    dead = None   # a real block one real segment does not read, else a pad
+    for st in range(first, first + count):
+        real = len(set(plan["kst"][st].tolist()))  # padding repeats block 0
+        for r in range(plan["R"]):
+            for cc in range(plan["C"]):
+                if plan["rows"][g, r, 0] >= 0 \
+                        and not plan["live"][st, r] >> cc & 1 \
+                        and (dead is None or (dead[3] and cc < real)):
+                    dead = (st, r, cc, cc >= real)
+    if dead is None:
+        print(f"  (no dead sub-tile in pattern {g}'s walk: every segment "
+              f"reads every block, no stage padded)", flush=True)
+    else:
+        extra = copy.deepcopy(plan)
+        extra["live"][dead[0], dead[1]] |= 1 << dead[2]
+        check(f"{'padded' if dead[3] else 'dead'} sub-tile (stage {dead[0]},"
+              f" segment {dead[1]}, key block "
+              f"{plan['kst'][dead[0], dead[2]]}) let through", walk(extra),
+              want)
+    skip = copy.deepcopy(plan)
+    skip["live"][mid] = 0
+    check(f"ring stage {mid} of pattern {g}'s walk skipped", walk(skip),
+          want)
+    if kind == "dq":
+        delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1)
+        check("the neighbouring head's delta",
+              walk(plan, delta.roll(-1, dims=1).contiguous()), want)
 
 
 def _sparse_dkv_faults(torch, sp, q, k, v, o, lse, do, lay, block, causal):
@@ -2626,21 +2824,27 @@ def phase_sparse_main(torch, sp, dev):
     """The block-sparse path at full Llama-3-8B attention width and its
     published context (B 1, T 8192, 32 q heads over 8 kv heads, head_dim
     128, bf16): ``ops.sparse_attention`` forward and ``backward`` through
-    autograd, once with the reference's default Fixed pattern (causal) and
-    once with BigBird block 64 non-causal.  Each kernel launches exactly
+    autograd, with the reference's default Fixed pattern (causal), with
+    BigBird block 64 and with BSLongformer's defaults (both non-causal).  Each kernel launches exactly
     once a call; o is held to the plain forward, and dq, dk, dv to the
     plain backward on the o and lse the backward kernels were given (the
     forward kernel's, recomputed: the kernel is deterministic), the plain
     versions run one KV group at a time.  An end-to-end comparison would
     fold the bf16 rounding of o into delta = rowsum(o·do), which moves the
     first rows' dq (a near-cancelling sum over one or two keys) by ~0.1 of
-    their largest value in the plain path itself against fp32.  Two dk/dv
-    runs bitwise equal; the dk/dv fault checks on the Fixed call; the
-    kernels timed on both calls (the Fixed call's numbers returned)."""
+    their largest value in the plain path itself against fp32.  Two runs
+    of each kernel bitwise equal; the forward / dq fault checks on every
+    call, the dk/dv ones on the Fixed call; the kernels timed on every call
+    (the Fixed call's numbers returned, and a later call's for a merge the
+    Fixed call does not run)."""
     from deepspeed_tpu_torch import ops
     calls = [("Fixed (defaults), causal", sp.FixedSparsityConfig(), True),
              ("BigBird block 64, non-causal", sp.BigBirdSparsityConfig(
-                 block=64), False)]
+                 block=64), False),
+             # global row block 0 reads every column block: the forward's
+             # 128-key walks split here (and not at the two calls above)
+             ("BSLongformer (defaults), non-causal",
+              sp.BSLongformerSparsityConfig(), False)]
     B, T, N, Nkv, D = LLAMA_ATTN
     total = dict.fromkeys(SPARSE, 0)
     results = {}
@@ -2648,12 +2852,16 @@ def phase_sparse_main(torch, sp, dev):
         q, k, v, g = _flash_inputs(torch, dev, B, T, N, Nkv, D, seed=17 + i)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
         counters = (sp.cuda_sparse_fwd, sp.cuda_sparse_dq, sp.cuda_sparse_dkv,
-                    sp.cuda_sparse_dkv_merge)
+                    sp.cuda_sparse_dkv_merge, sp.cuda_sparse_fwd_combine,
+                    sp.cuda_sparse_dq_merge)
         for c in counters:
             c.launches = 0
         plan = sp._call_plan(cfg.make_layout(T), cfg.block, causal, N // Nkv,
                              torch.empty((B, T, Nkv, D), device=dev))[0]
         merges = int(plan["parts"] > 0)
+        fmerges, dmerges = (int(sp._call_q_plan(
+            cfg.make_layout(T), cfg.block, causal, q, Nkv, dq=dq)[0]["parts"]
+            > 0) for dq in (False, True))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         o = ops.sparse_attention(qg, kg, vg, cfg, causal=causal)
@@ -2664,9 +2872,10 @@ def phase_sparse_main(torch, sp, dev):
         print(f"  [{label}] forward + backward {wall * 1e3:.1f} ms wall "
               f"(first call includes the table build), launches "
               f"{dict(zip(SPARSE, counts))}", flush=True)
-        if counts != [1, 1, 1, merges]:
+        if counts != [1, 1, 1, merges, fmerges, dmerges]:
             fail(f"sparse main path [{label}]: launches {counts}, want "
-                 f"1 each (the merge {merges})")
+                 f"1 each (the merges where a plan splits: dk/dv {merges}, "
+                 f"forward {fmerges}, dq {dmerges})")
         for n, c in zip(SPARSE, counts):
             total[n] += c
         lay = cfg.make_layout(T)
@@ -2677,8 +2886,11 @@ def phase_sparse_main(torch, sp, dev):
         del fwd
         _check_rows(torch, "sparse_fwd", f"{label} o", o.detach(), o_ref)
         o_k, lse_k = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
-        if not torch.equal(o_k, o.detach()):
+        o_2, lse_2 = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
+        if not (torch.equal(o_k, o.detach()) and torch.equal(o_k, o_2)
+                and torch.equal(lse_k, lse_2)):
             fail(f"sparse_fwd [{label}]: a second launch differs")
+        del o_2, lse_2
         lerr = (lse_k - lse_ref).abs().max().item()
         print(f"  sparse_fwd[{label} lse] max|kernel-plain| = {lerr:.3e}",
               flush=True)
@@ -2693,22 +2905,36 @@ def phase_sparse_main(torch, sp, dev):
                 (qg.grad, kg.grad, vg.grad), refs):
             _check_rows(torch, name, f"{label} {lab}", got, want)
         dos, lse_c, delta = sp._bwd_inputs("check", q, o_k, lse_k, g)
+        made = [torch.empty_like(delta) for _ in range(2)]
+        dqs = [sp.cuda_sparse_dq(q, k, v, o_k, lse_c, dos, lay, cfg.block,
+                                 causal, delta_out=d) for d in made]
+        derr = ((made[0] - delta).abs().max() / delta.abs().max()).item()
+        print(f"  sparse_dq[{label} delta] max|kernel-eager| = {derr:.3e} of "
+              f"the largest", flush=True)
+        if not derr <= F32_TOL:
+            fail(f"sparse_dq [{label}]: the delta it made differs by {derr}")
         runs = [sp.cuda_sparse_dkv(q, k, v, o_k, lse_c, dos, lay, cfg.block,
                                    causal, delta=delta) for _ in range(2)]
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(*runs))
-        print(f"  [{label}] two dk/dv runs bitwise equal: {same}", flush=True)
-        if not same:
-            fail(f"sparse_dkv [{label}] is not deterministic")
-        del runs, dos, lse_c, delta
+        same_q = torch.equal(*dqs) and torch.equal(*made)
+        print(f"  [{label}] two runs bitwise equal: o, lse True; dq, delta "
+              f"{same_q}; dk, dv {same}", flush=True)
+        if not (same and same_q):
+            fail(f"sparse dq / dkv [{label}] is not deterministic")
+        del runs, dos, lse_c, delta, made, dqs
+        for kind in ("fwd", "dq"):
+            _sparse_q_faults(torch, sp, kind, q, k, v, o_k, lse_k, g, lay,
+                             cfg.block, causal)
         if i == 0:
             _sparse_dkv_faults(torch, sp, q, k, v, o_k, lse_k, g, lay,
                                cfg.block, causal)
-        if i == 0:
-            results = _time_sparse(torch, sp, q, k, v, g, cfg, causal,
-                                   label)
-        else:
-            _time_sparse(torch, sp, q, k, v, g, cfg, causal, label)
+        # the Fixed call's numbers; a merge its plans do not split, from
+        # the first later call whose plan splits it
+        timed = _time_sparse(torch, sp, q, k, v, g, cfg, causal, label)
+        for name, r in timed.items():
+            if r and (i == 0 or not results.get(name)):
+                results[name] = r
         del q, k, v, g, qg, kg, vg, o, o_ref, lse_ref, o_k, lse_k, refs
         gc.collect()
         torch.cuda.empty_cache()
@@ -3290,12 +3516,14 @@ NEW_KERNELS = ("paged_decode_mma_kernel", "decode_combine_kernel", "wq_t_kernel"
                "prefill_wgmma_kernel", "prefill_combine_kernel",
                "lora_shrink_wgmma", "lora_expand_wgmma",
                "sparse_dkv_wgmma_kernel", "sparse_dkv_merge_kernel",
-               "evo_dq_wgmma_kernel")
+               "evo_dq_wgmma_kernel", "sparse_fwd_wgmma_kernel",
+               "sparse_dq_wgmma_kernel", "sparse_q_merge_kernel")
 WGMMA_GATE = ("attn_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
               "evo_dkv_kernel", "evo_db2_kernel", "wq_t_kernel",
               "prefill_wgmma_kernel", "lora_shrink_wgmma",
               "lora_expand_wgmma", "sparse_dkv_wgmma_kernel",
-              "evo_dq_wgmma_kernel")
+              "evo_dq_wgmma_kernel", "sparse_fwd_wgmma_kernel",
+              "sparse_dq_wgmma_kernel")
 
 
 def _spill_gate(build_log, kernels):
@@ -3425,7 +3653,9 @@ def main():
                    "wq_t_kernel", "prefill_wgmma_kernel",
                    "prefill_combine_kernel", "lora_shrink_wgmma",
                    "lora_expand_wgmma", "sparse_dkv_wgmma_kernel",
-                   "sparse_dkv_merge_kernel", "evo_dq_wgmma_kernel"):
+                   "sparse_dkv_merge_kernel", "evo_dq_wgmma_kernel",
+                   "sparse_fwd_wgmma_kernel", "sparse_dq_wgmma_kernel",
+                   "sparse_q_merge_kernel"):
         _ptxas_report(builder.build_log, kernel)
     _spill_gate(builder.build_log, NEW_KERNELS)
     _serialised_gate(builder.build_log, WGMMA_GATE)
@@ -3436,7 +3666,9 @@ def main():
                         ("evoformer_bwd", ("evo_dq_wgmma_kernel",
                                            "evo_dkv_kernel",
                                            "evo_db2_kernel")),
-                        ("sparse_attention", ("sparse_dkv_wgmma_kernel",)),
+                        ("sparse_attention", ("sparse_dkv_wgmma_kernel",
+                                              "sparse_fwd_wgmma_kernel",
+                                              "sparse_dq_wgmma_kernel")),
                         ("wq_matmul", ("wq_wgmma_kernel", "wq_t_kernel")),
                         ("ragged_prefill", ("prefill_wgmma_kernel",)),
                         ("lora_matmul", ("lora_shrink_wgmma",
@@ -3581,6 +3813,9 @@ def main():
                 "sparse_dkv": "deepspeed_tpu/ops/sparse_attention.py:252",
                 "sparse_dkv_merge":
                 "deepspeed_tpu/ops/sparse_attention.py:252",
+                "sparse_fwd_combine":
+                "deepspeed_tpu/ops/sparse_attention.py:186",
+                "sparse_dq_merge": "deepspeed_tpu/ops/sparse_attention.py:222",
                 "evoformer_fwd": "deepspeed_tpu/ops/evoformer.py:89",
                 "evoformer_dq": "deepspeed_tpu/ops/evoformer.py:203",
                 "evoformer_dkv": "deepspeed_tpu/ops/evoformer.py:224",

@@ -371,13 +371,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context in the calling thread: a
+// thread that has made no runtime call yet (PyTorch's autograd worker, when
+// a kernel's launch is the first CUDA work of its backward) has none, and
+// every map would fail.  Make the thread's device's primary context current
+// once a thread (cudaSetDevice initialises and binds it).
+inline bool context_current() {
+  thread_local const bool done = [] {
+    int dev = 0;
+    return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }();
+  return done;
+}
+
 // a 2-D row-major [rows, cols] tensor of `elem`-byte elements, read in
 // [box_rows, box_cols] tiles, out-of-bounds elements zero-filled
 inline bool tensor_map(CUtensorMap* m, CUtensorMapDataType dt, int elem, const void* base,
                        long long rows, long long cols, int box_rows, int box_cols,
                        CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !context_current()) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
@@ -396,7 +409,8 @@ inline bool tensor_map_nd(CUtensorMap* m, CUtensorMapDataType dt, int elem, cons
                           int rank, const long long* dims, const long long* strides,
                           const int* box, CUtensorMapSwizzle swizzle, int* collapsed) {
   const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || rank < 1 || rank > 5 || strides[0] != 1) return false;
+  if (fn == nullptr || !context_current() || rank < 1 || rank > 5 || strides[0] != 1)
+    return false;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], step[5];
   *collapsed = 0;

@@ -1,45 +1,51 @@
 // Block-sparse flash attention on Hopper (sm_90a): forward, dq and dk/dv.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/sparse_attention.py:
-//   _sp_fwd_kernel (launched by _make_block_sparse_fn's fwd_impl) -> sparse_fwd_kernel
-//   _sp_dq_kernel  (bwd_impl)                                     -> sparse_dq_kernel
-//   _sp_dkv_kernel (bwd_impl)                                     -> sparse_dkv_wgmma_kernel
-//                                    (+ sparse_dkv_merge_kernel), sparse_dkv_kernel
+//   _sp_fwd_kernel (launched by _make_block_sparse_fn's fwd_impl)
+//       -> sparse_fwd_wgmma_kernel (+ sparse_q_merge_kernel), sparse_fwd_kernel
+//   _sp_dq_kernel  (bwd_impl)
+//       -> sparse_dq_wgmma_kernel (+ sparse_q_merge_kernel), sparse_dq_kernel
+//   _sp_dkv_kernel (bwd_impl)
+//       -> sparse_dkv_wgmma_kernel (+ sparse_dkv_merge_kernel), sparse_dkv_kernel
 // Same function: softmax(q kT * scale) v where query block i sees only the
 // key blocks of its row of a static [nb, nb] block layout (and, when causal,
 // only keys at or before its own position), GQA by kv head = q head / group
-// with K/V never expanded.  The layout arrives as the reference's index
-// tables (_layout_tables): for each row block the active column blocks and
-// their count (forward, dq), for each column block the active row blocks
-// and their count (dk/dv; the wgmma dk/dv walks its host plan's column
-// groups instead, see below).  A block walks exactly `count` entries: the
-// reference pads each table row with its last index and guards the padding
-// off, so walking the padded width would add those blocks twice.  The
-// forward saves the per-row logsumexp; the backward recomputes the
-// probabilities from it (delta = rowsum(o * do) is computed by the caller).
-// A row block with no active key block gives o = 0, lse = -1e30 and zero
-// gradients, as the reference.
+// with K/V never expanded.  The mma.sync and CUDA-core kernels walk the
+// layout as the reference's index tables (_layout_tables): for each row
+// block the active column blocks and their count (forward, dq), for each
+// column block the active row blocks and their count (dk/dv); a block walks
+// exactly `count` entries (the reference pads each table row with its last
+// index and guards the padding off, so walking the padded width would add
+// those blocks twice).  The wgmma kernels walk host plans instead (below).
+// The forward saves the per-row logsumexp; the backward recomputes the
+// probabilities from it, with delta = rowsum(o * do) made by the wgmma dq
+// in its units (the other routes take it from the caller).  A row block
+// with no active key block gives o = 0, lse = -1e30 and zero gradients, as
+// the reference.
 //
 // What bounds it on the H100: operations.  A live (query, key) pair costs
 // 4*D flops forward, 6*D in dq, 8*D in dk/dv; the bytes are q, k, v, o once
 // (the key blocks a row reads come from L2), far below the flops at the
 // card's ~295 flop/byte line.  What the design does about it:
-//   - forward, dq and the mma.sync dk/dv: every product on the tensor
-//     cores (mma.sync m16n8k16, fp32 accumulate) with the fragment helpers
-//     of flash_common.cuh; 16-bit inputs only.
-//   - dk/dv at a block that divides 128 (dkv_route): sparse_dkv_wgmma_kernel,
-//     TMA + wgmma on the flash backward's warp-specialised design over
-//     128-key units of gathered columns; see its section below.
-//   - forward and dq: one block per (batch, row block, group of q heads
-//     that share a kv head); a warp owns 16 query rows of one head, so a
-//     block of bs/16 x hpb warps stages each active K/V block once for hpb
-//     heads (cp.async, double buffered, rows padded by 8 elements for
+//   - a call that is 16-bit at head_dim 64 / 128 with a block that divides
+//     128 (dkv_route 2) runs TMA + wgmma, warp-specialised and persistent,
+//     on host plans of 128-row units: the forward and dq over 128 queries
+//     of one kv head's GQA group (its q heads stacked, so each gathered K /
+//     V stage serves them all), dk/dv over 128 gathered keys; heavy walks
+//     split into chunks merged in chunk order.  See their sections below.
+//   - the other 16-bit blocks that are a multiple of 16 up to 128 (48, 80,
+//     96, 112): every product on the tensor cores (mma.sync m16n8k16, fp32
+//     accumulate) with the fragment helpers of flash_common.cuh.  Forward
+//     and dq: one block per (batch, row block, group of q heads that share
+//     a kv head); a warp owns 16 query rows of one head, so a block of
+//     bs/16 x hpb warps stages each active K/V block once for hpb heads
+//     (cp.async, double buffered, rows padded by 8 elements for
 //     conflict-free ldmatrix).  The TPU grid walked the table's padded
 //     width in order and carried (m, l, acc) in VMEM; here the walk is a
 //     loop inside the block over the row's live entries, state in
 //     registers.
-//   - dk/dv at blocks 48, 80, 96, 112 (sparse_dkv_kernel): one block per
-//     (batch, kv head, key block), a warp owning 16
+//   - dk/dv at those blocks (sparse_dkv_kernel): one block per (batch, kv
+//     head, key block), a warp owning 16
 //     keys; the group's q heads are spread over hpb sets of warps that walk
 //     the transposed table in step (head outer, as the reference fuses its
 //     grid), their partial sums added in a fixed order at the end: no
@@ -47,7 +53,7 @@
 //     read them (a global block is read by every row, a local one by a
 //     few), so these blocks differ widely in work; spreading the heads cuts
 //     the heaviest block's serial steps by hpb, balancing the columns
-//     themselves is what the wgmma kernel's plan does (heavy walks split
+//     themselves is what the wgmma kernels' plans do (heavy walks split
 //     into chunks, tasks assigned heaviest first).
 //   - the causal diagonal block is masked inside the tile by absolute
 //     position; a 16 x 16 sub-tile wholly below the diagonal skips the
@@ -848,6 +854,705 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// ------------------------------------------ forward and dq, TMA + wgmma
+// sparse_fwd_wgmma_kernel and sparse_dq_wgmma_kernel: the 16-bit forward
+// and dq at head_dim 64 / 128 with a block that divides 128 (dkv_route 2),
+// on the flash forward's and dq's warp-specialised designs
+// (attn_fwd_hopper.cuh attn_fwd_kernel, attn_bwd_hopper.cuh
+// flash_dq_kernel), the mirror image of sparse_dkv_wgmma_kernel: a unit is
+// 128 query rows of one (batch, kv head), R segments of `seg` queries of
+// one q head (the host's plan, ops/sparse_attention.py sparse_q_plan: the
+// GQA group's heads stacked, then adjacent row blocks), so each key block
+// a unit loads serves every q head of the group at once.  Its walk is the
+// union of its segments' key blocks, gathered into stages of BN keys (C =
+// BN / kb blocks of kb = min(bs, 64) keys; BN 128 in the forward, where a
+// stage's fixed cost - waits, turns, the softmax's reductions - measured
+// 1.26x cheaper a key than at 64, and 64 in dq, whose S and dP at 128 keys
+// would not fit 168 registers); each stage carries 32 words:
+// each segment's bits over the stage's blocks (bit c: it reads block c;
+// bit 8 + c: the causal position test applies) and each block's first key.
+// The producer warp puts the unit's Q (dq: and dO) into a slot, one TMA
+// box a segment, and streams each stage's K and V (one box a block) with
+// its words through the ring; the two consumer warpgroups (64 rows each)
+// run S = Q KT (and dP = dO VT) on wgmma, select p (ds) to 0 where a
+// sub-tile is dead (a padded block repeats the stage's first, never
+// counted), and add P V (dS K) with P (dS) from registers.  Forward: the
+// online softmax in registers, o = acc / l, lse; dq: three producer warps
+// make delta = rowsum(o * do) for the unit's rows a slot ahead (written to
+// [B, N, T] by a unit's first chunk, for dk/dv).  A walk longer than a fair
+// share is split into chunks whose fp32 partials are merged in chunk order
+// (sparse_q_merge_kernel); every block runs the tasks the host assigned
+// it, heaviest first.  No atomics: deterministic.
+constexpr int kSpQRows = 128, kSpQKeys = 64;  // rows a unit, keys a dq stage
+constexpr int kSpQFwdKeys = 128;               // keys a forward stage
+constexpr int kSpQWords = 32, kSpQLive = 16;  // words a stage; live words first
+
+// Shared memory (ops/sparse_attention.py sparse_q_tiles, the same formula):
+// the mbarriers, slack to align the rest to 1024 bytes, `slots` slots of Q
+// (dq: Q, dO) [HD/64][128 rows][128 B] each, the ring's stages of K and V
+// [HD/64][bn keys][128 B] each, each stage's 32 words, then (dq) each
+// slot's 128 delta values.
+struct SpQLayout {
+  int tile, slot_bytes, kv_tile, stage_bytes, slot_words;
+  __host__ __device__ SpQLayout(int hd, bool dq) {
+    const int bn = dq ? kSpQKeys : kSpQFwdKeys;
+    tile = kSpQRows * hd * 2;
+    slot_bytes = (dq ? 2 : 1) * tile;
+    kv_tile = bn * hd * 2;
+    stage_bytes = 2 * kv_tile;
+    slot_words = dq ? kSpQRows * 4 : 0;
+  }
+  size_t smem(int stages, int slots, int bar_bytes) const {
+    return (size_t)bar_bytes + 1024 + (size_t)slots * (slot_bytes + slot_words) +
+           (size_t)stages * (stage_bytes + kSpQWords * 4);
+  }
+};
+
+// The plan's tables on the device (sparse_q_plan): rows [patterns, R, 2]
+// (a segment's head within the group, -1 a pad; its first query), ust
+// [patterns, 2] (first stage, stages), kst [stages, C] (each block's first
+// key), live [stages, R] (each segment's bits), tasks [tasks, 5] (pattern,
+// batch * Nkv + kv head, first stage, end stage, part slot or -1), blk
+// [grid + 1] (each block's run of tasks).
+struct SpQArgs {
+  void* o;                  // fwd: o out; dq: o read for delta
+  float* lse;               // fwd: lse out; dq: lse in ([B, N, T])
+  const void* dout;         // dq: do [B, T, N, hd] contiguous
+  const float* delta;       // dq: delta given, or null (made from o, do)
+  float* delta_out;         // dq: where the made delta goes, or null
+  void* dq;                 // dq out [B, T, N, hd] contiguous
+  float *part, *part_ml;    // a split task's o / dq [128, hd] and (fwd) m, l [2, 128]
+  const int *rows, *ust, *kst, *live, *tasks, *blk;
+  int T, N, Nkv, hd, R, C, lseg, lkb, causal, stages, slots;
+  int cq, ck, cv, cdo;
+  float scale;
+};
+
+// this thread's rows rl, rl + 8 of a unit: q head (-1: a pad row) and
+// position
+struct SpQRows {
+  int head[2], pos[2];
+  __device__ __forceinline__ SpQRows(const SpQArgs& p, const int* rows, int hk, int rl) {
+    const int group = p.N / p.Nkv;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = rl + 8 * hh, sg = r >> p.lseg;
+      head[hh] = rows[2 * sg] < 0 ? -1 : hk * group + rows[2 * sg];
+      pos[hh] = rows[2 * sg + 1] + (r & ((1 << p.lseg) - 1));
+    }
+  }
+};
+
+// The producer warp's share of a stage: lane 0's TMA boxes of K (and V,
+// when `tmv` is given) of the stage's C blocks into `st` (tiles [HD/64][64
+// keys][128 B]) on `bar`; every lane then writes the stage's words and
+// arrives on `bar` (32 arrivals).
+template <int HD, int BN>
+__device__ __forceinline__ void sp_q_stage(const SpQArgs& p, int si, int hk, int b,
+                                           unsigned char* st, int* wd, const CUtensorMap* tmk,
+                                           const CUtensorMap* tmv, uint32_t tx, uint64_t* bar,
+                                           int lane) {
+  constexpr int NAT = HD / 64;
+  const int* ks = p.kst + si * p.C;
+  if (lane == 0) {
+    mbar_expect_tx_only(bar, tx);
+    for (int c = 0; c < p.C; ++c) {
+      const int k0 = ks[c];
+#pragma unroll
+      for (int cb = 0; cb < NAT; ++cb) {
+        unsigned char* dst = st + cb * BN * 128 + (c << p.lkb) * 128;
+        tma_load_4d(dst, tmk, cb * 64, tma_c(p.ck, 1, hk), k0, tma_c(p.ck, 3, b), bar);
+        if (tmv != nullptr)
+          tma_load_4d(dst + BN * HD * 2, tmv, cb * 64, tma_c(p.cv, 1, hk), k0,
+                      tma_c(p.cv, 3, b), bar);
+      }
+    }
+  }
+  if (lane < p.R) wd[lane] = p.live[si * p.R + lane];
+  if (lane >= kSpQLive && lane < kSpQLive + p.C) wd[lane] = ks[lane - kSpQLive];
+  mbar_arrive(bar);
+}
+
+// Which of a thread's 32 scores of a stage its rows rl, rl + 8 (at
+// positions pos) see: bit 4j + 2hh + e for key 8j + 2tq + e of row rl + 8hh
+// (a segment's live bit for the key's block and, where its bit 8 + c says
+// so, key <= query).
+template <int BN>
+__device__ __forceinline__ uint64_t sp_q_visible(const SpQArgs& p, const int* wd, int rl,
+                                                 const int (&pos)[2], int tq) {
+  const int lv[2] = {wd[rl >> p.lseg], wd[(rl + 8) >> p.lseg]};
+  const int all = (1 << p.C) - 1;
+  if (lv[0] == all && lv[1] == all) return ~0ull;  // the common stage
+  const bool test = ((lv[0] | lv[1]) >> 8) != 0;
+  const int kb = 1 << p.lkb;
+  uint64_t vis = 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = (8 * j) >> p.lkb;
+    const int kp = test ? wd[kSpQLive + c] + ((8 * j) & (kb - 1)) + 2 * tq : 0;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        bool on = (lv[hh] >> c) & 1;
+        if (test && ((lv[hh] >> (8 + c)) & 1)) on = on && kp + e <= pos[hh];
+        vis |= (uint64_t)on << (4 * j + 2 * hh + e);
+      }
+  }
+  return vis;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    sparse_fwd_wgmma_kernel(const __grid_constant__ SpQArgs p,
+                            const __grid_constant__ CUtensorMap tmq,
+                            const __grid_constant__ CUtensorMap tmk,
+                            const __grid_constant__ CUtensorMap tmv) {
+  constexpr int NAT = HD / 64, BN = kSpQFwdKeys, NS = BN / 2;
+  static_assert(HD == 64 || HD == 128, "head dims");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_full + 4;
+  uint64_t* k_empty = k_full + kFwdMaxStages;
+  uint64_t* v_full = k_empty + kFwdMaxStages;
+  uint64_t* v_empty = v_full + kFwdMaxStages;
+  unsigned char* base = smem_raw + kFwdBarBytes;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;
+  const SpQLayout lay(HD, false);
+  unsigned char* ring = base + p.slots * lay.slot_bytes;
+  int* words = reinterpret_cast<int*>(ring + p.stages * lay.stage_bytes);  // [stages][32]
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], 8);
+    }
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&k_full[s], 32);  // the producer warp's lanes (words)
+      mbar_init(&k_empty[s], 8);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int group = p.N / p.Nkv, seg = 1 << p.lseg;
+  // this block's tasks (lane 0's copy: the bounds steer every wgmma)
+  const int t0 = __shfl_sync(0xffffffffu, p.blk[blockIdx.x], 0);
+  const int t1 = __shfl_sync(0xffffffffu, p.blk[blockIdx.x + 1], 0);
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kDqRegProducer>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int it = 0;
+    for (int i = 0, t = t0; t < t1; ++i, ++t) {
+      const int* tk = p.tasks + 5 * t;
+      const int pu = tk[0], bh = tk[1], s0 = tk[2], s1 = tk[3];
+      const int b = bh / p.Nkv, hk = bh - b * p.Nkv;
+      const int* rows = p.rows + pu * p.R * 2;
+      const int st0 = p.ust[2 * pu];
+      if (lane == 0) {
+        const int slot = i % p.slots;
+        if (i >= p.slots) mbar_wait(&q_empty[slot], (i / p.slots - 1) & 1);
+        unsigned char* qs = base + slot * lay.slot_bytes;
+        mbar_expect_tx(&q_full[slot], lay.slot_bytes);
+        for (int r = 0; r < p.R; ++r) {
+          // a pad segment reads its unit's first rows (finite; never stored)
+          const int h = hk * group + max(rows[2 * r], 0), q0 = rows[2 * r + 1];
+#pragma unroll
+          for (int cb = 0; cb < NAT; ++cb)
+            tma_load_4d(qs + cb * kSpQRows * 128 + r * seg * 128, &tmq, cb * 64,
+                        tma_c(p.cq, 1, h), q0, tma_c(p.cq, 3, b), &q_full[slot]);
+        }
+      }
+      for (int si = s0; si < s1; ++si, ++it) {
+        const int s = it % p.stages;
+        const int ph = (it / p.stages - 1) & 1;  // the phase that freed the stage
+        if (it >= p.stages) mbar_wait(&k_empty[s], ph);
+        unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+        sp_q_stage<HD, BN>(p, st0 + si, hk, b, st, words + s * kSpQWords, &tmk, nullptr,
+                       lay.kv_tile, &k_full[s], lane);
+        if (lane == 0) {  // V, once the stage's last P V product is done
+          if (it >= p.stages) mbar_wait(&v_empty[s], ph);
+          mbar_expect_tx(&v_full[s], lay.kv_tile);
+          const int* ks = p.kst + (st0 + si) * p.C;
+          for (int c = 0; c < p.C; ++c)
+#pragma unroll
+            for (int cb = 0; cb < NAT; ++cb)
+              tma_load_4d(st + lay.kv_tile + cb * BN * 128 + (c << p.lkb) * 128, &tmv,
+                          cb * 64, tma_c(p.cv, 1, hk), ks[c], tma_c(p.cv, 3, b), &v_full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kDqRegConsumer>();
+  const int c = wg - 1;
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int rl = 64 * c + 16 * w + grp;  // this thread's rows rl, rl + 8 of a unit
+  const float scale2 = p.scale * kLog2e;
+  float o[NAT][32];
+  float sc[NS];
+  uint32_t pa[BN / 16][4];
+  float m[2], l[2], alpha[2];
+  // each product pins only its own registers (sc is zeroed once packed,
+  // so nothing of it lives across P V)
+  auto fence_s = [&]() { wg_fence_regs(sc); };
+  auto fence_all = [&]() {
+#pragma unroll
+    for (int a = 0; a < NAT; ++a) wg_fence_regs(o[a]);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wg_fence_regs(pa[kk]);
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) sc[j] = 0.f;
+  int it = 0;
+  if (c == 1) turn_pass(c);  // the first consumer warpgroup takes the first turn
+  for (int i = 0, t = t0; t < t1; ++i, ++t) {
+    const int* tk = p.tasks + 5 * t;
+    const int pu = tk[0], bh = tk[1], pslot = tk[4];
+    const int n = __shfl_sync(0xffffffffu, tk[3] - tk[2], 0);  // steers the wgmmas
+    const int b = bh / p.Nkv, hk = bh - b * p.Nkv;
+    const SpQRows rw(p, p.rows + pu * p.R * 2, hk, rl);
+    const int slot = i % p.slots;
+#pragma unroll
+    for (int a = 0; a < NAT; ++a)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) o[a][j] = 0.f;
+    l[0] = l[1] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    mbar_wait(&q_full[slot], (i / p.slots) & 1);
+    const unsigned char* qs = base + slot * lay.slot_bytes + c * 64 * 128;
+    // a stage's scores in sc become probabilities (0 where a row does not
+    // see the key), m and l move on and alpha rescales O
+    // A stage whose every key both rows see (the common case) keeps its
+    // raw scores: their maximum, scaled (scale2 > 0 keeps the order), and
+    // the scale folded into the exponential.
+    auto softmax = [&](const int* wd) {
+      const uint64_t vis = sp_q_visible<BN>(p, wd, rl, rw.pos, tq);
+      const bool raw = vis == ~0ull;
+      if (!raw) {
+#pragma unroll
+        for (int x = 0; x < NS; ++x) sc[x] = (vis >> x) & 1 ? sc[x] * scale2 : -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, mu[2], ps[2];
+      row_max(sc, mx);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        if (raw) mx[hh] *= scale2;
+        const float mnew = fmaxf(m[hh], mx[hh]);
+        mu[hh] = mnew == -INFINITY ? 0.f : mnew;  // a row that saw no key yet
+        alpha[hh] = ex2(m[hh] - mu[hh]);
+        m[hh] = mnew;
+      }
+      if (raw) {
+        const float nm0 = -mu[0], nm1 = -mu[1];
+#pragma unroll
+        for (int x = 0; x < NS; ++x) sc[x] = ex2(fmaf(sc[x], scale2, (x >> 1) & 1 ? nm1 : nm0));
+      } else {
+#pragma unroll
+        for (int x = 0; x < NS; ++x) sc[x] = ex2(sc[x] - mu[(x >> 1) & 1]);
+      }
+      row_sum(sc, ps);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + ps[hh];
+    };
+    // O rescaled by alpha (skipped where no row maximum moved), P packed
+    auto rescale_pack = [&]() {
+      if (alpha[0] != 1.f || alpha[1] != 1.f)
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            o[a][4 * j + 0] *= alpha[0];
+            o[a][4 * j + 1] *= alpha[0];
+            o[a][4 * j + 2] *= alpha[1];
+            o[a][4 * j + 3] *= alpha[1];
+          }
+      pack_a<T, BN>(pa, sc);
+#pragma unroll
+      for (int x = 0; x < NS; ++x) sc[x] = 0.f;
+    };
+    // Each stage: S, its softmax (K released), then O += P V (V released).
+    // Issuing the next stage's S behind this stage's P V, as
+    // attn_fwd_kernel does, measured 8% slower at the Fixed call with
+    // 64-key stages, and at 128 keys its registers would not fit.
+    for (int item = 0; item < n; ++item, ++it) {
+      const int s = it % p.stages;
+      mbar_wait(&k_full[s], (it / p.stages) & 1);
+      const unsigned char* st = ring + (size_t)s * lay.stage_bytes;
+      fence_s();
+      turn_wait(c);
+      wg_fence();
+      kmajor_product<T, HD, BN>(sc, qs, kSpQRows, st);
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_s();
+      softmax(words + s * kSpQWords);
+      warp_arrive(&k_empty[s], lane);
+      rescale_pack();
+      mbar_wait(&v_full[s], (it / p.stages) & 1);
+      fence_all();
+      turn_wait(c);
+      wg_fence();
+      pv_product<T, NAT, BN>(o, pa, st + lay.kv_tile);
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_all();
+      warp_arrive(&v_empty[s], lane);
+    }
+    warp_arrive(&q_empty[slot], lane);
+
+    // ---- epilogue: o = acc / l and lse, or the chunk's fp32 acc, m and l
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (pslot >= 0) {
+        const int r = rl + 8 * hh;
+        float* po = p.part + ((size_t)pslot * kSpQRows + r) * HD;
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float2*>(po + 64 * a + 8 * j + 2 * tq) =
+                make_float2(o[a][4 * j + 2 * hh], o[a][4 * j + 2 * hh + 1]);
+        if (tq == 0) {
+          p.part_ml[((size_t)pslot * 2) * kSpQRows + r] = m[hh];
+          p.part_ml[((size_t)pslot * 2 + 1) * kSpQRows + r] = l[hh];
+        }
+        continue;
+      }
+      if (rw.head[hh] < 0) continue;
+      const float inv = 1.f / (l[hh] == 0.f ? 1.f : l[hh]);  // no key seen: zeros
+      T* orow = static_cast<T*>(p.o) + (((long long)b * p.T + rw.pos[hh]) * p.N + rw.head[hh]) * HD;
+#pragma unroll
+      for (int a = 0; a < NAT; ++a)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 64 * a + 8 * j + 2 * tq) =
+              Mma<T>::pack(o[a][4 * j + 2 * hh] * inv, o[a][4 * j + 2 * hh + 1] * inv);
+      if (tq == 0)
+        p.lse[((long long)b * p.N + rw.head[hh]) * p.T + rw.pos[hh]] =
+            l[hh] == 0.f ? kNegInf : m[hh] * kLn2 + logf(l[hh]);
+    }
+  }
+}
+
+// delta = rowsum(o * do) of a unit's 128 gathered rows into delta[128] (0
+// on a pad row), by warp dw (0..2) of three: 8 lanes a row, 4 rows a step,
+// each lane 16-byte chunks of o and do (fp32 sums of the 16-bit products);
+// taken from p.delta when given, else made and, by a unit's first chunk
+// (`write`), written to delta_out [B, N, T].
+template <typename T, int HD>
+__device__ __forceinline__ void sp_q_delta(const SpQArgs& p, int b, int hk, const int* rows,
+                                           float* delta, bool write, int dw, int lane) {
+  constexpr int CH = HD / 64;  // chunks a lane a row
+  const int group = p.N / p.Nkv;
+#pragma unroll 2
+  for (int r0 = 4 * dw; r0 < kSpQRows; r0 += 12) {
+    const int r = r0 + lane / 8, sg = r >> p.lseg;
+    const int j = rows[2 * sg], h = hk * group + max(j, 0);
+    const int pos = rows[2 * sg + 1] + (r & ((1 << p.lseg) - 1));
+    const long long row = ((long long)b * p.N + h) * p.T + pos;
+    float s = 0.f;
+    if (p.delta != nullptr) {
+      s = j >= 0 ? p.delta[row] : 0.f;
+    } else {
+      const long long off = (((long long)b * p.T + pos) * p.N + h) * HD;
+      const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(p.o) + off);
+      const uint4* d = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + off);
+#pragma unroll
+      for (int t = 0; t < CH; ++t) {
+        const uint4 x4 = o[lane % 8 + 8 * t], y4 = d[lane % 8 + 8 * t];
+        const uint32_t xw[4] = {x4.x, x4.y, x4.z, x4.w}, yw[4] = {y4.x, y4.y, y4.z, y4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = to_f2<T>(xw[e]), y = to_f2<T>(yw[e]);
+          s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      if (j < 0) s = 0.f;
+      if (write && j >= 0 && p.delta_out != nullptr && lane % 8 == 0) p.delta_out[row] = s;
+    }
+    if (lane % 8 == 0) delta[r] = s;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    sparse_dq_wgmma_kernel(const __grid_constant__ SpQArgs p,
+                           const __grid_constant__ CUtensorMap tmq,
+                           const __grid_constant__ CUtensorMap tmdo,
+                           const __grid_constant__ CUtensorMap tmk,
+                           const __grid_constant__ CUtensorMap tmv) {
+  constexpr int NAT = HD / 64, BN = kSpQKeys, NS = BN / 2;
+  static_assert(HD == 64 || HD == 128, "head dims");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw);
+  uint64_t* slot_full = bars;
+  uint64_t* slot_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = full + kBwdMaxStages;
+  unsigned char* base = smem_raw + kBwdBarBytes;
+  base += (1024 - (smem_u32(base) & 1023)) & 1023;
+  const SpQLayout lay(HD, true);
+  unsigned char* ring = base + p.slots * lay.slot_bytes;
+  int* words = reinterpret_cast<int*>(ring + p.stages * lay.stage_bytes);  // [stages][32]
+  float* deltas = reinterpret_cast<float*>(words + p.stages * kSpQWords);  // [slots][128]
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  // a slot is full once its Q and dO have landed and the three delta warps
+  // have written its rows' delta; a stage once its TMA bytes have landed
+  // and the producer warp's 32 lanes have written its words
+  if (threadIdx.x == 0) init_bwd_barriers(bars, p.stages, 4, 32);
+  __syncthreads();
+  const int seg = 1 << p.lseg, group = p.N / p.Nkv;
+  const int t0 = __shfl_sync(0xffffffffu, p.blk[blockIdx.x], 0);
+  const int t1 = __shfl_sync(0xffffffffu, p.blk[blockIdx.x + 1], 0);
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kEvoDqRegProducer>();  // the delta warps' loads need 80
+    const int pw = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (pw > 0) {
+      // warps 1-3: each unit's delta rows, a slot ahead of the consumers
+      // when there are two
+      for (int i = 0, t = t0; t < t1; ++i, ++t) {
+        const int* tk = p.tasks + 5 * t;
+        const int bh = tk[1], b = bh / p.Nkv, hk = bh - b * p.Nkv;
+        const int slot = i % p.slots;
+        if (i >= p.slots) mbar_wait(&slot_empty[slot], (i / p.slots - 1) & 1);
+        sp_q_delta<T, HD>(p, b, hk, p.rows + tk[0] * p.R * 2, deltas + slot * kSpQRows,
+                          tk[2] == 0, pw - 1, lane);
+        warp_arrive(&slot_full[slot], lane);
+      }
+      return;
+    }
+    int it = 0;
+    for (int i = 0, t = t0; t < t1; ++i, ++t) {
+      const int* tk = p.tasks + 5 * t;
+      const int pu = tk[0], bh = tk[1], s0 = tk[2], s1 = tk[3];
+      const int b = bh / p.Nkv, hk = bh - b * p.Nkv;
+      const int* rows = p.rows + pu * p.R * 2;
+      const int st0 = p.ust[2 * pu];
+      if (lane == 0) {
+        const int slot = i % p.slots;
+        if (i >= p.slots) mbar_wait(&slot_empty[slot], (i / p.slots - 1) & 1);
+        unsigned char* sl = base + slot * lay.slot_bytes;
+        mbar_expect_tx(&slot_full[slot], lay.slot_bytes);
+        for (int r = 0; r < p.R; ++r) {
+          const int h = hk * group + max(rows[2 * r], 0), q0 = rows[2 * r + 1];
+#pragma unroll
+          for (int cb = 0; cb < NAT; ++cb) {
+            tma_load_4d(sl + cb * kSpQRows * 128 + r * seg * 128, &tmq, cb * 64,
+                        tma_c(p.cq, 1, h), q0, tma_c(p.cq, 3, b), &slot_full[slot]);
+            tma_load_4d(sl + lay.tile + cb * kSpQRows * 128 + r * seg * 128, &tmdo, cb * 64,
+                        tma_c(p.cdo, 1, h), q0, tma_c(p.cdo, 3, b), &slot_full[slot]);
+          }
+        }
+      }
+      for (int si = s0; si < s1; ++si, ++it) {
+        const int s = it % p.stages;
+        if (it >= p.stages) mbar_wait(&empty[s], (it / p.stages - 1) & 1);
+        sp_q_stage<HD, BN>(p, st0 + si, hk, b, ring + (size_t)s * lay.stage_bytes,
+                       words + s * kSpQWords, &tmk, &tmv, lay.stage_bytes, &full[s], lane);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<kEvoDqRegConsumer>();
+  const int c = wg - 1;
+  const int w = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int grp = lane >> 2, tq = lane & 3;
+  const int rl = 64 * c + 16 * w + grp;  // this thread's rows rl, rl + 8 of a unit
+  const float scale2 = p.scale * kLog2e;
+  float acc[NAT][32];
+  float sc[NS], dp[NS];
+  uint32_t da[BN / 16][4];
+  // each product pins only its own registers: sc and dp are dead while
+  // dq's product runs (zeroed, so nothing of them lives across it)
+  auto fence_ss = [&]() {
+    wg_fence_regs(sc);
+    wg_fence_regs(dp);
+  };
+  auto fence_rs = [&]() {
+#pragma unroll
+    for (int a = 0; a < NAT; ++a) wg_fence_regs(acc[a]);
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) wg_fence_regs(da[kk]);
+  };
+#pragma unroll
+  for (int j = 0; j < NS; ++j) sc[j] = dp[j] = 0.f;
+  int it = 0;
+  if (c == 1) turn_pass(c);  // the first consumer warpgroup takes the first turn
+  for (int i = 0, t = t0; t < t1; ++i, ++t) {
+    const int* tk = p.tasks + 5 * t;
+    const int pu = tk[0], bh = tk[1], pslot = tk[4];
+    const int n = __shfl_sync(0xffffffffu, tk[3] - tk[2], 0);  // steers the wgmmas
+    const int b = bh / p.Nkv, hk = bh - b * p.Nkv;
+    const int slot = i % p.slots;
+    // the rows' positions and lse (log2 units; +inf: a pad row or one that
+    // sees no key) stay in registers across the walk, their delta is read
+    // from the slot each stage
+    int pos[2];
+    float lse2[2];
+    {
+      const SpQRows rw(p, p.rows + pu * p.R * 2, hk, rl);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        pos[hh] = rw.pos[hh];
+        lse2[hh] = rw.head[hh] < 0
+                       ? __int_as_float(0x7f800000)
+                       : dead_or_log2(p.lse[((long long)b * p.N + rw.head[hh]) * p.T + pos[hh]]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < NAT; ++a)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[a][j] = 0.f;
+    mbar_wait(&slot_full[slot], (i / p.slots) & 1);
+    const float* dl = deltas + slot * kSpQRows + rl;
+    const unsigned char* qs = base + slot * lay.slot_bytes + c * 64 * 128;
+    const unsigned char* dos = qs + lay.tile;
+    for (int item = 0; item < n; ++item, ++it) {
+      const int s = it % p.stages;
+      mbar_wait(&full[s], (it / p.stages) & 1);
+      const unsigned char* ks = ring + (size_t)s * lay.stage_bytes;
+      const unsigned char* vs = ks + lay.kv_tile;
+      // s = q kT, dp = do vT
+      fence_ss();
+      turn_wait(c);
+      wg_fence();
+      kmajor_product<T, HD, BN>(sc, qs, kSpQRows, ks);
+      kmajor_product<T, HD, BN>(dp, dos, kSpQRows, vs);
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_ss();
+      // ds = p (dp - delta) scale, p = 2^(s scale2 - lse2); selected to 0
+      // where the row does not see the key (a dead block's rows may hold
+      // anything)
+      const uint64_t vis = sp_q_visible<BN>(p, words + s * kSpQWords, rl, pos, tq);
+      const float dls[2] = {-dl[0] * p.scale, -dl[8] * p.scale};  // -delta * scale
+#pragma unroll
+      for (int x = 0; x < NS; ++x) {
+        const int hh = (x >> 1) & 1;
+        const float pr = ex2(fmaf(sc[x], scale2, -lse2[hh]));
+        sc[x] = (vis >> x) & 1 ? pr * fmaf(dp[x], p.scale, dls[hh]) : 0.f;
+      }
+      pack_a<T, BN>(da, sc);
+#pragma unroll
+      for (int x = 0; x < NS; ++x) sc[x] = dp[x] = 0.f;
+      // dq += ds k: k read MN-major from the same tile
+      fence_rs();
+      turn_wait(c);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+          Wgmma<T>::rs64(acc[a], da[kk], wg_desc(ks + a * BN * 128 + kk * 16 * 128));
+      wg_commit();
+      turn_pass(c);
+      wg_wait<0>();
+      fence_rs();
+      warp_arrive(&empty[s], lane);
+    }
+    warp_arrive(&slot_empty[slot], lane);
+
+    // ---- epilogue: dq rows, or the chunk's fp32 partial
+    const SpQRows rw(p, p.rows + pu * p.R * 2, hk, rl);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (pslot >= 0) {
+        float* pq = p.part + ((size_t)pslot * kSpQRows + rl + 8 * hh) * HD;
+#pragma unroll
+        for (int a = 0; a < NAT; ++a)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            *reinterpret_cast<float2*>(pq + 64 * a + 8 * j + 2 * tq) =
+                make_float2(acc[a][4 * j + 2 * hh], acc[a][4 * j + 2 * hh + 1]);
+        continue;
+      }
+      if (rw.head[hh] < 0) continue;
+      T* out = static_cast<T*>(p.dq) + (((long long)b * p.T + rw.pos[hh]) * p.N + rw.head[hh]) * HD;
+#pragma unroll
+      for (int a = 0; a < NAT; ++a)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<uint32_t*>(out + 64 * a + 8 * j + 2 * tq) =
+              Mma<T>::pack(acc[a][4 * j + 2 * hh], acc[a][4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
+// The split walks' second pass of the forward and dq: for each merge
+// [pattern, batch * Nkv + kv head, first part, chunks], each real row of
+// the unit from its chunks in chunk order.  Forward (DQ false): o = sum of
+// acc_c 2^(m_c - M) over sum of l_c 2^(m_c - M), M the chunks' largest m
+// (log2 units; a chunk that saw no key of the row weighs 0), lse = M ln 2 +
+// log(sum) (-1e30 and o = 0 where no chunk saw a key); dq: the partials
+// added.  One block a merge, four values a thread a step, rounded once.
+template <typename T, bool DQ>
+__global__ void __launch_bounds__(256)
+    sparse_q_merge_kernel(const float* __restrict__ part, const float* __restrict__ ml,
+                          const int* __restrict__ merges, const int* __restrict__ rows, void* out,
+                          float* lse, int Tlen, int N, int Nkv, int hd, int R) {
+  const int* mg = merges + 4 * blockIdx.x;
+  const int pu = mg[0], bh = mg[1], p0 = mg[2], n = mg[3];
+  const int b = bh / Nkv, hk = bh - b * Nkv, group = N / Nkv, seg = kSpQRows / R;
+  const int* rw = rows + pu * R * 2;
+  for (int e = 4 * threadIdx.x; e < kSpQRows * hd; e += 4 * blockDim.x) {
+    const int row = e / hd, cc = e - row * hd, sg = row / seg;
+    if (rw[2 * sg] < 0) continue;
+    const int h = hk * group + rw[2 * sg], pos = rw[2 * sg + 1] + row % seg;
+    const float* src = part + (size_t)p0 * kSpQRows * hd + e;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    float top = -INFINITY, tot = 0.f;
+    if (DQ) {
+      s = *reinterpret_cast<const float4*>(src);
+    } else {
+      for (int k = 0; k < n; ++k) top = fmaxf(top, ml[(size_t)(p0 + k) * 2 * kSpQRows + row]);
+    }
+    for (int k = DQ ? 1 : 0; k < n; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(src + (size_t)k * kSpQRows * hd);
+      float wk = 1.f;
+      if (!DQ) {
+        const float mk = ml[(size_t)(p0 + k) * 2 * kSpQRows + row];
+        wk = mk == -INFINITY ? 0.f : exp2f(mk - top);
+        tot += ml[((size_t)(p0 + k) * 2 + 1) * kSpQRows + row] * wk;
+      }
+      s.x += v.x * wk;
+      s.y += v.y * wk;
+      s.z += v.z * wk;
+      s.w += v.w * wk;
+    }
+    const float inv = DQ ? 1.f : 1.f / (tot == 0.f ? 1.f : tot);
+    const float vals[4] = {s.x * inv, s.y * inv, s.z * inv, s.w * inv};
+    store4<T>(static_cast<T*>(out) + (((long long)b * Tlen + pos) * N + h) * hd + cc, vals);
+    if (!DQ && cc == 0)
+      lse[((long long)b * N + h) * Tlen + pos] = tot == 0.f ? kNegInf : top * kLn2 + logf(tot);
+  }
+}
+
 // ------------------------------------------------- CUDA-core family (simt)
 // fp32 inputs, and the 16-bit calls the tensor-core kernels above do not
 // take (a block that is not a multiple of 16 or above 128, a head_dim
@@ -1036,10 +1741,11 @@ cudaError_t launch_simt(int which, const SparseArgs& a, cudaStream_t st) {
   return launch_simt_t<T, 256>(which, a, st);
 }
 
-// The dk/dv kernel a call takes (ops/sparse_attention.py sparse_dkv_route,
-// the same rule): 2 sparse_dkv_wgmma_kernel (16-bit, head_dim 64 / 128, a
-// block that divides 128), 1 sparse_dkv_kernel (the other 16-bit blocks
-// that are a multiple of 16 up to 128), 0 the CUDA-core family.
+// The kernels a call takes, forward, dq and dk/dv alike
+// (ops/sparse_attention.py sparse_dkv_route, the same rule): 2 the wgmma
+// kernels (16-bit, head_dim 64 / 128, a block that divides 128), 1 the
+// mma.sync kernels (the other 16-bit blocks that are a multiple of 16 up to
+// 128), 0 the CUDA-core family.
 inline int dkv_route(int dtype, int hd, int bs) {
   if (dtype == 0 || (hd != 64 && hd != 128) || bs % 16 != 0 || bs > 128) return 0;
   return kSpKeys % bs == 0 ? 2 : 1;
@@ -1054,10 +1760,11 @@ inline bool sparse_shape_ok(const SparseArgs& a) {
 // The tensor-core kernels take 16-bit inputs, head_dim 64 or 128 and a
 // block that is a multiple of 16 up to 128; every other call the C
 // interface takes (fp32, any block that is a multiple of 8, head_dim a
-// multiple of 8 up to 256) runs on the CUDA-core family.  dk/dv on the
-// wgmma route has its own entry (ds_sparse_dkv_wgmma) and is refused here.
+// multiple of 8 up to 256) runs on the CUDA-core family.  A call on the
+// wgmma route has its own entries (ds_sparse_q_wgmma, ds_sparse_dkv_wgmma)
+// and is refused here.
 inline cudaError_t launch_sparse(int which, int dtype, const SparseArgs& a, void* stream) {
-  if (!sparse_shape_ok(a) || a.tab_w < 1 || (which == kDkv && dkv_route(dtype, a.hd, a.bs) == 2))
+  if (!sparse_shape_ok(a) || a.tab_w < 1 || dkv_route(dtype, a.hd, a.bs) == 2)
     return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const bool mma = a.bs % 16 == 0 && a.bs <= 128 && (a.hd == 64 || a.hd == 128);
@@ -1108,6 +1815,47 @@ cudaError_t launch_dkv_wgmma_t(const SparseArgs& a, SpDkvArgs p, int grid, cudaS
   return cudaGetLastError();
 }
 
+// forward (kFwd) or dq (kDq) on the wgmma kernels: q, do [B, T, N, hd]
+// and k, v [B, T, Nkv, hd] as 4-D tensor maps (hd, head, token, batch) in
+// the 128-byte swizzle, q and do in boxes of one segment (seg rows), k and
+// v of one key block (min(bs, 64) keys); do contiguous.
+template <typename T, int HD>
+cudaError_t launch_q_wgmma_t(int which, const SparseArgs& a, SpQArgs p, int grid, cudaStream_t st) {
+  const long long dq[4] = {a.hd, a.N, a.T, a.B}, dkv[4] = {a.hd, a.Nkv, a.T, a.B};
+  const long long sq[4] = {1, a.q_sh, a.q_st, a.q_sb}, sk[4] = {1, a.k_sh, a.k_st, a.k_sb},
+                  sv[4] = {1, a.v_sh, a.v_st, a.v_sb},
+                  sdo[4] = {1, a.hd, (long long)a.N * a.hd, (long long)a.T * a.N * a.hd};
+  const int box_q[4] = {64, 1, 1 << p.lseg, 1}, box_kv[4] = {64, 1, 1 << p.lkb, 1};
+  CUtensorMap tmq{}, tmdo{}, tmk{}, tmv{};
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map_nd(&tmq, tma_dtype<T>(), 2, a.q, 4, dq, sq, box_q, sw, &p.cq) ||
+      !tensor_map_nd(&tmk, tma_dtype<T>(), 2, a.k, 4, dkv, sk, box_kv, sw, &p.ck) ||
+      !tensor_map_nd(&tmv, tma_dtype<T>(), 2, a.v, 4, dkv, sv, box_kv, sw, &p.cv) ||
+      (which == kDq && !tensor_map_nd(&tmdo, tma_dtype<T>(), 2, a.dout, 4, dq, sdo, box_q, sw,
+                                      &p.cdo)))
+    return cudaErrorInvalidValue;
+  const SpQLayout lay(HD, which == kDq);
+  const size_t smem = lay.smem(p.stages, p.slots, which == kDq ? kBwdBarBytes : kFwdBarBytes);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (p.stages < 1 || p.stages > kBwdMaxStages || p.slots < 1 || p.slots > 2 || grid < 1 ||
+      smem > (size_t)optin)
+    return cudaErrorInvalidValue;
+  if (which == kFwd) {
+    err = allow_dynamic_smem<sparse_fwd_wgmma_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    sparse_fwd_wgmma_kernel<T, HD><<<grid, kFwdThreads, smem, st>>>(p, tmq, tmk, tmv);
+  } else {
+    err = allow_dynamic_smem<sparse_dq_wgmma_kernel<T, HD>>();
+    if (err != cudaSuccess) return err;
+    sparse_dq_wgmma_kernel<T, HD><<<grid, kBwdThreads, smem, st>>>(p, tmq, tmdo, tmk, tmv);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace dsk
 
 // q [B, T, N, hd], k/v [B, T, Nkv, hd] read through element strides
@@ -1154,9 +1902,9 @@ extern "C" int ds_sparse_bwd(int which, const void* q, const void* k, const void
   return (int)dsk::launch_sparse(which, dtype, a, stream);
 }
 
-// The call's dk/dv kernel (ops/sparse_attention.py sparse_dkv_route): 2
-// wgmma (ds_sparse_dkv_wgmma), 1 mma.sync, 0 CUDA cores (both
-// ds_sparse_bwd).  dtype: 0 fp32, 1 fp16, 2 bf16.
+// The call's kernels (ops/sparse_attention.py sparse_dkv_route): 2 wgmma
+// (ds_sparse_q_wgmma, ds_sparse_dkv_wgmma), 1 mma.sync, 0 CUDA cores (both
+// ds_sparse_fwd / ds_sparse_bwd).  dtype: 0 fp32, 1 fp16, 2 bf16.
 extern "C" int ds_sparse_dkv_route(int dtype, int hd, int bs) { return dsk::dkv_route(dtype, hd, bs); }
 
 // dk, dv on sparse_dkv_wgmma_kernel, the call's plan from
@@ -1225,5 +1973,97 @@ extern "C" int ds_sparse_dkv_merge(const void* part, const void* merges, const v
   else
     dsk::sparse_dkv_merge_kernel<__nv_bfloat16><<<nmerge, 256, 0, st>>>(pt, m, c, dk, dv, T,
                                                                         Nkv, hd, bs, G);
+  return (int)cudaGetLastError();
+}
+
+// The forward (which 0: o [B, T, N, hd] and lse [B, N, T] written) or dq
+// (1: dq written; delta [B, N, T] read, or null: made from o and dout, and
+// written to delta_out by each unit's first chunk if that is not null) on
+// sparse_fwd_wgmma_kernel / sparse_dq_wgmma_kernel, the call's plan from
+// ops/sparse_attention.py sparse_q_plan: its tables (rows [patterns, R,
+// 2], ust [patterns, 2], kst [stages, C], live [stages, R], tasks [tasks,
+// 5], blk [grid + 1], int32 on the device), ring depth and slots; part
+// [parts, 128, hd] and (forward) part_ml [parts, 2, 128] fp32 the split
+// walks' partials (null if none).  q, k, v, dout, lse, strides and dtype as
+// ds_sparse_bwd; the call must take the wgmma route.
+extern "C" int ds_sparse_q_wgmma(int which, const void* q, const void* k, const void* v, void* o,
+                                 const void* dout, void* lse, const void* delta, void* delta_out,
+                                 void* dq, void* part, void* part_ml, const void* rows,
+                                 const void* ust, const void* kst, const void* live,
+                                 const void* tasks, const void* blk, int grid, int R, int C,
+                                 int stages, int slots, int B, int T, int N, int Nkv, int hd,
+                                 int bs, long long q_sb, long long q_st, long long q_sh,
+                                 long long k_sb, long long k_st, long long k_sh, long long v_sb,
+                                 long long v_st, long long v_sh, float scale, int causal,
+                                 int dtype, void* stream) {
+  dsk::SparseArgs a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout;
+  a.B = B; a.T = T; a.N = N; a.Nkv = Nkv; a.bs = bs; a.hd = hd;
+  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh; a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
+  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
+  const int seg = R > 0 ? dsk::kSpQRows / R : 0, kb = bs < dsk::kSpQKeys ? bs : dsk::kSpQKeys;
+  const bool fwd = which == dsk::kFwd;
+  if (!dsk::sparse_shape_ok(a) || dsk::dkv_route(dtype, hd, bs) != 2 ||
+      (which != dsk::kFwd && which != dsk::kDq) || R < 2 || R > dsk::kSpQLive ||
+      seg * R != dsk::kSpQRows || (seg & (seg - 1)) != 0 || seg > bs ||
+      C * kb != (fwd ? dsk::kSpQFwdKeys : dsk::kSpQKeys) || lse == nullptr ||
+      rows == nullptr || ust == nullptr || kst == nullptr || live == nullptr ||
+      tasks == nullptr || blk == nullptr ||
+      (fwd && o == nullptr) ||
+      (!fwd && (dout == nullptr || dq == nullptr || (delta == nullptr && o == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  dsk::SpQArgs p{};
+  p.o = o; p.lse = static_cast<float*>(lse); p.dout = dout;
+  p.delta = static_cast<const float*>(delta); p.delta_out = static_cast<float*>(delta_out);
+  p.dq = dq; p.part = static_cast<float*>(part); p.part_ml = static_cast<float*>(part_ml);
+  p.rows = static_cast<const int*>(rows); p.ust = static_cast<const int*>(ust);
+  p.kst = static_cast<const int*>(kst); p.live = static_cast<const int*>(live);
+  p.tasks = static_cast<const int*>(tasks); p.blk = static_cast<const int*>(blk);
+  p.T = T; p.N = N; p.Nkv = Nkv; p.hd = hd; p.R = R; p.C = C;
+  p.lseg = __builtin_ctz(seg);
+  p.lkb = __builtin_ctz(kb);
+  p.causal = causal; p.stages = stages; p.slots = slots; p.scale = scale;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return (int)(hd == 64 ? dsk::launch_q_wgmma_t<__half, 64>(which, a, p, grid, st)
+                          : dsk::launch_q_wgmma_t<__half, 128>(which, a, p, grid, st));
+  return (int)(hd == 64 ? dsk::launch_q_wgmma_t<__nv_bfloat16, 64>(which, a, p, grid, st)
+                        : dsk::launch_q_wgmma_t<__nv_bfloat16, 128>(which, a, p, grid, st));
+}
+
+// The forward's and dq's split walks' second pass (sparse_q_merge_kernel):
+// which 0 combines the forward's part [parts, 128, hd] and ml [parts, 2,
+// 128] into o [B, T, N, hd] and lse [B, N, T]; 1 adds dq's part into dq;
+// `nmerge` merges [pattern, batch * Nkv + kv head, first part, chunks], the
+// plan's rows [patterns, R, 2] (16-bit out, contiguous).
+extern "C" int ds_sparse_q_merge(int which, const void* part, const void* ml, const void* merges,
+                                 const void* rows, int nmerge, void* out, void* lse, int T, int N,
+                                 int Nkv, int hd, int R, int dtype, void* stream) {
+  if (nmerge < 1 || part == nullptr || merges == nullptr || rows == nullptr || out == nullptr ||
+      (which != 0 && which != 1) || (which == 0 && (ml == nullptr || lse == nullptr)) ||
+      (hd != 64 && hd != 128) || R < 2 || R > dsk::kSpQLive || dsk::kSpQRows % R != 0 ||
+      T < 1 || Nkv < 1 || N % Nkv != 0 || (dtype != 1 && dtype != 2))
+    return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const float* pt = static_cast<const float*>(part);
+  const float* m = static_cast<const float*>(ml);
+  const int* mg = static_cast<const int*>(merges);
+  const int* rw = static_cast<const int*>(rows);
+  float* ls = static_cast<float*>(lse);
+  if (dtype == 1) {
+    if (which == 0)
+      dsk::sparse_q_merge_kernel<__half, false><<<nmerge, 256, 0, st>>>(pt, m, mg, rw, out, ls, T,
+                                                                        N, Nkv, hd, R);
+    else
+      dsk::sparse_q_merge_kernel<__half, true><<<nmerge, 256, 0, st>>>(pt, m, mg, rw, out, ls, T,
+                                                                       N, Nkv, hd, R);
+  } else {
+    if (which == 0)
+      dsk::sparse_q_merge_kernel<__nv_bfloat16, false><<<nmerge, 256, 0, st>>>(
+          pt, m, mg, rw, out, ls, T, N, Nkv, hd, R);
+    else
+      dsk::sparse_q_merge_kernel<__nv_bfloat16, true><<<nmerge, 256, 0, st>>>(
+          pt, m, mg, rw, out, ls, T, N, Nkv, hd, R);
+  }
   return (int)cudaGetLastError();
 }

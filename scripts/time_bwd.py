@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of the block-sparse dk/dv (#12) and the evoformer backward
-(#14 dq with its delta, the whole backward) at their main-path calls, for
-an A/B of two checkouts of the PyTorch port on one NVIDIA GPU.
+"""Device times of the block-sparse forward (#10), dq with its delta (#11),
+dk/dv (#12) and the op's backward, and of the evoformer backward (#14 dq
+with its delta, the whole backward) at their main-path calls, for an A/B of
+two checkouts of the PyTorch port on one NVIDIA GPU.
 
     python3 scripts/time_bwd.py [--repo DIR] [--reps N]
 
@@ -16,13 +17,15 @@ with pair bias [1, 512, 384, 8, 32] and triangle attention [1, 384, 384, 4,
 ``--reps`` calls with the stream held by a spin kernel while they are
 enqueued (device time only).  ``dq + delta`` is the dq kernel with the
 delta it needs: a dq that makes delta itself alone, otherwise the eager
-``_delta`` and the dq kernel in one timed call.  Prints the card's name and
+``_delta`` (block-sparse: ``_bwd_inputs``) and the dq kernel in one timed
+call.  Prints the card's name and
 power limit (nvidia-smi) and one JSON object.  Needs a CUDA device; imports
 no JAX.
 """
 
 import argparse
 import importlib
+import inspect
 import json
 import os
 import statistics
@@ -61,7 +64,24 @@ def sparse_times(torch, sp, ops, dev, reps):
             torch.bfloat16) for shape in shapes)
         lay = cfg.make_layout(8192)
         o, lse = sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
+        out[f"sparse_fwd_{label}"] = cuda_ms(
+            torch, lambda: sp.cuda_sparse_fwd(q, k, v, lay, cfg.block,
+                                              causal), reps)
+        if "delta_out" in inspect.signature(sp.cuda_sparse_dq).parameters:
+            made = torch.empty((1, 32, 8192), device=dev)
+
+            def dq():
+                return sp.cuda_sparse_dq(q, k, v, o, lse, do, lay, cfg.block,
+                                         causal, delta_out=made)
+        else:
+            def dq():
+                dos, lse_c, delta = sp._bwd_inputs("time", q, o, lse, do)
+                return sp.cuda_sparse_dq(q, k, v, o, lse_c, dos, lay,
+                                         cfg.block, causal, delta=delta)
+        out[f"sparse_dq_with_delta_{label}"] = cuda_ms(torch, dq, reps)
         dos, lse_c, delta = sp._bwd_inputs("time", q, o, lse, do)
+        out[f"sparse_delta_eager_{label}"] = cuda_ms(
+            torch, lambda: sp._bwd_inputs("time", q, o, lse, do), reps)
         out[f"sparse_dkv_{label}"] = cuda_ms(
             torch, lambda: sp.cuda_sparse_dkv(q, k, v, o, lse_c, dos, lay,
                                               cfg.block, causal, delta=delta),

@@ -894,6 +894,80 @@ def test_sparse_dkv_wgmma_matches_plain(cuda, dtype, case, route):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", [c for c, r in SPARSE_DKV_ROUTES
+                                  if r == "wgmma"])
+def test_sparse_q_wgmma_matches_plain(cuda, dtype, case):
+    """The forward and dq on the wgmma route (``sparse_q_plan``'s units,
+    split walks merged by one more launch each): o, lse and dq against the
+    plain versions per row, the delta dq makes against the eager fp32 sum,
+    and two runs give the same bits."""
+    cfg, N, Nkv, D, causal = SPARSE_CASES[case]
+    q, k, v, do = _sparse_case(cuda, dtype, N, Nkv, D, T=384)
+    lay = cfg.make_layout(384)
+    fm, dm = (int(sp._call_q_plan(lay, cfg.block, causal, q, Nkv,
+                                  dq=dq)[0]["parts"] > 0)
+              for dq in (False, True))
+    counters = (sp.cuda_sparse_fwd, sp.cuda_sparse_fwd_combine,
+                sp.cuda_sparse_dq, sp.cuda_sparse_dq_merge)
+    before = [c.launches for c in counters]
+    fwd = [sp.cuda_sparse_fwd(q, k, v, lay, cfg.block, causal)
+           for _ in range(2)]
+    o_ref, lse_ref = sp.torch_sparse_fwd(q, k, v, lay, cfg.block, causal)
+    made = [torch.empty((2, N, 384), device=cuda) for _ in range(2)]
+    dqs = [sp.cuda_sparse_dq(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
+                             causal, delta_out=d) for d in made]
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [2, 2 * fm, 2, 2 * dm]
+    assert all(torch.equal(a, b) for a, b in zip(*fwd))
+    assert torch.equal(*dqs) and torch.equal(*made)
+    tol = 2e-2 if dtype == torch.bfloat16 else 4e-3
+    torch.testing.assert_close(fwd[0][1], lse_ref, atol=tol, rtol=0)
+    want = sp._bwd_inputs("t", q, o_ref, lse_ref, do)[2]
+    torch.testing.assert_close(made[0], want, atol=1e-4 * want.abs().max(),
+                               rtol=0)
+    dq_ref = sp.torch_sparse_bwd(q, k, v, o_ref, lse_ref, do, lay, cfg.block,
+                                 causal)[0]
+    _assert_rows("o", fwd[0][0], o_ref, tol)
+    _assert_rows("dq", dqs[0], dq_ref, tol)
+
+
+@pytest.mark.requires_cuda
+def test_sparse_q_merges_match_plain(cuda):
+    """The forward combine and the dq merge on seeded partials of a plan's
+    shape: the combine's o per row at 2e-2 (a 16-bit output: a rounding
+    tie may flip one ulp) and its lse at 1e-5, the dq merge bitwise (chunks
+    added in order, rounded once); rows of unsplit walks are left as they
+    were."""
+    cfg = sp.BSLongformerSparsityConfig(global_block_indices=(0, 5, 9))
+    lay = cfg.make_layout(384)
+    q = torch.zeros((2, 384, 4, 64), dtype=torch.bfloat16, device=cuda)
+    fplan, dplan = (sp._call_q_plan(lay, 16, True, q, 2, dq=dq)[0]
+                    for dq in (False, True))
+    assert fplan["parts"] > 0 and dplan["parts"] > 0
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    part = torch.randn((fplan["parts"], 128, 64), device=cuda, generator=gen)
+    ml = torch.stack([4 * torch.randn((fplan["parts"], 128), device=cuda,
+                                      generator=gen),
+                      torch.rand((fplan["parts"], 128), device=cuda,
+                                 generator=gen) + 0.5], 1)
+    ml[:, 0, ::9] = float("-inf")
+    ml[:, 1, ::9] = 0.0
+    base = torch.randn(q.shape, device=cuda, generator=gen).to(q.dtype)
+    lse = torch.randn((2, 4, 1, 384), device=cuda, generator=gen)
+    want = sp.torch_sparse_fwd_combine(part, ml, base, lse, lay, 16, True, 2)
+    got = sp.cuda_sparse_fwd_combine(part, ml, base.clone(), lse.clone(), lay,
+                                     16, True, 2)
+    _assert_rows("o", got[0], want[0], 2e-2)
+    torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+    part = torch.randn((dplan["parts"], 128, 64), device=cuda, generator=gen)
+    want = sp.torch_sparse_dq_merge(part, base, lay, 16, True, 2)
+    got = sp.cuda_sparse_dq_merge(part, base.clone(), lay, 16, True, 2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
 def test_sparse_dkv_merge_matches_plain(cuda):
     """The second pass on a seeded partial of a plan's shape equals its
     plain version (chunks added in order, rounded once) bitwise, and

@@ -179,6 +179,81 @@ def test_gradients_match_jax(name, causal):
     _assert_grads([g.numpy() for g in direct], want)
 
 
+# ------------------------------------------- split walks and their merges
+
+# name -> config on the tensor-core route's blocks (T 256): the H100 plans
+# of these small calls split every walk of more than one stage (the
+# forward's stages hold 128 keys, so each config has walks longer than that)
+SPLIT = {
+    "dense": tsp.DenseSparsityConfig(block=32),
+    "fixed": tsp.FixedSparsityConfig(block=16, num_local_blocks=2),
+    "longformer": tsp.BSLongformerSparsityConfig(
+        block=16, global_block_indices=(0, 5, 9)),
+    "bigbird": tsp.BigBirdSparsityConfig(block=16),
+}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", sorted(SPLIT))
+def test_split_merges_equal_unsplit_and_jax(name, causal):
+    """The forward's and dq's split walks as the card runs them
+    (``sparse_q_plan``'s tasks on an H100, each chunk's fp32 partial made by
+    the plain ``torch_sparse_q_parts``), merged by the plain combine / sum
+    (``torch_sparse_fwd_combine``, ``torch_sparse_dq_merge``, chunks in
+    order), equal the unsplit plain forward and dq (``torch_sparse_fwd`` /
+    ``torch_sparse_bwd``) on every merged row, and those equal JAX's
+    ``_sparse_xla`` and ``jax.grad`` of ``sum(o²)``: fp32 (B 2, T 256, 4 q
+    over 2 kv heads, D 16), o and lse at 1e-5, dq at 1e-4 of its largest
+    value (summation order only)."""
+    cfg = SPLIT[name]
+    q, k, v = _qkv(4, 2, seed=2, t=256)
+    ref = np.asarray(jsp.sparse_attention(
+        *map(jnp.asarray, (q, k, v)), _jax_cfg(cfg), causal=causal,
+        impl="xla"))
+    want_dq = _jax_grads(cfg, causal, q, k, v)[0]
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    lay = cfg.make_layout(256)
+    o, lse = tsp.torch_sparse_fwd(tq, tk, tv, lay, cfg.block, causal)
+    dq = tsp.torch_sparse_bwd(tq, tk, tv, o, lse, 2 * o, lay, cfg.block,
+                              causal)[0]
+    np.testing.assert_allclose(o.numpy(), ref, **FWD)
+    _assert_grads([dq.numpy()], [want_dq])
+    part, ml = tsp.torch_sparse_q_parts("fwd", tq, tk, tv, lay, cfg.block,
+                                        causal)
+    o2, lse2 = tsp.torch_sparse_fwd_combine(part, ml, torch.zeros_like(o),
+                                            torch.zeros_like(lse), lay,
+                                            cfg.block, causal, 2)
+    dpart = tsp.torch_sparse_q_parts("dq", tq, tk, tv, lay, cfg.block,
+                                     causal, o=o, lse=lse, do=2 * o)
+    dq2 = tsp.torch_sparse_dq_merge(dpart, torch.zeros_like(dq), lay,
+                                    cfg.block, causal, 2)
+
+    def merged(dq_plan):
+        """the rows the forward's (dq's) merges write"""
+        plan = tsp._call_q_plan(lay, cfg.block, causal, tq, 2, dq=dq_plan)[0]
+        assert plan["parts"] > 0 and len(plan["merges"]) > 0
+        rows = np.zeros((2, 256, 4), bool)
+        for _, _, b, heads, pos, _ in tsp._merged_rows(plan, 2, 2):
+            rows[b, pos, heads] = True
+        return rows
+
+    mf, mq = merged(False), merged(True)
+    m = torch.from_numpy(mf)
+    np.testing.assert_allclose(o2[m].numpy(), o[m].numpy(), **FWD)
+    np.testing.assert_allclose(o2[m].numpy(), ref[mf], **FWD)
+    assert (o2[~m] == 0).all()
+    lm = m.permute(0, 2, 1)
+    np.testing.assert_allclose(lse2[:, :, 0][lm].numpy(),
+                               lse[:, :, 0][lm].numpy(), **FWD)
+    m = torch.from_numpy(mq)
+    tol = 1e-4 * float(np.abs(want_dq).max())
+    np.testing.assert_allclose(dq2[m].numpy(), dq[m].numpy(), atol=tol,
+                               rtol=0)
+    np.testing.assert_allclose(dq2[m].numpy(), want_dq[mq], atol=tol,
+                               rtol=0)
+    assert (dq2[~m] == 0).all()
+
+
 # ------------------------------------------------------------ edge cases
 
 class _NoDiagonal(tsp.SparsityConfig):
