@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (deepspeed_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --phases 4,19,20,21   # the rest of serving
 
 1. The card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of every CUDA kernel of the serving and training
@@ -199,6 +200,35 @@
    neighbouring head's delta rows (each fault's size printed); the delta
    #14 makes is held to the eager fp32 sum.  Two backward runs at the MSA
    call are bitwise equal.
+
+19. Speculative decoding at full width: Llama-3-8B in bf16 (phase 4's
+   tree) with a draft of Llama-3.2-1B's widths (seeded random weights),
+   gamma 4, 8 outer steps, on phase 4's 16 requests; then a self-draft
+   pass (the target's own tensors as the draft).  tok/s against phase 4's,
+   ``spec_summary()``, dispatches, host syncs and peak memory on an
+   ``E2E_SPEC`` line.  The verify call's #2 (5 rows a slot, 20 live rows
+   of a 128-row unit), the draft's #1 (head dim 64, g 4) and the draft's
+   prefill #2 at head dim 64 are held per row to their plain versions and
+   timed beside their bounds and SDPA with the mask (``KERNEL_SHAPE``
+   lines); keys past kv_len (a round's rejected tail) and unread pages
+   poisoned must not move #2's or #1's output, and one poisoned key read
+   must.
+20. The radix prefix cache and SLA scheduling at full Llama-3-8B width:
+   16 requests sharing a 512-token system prefix (then 64..512 tokens of
+   their own, 64..128 new), ``generate`` twice on one engine with
+   ``prefix_cache`` on (the second call must alias at least 16 x 512
+   prompt tokens); #2 held and timed on a prefill call past the cached
+   pages; then the same traffic on 4 slots with staggered arrivals,
+   without and with two SLA classes (``gold``: priority 1, TTFT SLO 200
+   ms), which must preempt for gold at least once; ``E2E_PREFIX_SLA``.
+21. Small-config parity in fp32 with TF32 off (phase 3's model): greedy
+   speculative tokens (a random one-layer draft, then a self-draft) equal
+   plain greedy on the card and the CPU's, with the CPU's counters;
+   prefix cache on equals off and the CPU's; SLA preemption under one
+   fixed clock takes the CPU's decisions and gives the uncontended tokens;
+   int8 KV with a draft runs #1i / #2i; the fp32 and int8 verify and
+   draft-decode calls held to their plain versions (F32_TOL) with the
+   poisoned-tail check.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
@@ -756,12 +786,13 @@ def _counters():
 
 
 def _serve(torch, label, eng, prompts, news, kernels, card, profile=False,
-           adapter_ids=None):
-    """One main-path run: ``eng.generate`` on the requests with every launch
-    counter set to 0 just before and read just after; fails if a kernel of
-    ``kernels`` never launched or an output is malformed.  Returns the
-    outputs and the run's numbers (``--profile``: also the device time by
-    kernel)."""
+           **gen):
+    """One main-path run: ``eng.generate`` on the requests (``gen``: more
+    of its keywords, e.g. ``adapter_ids``, ``sla``, ``arrival_times``) with
+    every launch counter set to 0 just before and read just after; fails if
+    a kernel of ``kernels`` never launched or an output is malformed.
+    Returns the outputs and the run's numbers (``--profile``: also the
+    device time by kernel)."""
     counters = _counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -777,8 +808,7 @@ def _serve(torch, label, eng, prompts, news, kernels, card, profile=False,
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             outs = eng.generate(prompts,
-                                max_new_tokens=[int(n) for n in news],
-                                adapter_ids=adapter_ids)
+                                max_new_tokens=[int(n) for n in news], **gen)
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -832,6 +862,9 @@ class _record_calls(dict):
         self._specs = {op: registry._REGISTRY[op] for op in ops}
         self._kernels = {op: spec.kernel for op, spec in self._specs.items()}
         ptrs = {eng.cache.layer(0)[0].data_ptr()}
+        if getattr(eng, "draft_cache", None) is not None:
+            # a draft's first layer too: its decodes and prefill chunks
+            ptrs.add(eng.draft_cache.layer(0)[0].data_ptr())
 
         def walk(t):
             for leaf in t.values():
@@ -3484,6 +3517,519 @@ def phase_evoformer(torch, evo, dev):
     return launches, results
 
 
+# --------------------------------------------------------- phases 19 to 21
+
+GAMMA, OUTER = 4, 8                 # the speculative block's defaults
+
+
+def _draft_cfg(torch):
+    """The draft users pair with Llama-3-8B (the same vocabulary):
+    ``meta-llama/Llama-3.2-1B`` config.json — hidden 2048, 16 layers, 32 /
+    8 heads x 64, FFN 8192, vocab 128256, rope_theta 5e5, llama3 rope
+    scaling (factor 32, low 1, high 4, original 8192), tied embeddings."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPTConfig
+    return dataclasses.replace(GPTConfig.llama(
+        num_layers=16, hidden=2048, heads=32, num_kv_heads=8,
+        vocab_size=128256, max_seq_len=8192, mlp_dim_override=8192,
+        rope_theta=500000.0, norm_eps=1e-5,
+        rope_scaling=("llama3", 32.0, 1.0, 4.0, 8192), dtype=torch.bfloat16),
+        tie_embeddings=True)
+
+
+def _pool_calls(rec, name, cache, q_len=None):
+    """The recorded first-layer calls of ``name`` that read ``cache``'s
+    pages (and, given ``q_len``, have that many query rows a slot)."""
+    ptr = cache.layer(0)[0].data_ptr()
+    return [c for c in rec[name] if c[0][1].data_ptr() == ptr
+            and (q_len is None or c[0][0].shape[1] == q_len)]
+
+
+def _heaviest(calls, key):
+    return max(reversed(calls), key=lambda c: int(key(c[0]).sum()))
+
+
+def _garbage(torch, t, gen):
+    """Values no live key holds: N(0, 50^2) (int8 pages: random codes)."""
+    if t.dtype == torch.int8:
+        return torch.randint(-127, 128, t.shape, generator=gen,
+                             device=t.device, dtype=torch.int8)
+    return (torch.randn(t.shape, generator=gen, device=t.device) * 50
+            ).to(t.dtype)
+
+
+def _poisoned_tail(torch, pa, name, label, args, kw, tol):
+    """Rollback is by overwrite: a verify round writes K/V for all of its
+    gamma+1 positions and leaves a rejected tail in the pages, past the
+    kv_len of the next round.  Such keys must never be read.  Every key
+    and value past each slot's kv_len in its last live page, and every page
+    of the table no slot reads (scales too, for int8 pages), is overwritten
+    with garbage: the kernel's output must stay within ``tol`` of its
+    output on the clean pages (bitwise equality printed).  The check is
+    shown to see one poisoned key read: the plain version with the kv_len
+    of every slot with a poisoned tail one longer (the prefill's rows also
+    one position later)."""
+    decode = name.startswith("paged")
+    q, k, v, bt, kvl = args[:5]
+    bs = k.shape[2]
+    lens, table = kvl.cpu().numpy(), bt.cpu().numpy()
+    live, tails = set(), []
+    for s, n_keys in enumerate(lens.tolist()):
+        n = -(-n_keys // bs)
+        live.update(table[s, :n].tolist())
+        if n_keys % bs:
+            tails.append((s, int(table[s, n - 1]), n_keys % bs))
+    dead = sorted(set(table.reshape(-1).tolist()) - live)
+    gen = torch.Generator(device=k.device).manual_seed(0)
+    pk = dict(kw)
+    kp, vp = k.clone(), v.clone()
+    views = [kp, vp]
+    if kw.get("k_scale") is not None:
+        pk["k_scale"], pk["v_scale"] = (kw["k_scale"].clone(),
+                                        kw["v_scale"].clone())
+        views += [pk["k_scale"], pk["v_scale"]]
+    for t in views:
+        for _, p, off in tails:
+            t[p, :, off:] = _garbage(torch, t[p, :, off:], gen)
+        if dead:
+            idx = torch.tensor(dead, device=t.device)
+            t[idx] = _garbage(torch, t[idx], gen)
+    kern = pa.cuda_paged_attention if decode else pa.cuda_ragged_prefill
+    plain = pa.torch_paged_attention if decode else pa.torch_ragged_prefill
+    rest = tuple(args[5:])
+    clean = kern(*args, **kw)
+    dirty = kern(q, kp, vp, bt, kvl, *rest, **pk)
+    torch.cuda.synchronize()
+    row, _ = _rows_off(dirty, clean)
+    print(f"  {label}: {len(tails)} page tails and {len(dead)} unread pages "
+          f"poisoned: worst row {row:.3e} of its max (check at {tol}), "
+          f"bitwise equal {torch.equal(dirty, clean)}", flush=True)
+    if not row <= tol or not torch.isfinite(dirty).all():
+        fail(f"{label}: the kernel read keys past kv_len ({row})")
+    if not tails:
+        fail(f"{label}: no slot has a page tail to poison")
+    rows = [t[0] for t in tails]
+    longer = kvl.clone()
+    longer[rows] += 1
+    if not decode:
+        rest = (args[5].clone(),) + tuple(args[6:])
+        rest[0][rows] += 1
+    moved, _ = _rows_off(plain(q, kp, vp, bt, longer, *rest, **pk)[rows],
+                         plain(q, kp, vp, bt, kvl, *args[5:], **pk)[rows])
+    print(f"  {label}: one poisoned key read by each of those slots moves "
+          f"the worst row by {moved:.3e}", flush=True)
+    if not moved > tol:
+        fail(f"{label}: the poisoned-tail check cannot see a key read")
+
+
+def _hold_call(torch, pa, name, label, args, kw, tol=ROW_TOL, time_it=True):
+    """A recorded call held to its plain version per output row, and timed
+    (kernel, plain, SDPA with the mask over the gathered K/V, bound)."""
+    decode = name.startswith("paged")
+    kern = pa.cuda_paged_attention if decode else pa.cuda_ragged_prefill
+    plain = pa.torch_paged_attention if decode else pa.torch_ragged_prefill
+    _check_rows(torch, name, label, kern(*args, **kw), plain(*args, **kw),
+                tol)
+    if not time_it:
+        return None
+    r = (_time_decode(torch, pa, *args, kw) if decode
+         else _time_prefill(torch, pa, *args, kw))
+    r["label"] = label
+    return r
+
+
+def _shape_line(name, r, launches):
+    print("KERNEL_SHAPE " + json.dumps({
+        "kernel": name, "call": r["label"], "shape": r["shape"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "launches": launches}), flush=True)
+
+
+def phase_spec_main(torch, pa, dev, card, params, base_e2e=None):
+    """Speculative decoding at full width: Llama-3-8B (phase 4's bf16 tree,
+    the same tensors) with a Llama-3.2-1B-widths draft (seeded random
+    weights), gamma 4, 8 outer steps, on phase 4's 16 requests; then a
+    self-draft pass (the target's own tensors as the draft).  The verify
+    call's #2 (5 rows a slot), the draft's #1 (head dim 64, g 4) and the
+    draft's prefill #2 are held to their plain versions and timed; the
+    poisoned-tail check on the first two."""
+    from deepspeed_tpu_torch import InferenceEngineV2
+    from deepspeed_tpu_torch.models.gpt import count_params, init_params
+    cfg, dcfg = _llama_cfg(torch), _draft_cfg(torch)
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev, torch.bfloat16)
+    t0 = time.perf_counter()
+    dparams = init_params(dcfg, torch.Generator(device=dev).manual_seed(1),
+                          dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"  draft: Llama-3.2-1B widths, {count_params(dcfg) / 1e9:.3f}B "
+          f"params, bf16 on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    prompts, news = _requests(cfg.vocab_size, 1025)
+    ecfg = {"dtype": "bfloat16", "state_manager": LLAMA_SM,
+            "speculative": {"gamma": GAMMA, "outer_steps": OUTER}}
+    kernels = ("paged_attention", "ragged_prefill")
+    e2es, results, launches = [], {}, dict.fromkeys(kernels, 0)
+    for label, dc, dp in (("Llama-3-8B bf16 + Llama-3.2-1B draft", dcfg,
+                           dparams),
+                          ("Llama-3-8B bf16, self-draft", cfg, params)):
+        eng = InferenceEngineV2(cfg, config=ecfg, params=params,
+                                draft_model=dc, draft_params=dp, device=dev)
+        same = (eng.draft_params["backbone"]["wte"]
+                is params["backbone"]["wte"]) if dc is cfg else None
+        rec = _record_calls(eng, {"paged_attention": "paged_attention",
+                                  "ragged_prefill_attention":
+                                  "ragged_prefill"})
+        outs, e2e = _serve(torch, label, eng, prompts, news, kernels, card)
+        rec.restore()
+        st = eng.telemetry.spec_summary()
+        e2e["spec"] = st
+        if base_e2e is not None:
+            e2e["bf16_generated_tok_per_s"] = base_e2e["generated_tok_per_s"]
+        for k in kernels:
+            launches[k] += e2e["launches"][k]
+        print(f"  {label}: spec {st}" + (
+            f"; generated tok/s {e2e['generated_tok_per_s']:.1f} against "
+            f"{base_e2e['generated_tok_per_s']:.1f} for phase 4's engine in "
+            f"this run ({e2e['generated_tok_per_s'] / base_e2e['generated_tok_per_s']:.3f}x)"
+            if base_e2e is not None else "") + (
+            f"; the draft's tensors are the target's: {same}"
+            if same is not None else ""), flush=True)
+        if st["outer_steps"] <= 0 or eng.dispatches["burst"]:
+            fail(f"{label}: the speculative path did not run ({st}, "
+                 f"{eng.dispatches})")
+        if same is False:
+            fail(f"{label}: the self-draft copied the target's tensors")
+        if dc is dcfg:
+            verify = _pool_calls(rec, "ragged_prefill", eng.cache, GAMMA + 1)
+            ddec = _pool_calls(rec, "paged_attention", eng.draft_cache)
+            dpre = _pool_calls(rec, "ragged_prefill", eng.draft_cache)
+            if not (verify and ddec and dpre):
+                fail(f"{label}: recorded {len(verify)} verify, {len(ddec)} "
+                     f"draft decode, {len(dpre)} draft prefill calls")
+            n_calls = {"verify": len(verify) * cfg.num_layers,
+                       "draft_decode": len(ddec) * dcfg.num_layers,
+                       "draft_prefill": len(dpre) * dcfg.num_layers}
+            args, kw = _heaviest(verify, lambda a: a[4])
+            cn = args[6].cpu().numpy()
+            print(f"  verify call: live rows by slot {cn.tolist()} of "
+                  f"{args[0].shape[1]}, q_starts "
+                  f"{args[5].cpu().numpy().tolist()}", flush=True)
+            results["verify"] = _hold_call(torch, pa, "ragged_prefill",
+                                           "verify (5 rows a slot)", args, kw)
+            _poisoned_tail(torch, pa, "ragged_prefill", "verify #2", args,
+                           kw, ROW_TOL)
+            args, kw = _heaviest(ddec, lambda a: a[4])
+            results["draft_decode"] = _hold_call(
+                torch, pa, "paged_attention", "draft decode (hd 64, g 4)",
+                args, kw)
+            _poisoned_tail(torch, pa, "paged_attention", "draft decode #1",
+                           args, kw, ROW_TOL)
+            args, kw = _heaviest(dpre, lambda a: a[6])
+            results["draft_prefill"] = _hold_call(
+                torch, pa, "ragged_prefill", "draft prefill (hd 64)", args,
+                kw)
+        e2es.append(e2e)
+        del eng, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, name in (("verify", "ragged_prefill"),
+                      ("draft_decode", "paged_attention"),
+                      ("draft_prefill", "ragged_prefill")):
+        _shape_line(name, results[key], n_calls[key])
+    _print_times({r["label"]: r for r in results.values()})
+    return launches, e2es
+
+
+def _prefix_requests(vocab):
+    """16 requests sharing a 512-token system prefix (8 pages of 64), then
+    64..512 tokens of their own; 64..128 new tokens each (numpy seed 20)."""
+    rng = np.random.default_rng(20)
+    shared = rng.integers(0, vocab, 512)
+    own = rng.integers(64, 513, 16)
+    news = rng.integers(64, 129, 16)
+    return ([np.concatenate([shared, rng.integers(0, vocab, int(n))])
+             .astype(np.int32) for n in own], news)
+
+
+def phase_prefix_sla_main(torch, pa, dev, card, params):
+    """The radix prefix cache and SLA scheduling at full Llama-3-8B width
+    (phase 4's bf16 tree): generate twice on one engine with the cache on
+    (the second call must alias at least 16 x 512 prompt tokens); the
+    prefill call past the cached pages held to its plain version and timed;
+    then the same traffic on 4 slots with staggered arrivals (the 12
+    default requests every 20 ms, the 4 gold ones together at 0.5 s, so
+    that a burst's one retirement cannot seat them all), without and with
+    two SLA classes."""
+    from deepspeed_tpu_torch import InferenceEngineV2
+    cfg = _llama_cfg(torch)
+    prompts, news = _prefix_requests(cfg.vocab_size)
+    kernels = ("paged_attention", "ragged_prefill")
+    launches = dict.fromkeys(kernels, 0)
+    out = {}
+    eng = InferenceEngineV2(cfg, config={
+        "dtype": "bfloat16", "state_manager": dict(LLAMA_SM,
+                                                   prefix_cache=True)},
+        params=params, device=dev)
+    calls = []
+    for i in range(2):
+        hits0 = eng.telemetry.value("kv_prefix_hit_tokens_total")
+        rec = _record_calls(eng, {"ragged_prefill_attention":
+                                  "ragged_prefill"})
+        label = f"Llama-3-8B bf16, prefix cache, call {i + 1}"
+        outs, e2e = _serve(torch, label, eng, prompts, news, kernels, card)
+        rec.restore()
+        hits = eng.telemetry.value("kv_prefix_hit_tokens_total") - hits0
+        e2e["prefix_hit_tokens"] = hits
+        e2e["prefix_cached_tokens"] = int(sum(eng.prefix_cached_tokens(p)
+                                              for p in prompts))
+        print(f"  {label}: {int(hits)} prompt tokens served from cached "
+              f"pages; prefix_cached_tokens over the prompts after it "
+              f"{e2e['prefix_cached_tokens']}", flush=True)
+        for k in kernels:
+            launches[k] += e2e["launches"][k]
+        out[f"call{i + 1}"] = e2e
+        calls = rec["ragged_prefill"]
+        if i == 0:
+            first = outs
+    if out["call2"]["prefix_hit_tokens"] < 16 * 512:
+        fail(f"prefix cache: the second call aliased "
+             f"{out['call2']['prefix_hit_tokens']} tokens < 16 x 512")
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(first, outs))
+    out["calls_equal"] = same
+    print(f"  requests with the same tokens in both calls (bf16; not "
+          f"gated): {same} of 16", flush=True)
+    def past_cache(args):
+        starts, counts = args[5].cpu().numpy(), args[6].cpu().numpy()
+        return counts.any() and starts[counts > 0].min() >= 512
+    past = [c for c in calls if past_cache(c[0])]
+    if not past:
+        fail("prefix cache: no prefill call past the cached pages")
+    args, kw = _heaviest(past, lambda a: a[6])
+    r = _hold_call(torch, pa, "ragged_prefill",
+                   "prefix-cache prefill (q_starts >= 512)", args, kw)
+    print(f"  prefix-cache prefill call: q_starts "
+          f"{args[5].cpu().numpy().tolist()}, live rows "
+          f"{args[6].cpu().numpy().tolist()}", flush=True)
+    _shape_line("ragged_prefill", r, len(past) * cfg.num_layers)
+    _print_times({r["label"]: r})
+    del eng, rec, calls, past
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sm4 = dict(LLAMA_SM, max_tracked_sequences=4,
+               num_kv_blocks=4 * 2048 // 64, prefix_cache=True)
+    sla_cfg = {"sla_classes": {"gold": {"priority": 1, "ttft_slo_ms": 200.0},
+                               "default": {"priority": 0}}}
+    classes = ["gold" if i % 4 == 3 else "default" for i in range(16)]
+    arrivals = [0.5 + 0.02 * (i // 4) if c == "gold" else 0.02 * i
+                for i, c in enumerate(classes)]
+    runs = {}
+    for label, sla in (("4 slots, staggered arrivals, no SLA", None),
+                       ("the same with SLA classes", classes)):
+        eng = InferenceEngineV2(cfg, config={
+            "dtype": "bfloat16", "state_manager": sm4,
+            "scheduler": sla_cfg}, params=params, device=dev)
+        gen = {"arrival_times": arrivals}
+        if sla is not None:
+            gen["sla"] = sla
+        outs, e2e = _serve(torch, f"Llama-3-8B bf16, {label}", eng, prompts,
+                           news, kernels, card, **gen)
+        for k in kernels:
+            launches[k] += e2e["launches"][k]
+        t = eng.telemetry
+        ttft = {c: sorted(r["ttft_ms"] for r, cls in zip(
+            sorted(t.request_log, key=lambda r: -r["uid"]), classes)
+            if cls == c) for c in ("gold", "default")}
+        e2e["sla_preemptions"] = t.value("serving_sla_preemptions_total",
+                                         sla="default")
+        e2e["ttft_ms_median"] = {c: v[len(v) // 2] for c, v in ttft.items()}
+        print(f"  {label}: preemptions {eng.preempt_stats}, SLA preemptions "
+              f"{int(e2e['sla_preemptions'])}, median TTFT gold "
+              f"{e2e['ttft_ms_median']['gold']:.1f} ms / default "
+              f"{e2e['ttft_ms_median']['default']:.1f} ms", flush=True)
+        runs[label] = (outs, e2e)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    (o1, e1), (o2, e2) = runs.values()
+    same = sum(int(np.array_equal(a, b)) for a, b in zip(o1, o2))
+    print(f"  SLA run: {int(e2['sla_preemptions'])} SLA preemptions; "
+          f"requests with the run-without-SLA's tokens (bf16; recompute "
+          f"re-prefills; not gated): {same} of 16; generated tok/s "
+          f"{e2['generated_tok_per_s']:.1f} against "
+          f"{e1['generated_tok_per_s']:.1f}", flush=True)
+    if e2["sla_preemptions"] <= 0:
+        fail("SLA run: no SLA preemption")
+    out["no_sla"], out["sla"] = e1, dict(e2, tokens_equal_no_sla=same)
+    return launches, out
+
+
+def phase_spec_parity(torch, pa, dev):
+    """Small config in fp32, TF32 off (phase 3's model): greedy
+    speculative tokens (a random one-layer draft, then a self-draft) equal
+    plain greedy on the card and the CPU's; prefix cache on equals off and
+    the CPU's; SLA preemption under one fixed clock gives the CPU's
+    preemptions and the uncontended tokens; int8 KV with a draft runs #1i /
+    #2i.  The fp32 verify and draft-decode calls, and the int8 ones, are
+    held to their plain versions (F32_TOL) with the poisoned-tail check."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
+    from deepspeed_tpu_torch.models.gpt import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dict(hidden=128, heads=4, num_kv_heads=2, vocab_size=512,
+                 max_seq_len=256)
+    cfg = dataclasses.replace(GPTConfig.llama(num_layers=2, **small),
+                              dtype=torch.float32)
+    dcfg = dataclasses.replace(GPTConfig.llama(num_layers=1, **small),
+                               dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dparams = init_params(dcfg, torch.Generator().manual_seed(1), "cpu")
+    sm = {"max_tracked_sequences": 4, "max_ragged_batch_size": 64,
+          "kv_block_size": 8, "max_q_per_seq": 8, "num_kv_blocks": 16}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, (18 + 5 * i,)).astype(np.int32)
+               for i in range(4)]
+    counters = _counters()
+
+    def run(d, config, draft=None, record=False, **gen):
+        kw = ({} if draft is None else
+              {"draft_model": draft[0], "draft_params": draft[1]})
+        eng = InferenceEngineV2(cfg, config={"dtype": "fp32", **config},
+                                params=params, device=d, **kw)
+        rec = (_record_calls(eng, {"paged_attention": "paged_attention",
+                                   "ragged_prefill_attention":
+                                   "ragged_prefill"}) if record else None)
+        outs = eng.generate(gen.pop("prompts", prompts),
+                            max_new_tokens=gen.pop("new", 20), **gen)
+        if rec is not None:
+            rec.restore()
+        return outs, eng, rec
+
+    def same(label, a, b):
+        bad = [i for i, (x, y) in enumerate(zip(a, b))
+               if not np.array_equal(x, y)]
+        print(f"  {label}: {'equal' if not bad else f'requests {bad} differ'}"
+              f" ({sum(len(o) for o in a)} tokens)", flush=True)
+        if bad:
+            fail(f"spec parity: {label}: requests {bad} differ")
+
+    plain, _, _ = run("cpu", {"state_manager": sm})
+    same("plain greedy, cuda = cpu", run(dev, {"state_manager": sm})[0],
+         plain)
+    for name, draft in (("random one-layer draft", (dcfg, dparams)),
+                        ("self-draft", (cfg, params))):
+        cpu_out, ceng, _ = run("cpu", {"state_manager": sm}, draft)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        out, eng, rec = run(dev, {"state_manager": sm}, draft,
+                            record=name.startswith("random"))
+        st = eng.telemetry.spec_summary()
+        print(f"  {name}: spec {st}; preemptions {eng.preempt_stats}",
+              flush=True)
+        same(f"{name}, speculative cuda = plain greedy", out, plain)
+        same(f"{name}, speculative cuda = cpu", out, cpu_out)
+        keys = ("outer_steps", "proposed", "accepted", "emitted",
+                "spec_dispatches")
+        cst = ceng.telemetry.spec_summary()
+        if st["outer_steps"] <= 0 or any(st[k] != cst[k] for k in keys):
+            fail(f"spec parity: {name}: counters {st} against the cpu's "
+                 f"{cst}")
+        if rec is not None:
+            for nm, calls in (
+                    ("ragged_prefill", _pool_calls(rec, "ragged_prefill",
+                                                   eng.cache, GAMMA + 1)),
+                    ("paged_attention", _pool_calls(rec, "paged_attention",
+                                                    eng.draft_cache))):
+                if not calls:
+                    fail(f"spec parity: no {nm} call recorded")
+                args, kw = _heaviest(calls, lambda a: a[4])
+                _hold_call(torch, pa, nm, f"fp32 {nm} of the {name}", args,
+                           kw, F32_TOL, time_it=False)
+                _poisoned_tail(torch, pa, nm, f"fp32 {nm} of the {name}",
+                               args, kw, F32_TOL)
+
+    # prefix cache on = off (cuda) = cpu, over two calls
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, 512, 40)
+    pp = [np.concatenate([shared, rng.integers(0, 512, 5 + 3 * i)])
+          .astype(np.int32) for i in range(4)]
+    off, _, _ = run(dev, {"state_manager": sm}, prompts=pp, new=12)
+    cpu_on, _, _ = run("cpu", {"state_manager": dict(sm, prefix_cache=True)},
+                       prompts=pp, new=12)
+    eng = InferenceEngineV2(cfg, config={"dtype": "fp32", "state_manager":
+                                         dict(sm, prefix_cache=True)},
+                            params=params, device=dev)
+    for i in range(2):
+        on = eng.generate(pp, max_new_tokens=12)
+        same(f"prefix cache on (call {i + 1}) = off, cuda", on, off)
+    same("prefix cache on, cuda = cpu", on, cpu_on)
+    hits = eng.telemetry.value("kv_prefix_hit_tokens_total")
+    print(f"  prefix cache: {int(hits)} prompt tokens served from cached "
+          f"pages", flush=True)
+    if hits < 4 * 40 // 8 * 8:
+        fail(f"prefix cache: only {hits} tokens aliased")
+
+    # SLA preemption under one fixed clock: the cpu's decisions and tokens
+    sla_sm = dict(sm, max_tracked_sequences=2, num_kv_blocks=64)
+    sched = {"sla_classes": {"batch": {"priority": 0},
+                             "gold": {"priority": 10, "ttft_slo_ms": 1.0}}}
+    res = {}
+    for d in ("cpu", dev):
+        clk = [0.0]
+
+        def now():
+            clk[0] += 0.05
+            return clk[0]
+        o, e, _ = run(d, {"state_manager": sla_sm, "scheduler": sched},
+                      prompts=prompts[:3], new=[24, 20, 4], now_fn=now,
+                      arrival_times=[0.0, 0.0, 0.2],
+                      sla=["batch", "batch", "gold"])
+        res[d] = (o, dict(e.preempt_stats), e.telemetry.value(
+            "serving_sla_preemptions_total", sla="batch"))
+    same("SLA run, cuda = cpu", res[dev][0], res["cpu"][0])
+    print(f"  SLA run: preemptions cuda {res[dev][1:]} cpu "
+          f"{res['cpu'][1:]}", flush=True)
+    if res[dev][1:] != res["cpu"][1:] or res[dev][2] < 1:
+        fail("SLA run: the preemptions differ from the cpu's or none fired")
+    solo = [run(dev, {"state_manager": sm}, prompts=[p], new=n)[0][0]
+            for p, n in zip(prompts[:3], (24, 20, 4))]
+    same("SLA run = uncontended runs", res[dev][0], solo)
+
+    # int8 KV with a draft: #1i and #2i on the main path
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    q8 = {"state_manager": dict(sm, kv_quant="int8")}
+    o8, e8, rec = run(dev, q8, (dcfg, dparams), record=True)
+    n8 = {k: getattr(*counters[k]) for k in ("paged_attention_int8",
+                                             "ragged_prefill_int8")}
+    print(f"  int8 KV + draft: int8 launches {n8}; spec "
+          f"{e8.telemetry.spec_summary()}", flush=True)
+    if min(n8.values()) <= 0:
+        fail(f"int8 KV + draft: {n8}")
+    cpu8, _, _ = run("cpu", q8, (dcfg, dparams))
+    agree = sum(int(np.array_equal(a, b)) for a, b in zip(o8, cpu8))
+    print(f"  int8 KV + draft: requests equal to the cpu's (not gated): "
+          f"{agree} of {len(o8)}", flush=True)
+    for nm, calls in (("ragged_prefill_int8", _pool_calls(
+            rec, "ragged_prefill", e8.cache, GAMMA + 1)),
+                      ("paged_attention_int8", _pool_calls(
+                          rec, "paged_attention", e8.draft_cache))):
+        args, kw = _heaviest(calls, lambda a: a[4])
+        base = nm.replace("_int8", "")
+        decode = base.startswith("paged")
+        kern = pa.cuda_paged_attention if decode else pa.cuda_ragged_prefill
+        plain_fn = (pa.torch_paged_attention if decode
+                    else pa.torch_ragged_prefill)
+        _check_rows(torch, nm, f"fp32 q, int8 pages, {nm} of the draft run",
+                    kern(*args, **kw), plain_fn(*args, **kw), F32_TOL)
+        _poisoned_tail(torch, pa, base, f"int8 {base} of the draft run",
+                       args, kw, F32_TOL)
+
+
 def _ptxas_report(build_log, kernel):
     """ptxas's registers, spills and stack for each instantiation of
     ``kernel`` (template arguments demangled where c++filt exists)."""
@@ -3598,7 +4144,8 @@ def _sass_report(so, kernels, gate=()):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,6,7,8,9,10,11,13,14,15,16,17,18",
+                    default="1,2,3,4,6,7,8,9,10,11,13,14,15,16,17,18,19,"
+                            "20,21",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="trace phases 4, 8, 11 (its W8 run) and 15 with "
@@ -3705,6 +4252,11 @@ def main():
         print("== phase 14: small-config adapter parity, cuda vs cpu (fp32, "
               "TF32 off)", flush=True)
         phase_lora_parity(torch, dev)
+    if 21 in phases:
+        print("== phase 21: small-config speculative, prefix-cache and SLA "
+              "parity, cuda vs cpu (fp32, TF32 off); int8 KV with a draft; "
+              "poisoned tails", flush=True)
+        phase_spec_parity(torch, pa, dev)
     launches = dict.fromkeys(("paged_attention", "ragged_prefill") + FLASH
                              + WQ + INT8 + LORA + SPARSE + EVO)
     params = outs = pool = e2e = None
@@ -3721,10 +4273,38 @@ def main():
               "inputs", flush=True)
         results.update(phase_main_inputs(torch, pa, calls, eng))
         del calls, eng
-        if 11 not in phases and 15 not in phases:
+        if not phases & {11, 15, 19, 20}:
             params = None
         gc.collect()
         torch.cuda.empty_cache()
+    if 19 in phases:
+        print("== phase 19: speculative decoding at full width, Llama-3-8B "
+              "with a Llama-3.2-1B draft, then a self-draft", flush=True)
+        spec_launches, e2es = phase_spec_main(torch, pa, dev, card, params,
+                                              e2e)
+        for k, n in spec_launches.items():
+            launches[k] = (launches[k] or 0) + n
+        for r in e2es:
+            print("E2E_SPEC " + json.dumps(r), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 20 in phases:
+        print("== phase 20: prefix cache and SLA scheduling at full width, "
+              "Llama-3-8B, a shared 512-token system prefix", flush=True)
+        if params is None:
+            from deepspeed_tpu_torch.models.gpt import init_params
+            params = init_params(_llama_cfg(torch), torch.Generator(
+                device=dev).manual_seed(0), dev, torch.bfloat16)
+        pc_launches, e2e_pc = phase_prefix_sla_main(torch, pa, dev, card,
+                                                    params)
+        for k, n in pc_launches.items():
+            launches[k] = (launches[k] or 0) + n
+        print("E2E_PREFIX_SLA " + json.dumps(e2e_pc), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if 19 in phases or 20 in phases:
+        if not phases & {11, 15}:
+            params = None
     if 15 in phases:
         print("== phase 15: LoRA main path, generate(adapter_ids=...) at "
               "Llama-3-8B width, 8 tenants", flush=True)

@@ -349,14 +349,17 @@ def _write_kv(cache: PagedKVCache, dest, off, k, v):
 
 
 def ragged_forward(params, cache: PagedKVCache, batch, cfg: GPTConfig, *,
-                   block_size: int, max_q_per_seq: int):
+                   block_size: int, max_q_per_seq: int, logits: bool = True):
     """One ragged step (mixed prefill chunks + decodes).
 
     batch: dict of device tensors mirroring ragged.RaggedBatch fields
     (tokens, token_slot, token_pos, token_dense_idx [N]; block_table [S, MB]
     int32; kv_len [S] int32; with adapters also ``lora`` tables and
     ``adapter_slot`` [S] int32).  Returns (logits [S, vocab] fp32 — each
-    slot's last-token logits, the cache, updated in place)."""
+    slot's last-token logits, the cache, updated in place).  ``logits=False``
+    only writes the KV (a draft model's lockstep ingestion, whose logits
+    the JAX program never computes either: XLA drops unused outputs) and
+    returns None for them."""
     bb = params["backbone"]
     tokens = batch["tokens"]
     token_slot = batch["token_slot"]           # [N] (-1 pad)
@@ -422,6 +425,8 @@ def ragged_forward(params, cache: PagedKVCache, batch, cfg: GPTConfig, *,
         o = torch.where(valid[:, None, None], o, 0)
         x = _block_residual(blk, x, h, _attn_out(ap, o, cfg), cfg)
 
+    if not logits:
+        return None, cache
     x = _norm(bb["final_norm"], x, cfg)
     # logits gather: the LAST token of each slot's rows
     last = torch.zeros(S + 1, dtype=torch.long, device=dev).scatter_reduce_(
@@ -431,10 +436,11 @@ def ragged_forward(params, cache: PagedKVCache, batch, cfg: GPTConfig, *,
 
 def _decode_core(params, cache: PagedKVCache, tokens, active, token_pos,
                  block_table, cfg: GPTConfig, block_size: int, lora=None,
-                 adapter_slot=None):
+                 adapter_slot=None, logits: bool = True):
     """One decode micro-step: writes each active slot's K/V into its page
     and attends over exactly that slot's pages via the paged-attention op.
-    Shared by the single-step and burst paths.  Returns logits [S, V]."""
+    Shared by the single-step, burst and draft paths.  Returns logits [S, V]
+    (None with ``logits=False``: the KV write alone)."""
     bb = params["backbone"]
     dev = tokens.device
     S = tokens.shape[0]
@@ -477,6 +483,8 @@ def _decode_core(params, cache: PagedKVCache, tokens, active, token_pos,
         x = _block_residual(blk, x, h,
                             _attn_out(ap, o.reshape(S, nh, hd), cfg), cfg)
 
+    if not logits:
+        return None
     x = _norm(bb["final_norm"], x, cfg)
     return _logits_out(params, bb, x, cfg)
 
@@ -548,3 +556,319 @@ def ragged_decode_sampled(params, cache: PagedKVCache, batch, prev_tokens,
                                       block_size=block_size)
     nxt = sample_fn(logits, generator, temperature=temperature, top_p=top_p)
     return torch.where(batch["served"], nxt, prev_tokens)
+
+
+def ragged_forward_sampled_draft(params, draft_params, cache: PagedKVCache,
+                                 draft_cache: PagedKVCache, batch,
+                                 prev_tokens, generator, temperature, top_p,
+                                 cfg: GPTConfig, draft_cfg: GPTConfig, *,
+                                 block_size: int, max_q_per_seq: int,
+                                 sample_fn):
+    """ragged_forward_sampled that ALSO runs the draft model over the same
+    ragged batch (KV only) so the draft's pages ingest every prompt chunk in
+    lockstep with the target — the prerequisite for useful speculative
+    acceptance (JAX model.py:687).  Draft staleness never affects
+    correctness, only acceptance.  Returns prev'."""
+    tokens = torch.where(batch["from_device"],
+                         prev_tokens[batch["token_slot"].clamp(min=0).long()],
+                         batch["tokens"])
+    batch = {**batch, "tokens": tokens}
+    logits, _ = ragged_forward(params, cache, batch, cfg,
+                               block_size=block_size,
+                               max_q_per_seq=max_q_per_seq)
+    ragged_forward(draft_params, draft_cache, batch, draft_cfg,
+                   block_size=block_size, max_q_per_seq=max_q_per_seq,
+                   logits=False)
+    nxt = sample_fn(logits, generator, temperature=temperature, top_p=top_p)
+    return torch.where(batch["served"], nxt, prev_tokens)
+
+
+def ragged_decode_sampled_draft(params, draft_params, cache: PagedKVCache,
+                                draft_cache: PagedKVCache, batch,
+                                prev_tokens, generator, temperature, top_p,
+                                cfg: GPTConfig, draft_cfg: GPTConfig, *,
+                                block_size: int, sample_fn):
+    """ragged_decode_sampled with the draft ingesting the same tokens (KV
+    only), keeping its pages in lockstep through decode-only rounds so later
+    speculative bursts attend no draft-cache holes (JAX model.py:715).
+    Returns prev'."""
+    tokens = torch.where(batch["from_device"], prev_tokens, batch["tokens"])
+    logits = _decode_core(params, cache, tokens, batch["active"],
+                          batch["token_pos"], batch["block_table"], cfg,
+                          block_size)
+    _decode_core(draft_params, draft_cache, tokens, batch["active"],
+                 batch["token_pos"], batch["block_table"], draft_cfg,
+                 block_size, logits=False)
+    nxt = sample_fn(logits, generator, temperature=temperature, top_p=top_p)
+    return torch.where(batch["served"], nxt, prev_tokens)
+
+
+def _verify_core(params, cache: PagedKVCache, tokens, active, pos0,
+                 block_table, cfg: GPTConfig, block_size: int):
+    """Multi-token scoring forward of speculative decoding (JAX
+    model.py:756): every active slot ingests G contiguous tokens at
+    positions pos0..pos0+G-1 (K/V written into its pages) and gets logits
+    for ALL G positions back.  Dense [S, G] layout; attention goes through
+    the ragged-prefill op with q_starts = pos0 and q_counts = G, so on the
+    card it runs the prefill kernel (#2), never a plain body.  K/V written
+    past the accepted prefix stay in the pages: the next round's kv_len
+    stops short of them and later writes overwrite them.  Returns logits
+    [S, G, V] fp32."""
+    bb = params["backbone"]
+    dev = tokens.device
+    S, G = tokens.shape
+    NB = cache.num_blocks
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    g = nh // nkv
+
+    positions = pos0[:, None] + torch.arange(G, dtype=torch.int32,
+                                             device=dev)[None]     # [S, G]
+    x = _embed_in(bb, tokens, positions, cfg)                      # [S, G, H]
+    flat_pos = positions.reshape(-1)
+    # inactive lanes (pos0 0) write the sink page; their column index is
+    # clamped so that a narrow table is never indexed past its width
+    col = (flat_pos // block_size).long().clamp(max=block_table.shape[1] - 1)
+    page = block_table[torch.arange(S, device=dev).repeat_interleave(G),
+                       col].long()
+    off = (flat_pos % block_size).long()
+    act_flat = active.repeat_interleave(G)
+    kv_len = torch.where(active, pos0 + G, 0).to(torch.int32)
+    q_counts = torch.where(active, G, 0).to(torch.int32)
+    q_starts = pos0.to(torch.int32).contiguous()
+    slopes = _slopes(cfg, dev)
+    H = x.shape[-1]
+    for li in range(cfg.num_layers):
+        blk = bb[f"block_{li}"]
+        ap = blk["Attention_0"]
+        h = _norm(blk["Norm_0"], x, cfg)
+        q, k, v = _qkv(ap, h, cfg)
+        if cfg.use_rope:
+            q, k = rope(q, k, positions, hd, base=cfg.rope_theta,
+                        rope_pct=cfg.rope_pct, scaling=cfg.rope_scaling,
+                        seq_lens=kv_len[:, None])
+        dest = torch.where(act_flat, li * NB + page, cache.sink)
+        _write_kv(cache, dest, off, k.reshape(S * G, nkv, hd),
+                  v.reshape(S * G, nkv, hd))
+        k_pool, v_pool = cache.layer(li)
+        o = ops.ragged_prefill_attention(
+            q.reshape(S, G, nkv, g, hd).contiguous(), k_pool, v_pool,
+            block_table, kv_len, q_starts, q_counts, scale=cfg.attn_scale,
+            alibi_slopes=slopes, window=cfg.window_for_layer(li),
+            **cache.layer_scales(li)).reshape(S, G, nh, hd)
+        # inactive lanes (kv_len 0, q_counts 0) hold no rows: zero them as
+        # ragged_forward does its pads
+        o = torch.where(active[:, None, None, None], o, 0)
+        x = _block_residual(blk, x.reshape(S * G, H), h.reshape(S * G, H),
+                            _attn_out(ap, o, cfg).reshape(S * G, H),
+                            cfg).reshape(S, G, H)
+
+    x = _norm(bb["final_norm"], x, cfg)
+    return _logits_out(params, bb, x, cfg)
+
+
+def _draft_run(draft_params, draft_cache: PagedKVCache, tokens, active, pos,
+               block_table, draft_cfg: GPTConfig, block_size: int,
+               gamma: int, xform=None, generator=None):
+    """The draft half of one speculative outer step: gamma sequential draft
+    decodes from ``tokens`` at ``pos`` (argmax, or a sample of
+    ``xform(logits)`` when ``xform`` is given), plus one more pass that
+    ingests d_gamma's KV so that a fully accepted round leaves no hole in
+    the draft's pages at pos+gamma (JAX model.py:894-909).  Returns (d [S,
+    gamma], the draft's sampling logits [S, gamma, V] or None)."""
+    d_list, q_list = [], []
+    dtok, dpos = tokens, pos
+    for j in range(gamma + 1):
+        dlogits = _decode_core(draft_params, draft_cache, dtok, active, dpos,
+                               block_table, draft_cfg, block_size,
+                               logits=j < gamma)
+        if j < gamma:
+            if xform is not None:
+                ql = xform(dlogits)
+                dtok = torch.multinomial(torch.softmax(ql, -1), 1,
+                                         generator=generator)[:, 0]
+                q_list.append(ql)
+            else:
+                dtok = torch.argmax(dlogits, dim=-1)
+            dtok = dtok.to(torch.int32)
+            d_list.append(dtok)
+        dpos = dpos + 1
+    return (torch.stack(d_list, dim=1),
+            torch.stack(q_list, dim=1) if q_list else None)
+
+
+def _greedy_accept(vlogits, d, gamma: int):
+    """Greedy speculative acceptance (JAX model.py:967): accept the longest
+    prefix of draft tokens equal to the target's argmax, then emit the
+    target's token at the stop (the correction, or the bonus when all gamma
+    were accepted).  Returns (emit [S, gamma+1] int32, counts [S] int32 in
+    1..gamma+1)."""
+    t = torch.argmax(vlogits, dim=-1).to(torch.int32)             # [S, g+1]
+    match = (d == t[:, :gamma]).to(torch.int32)
+    n_acc = torch.cumprod(match, dim=1).sum(dim=1)                # 0..gamma
+    correction = torch.gather(t, 1, n_acc[:, None])[:, 0]
+    j_idx = torch.arange(gamma + 1, device=d.device)[None]
+    emit = torch.where(j_idx < n_acc[:, None],
+                       torch.nn.functional.pad(d, (0, 1)),
+                       correction[:, None])
+    return emit, (n_acc + 1).to(torch.int32)
+
+
+def spec_accept(generator, q_logits, p_logits, d):
+    """Rejection-sampling acceptance of speculative decoding (Leviathan et
+    al. 2023; JAX model.py:1071).  q_logits [S, gamma, V]: the draft's
+    post-transform sampling logits (d[s, j] was drawn from
+    softmax(q_logits[s, j])); p_logits [S, gamma+1, V]: the target's, plus
+    the bonus position; d [S, gamma].  d_j is accepted with probability
+    min(1, p(d_j) / q(d_j)); at the first rejection a token is drawn from
+    the residual max(p - q, 0) / Z, and when all gamma are accepted from
+    the gamma+1-th target distribution, so every emitted token is exactly
+    target-distributed for ANY draft.  Returns (emit [S, gamma+1] int32,
+    counts [S] int32 in 1..gamma+1)."""
+    S, gamma = d.shape
+    V = p_logits.shape[-1]
+    q = torch.softmax(q_logits, dim=-1)
+    p = torch.softmax(p_logits, dim=-1)
+    dl = d.long()[..., None]
+    pd = torch.gather(p[:, :gamma], 2, dl)[..., 0]
+    qd = torch.gather(q, 2, dl)[..., 0]
+    u = torch.rand((S, gamma), generator=generator, device=d.device)
+    accept = (u * qd < pd).to(torch.int32)
+    n = torch.cumprod(accept, dim=1).sum(dim=1)                   # [S]
+    p_n = torch.gather(p, 1, n[:, None, None].expand(S, 1, V))[:, 0]
+    q_n = torch.gather(q, 1, n.clamp(max=gamma - 1)[:, None, None]
+                       .expand(S, 1, V))[:, 0]
+    resid = (p_n - q_n).clamp(min=0.0)
+    mass = resid.sum(dim=-1, keepdim=True)
+    # a numerically empty residual (p ~ q) falls back to p itself
+    resid = torch.where(mass > 1e-9, resid / mass.clamp(min=1e-9), p_n)
+    dist = torch.where((n == gamma)[:, None], p_n, resid)
+    correction = torch.multinomial(dist, 1, generator=generator)[:, 0].to(
+        torch.int32)
+    j = torch.arange(gamma + 1, device=d.device)[None]
+    emit = torch.where(j < n[:, None], torch.nn.functional.pad(d, (0, 1)),
+                       correction[:, None])
+    return emit, (n + 1).to(torch.int32)
+
+
+def _accept_step(vlogits, d, q_logits, active, prev, pos, gamma, xform,
+                 generator):
+    """The acceptance rule of one outer step and the lane update shared by
+    the fused burst and the split verify step: inactive lanes keep their
+    prev / pos and count 0.  Returns (emit, counts, prev', pos')."""
+    if xform is not None:
+        emit, counts = spec_accept(generator, q_logits, xform(vlogits), d)
+    else:
+        emit, counts = _greedy_accept(vlogits, d, gamma)
+    counts = torch.where(active, counts, 0).to(torch.int32)
+    last = torch.gather(emit, 1, (counts - 1).clamp(min=0)[:, None]
+                        .long())[:, 0]
+    return (emit, counts, torch.where(active, last, prev),
+            torch.where(active, pos + counts, pos))
+
+
+def _speculative_burst_core(params, draft_params, cache: PagedKVCache,
+                            draft_cache: PagedKVCache, batch, prev_tokens,
+                            generator, xform, cfg: GPTConfig,
+                            draft_cfg: GPTConfig, *, block_size: int,
+                            gamma: int, steps: int):
+    """The draft-and-verify choreography (JAX model.py:859; a Python loop
+    over the outer steps where JAX scans): each outer step runs the draft
+    (``_draft_run``), scores [prev, d_0..d_{gamma-1}] with ONE multi-token
+    target forward (``_verify_core``), accepts a prefix and emits accepted
+    + 1 tokens.  Rollback is free: positions past the accepted point are
+    overwritten by later writes.  Nothing here reads the host.
+
+    batch: tokens0 / from_device / active / pos0 / block_table as in
+    ragged_decode_burst; blocks for positions pos0..pos0+steps*(gamma+1)-1
+    must be allocated.  Returns (toks [steps, gamma+1, S], counts [steps,
+    S], prev') — the first counts[k, s] of toks[k, :, s] are real."""
+    bt = batch["block_table"]
+    active = batch["active"]
+    prev = torch.where(batch["from_device"], prev_tokens, batch["tokens0"])
+    pos = batch["pos0"]
+    toks, counts = [], []
+    for _ in range(steps):
+        d, ql = _draft_run(draft_params, draft_cache, prev, active, pos, bt,
+                           draft_cfg, block_size, gamma, xform, generator)
+        vlogits = _verify_core(params, cache,
+                               torch.cat([prev[:, None], d], dim=1), active,
+                               pos, bt, cfg, block_size)
+        emit, c, prev, pos = _accept_step(vlogits, d, ql, active, prev, pos,
+                                          gamma, xform, generator)
+        toks.append(emit.t())
+        counts.append(c)
+    return (torch.stack(toks), torch.stack(counts),
+            torch.where(active, prev, prev_tokens))
+
+
+def _xform(temperature, top_k, top_p):
+    from deepspeed_tpu_torch.inference.engine import _sampling_logits
+    return functools.partial(_sampling_logits, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+
+def speculative_burst(params, draft_params, cache: PagedKVCache,
+                      draft_cache: PagedKVCache, batch, prev_tokens,
+                      cfg: GPTConfig, draft_cfg: GPTConfig, *,
+                      block_size: int, gamma: int, steps: int):
+    """GREEDY speculative decoding (JAX model.py:938): acceptance is an
+    exact token match, so the output equals target-only greedy decoding for
+    ANY draft, up to argmax near-ties: verify is prefill-shaped and the
+    baseline decodes one query at a time, so 16-bit logits can tie
+    differently (exactness is pinned in fp32).  Inactive lanes pass their
+    prev_tokens through untouched (counts 0, KV unwritten), so one dispatch
+    of every request and one dispatch per request give the same tokens.
+    Returns (toks, counts, prev')."""
+    return _speculative_burst_core(
+        params, draft_params, cache, draft_cache, batch, prev_tokens, None,
+        None, cfg, draft_cfg, block_size=block_size, gamma=gamma,
+        steps=steps)
+
+
+def speculative_burst_sampled(params, draft_params, cache: PagedKVCache,
+                              draft_cache: PagedKVCache, batch, prev_tokens,
+                              generator, temperature, top_p, cfg: GPTConfig,
+                              draft_cfg: GPTConfig, *, block_size: int,
+                              gamma: int, steps: int, top_k: int = 0):
+    """Sampled speculative decoding (JAX model.py:1115): the draft samples
+    its tokens and verify runs ``spec_accept``, so every emitted token is
+    distributed as target-only sampling under the same temperature / top-k
+    / top-p, for any draft.  Returns (toks, counts, prev')."""
+    return _speculative_burst_core(
+        params, draft_params, cache, draft_cache, batch, prev_tokens,
+        generator, _xform(temperature, top_k, top_p), cfg, draft_cfg,
+        block_size=block_size, gamma=gamma, steps=steps)
+
+
+def speculative_draft_step(draft_params, draft_cache: PagedKVCache, batch,
+                           prev_tokens, pos, generator, temperature, top_p,
+                           draft_cfg: GPTConfig, *, block_size: int,
+                           gamma: int, top_k: int = 0,
+                           sampled: bool = False):
+    """The DRAFT half of one outer step as a call of its own (JAX
+    model.py:986; the engine's ``speculative.profile`` mode times draft and
+    verify apart).  Returns (d [S, gamma], the draft's sampling logits or
+    None)."""
+    tokens = torch.where(batch["from_device"], prev_tokens, batch["tokens0"])
+    return _draft_run(draft_params, draft_cache, tokens, batch["active"],
+                      pos, batch["block_table"], draft_cfg, block_size, gamma,
+                      _xform(temperature, top_k, top_p) if sampled else None,
+                      generator)
+
+
+def speculative_verify_step(params, cache: PagedKVCache, batch, d, q_logits,
+                            prev_tokens, pos, generator, temperature, top_p,
+                            cfg: GPTConfig, *, block_size: int, gamma: int,
+                            top_k: int = 0, sampled: bool = False):
+    """The VERIFY half of one outer step (JAX model.py:1035): one
+    multi-token target forward over [seed, d_0..d_{gamma-1}] and the same
+    acceptance rule as the fused burst, so the split mode gives the fused
+    mode's tokens.  Returns (emit [S, gamma+1], counts [S], prev', pos')."""
+    active = batch["active"]
+    seed = torch.where(batch["from_device"], prev_tokens, batch["tokens0"])
+    vlogits = _verify_core(params, cache, torch.cat([seed[:, None], d], 1),
+                           active, pos, batch["block_table"], cfg, block_size)
+    return _accept_step(vlogits, d, q_logits, active, prev_tokens, pos,
+                        gamma,
+                        _xform(temperature, top_k, top_p) if sampled
+                        else None, generator)

@@ -309,7 +309,8 @@ def init_params(cfg: GPTConfig, generator: torch.Generator, device,
     weights made on the card)."""
     if cfg.num_experts:
         raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP: the MoE serving path)")
+            "MoE blocks are not ported yet (ROADMAP A.8, the MoE serving "
+            "path)")
     dtype = dtype or cfg.dtype
 
     def make(path, shape):

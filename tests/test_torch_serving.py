@@ -8,7 +8,7 @@ the CPU.
 (c) greedy ``generate`` is token-exact against the JAX engine under SplitFuse
     chunking, decode bursts, recompute preemption and EOS;
 (d) sampling transforms match JAX and sampled generation stays in the vocab;
-(e) unported config blocks raise NotImplementedError;
+(e) unported config blocks raise NotImplementedError, ported ones serve;
 (f) the engine's default device is the card, and without one it raises.
 """
 
@@ -323,9 +323,13 @@ class TestSampling:
 
 class TestUnported:
     # (quant and kv_quant are ported — tests/test_torch_quant_serving.py —
-    # and so are adapters — tests/test_torch_lora_serving.py; they raise
-    # only combined with a block that is not)
-    @pytest.mark.parametrize("config", [
+    # and so are adapters — tests/test_torch_lora_serving.py; speculative
+    # decoding, serving telemetry, SLA scheduling and the prefix cache too —
+    # tests/test_torch_{speculative,serving_telemetry,prefix_cache}.py.
+    # What still raises: tensor parallelism, and the prefix cache with
+    # adapters)
+    REFUSED = (0, 1, 4)
+    CONFIGS = [
         {"quant": {"enabled": True}, "tensor_parallel": {"tp_size": 2}},
         {"adapters": {"enabled": True, "rank": 4},
          "state_manager": {"prefix_cache": True}},
@@ -335,26 +339,76 @@ class TestUnported:
         {"state_manager": {"kv_quant": "int8", "prefix_cache": True}},
         {"state_manager": {"prefix_cache": True}},
         {"scheduler": {"sla_classes": {"gold": {"priority": 1}}}},
-    ])
-    def test_config_blocks_raise(self, tcfg, config):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngineV2(tcfg, config={"dtype": "fp32", **config},
-                              device="cpu")
+    ]
+
+    @pytest.mark.parametrize("config", CONFIGS)
+    def test_config_blocks_raise(self, tcfg, tparams, config):
+        """Each block either raises naming its ROADMAP item or, where it
+        is ported, is accepted and serves on the CPU."""
+        full = {"dtype": "fp32", **config}
+        if self.CONFIGS.index(config) in self.REFUSED:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                InferenceEngineV2(tcfg, config=full, device="cpu")
+            return
+        kw = {}
+        if "speculative" in config:
+            kw = dict(draft_model=tcfg, draft_params=tparams)
+        if "state_manager" in config:
+            # pages of 8 tokens, so that the prompts fill whole blocks the
+            # radix can cache
+            full["state_manager"] = dict(config["state_manager"],
+                                         kv_block_size=8)
+        eng = InferenceEngineV2(tcfg, config=full, params=tparams,
+                                device="cpu", **kw)
+        prompts = _prompts(n=2)
+        gen = dict(max_new_tokens=6)
+        if "scheduler" in config:
+            gen["sla"] = ["gold", "default"]
+        out = eng.generate(prompts, **gen)
+        assert [len(o) for o in out] == [6, 6]
+        if "speculative" in config:
+            st = eng.telemetry.spec_summary()
+            assert st["outer_steps"] > 0
+            assert st["proposed"] == 2 * st["outer_steps"]
+        if "telemetry" in config:
+            assert eng.telemetry.stream_sync
+        if config.get("state_manager", {}).get("prefix_cache"):
+            again = eng.generate(prompts, **gen)
+            assert all(np.array_equal(a, b) for a, b in zip(out, again))
+            assert eng.telemetry.value("kv_prefix_hit_tokens_total") > 0
 
     def test_other_unported_inputs_raise(self, tcfg, tparams):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
             InferenceEngineV2(dataclasses.replace(tcfg, num_experts=4),
                               config={"dtype": "fp32"}, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             InferenceEngineV2("/some/hf/model/dir", device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngineV2(tcfg, config={"dtype": "fp32"}, device="cpu",
-                              draft_model=tcfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+            InferenceEngineV2(tcfg, config={
+                "dtype": "fp32", "tensor_parallel": {"tp_size": 2}},
+                device="cpu", draft_model=tcfg)
         eng = _engine(tcfg, tparams)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="unknown SLA class"):
             eng.generate(_prompts(n=1), max_new_tokens=2, sla=["gold"])
         with pytest.raises(TypeError, match="unknown generation"):
             eng.generate(_prompts(n=1), max_new_tokens=2, tempreature=0.5)
+
+    def test_draft_model_and_sla_are_ported(self, tcfg, tparams):
+        """A draft model (the refusal this replaces) serves the target's
+        greedy tokens; generate(sla=...) with a configured class serves."""
+        want = _engine(tcfg, tparams).generate(_prompts(n=2),
+                                               max_new_tokens=8)
+        spec = InferenceEngineV2(tcfg, config={"dtype": "fp32"},
+                                 params=tparams, device="cpu",
+                                 draft_model=tcfg)
+        got = spec.generate(_prompts(n=2), max_new_tokens=8)
+        for w, g in zip(want, got):
+            np.testing.assert_array_equal(g, w)
+        assert spec.telemetry.spec_summary()["outer_steps"] > 0
+        with pytest.raises(ValueError, match="draft vocab_size"):
+            InferenceEngineV2(tcfg, config={"dtype": "fp32"}, device="cpu",
+                              draft_model=dataclasses.replace(
+                                  tcfg, vocab_size=256))
 
     def test_bad_config_types_rejected(self, tcfg):
         with pytest.raises(TypeError, match="max_tracked_sequences"):
