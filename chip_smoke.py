@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 4,19,20,21   # the rest of serving
+    python3 chip_smoke.py --phases 4,22         # the serving fleet
 
 1. The card (name and power limit from nvidia-smi), torch and CUDA
    versions, and the build of every CUDA kernel of the serving and training
@@ -229,6 +230,30 @@
    int8 KV with a draft runs #1i / #2i; the fp32 and int8 verify and
    draft-decode calls held to their plain versions (F32_TOL) with the
    poisoned-tail check.
+
+22. The serving fleet (``deepspeed_tpu_torch.serving``) at full Llama-3-8B
+   width: two replicas over one bf16 tree (phase 4's when it ran; each with
+   phase 4's pool and a ``replica`` label on one shared registry) on phase
+   4's 16 requests.  (a) A unified fleet: every request completes exactly
+   once with its full budget; the replicas share the tree's tensors;
+   generated tok/s against phase 4's, host syncs, peak memory, the card's
+   busy share (nvidia-smi) and the longest heartbeat gap the supervisor
+   saw; then the same traffic on a fleet of one replica.  (b) Chaos: r0 killed through ``replica.mid_decode`` at its 5th
+   scheduler round and r1 drained at its 8th: the same completion gate,
+   deaths {replica_death: 1, drain: 1}, 2 respawns, both replicas healthy
+   at the end and only the two live incarnations' engines and pools left;
+   the heaviest #1 and #2 calls a worker thread made (by shape) held per
+   row to their plain versions run right behind them on that thread, then
+   timed (``KERNEL_SHAPE``).  (c) Disaggregated, 1 prefill + 1 decode
+   replica built by the fleet's own factory (prefix cache on): one ``ok``
+   handoff for each request with a budget above 1, ``kv_handoff_bytes_total``
+   = pinned blocks x ``kv_block_bytes()``, every pool's free count back
+   where it started once the radix caches are evicted; ragged-prefill
+   launches against (a)'s and the median TTFT.  (d) Phase 3's config in
+   fp32, TF32 off: a unified fleet with one injected death and a
+   disaggregated one with one aborted handoff give one engine's tokens on
+   the card and on the CPU byte for byte; the heaviest #1 / #2 calls of
+   their worker threads held to the plain versions (F32_TOL).
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the device line.  Any failed check exits non-zero.
@@ -4030,6 +4055,583 @@ def phase_spec_parity(torch, pa, dev):
                        args, kw, F32_TOL)
 
 
+# --------------------------------------------------------------- phase 22
+
+class _busy_sampler:
+    """The card's utilization while the block runs: ``nvidia-smi``'s
+    ``utilization.gpu`` (the share of each sample period in which a kernel
+    ran) every 100 ms, averaged; None where nvidia-smi cannot sample.  The
+    sampler process is stopped on exit."""
+
+    def __enter__(self):
+        try:
+            self._proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self._proc = None
+        self.share = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._proc is None:
+            return False
+        self._proc.terminate()
+        try:
+            out, _ = self._proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            out, _ = self._proc.communicate()
+        vals = [float(v) for v in out.split() if v.replace(".", "").isdigit()]
+        self.share = statistics.mean(vals) / 100 if vals else None
+        self.samples = len(vals)
+        return False
+
+
+def _watched_fleet():
+    """ServingFleet that records the longest gap the supervisor saw
+    between a busy replica's heartbeats (its view at each dispatcher
+    tick, 5 ms apart)."""
+    from deepspeed_tpu_torch.serving import ServingFleet
+
+    class WatchedFleet(ServingFleet):
+        max_beat_gap_s = 0.0
+
+        def _check_health(self, now):
+            for rep in self.replicas.values():
+                if rep.busy and rep.state in ("healthy", "draining"):
+                    self.max_beat_gap_s = max(self.max_beat_gap_s,
+                                              now - rep.last_beat)
+            super()._check_health(now)
+    return WatchedFleet
+
+
+class _fleet_engines:
+    """An ``engine_factory`` for the fleet: engines over one tree, each
+    with its own KV pool and a ``replica`` label on one shared registry.
+    Keeps a weak reference to every engine it built and the data pointers
+    of their first layers' pages (for ``_worker_calls``)."""
+
+    def __init__(self, cfg, ecfg, params, dev, registry):
+        import weakref
+        self._weakref = weakref.ref
+        self.cfg, self.ecfg, self.params, self.dev = cfg, ecfg, params, dev
+        self.registry = registry
+        self.built = []
+        self.layer0 = set()
+
+    def __call__(self, name):
+        import copy
+        from deepspeed_tpu_torch import InferenceEngineV2
+        ecfg = copy.deepcopy(self.ecfg)
+        ecfg.setdefault("telemetry", {})["replica"] = name
+        eng = InferenceEngineV2(self.cfg, config=ecfg, params=self.params,
+                                device=self.dev,
+                                telemetry_registry=self.registry)
+        self.built.append((name, self._weakref(eng)))
+        self.layer0.add(eng.cache.layer(0)[0].data_ptr())
+        return eng
+
+    def alive(self):
+        gc.collect()
+        return [n for n, ref in self.built if ref() is not None]
+
+
+class _worker_calls:
+    """While installed, keeps, for each of #1 and #2, the call with the
+    most work by its shape (slots x query rows x table width, host-known:
+    no sync) that a fleet worker thread made on a first layer's pages of
+    ``engines``, with the kernel's output and the plain version's output
+    on the same inputs, enqueued right behind the kernel on the worker's
+    stream (so that both read the pages as the kernel read them).  The
+    kernels' launch counts are untouched."""
+
+    OPS = {"paged_attention": "paged_attention",
+           "ragged_prefill_attention": "ragged_prefill"}
+
+    def __init__(self, engines):
+        import threading
+        from deepspeed_tpu_torch.ops import registry
+        self._thread = threading.current_thread
+        self._specs = {op: registry._REGISTRY[op] for op in self.OPS}
+        self._kernels = {op: s.kernel for op, s in self._specs.items()}
+        self.calls = {}
+        self.counts = dict.fromkeys(self.OPS.values(), 0)
+        for op, spec in self._specs.items():
+            spec.kernel = self._recorder(self.OPS[op], spec.kernel,
+                                         spec.torch, engines.layer0)
+
+    def _recorder(self, name, kernel, plain, layer0):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            thread = self._thread().name
+            if args[1].data_ptr() in layer0 and thread.startswith("fleet-"):
+                self.counts[name] += 1
+                q, bt = args[0], args[3]
+                work = q.shape[0] * (q.shape[1] if q.dim() == 5 else 1) \
+                    * bt.shape[1]
+                if work > self.calls.get(name, (0,))[0]:
+                    self.calls[name] = (work, args, kw, out,
+                                        plain(*args, **kw), thread)
+            return out
+        return call
+
+    def restore(self):
+        for op, spec in self._specs.items():
+            spec.kernel = self._kernels[op]
+
+    def hold(self, torch, label, tol):
+        """Each kept call: the worker thread's kernel output held per row
+        to the plain version's."""
+        for name in self.OPS.values():
+            if name not in self.calls:
+                fail(f"{label}: no {name} call from a fleet worker thread "
+                     f"on a first layer")
+            _, args, kw, out, want, thread = self.calls[name]
+            print(f"  {label}: {name}, heaviest of {self.counts[name]} "
+                  f"first-layer calls from worker threads, made on thread "
+                  f"{thread}: q {tuple(args[0].shape)}, table "
+                  f"{tuple(args[3].shape)}, kv_lens "
+                  f"{args[4].cpu().numpy().tolist()}", flush=True)
+            _check_rows(torch, name, f"{label}, worker thread {thread}", out,
+                        want, tol)
+
+
+def _serve_fleet(torch, label, fleet, prompts, news, kernels, card,
+                 **serve_kw):
+    """One fleet run: ``fleet.serve`` with every launch counter set to 0
+    just before and read just after; fails unless every request completed
+    exactly once with its full budget and every kernel of ``kernels``
+    launched.  Returns the outputs and the run's numbers."""
+    counters = _counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _busy_sampler() as busy:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            outs = fleet.serve(prompts,
+                               max_new_tokens=[int(n) for n in news],
+                               max_wall_s=600, **serve_kw)
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+    sync_sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs
+                  if "synchroniz" in str(w.message)]
+    done = sorted(r["index"] for r in fleet.request_log)
+    if done != list(range(len(prompts))):
+        fail(f"{label}: completions {done}, not each request exactly once")
+    vocab = fleet.replicas["r0"].engine.model_config.vocab_size
+    for i, (o, n) in enumerate(zip(outs, news)):
+        if o is None or len(o) != int(n) or o.min() < 0 or o.max() >= vocab:
+            fail(f"{label}: request {i} gave "
+                 f"{None if o is None else len(o)} tokens (expected "
+                 f"{int(n)}) or a token outside the vocab")
+    for name in kernels:
+        if launches[name] <= 0:
+            fail(f"{label}: the fleet never launched the {name} kernel")
+    n_new = int(sum(len(o) for o in outs))
+    n_prompt = int(sum(len(p) for p in prompts))
+    peak = torch.cuda.max_memory_allocated()
+    # the fleet observes a first token only at a disaggregated handoff
+    ttft = sorted(r["t_first"] - r["t_arrival"] for r in fleet.request_log
+                  if r["t_first"] is not None)
+    reg = fleet.registry._metrics
+    e2e = dict(
+        run=label, wall_s=wall, generated_tokens=n_new,
+        prompt_tokens=n_prompt, generated_tok_per_s=n_new / wall,
+        peak_memory_gb=peak / 1e9, host_syncs=len(sync_sites),
+        device_busy_share=busy.share, launches=launches,
+        max_beat_gap_s=getattr(fleet, "max_beat_gap_s", None),
+        deaths={lb["reason"]: v for lb, v in
+                reg["fleet_replica_deaths_total"].samples()},
+        respawns=reg["fleet_respawns_total"].value(),
+        migrations=reg["requests_migrated_total"].value(),
+        states={n: r.state for n, r in fleet.replicas.items()},
+        served_by={lb["replica"]: v for lb, v in
+                   reg["serving_requests_total"].samples()},
+        fleet_ttft_ms_median=1e3 * ttft[len(ttft) // 2] if ttft else None)
+    print(f"  {label}: served {len(prompts)} requests, {n_prompt} prompt + "
+          f"{n_new} generated tokens in {wall:.2f} s = {n_new / wall:.1f} "
+          f"generated tok/s; requests by replica {e2e['served_by']}; peak "
+          f"memory {peak / 1e9:.2f} GB; device busy "
+          + ("not measured" if busy.share is None else
+             f"{100 * busy.share:.1f}% (nvidia-smi utilization.gpu, "
+             f"{busy.samples} samples)")
+          + f"; longest heartbeat gap {e2e['max_beat_gap_s']:.3f} s; card "
+          f"{card}", flush=True)
+    print(f"  kernel launches: {launches}; host syncs inside serve: "
+          f"{len(sync_sites)} {sorted(set(sync_sites))}; deaths "
+          f"{e2e['deaths']}, respawns {e2e['respawns']:.0f}, migrations "
+          f"{e2e['migrations']:.0f}, states {e2e['states']}", flush=True)
+    return outs, e2e
+
+
+class _host_split:
+    """While the block runs, splits each fleet worker thread's wall time
+    inside ``InferenceEngineV2.generate`` three ways: the wall time in the
+    engine's device-to-host fetches (``engine_v2._fetch``, where
+    materialize waits for every kernel queued on the one stream, the other
+    replica's too); the thread's own CPU time outside them
+    (``time.thread_time``); and the rest, in which the thread could not
+    run: blocked behind the other worker (the GIL, or a lock in the CUDA
+    driver) or by the OS scheduler.  Host clocks only."""
+
+    def __enter__(self):
+        import functools
+        import threading
+        from deepspeed_tpu_torch.inference.v2 import engine_v2
+        self._mod, self._cls = engine_v2, engine_v2.InferenceEngineV2
+        self._fetch, self._generate = engine_v2._fetch, self._cls.generate
+        self.threads = {}
+        current = threading.current_thread
+
+        def add(i, v):
+            acc = self.threads.setdefault(current().name, [0.0] * 5)
+            acc[i] += v
+
+        @functools.wraps(self._fetch)
+        def fetch(*tensors):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return self._fetch(*tensors)
+            finally:
+                add(2, time.perf_counter() - w0)
+                add(3, time.thread_time() - c0)
+                add(4, 1)
+
+        @functools.wraps(self._generate)
+        def generate(eng, *args, **kw):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return self._generate(eng, *args, **kw)
+            finally:
+                add(0, time.perf_counter() - w0)
+                add(1, time.thread_time() - c0)
+        engine_v2._fetch = fetch
+        self._cls.generate = generate
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._fetch = self._fetch
+        self._cls.generate = self._generate
+        return False
+
+    def report(self, label, wall):
+        """Prints and returns the split for each worker thread."""
+        out = {}
+        for name, (w, cpu, fw, fcpu, n) in sorted(self.threads.items()):
+            own = cpu - fcpu
+            out[name] = dict(wall_s=w, fetch_s=fw, fetches=int(n),
+                             cpu_outside_fetch_s=own,
+                             blocked_s=w - fw - own)
+        tot = {k: sum(r[k] for r in out.values())
+               for k in ("fetch_s", "cpu_outside_fetch_s", "blocked_s")}
+        print(f"  {label}: host split of the workers' time in generate "
+              f"(serve wall {wall:.3f} s): "
+              + "; ".join(f"{n} wall {r['wall_s']:.3f} s = fetch "
+                          f"{r['fetch_s']:.3f} ({r['fetches']} fetches) + "
+                          f"own CPU {r['cpu_outside_fetch_s']:.3f} + "
+                          f"blocked {r['blocked_s']:.3f}"
+                          for n, r in out.items())
+              + f"; summed: fetch {tot['fetch_s']:.3f}, own CPU "
+              f"{tot['cpu_outside_fetch_s']:.3f}, blocked "
+              f"{tot['blocked_s']:.3f} s", flush=True)
+        return dict(out, total=tot)
+
+
+def _replica_hook(rep, at, fn):
+    """Run ``fn`` on ``rep``'s worker thread at its current incarnation's
+    ``at``-th heartbeat (the engine beats at the top of each scheduler
+    round and after each step of a decode burst)."""
+    beat, n = rep.engine.heartbeat_fn, [0]
+
+    def hook():
+        beat()
+        n[0] += 1
+        if n[0] == at:
+            fn()
+    rep.engine.heartbeat_fn = hook
+
+
+def phase_fleet_main(torch, pa, dev, card, params, base_e2e=None):
+    """The serving fleet at full Llama-3-8B width, two replicas over one
+    bf16 tree (phase 4's when it ran), each with LLAMA_SM's pool and a
+    ``replica`` label on one shared registry, on phase 4's 16 requests:
+    (a) a unified fleet, then a fleet of one, each worker's host time
+    split; (b) the same with one replica killed at its 5th heartbeat by
+    the ``replica.mid_decode`` site's fault and the other drained at its
+    8th, #1 and #2 held on calls the fleet's worker threads
+    made; (c) a disaggregated fleet (1 prefill + 1 decode replica, the
+    prefix cache on) built by the fleet's own factory."""
+    from deepspeed_tpu_torch.runtime import faults
+    from deepspeed_tpu_torch.telemetry.registry import MetricRegistry
+    cfg = _llama_cfg(torch)
+    prompts, news = _requests(cfg.vocab_size, 1025)
+    kernels = ("paged_attention", "ragged_prefill")
+    launches = dict.fromkeys(kernels, 0)
+    Fleet = _watched_fleet()
+    ecfg = {"dtype": "bfloat16", "state_manager": LLAMA_SM}
+    out = {}
+
+    # (a) unified
+    reg = MetricRegistry()
+    engines = _fleet_engines(cfg, ecfg, params, dev, reg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with Fleet(engine_factory=engines, config={"num_replicas": 2},
+               registry=reg) as fleet:
+        wq = [r.engine.params["backbone"]["block_0"]["Attention_0"]["wq"]
+              for r in fleet.replicas.values()]
+        shared = all(w.data_ptr() == params["backbone"]["block_0"][
+            "Attention_0"]["wq"].data_ptr() for w in wq)
+        pools = [r.engine.cache.nbytes for r in fleet.replicas.values()]
+        grown = torch.cuda.memory_allocated() - before
+        print(f"  (a): replicas share the tree's tensors: {shared}; the "
+              f"fleet added {grown / 1e9:.2f} GB on the card for pools of "
+              f"{[round(p / 1e9, 3) for p in pools]} GB", flush=True)
+        if not shared or grown > 1.05 * sum(pools):
+            fail("(a): the replicas do not share one weight tree")
+        with _host_split() as split:
+            _, e2e = _serve_fleet(torch, "(a) unified fleet, 2 x Llama-3-8B "
+                                  "bf16", fleet, prompts, news, kernels, card)
+        e2e["host_split"] = split.report("(a)", e2e["wall_s"])
+        h = fleet.registry._metrics["serving_ttft_ms"]
+        e2e["replica_ttft_ms_median"] = {
+            lb["replica"]: st["p50"] for lb, st in h.samples()}
+    if base_e2e is not None:
+        e2e["vs_phase4"] = (e2e["generated_tok_per_s"]
+                            / base_e2e["generated_tok_per_s"])
+        print(f"  (a): {e2e['vs_phase4']:.3f}x phase 4's "
+              f"{base_e2e['generated_tok_per_s']:.1f} generated tok/s in "
+              f"this run (host syncs {base_e2e['host_syncs']} there, "
+              f"{e2e['host_syncs']} here over every generate call)",
+              flush=True)
+    for k in kernels:
+        launches[k] += e2e["launches"][k]
+    out["unified"] = e2e
+    del fleet, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same traffic on a fleet of one: the fleet's own cost (its
+    # dispatcher and worker threads) apart from two replicas' contention
+    reg = MetricRegistry()
+    with Fleet(engine_factory=_fleet_engines(cfg, ecfg, params, dev, reg),
+               config={"num_replicas": 1}, registry=reg) as fleet:
+        with _host_split() as split:
+            _, one = _serve_fleet(torch, "(a) the same on one replica",
+                                  fleet, prompts, news, kernels, card)
+        one["host_split"] = split.report("(a) one replica", one["wall_s"])
+    for k in kernels:
+        launches[k] += one["launches"][k]
+    out["one_replica"] = one
+    del fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) chaos: r0 dies at its 5th heartbeat, r1 is drained at its 8th
+    reg = MetricRegistry()
+    engines = _fleet_engines(cfg, ecfg, params, dev, reg)
+    rec = _worker_calls(engines)
+
+    def kill_r0():
+        # the fault of the engine's replica.mid_decode site, raised from
+        # r0's own beat: the engine fires the site without naming the
+        # replica, so a fault armed for its round top would trip whichever
+        # replica's round came first
+        faults.inject("replica.mid_decode", "exc")
+        faults.fire("replica.mid_decode", replica="r0")
+
+    faults.reset()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with Fleet(engine_factory=engines, config={"num_replicas": 2},
+               registry=reg) as fleet:
+        _replica_hook(fleet.replicas["r0"], 5, kill_r0)
+        _replica_hook(fleet.replicas["r1"], 8,
+                      lambda: fleet.drain_replica("r1"))
+        pool = fleet.replicas["r0"].engine.cache.nbytes
+        _, e2e = _serve_fleet(torch, "(b) chaos: r0 killed, r1 drained",
+                              fleet, prompts, news, kernels, card)
+        rec.restore()
+        rec.hold(torch, "(b) chaos", ROW_TOL)
+        timed = {}
+        for name in kernels:
+            _, args, kw, _, _, thread = rec.calls[name]
+            timed[name] = _hold_call(
+                torch, pa, name, f"fleet worker call ({thread})", args, kw)
+            _shape_line(name, timed[name], e2e["launches"][name])
+        _print_times(timed)
+        del rec, args, kw
+        rh = reg._metrics["fleet_recovery_ms"]
+        e2e["recovery_ms"] = [v for s in rh._series.values()
+                              for v in s.values]
+        e2e["mid_decode_fired"] = faults.fired("replica.mid_decode")
+        alive = engines.alive()
+        held = torch.cuda.memory_allocated() - before
+        print(f"  (b): recovery {['%.1f' % v for v in e2e['recovery_ms']]} "
+              f"ms; replica.mid_decode fired {e2e['mid_decode_fired']}; "
+              f"engines built {[n for n, _ in engines.built]}, alive "
+              f"{alive}; the fleet holds {held / 1e9:.2f} GB on the card "
+              f"after the run (pools of {pool / 1e9:.3f} GB)", flush=True)
+        if e2e["deaths"] != {"replica_death": 1.0, "drain": 1.0} \
+                or e2e["respawns"] != 2.0 or e2e["mid_decode_fired"] != 1:
+            fail(f"(b): deaths {e2e['deaths']}, respawns {e2e['respawns']},"
+                 f" mid_decode fired {e2e['mid_decode_fired']}: not the one "
+                 f"death and one drain injected")
+        if set(e2e["states"].values()) != {"healthy"}:
+            fail(f"(b): replicas end {e2e['states']}")
+        if len(alive) != 2 or held > 2.1 * pool \
+                or len(e2e["recovery_ms"]) != 2:
+            fail(f"(b): {len(alive)} engines alive and {held} bytes held "
+                 f"after the run (the dead and drained incarnations' pools "
+                 f"must be freed), recoveries {e2e['recovery_ms']}")
+    faults.reset()
+    for k in kernels:
+        launches[k] += e2e["launches"][k]
+    out["chaos"] = e2e
+    del fleet, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) disaggregated, the fleet's own factory (prefix cache on)
+    fleet = Fleet(cfg, ecfg, params=params,
+                  config={"num_replicas": 2, "prefill_replicas": 1,
+                          "disaggregated": True})
+    with fleet:
+        src = fleet.replicas["r0"].engine
+        free0 = {n: r.engine.state.allocator.free_blocks
+                 for n, r in fleet.replicas.items()}
+        pinned = []
+        handles = src.prefix_block_handles
+
+        def counted(prompt):
+            blocks, matched = handles(prompt)
+            pinned.append(len(blocks))
+            return blocks, matched
+        src.prefix_block_handles = counted
+        _, e2e = _serve_fleet(torch, "(c) disaggregated, 1 prefill + 1 "
+                              "decode replica", fleet, prompts, news,
+                              kernels, card)
+        reg = fleet.registry._metrics
+        e2e["handoffs_ok"] = reg["fleet_handoffs_total"].value(outcome="ok")
+        e2e["handoff_bytes"] = reg["kv_handoff_bytes_total"].value()
+        e2e["pinned_blocks"] = sum(pinned)
+        h = reg["serving_ttft_ms"]
+        e2e["replica_ttft_ms_median"] = {
+            lb["replica"]: st["p50"] for lb, st in h.samples()}
+        want = sum(1 for n in news if int(n) > 1)
+        block = src.kv_block_bytes()
+        for rep in fleet.replicas.values():
+            rep.engine.state.radix.evict(10 ** 9)
+        free1 = {n: r.engine.state.allocator.free_blocks
+                 for n, r in fleet.replicas.items()}
+        print(f"  (c): handoffs ok {e2e['handoffs_ok']:.0f} (requests with "
+              f"a budget above 1: {want}); {e2e['pinned_blocks']} blocks "
+              f"pinned, kv_handoff_bytes_total {e2e['handoff_bytes']:.0f} = "
+              f"{e2e['handoff_bytes'] / block:.1f} x kv_block_bytes "
+              f"{block}; free blocks before {free0}, after the serve with "
+              f"the radix caches evicted {free1}; median TTFT (registry, "
+              f"prefill replica r0) "
+              f"{e2e['replica_ttft_ms_median'].get('r0', float('nan')):.1f} "
+              f"ms, fleet-observed {e2e['fleet_ttft_ms_median']:.1f} ms; "
+              f"ragged-prefill launches {e2e['launches']['ragged_prefill']} "
+              f"against (a)'s {out['unified']['launches']['ragged_prefill']}",
+              flush=True)
+        if e2e["handoffs_ok"] != want:
+            fail(f"(c): {e2e['handoffs_ok']} handoffs, expected {want}")
+        if e2e["handoff_bytes"] != e2e["pinned_blocks"] * block \
+                or not e2e["pinned_blocks"]:
+            fail(f"(c): kv_handoff_bytes_total {e2e['handoff_bytes']} != "
+                 f"{e2e['pinned_blocks']} pinned blocks x {block}")
+        if free1 != free0 or fleet._handoffs:
+            fail(f"(c): pins not released: free blocks {free1} against "
+                 f"{free0}, open handoffs {fleet._handoffs}")
+    for k in kernels:
+        launches[k] += e2e["launches"][k]
+    out["disaggregated"] = e2e
+    del fleet, src, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_fleet_parity(torch, pa, dev):
+    """(d) Phase 3's small config in fp32, TF32 off: a unified fleet with
+    one injected death and a disaggregated fleet with one aborted handoff
+    give one engine's tokens on the card and on the CPU, byte for byte;
+    the heaviest #1 and #2 calls a worker thread made held to their plain
+    versions (F32_TOL)."""
+    import dataclasses
+    from deepspeed_tpu_torch import GPTConfig, InferenceEngineV2
+    from deepspeed_tpu_torch.models.gpt import init_params
+    from deepspeed_tpu_torch.runtime import faults
+    from deepspeed_tpu_torch.serving import ServingFleet
+    from deepspeed_tpu_torch.telemetry.registry import MetricRegistry
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        GPTConfig.llama(num_layers=2, hidden=128, heads=4, num_kv_heads=2,
+                        vocab_size=512, max_seq_len=256), dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ecfg = {"dtype": "fp32",
+            "state_manager": {"max_tracked_sequences": 4,
+                              "max_ragged_batch_size": 64,
+                              "kv_block_size": 8, "max_q_per_seq": 8,
+                              "num_kv_blocks": 32}}
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 512, (18 + 5 * i,)).astype(np.int32)
+               for i in range(8)]
+    news = [20] * len(prompts)
+    want = {d: InferenceEngineV2(cfg, config=ecfg, params=params,
+                                 device=d).generate(prompts,
+                                                    max_new_tokens=news)
+            for d in ("cpu", dev)}
+    for i, (a, b) in enumerate(zip(want["cpu"], want[dev])):
+        if not np.array_equal(a, b):
+            fail(f"(d): request {i}: one engine, cuda != cpu")
+    runs = (("unified fleet, one death", {"num_replicas": 2},
+             ("replica.mid_decode", 3)),
+            ("disaggregated fleet, one aborted handoff",
+             {"num_replicas": 2, "prefill_replicas": 1,
+              "disaggregated": True}, ("handoff.mid_transfer", 0)))
+    for label, fcfg, (site, after) in runs:
+        reg = MetricRegistry()
+        engines = _fleet_engines(cfg, dict(ecfg, state_manager=dict(
+            ecfg["state_manager"],
+            prefix_cache=bool(fcfg.get("disaggregated")))), params, dev, reg)
+        rec = _worker_calls(engines)
+        faults.reset()
+        faults.inject(site, "exc", after=after)
+        with ServingFleet(engine_factory=engines, config=fcfg,
+                          registry=reg) as fleet:
+            outs = fleet.serve(prompts, max_new_tokens=news, max_wall_s=300)
+            fired = faults.fired(site)
+            m = fleet.registry._metrics
+            deaths = sum(v for _, v in
+                         m["fleet_replica_deaths_total"].samples())
+            aborted = m["fleet_handoffs_total"].value(outcome="aborted")
+        faults.reset()
+        rec.restore()
+        bad = [i for i, (a, b) in enumerate(zip(outs, want["cpu"]))
+               if not np.array_equal(a, b)]
+        print(f"  (d) {label}: {site} fired {fired}, deaths {deaths:.0f}, "
+              f"aborted handoffs {aborted:.0f}; tokens equal to one engine "
+              f"on {dev} and on the cpu: "
+              f"{'all' if not bad else f'requests {bad} differ'} "
+              f"({sum(len(o) for o in outs)} tokens)", flush=True)
+        if bad or fired != 1:
+            fail(f"(d) {label}: requests {bad} differ, {site} fired {fired}")
+        rec.hold(torch, f"(d) fp32 {label}", F32_TOL)
+        del rec, fleet, engines
+        gc.collect()
+
+
 def _ptxas_report(build_log, kernel):
     """ptxas's registers, spills and stack for each instantiation of
     ``kernel`` (template arguments demangled where c++filt exists)."""
@@ -4145,7 +4747,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="1,2,3,4,6,7,8,9,10,11,13,14,15,16,17,18,19,"
-                            "20,21",
+                            "20,21,22",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="trace phases 4, 8, 11 (its W8 run) and 15 with "
@@ -4273,7 +4875,7 @@ def main():
               "inputs", flush=True)
         results.update(phase_main_inputs(torch, pa, calls, eng))
         del calls, eng
-        if not phases & {11, 15, 19, 20}:
+        if not phases & {11, 15, 19, 20, 22}:
             params = None
         gc.collect()
         torch.cuda.empty_cache()
@@ -4302,7 +4904,24 @@ def main():
         print("E2E_PREFIX_SLA " + json.dumps(e2e_pc), flush=True)
         gc.collect()
         torch.cuda.empty_cache()
-    if 19 in phases or 20 in phases:
+    if 22 in phases:
+        print("== phase 22: the serving fleet at full width, 2 x Llama-3-8B "
+              "(unified, chaos, disaggregated); small-config fleet parity",
+              flush=True)
+        if params is None:
+            from deepspeed_tpu_torch.models.gpt import init_params
+            params = init_params(_llama_cfg(torch), torch.Generator(
+                device=dev).manual_seed(0), dev, torch.bfloat16)
+        fleet_launches, e2es = phase_fleet_main(torch, pa, dev, card, params,
+                                                e2e)
+        for k, n in fleet_launches.items():
+            launches[k] = (launches[k] or 0) + n
+        for name, r in e2es.items():
+            print("E2E_FLEET " + json.dumps(dict(r, part=name)), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_fleet_parity(torch, pa, dev)
+    if phases & {19, 20, 22}:
         if not phases & {11, 15}:
             params = None
     if 15 in phases:

@@ -70,8 +70,11 @@ class DeepSpeedConfigModel:
                             f"{type(config).__name__}")
         names = {f.name for f in dataclasses.fields(cls)}
         known = {k: v for k, v in config.items() if k in names}
-        obj = cls(**known)
+        # ``extra`` is set before __init__ so that a __post_init__ check
+        # can read the unknown keys
+        obj = cls.__new__(cls)
         obj.extra = {k: v for k, v in config.items() if k not in names}
+        obj.__init__(**known)
         return obj
 
     @classmethod

@@ -5,7 +5,8 @@ put/query/flush engine with a Dynamic SplitFuse generate driver
 (engine_v2.py)."""
 
 from deepspeed_tpu_torch.inference.v2.engine_v2 import (
-    DSStateManagerConfig, InferenceEngineV2, RaggedInferenceEngineConfig)
+    DSStateManagerConfig, EngineDrained, InferenceEngineV2,
+    RaggedInferenceEngineConfig)
 from deepspeed_tpu_torch.inference.v2.model import PagedKVCache
 from deepspeed_tpu_torch.inference.v2.ragged import (BlockedAllocator,
                                                      DSStateManager,
@@ -14,7 +15,7 @@ from deepspeed_tpu_torch.inference.v2.ragged import (BlockedAllocator,
                                                      SequenceDescriptor,
                                                      build_ragged_batch)
 
-__all__ = ["InferenceEngineV2", "RaggedInferenceEngineConfig",
+__all__ = ["InferenceEngineV2", "EngineDrained", "RaggedInferenceEngineConfig",
            "DSStateManagerConfig", "PagedKVCache", "BlockedAllocator",
            "DSStateManager", "RaggedBatch", "RadixKVCache",
            "SequenceDescriptor", "build_ragged_batch"]

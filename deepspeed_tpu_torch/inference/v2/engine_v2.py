@@ -41,7 +41,18 @@ own KV pool on the same block table proposes ``gamma`` tokens a round and
 the target verifies them in one prefill-shaped forward (greedy: exact
 match; sampling: rejection sampling).  Serving telemetry (the
 ``telemetry`` block, ``self.telemetry``): lifecycle spans, TTFT / TPOT
-histograms, KV-pool, prefix-cache, SLA and speculative counters.
+histograms, KV-pool, prefix-cache, SLA and speculative counters, on an
+engine-local registry or, with ``telemetry_registry=``, a registry shared
+with other engines (the serving fleet's, with a ``replica`` label).
+
+Fleet hooks (serving/fleet.py): each scheduler round fires the
+``replica.mid_decode`` fault site, calls ``heartbeat_fn`` (also once a
+step inside a fused decode burst, which the port runs as a host loop:
+a 64-step burst at Llama-3-8B width holds the host for seconds) and
+honours a drain latch (``request_drain`` / ``clear_drain``), which raises
+:class:`EngineDrained`; after ``generate`` stops early, for whatever
+reason, ``export_pending_requests`` returns what a survivor needs to
+finish the call token-exact.  All three are host-only.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
 tensor parallelism (A.8, and with it quantized tensor-parallel serving
@@ -53,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -77,12 +89,20 @@ from deepspeed_tpu_torch.models.gpt import count_params, init_params
 from deepspeed_tpu_torch.ops.quantization import (quantize_weight,
                                                   quantize_weight4,
                                                   weight_group_size)
+from deepspeed_tpu_torch.runtime import faults
 from deepspeed_tpu_torch.telemetry.serving import (ServingTelemetry,
                                                    ServingTelemetryConfig)
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _TORCH_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                  "bfloat16": torch.bfloat16}
+
+
+class EngineDrained(RuntimeError):
+    """``generate()`` stopped at a drain request (``request_drain()``):
+    device records were materialized, live sequences flushed, and the
+    not-yet-finished requests are waiting in ``export_pending_requests()``
+    (JAX engine_v2.py:50)."""
 
 
 def _unported(what: str, item: str):
@@ -374,7 +394,8 @@ class InferenceEngineV2:
     fresh init seeded ``seed + 1``).  See reference engine_v2.py:30."""
 
     def __init__(self, model, config=None, params=None, seed: int = 0,
-                 device=None, draft_model=None, draft_params=None):
+                 device=None, draft_model=None, draft_params=None,
+                 telemetry_registry=None):
         if isinstance(model, str):
             raise _unported("serving an HF model directory",
                             "A.9 offload/checkpoint (checkpoint/hf.py)")
@@ -458,8 +479,16 @@ class InferenceEngineV2:
         self.dispatches = {"mixed": 0, "decode": 0, "burst": 0, "spec": 0,
                            "spec_draft": 0, "spec_verify": 0}
         # request-level serving telemetry (telemetry/serving.py), on an
-        # engine-local registry
-        self.telemetry = ServingTelemetry(self.config.telemetry)
+        # engine-local registry unless the caller shares one (the fleet
+        # passes its registry and a per-replica label)
+        self.telemetry = ServingTelemetry(self.config.telemetry,
+                                          registry=telemetry_registry)
+        # ---- fleet hooks (serving/fleet.py): a supervised replica can be
+        # asked to drain (stop serving, export in-flight requests) and
+        # reports liveness through heartbeat_fn each scheduler round
+        self._drain_requested = threading.Event()
+        self._serve_ctx: Optional[Dict[str, Any]] = None
+        self.heartbeat_fn = None
         # ---- multi-tenant LoRA adapter pool (serving/adapters.py): A/B
         # pages live as block-granular refcounted residents of the SAME
         # allocator as the KV blocks.  _adapter_slot maps sequence slot ->
@@ -837,7 +866,10 @@ class InferenceEngineV2:
                 self.params, self.cache, batch, prev, generator,
                 gen.temperature, gen.top_p, self.model_config,
                 block_size=self._block_size, steps=steps,
-                sample_fn=self._sample_fn(gen))
+                sample_fn=self._sample_fn(gen),
+                # the burst is a host loop of T steps' launches: the
+                # liveness beat also comes once a step inside it
+                on_step=self.heartbeat_fn)
         self.telemetry.tokens("decode", steps * len(reqs))
         for r in reqs:
             self.state.get(r.uid).seen_tokens += steps
@@ -1052,6 +1084,53 @@ class InferenceEngineV2:
             n_generated=len(r.generated), preempts=r.preempts,
             outcome=outcome, trace=r.trace)
 
+    # --------------------------------------- fleet drain/migration hooks
+    def request_drain(self) -> None:
+        """Ask a running ``generate()`` to stop at its next scheduler round
+        (materialize the device records, flush every live sequence, raise
+        :class:`EngineDrained`).  Safe cross-thread; latched until
+        :meth:`clear_drain` (JAX engine_v2.py:1259)."""
+        self._drain_requested.set()
+
+    def clear_drain(self) -> None:
+        """Re-arm serving after a drain."""
+        self._drain_requested.clear()
+
+    def export_pending_requests(self):
+        """After ``generate()`` stopped early (:class:`EngineDrained`, an
+        injected ``replica.mid_decode`` fault, any exception), returns
+        ``(completed, pending)``: ``completed`` maps prompt index to the
+        generated tokens of requests that finished; ``pending`` holds one
+        record ``{index, prompt, generated, max_new_tokens}`` per other
+        request, ``prompt`` being the original context plus every
+        host-known generated token and ``max_new_tokens`` the budget left.
+        A survivor that re-prefills the folded prompt continues greedy
+        decoding token-exact.  Host state only — the device is never
+        touched, so tokens sampled after the last ``materialize`` are not
+        exported and the survivor recomputes them.  ``({}, [])`` after a
+        clean ``generate`` (JAX engine_v2.py:1272)."""
+        ctx = self._serve_ctx
+        if ctx is None:
+            return {}, []
+        completed: Dict[int, np.ndarray] = {}
+        pending: List[Dict[str, Any]] = []
+        for uid, r in ctx["results"].items():
+            idx = -uid - 1
+            gen = list(r.generated)
+            if r.finished or (r.done and (r.eos_hit
+                                          or len(gen) >= r.max_new_tokens)):
+                completed[idx] = np.asarray(gen, np.int32)
+                continue
+            prompt = r.prompt                 # includes prior preempt folds
+            tail = gen[r.folded:]             # host-known, not yet folded
+            if tail:
+                prompt = np.concatenate(
+                    [prompt, np.asarray(tail, np.int32)])
+            pending.append({"index": idx, "prompt": prompt,
+                            "generated": gen,
+                            "max_new_tokens": r.max_new_tokens - len(gen)})
+        return completed, pending
+
     def generate(self, prompts: Sequence[np.ndarray],
                  max_new_tokens=32, seed: int = 0,
                  arrival_times: Optional[Sequence[float]] = None,
@@ -1103,7 +1182,13 @@ class InferenceEngineV2:
 
         trace_ctx: one distributed TraceContext per prompt (or None
         entries), carried on the request's lifecycle spans; absent, local
-        flowless contexts are made when tracing is on."""
+        flowless contexts are made when tracing is on.
+
+        Each scheduler round first fires the ``replica.mid_decode`` fault
+        site, calls ``heartbeat_fn`` and checks the drain latch; a call
+        that stops early leaves its requests to
+        :meth:`export_pending_requests`."""
+        self._serve_ctx = None   # never expose a previous call's requests
         known = {f.name for f in dataclasses.fields(GenerationConfig)}
         bad = sorted(set(gen_overrides) - known)
         if bad:
@@ -1199,6 +1284,11 @@ class InferenceEngineV2:
         if arrival_times is not None:
             waiting.sort(key=lambda r: r.t_arrival)
             incoming, waiting = waiting, []
+        # the fleet's migration hook: export_pending_requests() reads these
+        # live views if this call stops early; the lists are only mutated
+        # below (never rebound), so the references stay current
+        self._serve_ctx = {"waiting": waiting, "running": running,
+                           "incoming": incoming, "results": results}
 
         eos = gen.eos_token_id
         sync_interval = 16 if eos is not None else None
@@ -1287,6 +1377,20 @@ class InferenceEngineV2:
 
         burst_sizes = (64, 32, 16, 8)
         while waiting or running or incoming:
+            # ---- fleet hooks, once a round (JAX engine_v2.py:1571): the
+            # fault site a replica death is injected through, the liveness
+            # beat the supervisor deadlines on, and the drain latch
+            faults.fire("replica.mid_decode")
+            if self.heartbeat_fn is not None:
+                self.heartbeat_fn()
+            if self._drain_requested.is_set():
+                materialize()
+                for r in list(running):
+                    self.state.flush(r.uid)
+                raise EngineDrained(
+                    f"drain requested: {len(running)} running + "
+                    f"{len(waiting) + len(incoming)} queued request(s) "
+                    f"exported for migration")
             now = now_fn()
             while incoming and incoming[0].t_arrival <= now:
                 waiting.append(incoming.pop(0))
@@ -1627,5 +1731,6 @@ class InferenceEngineV2:
                 materialize()
 
         materialize()
+        self._serve_ctx = None      # clean completion: nothing to migrate
         return [np.asarray(results[-(i + 1)].generated, np.int32)
                 for i in range(len(prompts))]

@@ -504,12 +504,14 @@ def ragged_decode_forward(params, cache: PagedKVCache, batch,
 
 def ragged_decode_burst(params, cache: PagedKVCache, batch, prev_tokens,
                         generator, temperature, top_p, cfg: GPTConfig, *,
-                        block_size: int, steps: int, sample_fn):
+                        block_size: int, steps: int, sample_fn,
+                        on_step=None):
     """T decode steps, each sampling on the device and feeding its token to
     the next (a Python loop where the JAX package scans), so a burst needs
     no host round trip.  batch: tokens0, from_device, active, pos0 [S],
     block_table [S, MB] — blocks for positions pos0..pos0+T-1 must be
-    allocated.  Returns (tokens [T, S], prev_tokens' [S])."""
+    allocated.  ``on_step`` (host only) is called after each step's
+    launches.  Returns (tokens [T, S], prev_tokens' [S])."""
     bt = batch["block_table"]
     active = batch["active"]
     tokens = torch.where(batch["from_device"], prev_tokens, batch["tokens0"])
@@ -523,6 +525,8 @@ def ragged_decode_burst(params, cache: PagedKVCache, batch, prev_tokens,
                            top_p=top_p)
         out.append(tokens)
         pos = pos + 1
+        if on_step is not None:
+            on_step()
     return torch.stack(out), torch.where(active, tokens, prev_tokens)
 
 

@@ -6,7 +6,10 @@ interface, compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``csrc/_build/`` (listed in .gitignore) at first use, keyed
 by a hash of the source and the headers it may include, and loaded with
 ``ctypes``.  No PyTorch headers are compiled in, so a build takes seconds
-rather than minutes.  A failed build raises with nvcc's stderr.
+rather than minutes.  A failed build raises with nvcc's stderr.  One module
+lock serialises ``build`` and ``load_op`` across threads (the serving
+fleet's replica workers), so two threads that first touch a kernel
+together start one ``nvcc``, not two on the same ``.tmp`` output.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, List
 
@@ -29,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas=-v"]
 _cache: Dict[str, ctypes.CDLL] = {}
+# held by build() and load_op(); re-entrant because load_op calls build
+_lock = threading.RLock()
 # ptxas's per-kernel resource report (registers, shared memory, spills) of
 # the builds this process ran, by kernel name
 build_log: Dict[str, str] = {}
@@ -72,7 +78,11 @@ def build(names: Iterable[str]) -> List[str]:
     started together — and return the shared-library paths.  Raises with
     nvcc's output if any build fails.  Each build's wall time lands in
     ``build_seconds``."""
-    names = list(names)
+    with _lock:
+        return _build(list(names))
+
+
+def _build(names: List[str]) -> List[str]:
     os.makedirs(_BUILD, exist_ok=True)
     sos = [_so_path(n) for n in names]
     t0 = time.perf_counter()
@@ -106,10 +116,12 @@ def build(names: Iterable[str]) -> List[str]:
 
 
 def load_op(name: str) -> ctypes.CDLL:
-    """Build (if stale) and dlopen ``csrc/<name>.cu``."""
-    if name in _cache:
+    """Build (if stale) and dlopen ``csrc/<name>.cu``, once a process."""
+    lib = _cache.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _cache:
+            so, = build([name])
+            _cache[name] = ctypes.CDLL(so)
         return _cache[name]
-    so, = build([name])
-    lib = ctypes.CDLL(so)
-    _cache[name] = lib
-    return lib

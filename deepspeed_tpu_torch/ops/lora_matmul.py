@@ -41,6 +41,7 @@ and O, and ranks up to 256.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -186,8 +187,10 @@ def cuda_lora_matmul(x, a_pages, b_pages, adapter_ids, scales):
     launches counted as one call."""
     y = _launch(x, a_pages, b_pages, adapter_ids, scales)
     if x.shape[0] and b_pages.shape[2]:
-        cuda_lora_matmul.launches += 1
+        with _LAUNCHES:     # exact when several threads launch (the fleet)
+            cuda_lora_matmul.launches += 1
     return y
 
 
 cuda_lora_matmul.launches = 0
+_LAUNCHES = threading.Lock()

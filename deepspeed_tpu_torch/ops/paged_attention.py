@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -390,6 +391,9 @@ def decode_plan(S: int, nkv: int, g: int, hd: int, bs: int, esize: int,
 # between launches (the last block out resets them), so one buffer serves
 # every call of either kernel on its stream
 _COUNTERS = {}
+# the launch counts are read-modify-write from every thread that launches
+# (the serving fleet's replica workers): one lock keeps them exact
+_LAUNCHES = threading.Lock()
 
 
 def _counters(device):
@@ -444,10 +448,11 @@ def cuda_paged_attention(q, k_pages, v_pages, block_table, kv_lens, *,
         int(quant),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _check_rc(lib, rc, "paged_attention")
-    if quant:
-        cuda_paged_attention.int8_launches += 1
-    else:
-        cuda_paged_attention.launches += 1
+    with _LAUNCHES:
+        if quant:
+            cuda_paged_attention.int8_launches += 1
+        else:
+            cuda_paged_attention.launches += 1
     return out
 
 
@@ -526,10 +531,11 @@ def cuda_ragged_prefill(q, k_pages, v_pages, block_table, kv_lens, q_starts,
         int(window or 0), _DTYPE_CODE[q.dtype], int(quant), route,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _check_rc(lib, rc, "ragged_prefill")
-    if quant:
-        cuda_ragged_prefill.int8_launches += 1
-    else:
-        cuda_ragged_prefill.launches += 1
+    with _LAUNCHES:
+        if quant:
+            cuda_ragged_prefill.int8_launches += 1
+        else:
+            cuda_ragged_prefill.launches += 1
     return out
 
 

@@ -49,7 +49,10 @@ def test_import_leaves_jax_unloaded():
             "deepspeed_tpu_torch.runtime.lr_schedules, "
             "deepspeed_tpu_torch.runtime.precision, "
             "deepspeed_tpu_torch.runtime.optimizers, "
-            "deepspeed_tpu_torch.runtime.dataloader; "
+            "deepspeed_tpu_torch.runtime.dataloader, "
+            "deepspeed_tpu_torch.runtime.faults, "
+            "deepspeed_tpu_torch.serving, "
+            "deepspeed_tpu_torch.telemetry.timeseries; "
             "importlib.import_module('deepspeed_tpu_torch.ops."
             "flash_attention'); "
             "importlib.import_module('deepspeed_tpu_torch.ops."
